@@ -9,17 +9,39 @@ Phases, each printed before the last line:
  1. the card's name and power limit (nvidia-smi), then the nvcc build of
     every kernel in groma_tpu_torch/csrc (seconds, ptxas summary);
  2. each kernel against its plain PyTorch version on the card, at the
-    shapes the served path gives it, with the tolerance stated; kernel and
-    plain times from CUDA events, L2 flushed before each launch; then the
-    int8 LLaMA path at full width and two layers on the card against the
-    same weights and inputs through the plain versions on the CPU;
- 3. the served path at full Groma-7B width (GromaConfig defaults: DINOv2-L
-    at 448, DDETR with 300 queries, 100 region slots, Vicuna-7B width, int8
-    LLM, int8 KV cache, max_len = max_seq_len + 64) with random weights
-    from --seed: the port's ModelWorker answers 3 requests in-process, each
-    checked, and both kernels' launch counters must grow by exactly the
-    count the main path implies.
-Then one JSON line with the kernels, and as the last line
+    shapes its path gives it, with the tolerance stated; kernel and plain
+    times from CUDA events, L2 flushed before each launch: the int8 decode
+    matmul and decode attention (served path), the flash-attention
+    forward (bidirectional at the ViT's (2, 16, 1025, 64), causal at the
+    LLM's (2, 32, 2048, 128) under a grounded key mask) and the causal
+    backward; then the int8 LLaMA path at full width and two layers on the
+    card against the same weights and inputs through the plain versions on
+    the CPU;
+ 3. stage-3 training (LLM trained) at full width and 2 LLM layers (108 GB
+    of f32 Adam state at full depth does not fit one card): one step's
+    loss and trainable gradients on the card against the same weights and
+    batch through the plain versions on the CPU, in f32;
+ 4. the training path: stage 2 (scripts/vl_pretrain.sh: perceiver and LLM
+    frozen) at full Groma-7B width and depth (GromaConfig defaults), random
+    f32 weights from --seed, B=2 (reduced from 16 for memory), S=2048, a
+    synthetic grounded batch (train/synthetic.py: the data pipeline's
+    expand_template + collate_vl, ground boxes, labels) through the port's
+    train_vl functions (random_groma_full,
+    make_adamw on the warmup-cosine schedule, make_vl_train_step):
+    TRAIN_STEPS steps, each printing loss, ms and peak memory and adding
+    exactly one bidirectional forward launch per ViT layer and one causal
+    forward and backward launch per LLM layer; frozen parameters must stay
+    bitwise unchanged and every trainable one must change; then two more
+    steps under torch.profiler: device busy share and the kernels that
+    take the most device time;
+ 5. the served path at full Groma-7B width (DINOv2-L at 448, DDETR with
+    300 queries, 100 region slots, Vicuna-7B width, int8 LLM, int8 KV
+    cache, max_len = max_seq_len + 64) with random weights from --seed: the
+    port's ModelWorker answers 3 requests in-process, each checked, and
+    both int8 kernels' launch counters must grow by exactly the count the
+    path implies.
+Then one JSON line with the kernels (launches: the training path's for the
+flash kernels, the served path's for the int8 ones), and as the last line
 {"ok": true, "device": {...}}.  Any failed check exits non-zero and prints
 no result; so does a machine without a CUDA device.
 """
@@ -27,6 +49,7 @@ no result; so does a machine without a CUDA device.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -42,6 +65,15 @@ INT8_MATMUL_SHAPES = {          # (K, N) of every decode matmul at 7B width
 }
 LAYER_MATMULS = ('qkv_proj', 'o_proj', 'gate_up_proj', 'down_proj')
 MAX_NEW_TOKENS = 32        # the 2112-slot cache leaves 64 after prefill
+TRAIN_BATCH = 2            # vl_pretrain.sh's 16 does not fit one card
+TRAIN_STEPS = 4            # >= 2: the warmup-cosine schedule's lr is 0 first
+# stage 3, card (bf16 activations, the kernels) against CPU (f32, plain):
+# measured on an H100 at most 2.6e-5 (loss), 1.4e-2 (whole gradient) and
+# 3.8e-2 (the region encoder's 1024-channel bf16 convs); the limits are
+# about four times the loss's and twice the gradients'
+STAGE3_LOSS_TOL = 1e-4     # relative
+STAGE3_GRAD_TOL = 3e-2     # relative Frobenius error, all trainable grads
+STAGE3_TENSOR_TOL = 8e-2   # the same, per gradient tensor
 
 
 def fail(msg: str):
@@ -176,6 +208,126 @@ def check_decode_attention(torch, gen, timer, card):
     return worst, served
 
 
+def _flash_tol(want, rel: float):
+    """Per element: rel x |plain| + rel x max|plain| / 4."""
+    return rel * want.abs() + 0.25 * rel * want.abs().max()
+
+
+def check_flash(torch, gen, timer, card):
+    """The three flash kernels against their plain versions in f32 on the
+    same bf16 inputs, at the training path's shapes.  Returns
+    {kernel: (max_abs_err, ms, plain_ms)} at the path's own mask."""
+    from groma_tpu_torch.models.groma import GromaConfig
+    from groma_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_reference, flash_bwd_causal, flash_fwd,
+        mha_reference)
+    from groma_tpu_torch.train.synthetic import (grounded_batch,
+                                                 grounded_kv_mask)
+    dev = 'cuda'
+    results = {}
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    def report(name, shape, case, err, ref_max, tol_txt, ok, ms, plain_ms,
+               flops):
+        print(f'{name} {shape} {case}: max_abs_err {err:.3e}, rel '
+              f'{err / max(ref_max, 1e-30):.3e} of max|plain| '
+              f'{ref_max:.3e} (tol {tol_txt}) {"ok" if ok else "FAIL"}; '
+              f'kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain '
+              f'{plain_ms:.4f} ms ({flops / plain_ms / 1e9:.1f} TFLOP/s) '
+              f'[{card}]')
+        if not ok:
+            fail(f'{name} disagrees with its plain version: {case}')
+
+    # bf16 out (2^-9) from bf16-rounded p: 2^-7 of |plain| + 2^-9 of max
+    fwd_rel = 2.0 ** -7
+    # --- #3: the ViT's bidirectional whole-kv forward, (2, 16, 1025, 64)
+    b, h, s, d = 2, 16, 1025, 64
+    q, k, v = rand(b, h, s, d), rand(b, h, s, d), rand(b, h, s, d)
+    masks = {'all keys valid': torch.ones((b, s), dtype=torch.bool,
+                                          device=dev)}
+    m = torch.ones((b, s), dtype=torch.bool, device=dev)
+    m[0, 700:] = False                        # a masked tail
+    m[1] = False                              # every key masked
+    masks['row 0 tail masked, row 1 all masked'] = m
+    for case, mask in masks.items():
+        got, glse = flash_fwd(q, k, v, mask, False, d ** -0.5)
+        want, wlse = mha_reference(q.float(), k.float(), v.float(), mask,
+                                   False, d ** -0.5)
+        err = (got.float() - want).abs()
+        ok = bool((err <= _flash_tol(want, fwd_rel)).all())
+        ok &= bool((glse - wlse).abs().max() <= 1e-3)
+        if case != 'all keys valid':
+            ok &= bool((got[1] == 0).all()) and bool((glse[1] == -1e30).all())
+        ms = timer(lambda: flash_fwd(q, k, v, mask, False, d ** -0.5,
+                                     need_lse=False))
+        plain_ms = timer(lambda: mha_reference(q, k, v, mask, False,
+                                               d ** -0.5))
+        report('flash_fwd bidirectional (#3)', (b, h, s, d), case,
+               err.max().item(), want.abs().max().item(),
+               f'2^-7*|plain| + 2^-9*max|plain|, lse 1e-3', ok, ms, plain_ms,
+               4 * b * h * s * s * d)
+        if case == 'all keys valid':
+            results['bidirectional'] = (err.max().item(), ms, plain_ms)
+        del got, want
+
+    # --- #4 and #5: the LLM's causal forward and backward, (2, 32, 2048, 128)
+    cfg = GromaConfig()
+    b, h, s, d = 2, 32, cfg.max_seq_len, 128
+    q, k, v = rand(b, h, s, d), rand(b, h, s, d), rand(b, h, s, d)
+    mask = torch.from_numpy(grounded_kv_mask(grounded_batch(cfg, b, 7),
+                                             [37, 81])).to(dev)
+    case = (f'causal, grounded key mask ({int(mask[0].sum())} and '
+            f'{int(mask[1].sum())} of {s} valid, region-slot gaps + pad tail)')
+    causal_flops = 4 * b * h * s * s * d / 2
+    got, glse = flash_fwd(q, k, v, mask, True, d ** -0.5)
+    want, wlse = mha_reference(q.float(), k.float(), v.float(), mask, True,
+                               d ** -0.5)
+    err = (got.float() - want).abs()
+    ok = bool((err <= _flash_tol(want, fwd_rel)).all())
+    ok &= bool((glse - wlse).abs().max() <= 1e-3)
+    ms = timer(lambda: flash_fwd(q, k, v, mask, True, d ** -0.5))
+    plain_ms = timer(lambda: mha_reference(q, k, v, mask, True, d ** -0.5))
+    report('flash_fwd causal (#4)', (b, h, s, d), case, err.max().item(),
+           want.abs().max().item(), '2^-7*|plain| + 2^-9*max|plain|, '
+           'lse 1e-3', ok, ms, plain_ms, causal_flops)
+    results['causal'] = (err.max().item(), ms, plain_ms)
+
+    # the backward on one set of inputs: the plain forward's out and lse
+    out = want.to(torch.bfloat16)
+    lse = wlse
+    do = rand(b, h, s, d)
+    del got, want, glse
+    dq, dk, dv = flash_bwd_causal(q, k, v, mask, out, lse, do, d ** -0.5)
+    wq, wk, wv = flash_attention_bwd_reference(
+        q.float(), k.float(), v.float(), mask, out.float(), lse, do.float(),
+        True, d ** -0.5)
+    # p and ds rounded to bf16 before their products, and bf16 results:
+    # 2^-6 of |plain| + 2^-8 of max|plain| per gradient
+    worst, ref_max, ok = 0.0, 0.0, True
+    for name, g_, w_ in (('dq', dq, wq), ('dk', dk, wk), ('dv', dv, wv)):
+        e = (g_.float() - w_).abs()
+        ok &= bool((e <= _flash_tol(w_, 2.0 ** -6)).all())
+        ok &= bool(torch.isfinite(g_).all())
+        rel = e.max().item() / w_.abs().max().item()
+        print(f'  {name}: max_abs_err {e.max().item():.3e}, rel {rel:.3e} '
+              f'of max|plain| {w_.abs().max().item():.3e} [{card}]')
+        worst = max(worst, e.max().item())
+        ref_max = max(ref_max, w_.abs().max().item())
+    del dq, dk, dv, wq, wk, wv
+    ms = timer(lambda: flash_bwd_causal(q, k, v, mask, out, lse, do,
+                                        d ** -0.5))
+    plain_ms = timer(lambda: flash_attention_bwd_reference(
+        q, k, v, mask, out, lse, do, True, d ** -0.5))
+    report('flash_bwd_causal (#5)', (b, h, s, d), case, worst, ref_max,
+           '2^-6*|plain| + 2^-8*max|plain| per gradient', ok, ms, plain_ms,
+           2.5 * causal_flops)
+    results['backward'] = (worst, ms, plain_ms)
+    return results
+
+
 def check_llm_path(torch, seed: int, card: str):
     """The int8 LLaMA path at full width and two layers, on the card (the
     kernels) against the same weights and inputs on the CPU (the plain
@@ -232,6 +384,233 @@ def check_llm_path(torch, seed: int, card: str):
     print(f'int8 LLaMA path, full width, 2 layers, B={b}: prefill {s} '
           f'tokens + {steps} decode steps on the card match the CPU plain '
           f'path within {worst:.3e} x max|hidden| (tol 3e-2) [{card}]')
+
+
+def _train_args(batch):
+    return dict(images=batch['images'], input_ids=batch['input_ids'],
+                region_slot=batch['region_slot'], base_valid=batch['valid'],
+                labels=batch['labels'], ground_boxes=batch['ground_boxes'],
+                ground_valid=batch['ground_valid'],
+                refer_boxes=batch['refer_boxes'],
+                refer_valid=batch['refer_valid'])
+
+
+def check_stage3(torch, seed: int, card: str):
+    """Stage 3 (LLM trained) at full width and 2 LLM layers: one step's
+    loss and trainable gradients on the card (the kernels, bf16) against
+    the same weights and batch on the CPU (the plain versions, f32).
+
+    The CPU side takes the card's ViT hidden states (the ViT runs without
+    gradient; its kernel is checked in phase 2): NMS is discrete, and bf16
+    against f32 features reorders near-tied proposals, which changes the
+    selected regions and so the <rK> labels.  Everything after the ViT
+    (DDETR, NMS, region encoder, bridge, LLM, CE) runs on both sides."""
+    from groma_tpu_torch.checkpoint.loader import random_groma_full
+    from groma_tpu_torch.models.groma import GromaConfig, GromaModel
+    from groma_tpu_torch.models.llama import LlamaConfig
+    from groma_tpu_torch.train.optimizer import freeze_predicate, make_adamw
+    from groma_tpu_torch.train.steps import batch_to
+    from groma_tpu_torch.train.synthetic import grounded_batch
+    cfg = GromaConfig(llm=LlamaConfig(num_layers=2))
+    batch = grounded_batch(cfg, 1, seed + 3)
+    f32 = cfg.replace(llm=cfg.llm.replace(dtype='float32'),
+                      perceiver=cfg.perceiver.replace(
+                          vit=cfg.perceiver.vit.replace(dtype='float32')))
+    card_model = random_groma_full(cfg, seed=seed, device='cuda')
+    cpu_model = GromaModel(f32, device='meta', full_precision=True)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               card_model.state_dict().items()}, assign=True)
+    vit_states = []
+    encode = card_model.perceiver.encode_image
+
+    def recording(images, use_flash=False):
+        vit_states.append(encode(images, use_flash))
+        return vit_states[-1]
+    card_model.perceiver.encode_image = recording
+    # as they are (bf16): the DDETR features average them in that dtype
+    cpu_model.perceiver.encode_image = lambda images, use_flash=False: tuple(
+        h.cpu() for h in vit_states[0])
+    frozen = freeze_predicate(freeze_perceiver=True, freeze_llm=False)
+    results = {}
+    for name, model, dev in (('card', card_model, 'cuda'),
+                             ('cpu', cpu_model, 'cpu')):
+        opt = make_adamw(model, 1e-5, frozen_pred=frozen)
+        t0 = time.perf_counter()
+        out = model(**_train_args(batch_to(batch, dev)), use_flash=True)
+        out['loss'].backward()
+        grads = {k: p.grad.float().cpu() for k, p in model.named_parameters()
+                 if p.grad is not None}
+        opt.step()
+        if dev == 'cuda':
+            torch.cuda.synchronize()
+        results[name] = (out['loss'].item(), grads,
+                         time.perf_counter() - t0,
+                         out['vis']['selected_mask'].cpu(),
+                         out['final_input_ids'].cpu())
+        bad = [k for k, p in model.named_parameters()
+               if not torch.isfinite(p).all()]
+        if bad:
+            fail(f'stage 3 step on the {name}: non-finite params {bad[:3]}')
+    (g_loss, g_grads, g_s, g_sel, g_ids), (c_loss, c_grads, c_s, c_sel,
+                                           c_ids) = results['card'], \
+        results['cpu']
+    if not (torch.equal(g_sel, c_sel) and torch.equal(g_ids, c_ids)):
+        fail(f'stage 3: the card and the CPU selected different regions '
+             f'({int(g_sel.sum())} vs {int(c_sel.sum())} kept, '
+             f'{int((g_ids != c_ids).sum())} stream ids differ)')
+    if g_grads.keys() != c_grads.keys() or not any(
+            k.startswith('llm.') for k in g_grads):
+        fail('stage 3: the card and the CPU trained different parameters')
+    loss_rel = abs(g_loss - c_loss) / abs(c_loss)
+    # bf16 activations through the region encoder and 2 LLaMA layers
+    # against f32: per gradient tensor, the relative Frobenius error, and
+    # the error of the whole trainable gradient
+    rel = {k: ((g_grads[k] - c_grads[k]).norm()
+               / c_grads[k].norm().clamp(min=1e-30)).item()
+           for k in c_grads}
+    total = (sum(((g_grads[k] - c_grads[k]) ** 2).sum() for k in c_grads)
+             / sum((c_grads[k] ** 2).sum() for k in c_grads)).sqrt().item()
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:3]
+    ok = loss_rel <= STAGE3_LOSS_TOL and total <= STAGE3_GRAD_TOL and all(
+        v <= STAGE3_TENSOR_TOL for v in rel.values()) and all(
+        torch.isfinite(g).all() for g in g_grads.values())
+    print(f'stage 3 (LLM trained), full width, 2 LLM layers, B=1 S='
+          f'{cfg.max_seq_len}: same {int(g_sel.sum())} regions selected; '
+          f'loss card {g_loss:.6f} vs CPU {c_loss:.6f} '
+          f'(rel {loss_rel:.2e}, tol {STAGE3_LOSS_TOL}); {len(rel)} trainable '
+          f'gradients, whole-gradient rel err {total:.2e} (tol '
+          f'{STAGE3_GRAD_TOL}), worst tensors '
+          + ', '.join(f'{k} {v:.2e}' for k, v in worst)
+          + f' (tol {STAGE3_TENSOR_TOL}) {"ok" if ok else "FAIL"}; card step '
+          f'{g_s * 1e3:.1f} ms (cold), CPU {c_s:.1f} s [{card}]')
+    if not ok:
+        fail('stage 3: the card step disagrees with the CPU plain path')
+    del card_model, cpu_model, results, g_grads, c_grads, vit_states
+
+
+def train_full_width(torch, np, seed: int, card: str):
+    """Stage 2 (vl_pretrain.sh: perceiver and LLM frozen) at full Groma-7B
+    through the port's train_vl functions.  Returns the flash kernels'
+    launches over the checked steps."""
+    from groma_tpu_torch.checkpoint.loader import random_groma_full
+    from groma_tpu_torch.models.groma import GromaConfig
+    from groma_tpu_torch.ops.flash_attention import (flash_bwd_causal,
+                                                     flash_fwd)
+    from groma_tpu_torch.train.optimizer import (cosine_schedule,
+                                                 freeze_predicate, make_adamw)
+    from groma_tpu_torch.train.steps import batch_to, make_vl_train_step
+    from groma_tpu_torch.train.synthetic import grounded_batch
+    cfg = GromaConfig()
+    b, steps = TRAIN_BATCH, TRAIN_STEPS
+    t0 = time.perf_counter()
+    model = random_groma_full(cfg, seed=seed, device='cuda')
+    opt = make_adamw(model, cosine_schedule(1e-4, steps, warmup_ratio=0.03),
+                     frozen_pred=freeze_predicate(freeze_perceiver=True,
+                                                  freeze_llm=True))
+    step_fn = make_vl_train_step(model, opt, use_flash=True)
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(seed)
+    batch = batch_to(grounded_batch(cfg, b, seed + 5), 'cuda')
+    trainable = {k: p.detach().clone() for k, p in model.named_parameters()
+                 if p.requires_grad}
+    frozen = [(k, p) for k, p in model.named_parameters()
+              if not p.requires_grad]
+
+    def bits(p):
+        return p.detach().view(torch.int32).sum(dtype=torch.int64).item()
+    frozen_bits = {k: bits(p) for k, p in frozen}
+    frozen_copy = {k: model.get_parameter(k).detach().cpu().clone() for k in (
+        'perceiver.vis_encoder.encoder.layer.0.attention.attention.query.weight',
+        'llm.model.layers.0.self_attn.q_proj.weight',
+        'llm.model.embed_tokens.weight', 'llm.lm_head.weight')}
+    torch.cuda.synchronize()
+    n_valid = int(batch['valid'].sum())
+    print(f'stage 2 training: random full-width Groma-7B (f32 master '
+          f'weights) built in {time.perf_counter() - t0:.1f} s; '
+          f'{sum(v.numel() for v in trainable.values())} of '
+          f'{sum(p.numel() for p in model.parameters())} parameters train; '
+          f'B={b} S={cfg.max_seq_len} ({n_valid} valid stream slots); '
+          f'device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB '
+          f'[{card}]')
+
+    def counts():
+        return (flash_fwd.launches['bidirectional'],
+                flash_fwd.launches['causal'], flash_bwd_causal.launches)
+    flash_fwd.launches.update(bidirectional=0, causal=0)
+    flash_bwd_causal.launches = 0
+    per_step = (cfg.perceiver.vit.num_layers, cfg.llm.num_layers,
+                cfg.llm.num_layers)
+    times = []
+    for i in range(steps):
+        before = counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        metrics = step_fn(batch, gen)
+        loss = metrics['loss'].item()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        times.append(dt)
+        got = tuple(c - n for c, n in zip(counts(), before))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f'  step {i}: loss {loss:.5f}, {dt * 1e3:.1f} ms, '
+              f'{b * cfg.max_seq_len / dt:.0f} stream slots/s, peak '
+              f'{peak:.2f} GiB, lr {opt.schedule(i):.3e}; launches '
+              f'bidirectional fwd {got[0]}, causal fwd {got[1]}, causal bwd '
+              f'{got[2]} '
+              f'[{card}]')
+        if got != per_step:
+            fail(f'training step {i}: flash launches {got}, want {per_step} '
+                 f'(one per ViT layer, one fwd + one bwd per LLM layer)')
+        if not np.isfinite(loss):
+            fail(f'training step {i}: loss {loss}')
+    launches = counts()
+
+    changed_bits = [k for k, p in frozen if bits(p) != frozen_bits[k]]
+    changed_copy = [k for k, v in frozen_copy.items()
+                    if not torch.equal(model.get_parameter(k).cpu(), v)]
+    if changed_bits or changed_copy:
+        fail(f'frozen parameters changed: {(changed_bits + changed_copy)[:5]}')
+    still = [k for k, v in trainable.items()
+             if torch.equal(model.get_parameter(k), v)]
+    if still:
+        fail(f'trainable parameters unchanged after {steps} steps: '
+             f'{still[:5]}')
+    warm = sorted(times[1:])
+    print(f'stage 2 checks passed: {len(frozen)} frozen tensors bitwise '
+          f'unchanged, all {len(trainable)} trainable tensors changed; warm '
+          f'steps {warm[len(warm) // 2] * 1e3:.1f} ms median of '
+          f'{len(warm)} [{card}]')
+    profile_steps(torch, step_fn, batch, gen, b * cfg.max_seq_len, card)
+    del model, opt, step_fn, trainable, batch
+    return launches
+
+
+def profile_steps(torch, step_fn, batch, gen, slots: int, card: str,
+                  n: int = 2):
+    """``n`` steps under torch.profiler: device busy share and the kernels
+    with the most device time."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step_fn(batch, gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.events()
+              if e.device_type.name == 'CUDA' and e.device_time > 0]
+    device_ms = sum(e.device_time for e in events) / 1e3
+    by_name = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    print(f'profiled {n} steps: wall {wall * 1e3 / n:.1f} ms/step, device '
+          f'kernel time {device_ms / n:.1f} ms/step, busy '
+          f'{100 * device_ms / (wall * 1e3):.1f} %, '
+          f'{slots * n / wall:.0f} stream slots/s [{card}]')
+    for name, ms in top:
+        print(f'  {ms / n:9.2f} ms/step  {name[:100]} [{card}]')
 
 
 def random_image(np, seed: int, size: int):
@@ -341,15 +720,31 @@ def main():
     timer = Timer(torch, 'cuda')
     mm_err, mm_ms = check_int8_matmul(torch, gen, timer, card)
     att_err, att_ms = check_decode_attention(torch, gen, timer, card)
+    flash = check_flash(torch, gen, timer, card)
     del timer
     check_llm_path(torch, args.seed, card)
     torch.cuda.empty_cache()
+
+    check_stage3(torch, args.seed, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash_n = train_full_width(torch, np, args.seed, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(flash_n):
+        fail('a flash kernel of the training path was never launched')
 
     mm_n, att_n = serve_full_width(torch, np, args.seed, card)
     if not (mm_n and att_n):
         fail('a kernel of the served path was never launched')
     if 'jax' in sys.modules or 'flax' in sys.modules:
         fail('jax was imported')
+
+    def flash_entry(name, key, source, replaces, n):
+        err, ms, plain_ms = flash[key]
+        return {'name': name, 'route': 'cuda', 'source': source,
+                'replaces': replaces, 'launches': n, 'max_abs_err': err,
+                'ms': ms, 'plain_ms': plain_ms}
 
     print(json.dumps({'kernels': [
         {'name': 'int8_matmul', 'route': 'cuda',
@@ -362,6 +757,15 @@ def main():
          'replaces': 'groma_tpu/ops/decode_attention.py:32',
          'launches': att_n, 'max_abs_err': att_err,
          'ms': att_ms[0], 'plain_ms': att_ms[1]},
+        flash_entry('flash_fwd (bidirectional)', 'bidirectional',
+                    'groma_tpu_torch/csrc/flash_attention_fwd.cu',
+                    'groma_tpu/ops/flash_attention.py:68', flash_n[0]),
+        flash_entry('flash_fwd (causal)', 'causal',
+                    'groma_tpu_torch/csrc/flash_attention_fwd.cu',
+                    'groma_tpu/ops/flash_attention.py:222', flash_n[1]),
+        flash_entry('flash_bwd_causal', 'backward',
+                    'groma_tpu_torch/csrc/flash_attention_bwd.cu',
+                    'groma_tpu/ops/flash_attention.py:527', flash_n[2]),
     ]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

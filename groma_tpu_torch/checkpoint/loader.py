@@ -10,7 +10,10 @@ A released checkpoint directory goes through the JAX package's jax-free
 
 ``random_groma`` builds any ``GromaConfig`` with random weights from a
 seed directly on the target device, and quantizes the LLM one layer at a
-time so its full-precision copy never exists at once.
+time so its full-precision copy never exists at once; ``random_groma_full``
+keeps every weight in f32, for training.  ``full_precision=True`` loads a
+model for training: f32 master weights everywhere (the JAX package's
+params), the ViT and region encoder still computing in their config dtype.
 """
 
 from __future__ import annotations
@@ -31,10 +34,11 @@ _SMALL_INIT = ('cls_token', 'position_embeddings',
                'new_input_embs.weight')
 
 
-def from_state_dict(sd: dict, cfg: GromaConfig, device=None) -> GromaModel:
+def from_state_dict(sd: dict, cfg: GromaConfig, device=None,
+                    full_precision: bool = False) -> GromaModel:
     """Reference-format Groma state dict (name -> numpy array) -> the
     port's GromaModel, each tensor in its module's dtype."""
-    model = GromaModel(cfg, device='meta')
+    model = GromaModel(cfg, device='meta', full_precision=full_precision)
     want = model.state_dict()
     tensors = {k: torch.from_numpy(np.array(v)).to(
                    device=device, dtype=want[k].dtype)
@@ -43,13 +47,15 @@ def from_state_dict(sd: dict, cfg: GromaConfig, device=None) -> GromaModel:
     return model.eval()
 
 
-def from_jax_params(params: dict, cfg: GromaConfig, device=None):
+def from_jax_params(params: dict, cfg: GromaConfig, device=None,
+                    full_precision: bool = False):
     """JAX GromaModel params (a tree of numpy arrays) -> GromaModel."""
     from groma_tpu.checkpoint.hf_export import export_groma
-    return from_state_dict(export_groma(params, cfg), cfg, device)
+    return from_state_dict(export_groma(params, cfg), cfg, device,
+                           full_precision)
 
 
-def load_groma(path: str, device=None):
+def load_groma(path: str, device=None, full_precision: bool = False):
     """A reference-format checkpoint directory (config.json with
     llm_cfg/perceiver_cfg + safetensors or .bin) -> (GromaModel, cfg)."""
     from groma_tpu.checkpoint.hf_import import load_state_dict
@@ -62,7 +68,7 @@ def load_groma(path: str, device=None):
                          'first')
     cfg = hf_groma_config(cfg_d)
     params = import_groma(load_state_dict(path), cfg)
-    return from_jax_params(params, cfg, device), cfg
+    return from_jax_params(params, cfg, device, full_precision), cfg
 
 
 @torch.no_grad()
@@ -112,6 +118,18 @@ def random_groma(cfg: GromaConfig, seed: int = 0, device='cpu'):
     qp['new_input_embs'] = model.new_input_embs.weight.to(torch.bfloat16)
     qp['extra_lm_head'] = model.extra_lm_head.weight.T.to(torch.bfloat16)
     return model.eval(), qp
+
+
+@torch.no_grad()
+def random_groma_full(cfg: GromaConfig, seed: int = 0, device='cpu'):
+    """Random weights from ``seed`` for any config, every one kept in f32
+    on ``device`` (a trainer's master weights)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    model = GromaModel(cfg, device='meta', full_precision=True)
+    model.to_empty(device=device)
+    _fill(model, gen)
+    return model
 
 
 def load_quantized(model_dir: str, device=None, seed: int = 0):

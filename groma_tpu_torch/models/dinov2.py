@@ -6,6 +6,11 @@ as the weight bridge exports it.  ``forward`` returns
 ``(last_hidden_state, hidden_states)``: entry 0 of ``hidden_states`` is
 the embedding output, entry i the output of layer i, none of them through
 the final LayerNorm (Groma taps those).
+
+Parameters may be kept in another dtype than the one the layers compute
+in (``compute_dtype``): a trainer keeps f32 weights and runs bf16, as the
+JAX package's f32 params with ``cfg.dtype`` do.  ``use_flash`` routes the
+attention through the bidirectional flash-attention kernel.
 """
 
 from __future__ import annotations
@@ -17,7 +22,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from groma_tpu.config import ViTConfig
-from groma_tpu_torch.models.layers import multi_head_attention
+from groma_tpu_torch.models.layers import (layer_norm, linear,
+                                           multi_head_attention)
 
 
 class _PatchEmbeddings(nn.Module):
@@ -37,12 +43,15 @@ class _Embeddings(nn.Module):
             torch.zeros(1, 1 + grid * grid, c.hidden_size, **kw))
         self.patch_embeddings = _PatchEmbeddings(c, device, dtype)
 
-    def forward(self, pixel_values):
-        """(B, H, W, 3) -> (B, 1 + G*G, C)."""
-        x = self.patch_embeddings.projection(pixel_values.permute(0, 3, 1, 2))
+    def forward(self, pixel_values, dtype):
+        """(B, H, W, 3) -> (B, 1 + G*G, C) in ``dtype``."""
+        proj = self.patch_embeddings.projection
+        x = F.conv2d(pixel_values.permute(0, 3, 1, 2).to(dtype),
+                     proj.weight.to(dtype), proj.bias.to(dtype),
+                     stride=proj.stride)
         x = x.flatten(2).transpose(1, 2)
-        cls = self.cls_token.expand(x.shape[0], -1, -1)
-        return torch.cat([cls, x], dim=1) + self.position_embeddings
+        cls = self.cls_token.to(dtype).expand(x.shape[0], -1, -1)
+        return torch.cat([cls, x], dim=1) + self.position_embeddings.to(dtype)
 
 
 class _SelfAttention(nn.Module):
@@ -96,16 +105,19 @@ class Dinov2Layer(nn.Module):
         self.mlp = _Mlp(d, int(d * c.mlp_ratio), device, dtype)
         self.layer_scale2 = _LayerScale(d, c.layerscale_value, device, dtype)
 
-    def forward(self, x):
-        h = self.norm1(x)
+    def forward(self, x, use_flash: bool = False):
+        """x in the compute dtype."""
+        dt = x.dtype
+        h = layer_norm(self.norm1, x)
         a = self.attention.attention
-        attn = multi_head_attention(a.query(h), a.key(h), a.value(h),
-                                    self.num_heads)
-        attn = self.attention.output.dense(attn)
-        x = x + attn * self.layer_scale1.lambda1
-        h = self.norm2(x)
-        h = self.mlp.fc2(F.gelu(self.mlp.fc1(h)))
-        return x + h * self.layer_scale2.lambda1
+        attn = multi_head_attention(linear(a.query, h), linear(a.key, h),
+                                    linear(a.value, h), self.num_heads,
+                                    use_flash=use_flash)
+        attn = linear(self.attention.output.dense, attn)
+        x = x + attn * self.layer_scale1.lambda1.to(dt)
+        h = layer_norm(self.norm2, x)
+        h = linear(self.mlp.fc2, F.gelu(linear(self.mlp.fc1, h)))
+        return x + h * self.layer_scale2.lambda1.to(dt)
 
 
 class _Encoder(nn.Module):
@@ -117,9 +129,10 @@ class _Encoder(nn.Module):
 
 class Dinov2Model(nn.Module):
     def __init__(self, c: ViTConfig, deploy_image_size: Optional[int] = None,
-                 device=None, dtype=None):
+                 device=None, dtype=None, compute_dtype=None):
         super().__init__()
         self.cfg = c
+        self.compute_dtype = compute_dtype or dtype or torch.float32
         self.image_size = deploy_image_size or c.image_size
         grid = self.image_size // c.patch_size
         self.embeddings = _Embeddings(c, grid, device, dtype)
@@ -127,15 +140,14 @@ class Dinov2Model(nn.Module):
         self.layernorm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps,
                                       device=device, dtype=dtype)
 
-    def forward(self, pixel_values):
+    def forward(self, pixel_values, use_flash: bool = False):
         b, hh, ww, _ = pixel_values.shape
         if hh != self.image_size or ww != self.image_size:
             raise ValueError(f'model built for {self.image_size}², got '
                              f'{hh}x{ww}')
-        dtype = self.embeddings.cls_token.dtype
-        x = self.embeddings(pixel_values.to(dtype))
+        x = self.embeddings(pixel_values, self.compute_dtype)
         hidden_states = [x]
         for layer in self.encoder.layer:
-            x = layer(x)
+            x = layer(x, use_flash)
             hidden_states.append(x)
-        return self.layernorm(x), tuple(hidden_states)
+        return layer_norm(self.layernorm, x), tuple(hidden_states)

@@ -1,34 +1,46 @@
 """Groma, the grounded multimodal LLM (counterpart of
-``groma_tpu/models/groma.py``): vision, token-stream surgery and the
-split-vocabulary embedding and heads, under the reference's parameter
-names (``perceiver.*``, ``region_encoder.*``, ``img_txt_bridge.*``,
-``llm.*``, ``new_input_embs``, ``extra_lm_head``).
+``groma_tpu/models/groma.py``): vision, token-stream surgery, the
+split-vocabulary embedding and heads, and the training forward with its
+loss, under the reference's parameter names (``perceiver.*``,
+``region_encoder.*``, ``img_txt_bridge.*``, ``llm.*``, ``new_input_embs``,
+``extra_lm_head``).
 
 Kept from the JAX package: coco^0.4 * sa1b^0.6 score fusion; user refer
-boxes injected at score 1.0; fixed-capacity NMS with the argmax-score
-fallback box; IoU matching of refer boxes onto the pool; and both
-documented deviations from the reference:
+boxes injected at score 1.0 and ground-truth boxes at ``ground_box_score``;
+fixed-capacity NMS with the argmax-score fallback box; the train-time random
+permutation of the kept regions; IoU matching of refer / ground boxes onto
+the pool, ``<ground_box>`` rewritten in ids and labels; no gradient into the
+ViT, DDETR or the selected boxes (they run under ``torch.no_grad``), while
+the bridge and the region encoder train; the loss conditions each label on
+the last valid position before it.  Both documented deviations from the
+reference are kept too:
   * decode keeps the true key-validity mask instead of an all-ones one;
-  * the random region-index permutation is a training option, never
-    applied at inference.
-Ground boxes and the permutation serve training, which is not ported.
+  * the region permutation is a training option, never applied at
+    inference.
 
 Dtypes follow the JAX model: the ViT and the region encoder's convs and
 linears run in ``cfg.perceiver.vit.dtype``, DDETR and the image-text
-bridge in f32 (flax promotes the bf16 features against f32 params).
+bridge in f32 (flax promotes the bf16 features against f32 params), the
+LLM in ``cfg.llm.dtype``.  ``full_precision=True`` keeps every parameter in
+f32 (a trainer's master weights, as the JAX package's params are); the
+default stores the ViT and the region encoder in their compute dtype, as
+the served path loads them.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from groma_tpu.config import GromaConfig
+from groma_tpu.constants import IGNORE_INDEX
 from groma_tpu.data.tokenization import SpecialIds
 from groma_tpu_torch.models.llama import LlamaForCausalLM, torch_dtype
 from groma_tpu_torch.models.perceiver import Perceiver
 from groma_tpu_torch.models.region_encoder import RegionEncoder
 from groma_tpu_torch.ops.bbox import box_iou, cxcywh_to_xyxy
+from groma_tpu_torch.ops.fused_ce import fused_cross_entropy
 from groma_tpu_torch.ops.nms import nms
 
 
@@ -37,19 +49,27 @@ def _ordinal(mask: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(mask.to(torch.int64), dim=-1) - 1
 
 
+def _gather_rows(table, idx):
+    """table (B, N, C), idx (B, M) -> (B, M, C)."""
+    return torch.gather(table, 1, idx[..., None].expand(-1, -1,
+                                                        table.shape[-1]))
+
+
 class GromaModel(nn.Module):
-    def __init__(self, cfg: GromaConfig, device=None):
+    def __init__(self, cfg: GromaConfig, device=None,
+                 full_precision: bool = False):
         super().__init__()
         self.cfg = cfg
         vit_d, llm_d = cfg.perceiver.vit.hidden_size, cfg.llm.hidden_size
         vdt = torch_dtype(cfg.perceiver.vit.dtype)
+        pdt = torch.float32 if full_precision else vdt
         self.perceiver = Perceiver(cfg.perceiver, device=device,
-                                   vit_dtype=vdt)
+                                   vit_dtype=pdt, vit_compute_dtype=vdt)
         self.region_encoder = RegionEncoder(
             embed_dims=vit_d, out_dims=llm_d,
             image_size=cfg.perceiver.image_size, roi_out=cfg.region_roi_out,
             num_fuse=cfg.region_num_fuse, gn_groups=cfg.region_gn_groups,
-            device=device, dtype=vdt)
+            device=device, dtype=pdt, compute_dtype=vdt)
         self.img_txt_bridge = nn.Sequential(
             nn.Linear(4 * vit_d, llm_d, device=device), nn.GELU(),
             nn.Linear(llm_d, llm_d, device=device))
@@ -78,13 +98,19 @@ class GromaModel(nn.Module):
 
     # ------------------------------------------------------------- vision
 
-    def vision(self, images, refer_boxes=None, refer_valid=None):
+    def vision(self, images, refer_boxes=None, refer_valid=None,
+               ground_boxes=None, ground_valid=None, generator=None,
+               permute: bool = False, use_flash: bool = False):
         """(B, H, W, 3) image -> image tokens, the selected region pool and
-        its region tokens.  Boxes are normalized cxcywh; refer boxes are
-        fixed-capacity (B, R, 4) with a validity mask."""
+        its region tokens.  Boxes are normalized cxcywh; refer and ground
+        boxes are fixed-capacity (B, R, 4) with validity masks.
+        ``permute`` shuffles the kept regions with noise from
+        ``generator``."""
         c = self.cfg
         b = images.shape[0]
-        hidden_states = self.perceiver.encode_image(images)
+        with torch.no_grad():
+            hidden_states = self.perceiver.encode_image(images, use_flash)
+            ddetr_out = self.perceiver.propose(hidden_states)
 
         # image tokens: last hidden, CLS dropped, 2x2 space-to-depth
         feats = hidden_states[c.perceiver.vis_output_layer][:, 1:]
@@ -96,35 +122,21 @@ class GromaModel(nn.Module):
         img_tokens = self.img_txt_bridge(
             img_tokens.reshape(b, l // 4, 4 * d).to(torch.float32))
 
-        ddetr_out = self.perceiver.propose(hidden_states)
-        pred_boxes = ddetr_out['pred_boxes']
-        s_coco = torch.sigmoid(ddetr_out['logits']['coco'][..., 0])
-        s_sa1b = torch.sigmoid(ddetr_out['logits']['sa1b'][..., 0])
-        scores = s_coco ** c.score_fuse_coco * s_sa1b ** c.score_fuse_sa1b
+        with torch.no_grad():
+            keep_idx, keep_mask, all_boxes = self._select_regions(
+                ddetr_out, refer_boxes, refer_valid, ground_boxes,
+                ground_valid)
+            if permute:
+                if generator is None:
+                    raise ValueError('permute needs a torch.Generator')
+                noise = torch.rand(keep_mask.shape, generator=generator,
+                                   device=generator.device)
+                order = torch.argsort(torch.where(
+                    keep_mask, noise.to(keep_mask.device), 2.0), dim=-1)
+                keep_idx = torch.gather(keep_idx, 1, order)
+                keep_mask = torch.gather(keep_mask, 1, order)
+            selected_boxes = _gather_rows(all_boxes, keep_idx.long())
 
-        dev = pred_boxes.device
-        q = pred_boxes.shape[1]
-        if refer_boxes is None:
-            refer_boxes = pred_boxes.new_zeros((b, 0, 4))
-            refer_valid = torch.zeros((b, 0), dtype=torch.bool, device=dev)
-        all_boxes = torch.cat([pred_boxes, refer_boxes.to(pred_boxes.dtype)],
-                              dim=1)
-        all_scores = torch.cat([scores, refer_valid.to(scores.dtype)], dim=1)
-        all_valid = torch.cat([torch.ones((b, q), dtype=torch.bool,
-                                          device=dev), refer_valid], dim=1)
-
-        keep_idx, keep_mask = nms(cxcywh_to_xyxy(all_boxes), all_scores,
-                                  c.nms_thres, c.box_score_thres,
-                                  max_num=c.max_region_num, valid=all_valid)
-        # fallback: the argmax-score box when nothing survives
-        none_kept = ~keep_mask.any(-1)
-        arg = torch.argmax(torch.where(all_valid, all_scores, -1.0), dim=-1)
-        keep_idx[:, 0] = torch.where(none_kept, arg.to(keep_idx.dtype),
-                                     keep_idx[:, 0])
-        keep_mask[:, 0] = keep_mask[:, 0] | none_kept
-
-        selected_boxes = torch.gather(
-            all_boxes, 1, keep_idx.long()[..., None].expand(-1, -1, 4))
         mlvl = [h[:, 1:] for h in hidden_states[-3:]]
         region_tokens = self.region_encoder(mlvl, selected_boxes)
         return {
@@ -135,12 +147,47 @@ class GromaModel(nn.Module):
             'ddetr_out': ddetr_out,
         }
 
+    def _select_regions(self, ddetr_out, refer_boxes, refer_valid,
+                        ground_boxes, ground_valid):
+        """Proposals + refer + ground boxes -> NMS-kept (indices, mask)
+        into the pooled boxes, and the pool."""
+        c = self.cfg
+        pred_boxes = ddetr_out['pred_boxes']
+        s_coco = torch.sigmoid(ddetr_out['logits']['coco'][..., 0])
+        s_sa1b = torch.sigmoid(ddetr_out['logits']['sa1b'][..., 0])
+        scores = s_coco ** c.score_fuse_coco * s_sa1b ** c.score_fuse_sa1b
+        b, q = pred_boxes.shape[:2]
+        dev = pred_boxes.device
+        boxes, sc, va = [pred_boxes], [scores], [
+            torch.ones((b, q), dtype=torch.bool, device=dev)]
+        for extra, valid, score in ((refer_boxes, refer_valid, 1.0),
+                                    (ground_boxes, ground_valid,
+                                     c.ground_box_score)):
+            if extra is not None:
+                boxes.append(extra.to(pred_boxes.dtype))
+                sc.append(valid.to(scores.dtype) * score)
+                va.append(valid)
+        all_boxes = torch.cat(boxes, dim=1)
+        all_scores = torch.cat(sc, dim=1)
+        all_valid = torch.cat(va, dim=1)
+        keep_idx, keep_mask = nms(cxcywh_to_xyxy(all_boxes), all_scores,
+                                  c.nms_thres, c.box_score_thres,
+                                  max_num=c.max_region_num, valid=all_valid)
+        # fallback: the argmax-score box when nothing survives
+        none_kept = ~keep_mask.any(-1)
+        arg = torch.argmax(torch.where(all_valid, all_scores, -1.0), dim=-1)
+        keep_idx[:, 0] = torch.where(none_kept, arg.to(keep_idx.dtype),
+                                     keep_idx[:, 0])
+        keep_mask[:, 0] = keep_mask[:, 0] | none_kept
+        return keep_idx, keep_mask, all_boxes
+
     # ------------------------------------------------- token-stream wiring
 
-    def build_stream(self, input_ids, region_slot, base_valid, vis,
-                     refer_boxes=None):
+    def build_stream(self, input_ids, labels, region_slot, base_valid, vis,
+                     refer_boxes=None, refer_valid=None, ground_boxes=None,
+                     ground_valid=None):
         """Placeholder substitution + masked embedding scatter, fixed
-        shapes.  Returns (inputs_embeds, input_ids, valid)."""
+        shapes.  Returns (inputs_embeds, input_ids, labels, valid)."""
         sp = self.sp
         sel_boxes = vis['selected_boxes']
         sel_mask = vis['selected_mask']
@@ -155,42 +202,93 @@ class GromaModel(nn.Module):
             mask = ids == mask_token_id
             ordn = _ordinal(mask).clamp(0, matched.shape[1] - 1)
             midx = torch.gather(matched, 1, ordn)
-            return torch.where(mask, sp.box_idx_start + midx, ids)
+            return torch.where(mask, sp.box_idx_start + midx, ids), mask
 
         matched_refer = None
         if refer_boxes is not None and refer_boxes.shape[1] > 0:
             matched_refer = match(refer_boxes)
-            input_ids = substitute(input_ids, sp.rbox, matched_refer)
+            input_ids, _ = substitute(input_ids, sp.rbox, matched_refer)
+        if ground_boxes is not None and ground_boxes.shape[1] > 0:
+            matched_ground = match(ground_boxes)
+            input_ids, gmask = substitute(input_ids, sp.gbox, matched_ground)
+            if labels is not None:
+                new_lab, _ = substitute(labels, sp.gbox, matched_ground)
+                labels = torch.where(gmask, new_lab, labels)
 
         # unused region slots drop out of attention
         slot_ok = torch.gather(
             sel_mask, 1, region_slot.clamp(0, sel_mask.shape[1] - 1).long())
         valid = base_valid & ((region_slot < 0) | slot_ok)
+        if labels is not None:
+            labels = torch.where(valid, labels, IGNORE_INDEX)
 
         emb = self.embed(input_ids)
 
         def scatter(emb, token_mask, table):
             ordn = _ordinal(token_mask).clamp(0, table.shape[1] - 1)
-            gathered = torch.gather(
-                table, 1, ordn[..., None].expand(-1, -1, table.shape[-1]))
             return torch.where(token_mask[..., None],
-                               gathered.to(emb.dtype), emb)
+                               _gather_rows(table, ordn).to(emb.dtype), emb)
 
         emb = scatter(emb, input_ids == sp.image, vis['image_tokens'])
         emb = scatter(emb, input_ids == sp.region, vis['region_tokens'])
         if matched_refer is not None:
-            refer_feats = torch.gather(
-                vis['region_tokens'], 1,
-                matched_refer[..., None].expand(
-                    -1, -1, vis['region_tokens'].shape[-1]))
+            refer_feats = _gather_rows(vis['region_tokens'], matched_refer)
             emb = scatter(emb, input_ids == sp.rfeat, refer_feats)
-        return emb, input_ids, valid
+        return emb, input_ids, labels, valid
 
     def prepare_stream(self, images, input_ids, region_slot, base_valid,
                        refer_boxes=None, refer_valid=None):
         """Vision + surgery: (inputs_embeds, input_ids, valid, vis), for
         the quantized decoder to consume."""
         vis = self.vision(images, refer_boxes, refer_valid)
-        emb, ids, valid = self.build_stream(input_ids, region_slot,
-                                            base_valid, vis, refer_boxes)
+        emb, ids, _, valid = self.build_stream(input_ids, None, region_slot,
+                                               base_valid, vis, refer_boxes,
+                                               refer_valid)
         return emb, ids, valid, vis
+
+    # ------------------------------------------------------------ forward
+
+    def forward(self, images, input_ids, region_slot, base_valid,
+                labels=None, refer_boxes=None, refer_valid=None,
+                ground_boxes=None, ground_valid=None, generator=None,
+                permute: bool = False, use_flash: bool = False,
+                fused_ce: bool = True):
+        """Training forward through the LLM -> {'loss', 'vis', 'valid',
+        'final_input_ids'}, plus 'logits' (B, S, V) f32 when not
+        ``fused_ce``.  The loss is the mean NLL of the labels, each
+        conditioned on the last valid position before it."""
+        vis = self.vision(images, refer_boxes, refer_valid, ground_boxes,
+                          ground_valid, generator=generator, permute=permute,
+                          use_flash=use_flash)
+        emb, input_ids, labels, valid = self.build_stream(
+            input_ids, labels, region_slot, base_valid, vis, refer_boxes,
+            refer_valid, ground_boxes, ground_valid)
+        position_ids = _ordinal(valid).clamp(min=0)
+        hidden = self.llm.model(emb, valid, position_ids, use_flash)
+        out = {'vis': vis, 'valid': valid, 'final_input_ids': input_ids,
+               'loss': None}
+        if not fused_ce:
+            # the JAX heads are f32 Dense layers: bf16 hidden promotes
+            out['logits'] = self.logits(hidden.float())
+        if labels is None:
+            return out
+        # in the fixed-capacity stream, the token after a gap of masked
+        # region slots follows the last valid position, not the slot
+        # physically before it (for gapless templates this is j - 1)
+        pos = torch.arange(valid.shape[1], device=valid.device)
+        last_valid = torch.cummax(torch.where(valid, pos, -1), dim=1).values
+        prev_valid = F.pad(last_valid[:, :-1], (1, 0), value=-1)
+        ok = (labels != IGNORE_INDEX) & (prev_valid >= 0)
+        src = prev_valid.clamp(min=0)
+        safe = torch.where(ok, labels, 0)
+        if fused_ce:
+            out['loss'] = fused_cross_entropy(
+                _gather_rows(hidden, src),
+                (self.llm.lm_head.weight.T, self.extra_lm_head.weight.T),
+                safe, ok, chunk=512)
+        else:
+            logp = torch.log_softmax(_gather_rows(out['logits'], src), -1)
+            nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+            out['loss'] = torch.where(ok, nll, 0.0).sum() \
+                / ok.sum().clamp(min=1)
+        return out

@@ -1,7 +1,10 @@
 """Shared building blocks (counterpart of ``groma_tpu/models/layers.py``).
 
-``multi_head_attention`` is the plain, unmasked path its port callers
-use: the flash-attention kernel behind ``use_flash`` is not ported yet.
+``multi_head_attention`` takes the flash-attention kernels behind
+``use_flash`` (ops/flash_attention.py) and the plain path otherwise.
+``cast_linear``, ``linear`` and ``layer_norm`` run in the input's dtype
+over parameters kept in another (f32 master weights, bf16 products, as
+flax's ``dtype``).
 """
 
 from __future__ import annotations
@@ -9,7 +12,48 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+from groma_tpu_torch.ops.flash_attention import flash_attention
+
+
+class _CastLinear(torch.autograd.Function):
+    """x @ w.T with w cast to x's dtype for the product.  The cast copy is
+    not kept for the backward, which casts again: a frozen 7B LLM would
+    otherwise hold a second, bf16 copy of its weights until the backward.
+    The weight's gradient is rounded to x's dtype first, as the transpose
+    of flax's cast is."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        # x is needed only for w's gradient: a frozen weight does not keep it
+        ctx.save_for_backward(x if ctx.needs_input_grad[1] else None, w)
+        return F.linear(x, w.to(x.dtype))
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = gy @ w.to(gy.dtype)
+        if ctx.needs_input_grad[1]:
+            gw = (gy.reshape(-1, gy.shape[-1]).T
+                  @ x.reshape(-1, x.shape[-1])).to(w.dtype)
+        return gx, gw
+
+
+def cast_linear(x, w):
+    """Bias-free linear in x's dtype over a weight kept in another."""
+    if w.dtype == x.dtype:
+        return F.linear(x, w)
+    return _CastLinear.apply(x, w)
+
+
+def linear(m: nn.Linear, x):
+    """``m(x)`` in x's dtype."""
+    y = cast_linear(x, m.weight)
+    return y if m.bias is None else y + m.bias.to(x.dtype)
 
 
 class MLP(nn.Module):
@@ -32,9 +76,18 @@ class MLP(nn.Module):
         return x
 
 
-def multi_head_attention(q, k, v, num_heads: int):
-    """Plain MHA over (B, S, D) projections, split into heads here.
+def layer_norm(m: nn.LayerNorm, x):
+    """``m(x)`` with the weight and bias cast to x's dtype."""
+    return F.layer_norm(x, m.normalized_shape, m.weight.to(x.dtype),
+                        m.bias.to(x.dtype), m.eps)
 
+
+def multi_head_attention(q, k, v, num_heads: int, kv_mask=None,
+                         causal: bool = False, use_flash: bool = False):
+    """MHA over (B, S, D) projections, split into heads here; optional
+    (B, S_kv) key mask and causal band.
+
+    ``use_flash``: the flash-attention kernels.  Otherwise the plain path:
     bf16 inputs store the scores in bf16 with an f32 softmax (the JAX
     package's torch-autocast semantics); f32 inputs stay f32."""
     b, sq, d = q.shape
@@ -45,10 +98,20 @@ def multi_head_attention(q, k, v, num_heads: int):
         return x.reshape(b, s, num_heads, hd).transpose(1, 2)
 
     qh, kh, vh = split(q, sq), split(k, skv), split(v, skv)
+    if use_flash:
+        out = flash_attention(qh, kh, vh, kv_mask=kv_mask, causal=causal)
+        return out.transpose(1, 2).reshape(b, sq, d).to(q.dtype)
     score_dtype = torch.bfloat16 if q.dtype == torch.bfloat16 \
         else torch.float32
     s = torch.matmul(qh.to(score_dtype), kh.to(score_dtype).transpose(-1, -2))
     s = s * torch.tensor(hd ** -0.5, dtype=score_dtype)
+    masked = torch.tensor(-1e30, dtype=score_dtype)
+    if kv_mask is not None:
+        s = torch.where(kv_mask[:, None, None, :], s, masked)
+    if causal:
+        qi = torch.arange(sq, device=q.device)[:, None]
+        kj = torch.arange(skv, device=q.device)[None, :]
+        s = torch.where(kj <= qi + (skv - sq), s, masked)
     p = torch.softmax(s.to(torch.float32), dim=-1)
     out = torch.matmul(p.to(v.dtype), vh)
     return out.transpose(1, 2).reshape(b, sq, d).to(q.dtype)

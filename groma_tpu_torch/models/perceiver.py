@@ -64,11 +64,13 @@ class InputProj(nn.Sequential):
 
 
 class Perceiver(nn.Module):
-    def __init__(self, c: PerceiverConfig, device=None, vit_dtype=None):
+    def __init__(self, c: PerceiverConfig, device=None, vit_dtype=None,
+                 vit_compute_dtype=None):
         super().__init__()
         self.cfg = c
         self.vis_encoder = Dinov2Model(c.vit, deploy_image_size=c.image_size,
-                                       device=device, dtype=vit_dtype)
+                                       device=device, dtype=vit_dtype,
+                                       compute_dtype=vit_compute_dtype)
         nfl = c.ddetr.num_feature_levels
         vd, d = c.vit.hidden_size, c.ddetr.d_model
         if nfl == 1:
@@ -80,9 +82,10 @@ class Perceiver(nn.Module):
         self.input_proj = nn.ModuleList(projs)
         self.ddetr_transformer = DDETRTransformer(c.ddetr, device=device)
 
-    def encode_image(self, images):
-        """(B, H, W, 3) normalized pixels -> ViT hidden states."""
-        return self.vis_encoder(images)[1]
+    def encode_image(self, images, use_flash: bool = False):
+        """(B, H, W, 3) normalized pixels -> ViT hidden states;
+        ``use_flash`` takes the bidirectional flash-attention kernel."""
+        return self.vis_encoder(images, use_flash)[1]
 
     def ddetr_features(self, hidden_states):
         """Mean of the last-k hidden states, CLS dropped, as (B, h, w, C)."""
@@ -98,5 +101,5 @@ class Perceiver(nn.Module):
         srcs = [proj(feat2d.to(torch.float32)) for proj in self.input_proj]
         return self.ddetr_transformer(srcs)
 
-    def forward(self, images):
-        return self.propose(self.encode_image(images))
+    def forward(self, images, use_flash: bool = False):
+        return self.propose(self.encode_image(images, use_flash))

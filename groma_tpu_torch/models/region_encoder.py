@@ -13,6 +13,8 @@ Kept from the JAX package, which keeps them from the reference:
 * RoIAlign strides 14/8, 14/4, 14/2, which overshoot the feature sizes 2x;
 * fp32 islands: RoIAlign and the box-position MLP run in f32 inside a bf16
   model.
+Parameters may be kept in f32 while the convs and linears compute in
+``compute_dtype`` (a trainer's master weights).
 Left out: the sharding constraints and the int8 vision-conv option.
 Convolutions run channels-first (torch's layout); RoIAlign takes the JAX
 package's channels-last layout.
@@ -24,9 +26,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from groma_tpu_torch.models.layers import linear
 from groma_tpu_torch.ops.roi_align import roi_align_batched
 
 ROI_STRIDES = (14 / 8, 14 / 4, 14 / 2)
+
+
+def conv2d(m: nn.Conv2d, x):
+    """``m(x)`` with the weight and bias cast to x's dtype."""
+    bias = None if m.bias is None else m.bias.to(x.dtype)
+    return F.conv2d(x, m.weight.to(x.dtype), bias, m.stride, m.padding)
 
 
 def resize_bilinear_align_corners(x, out_hw, dtype=torch.float32):
@@ -49,11 +58,12 @@ class ConvModuleGN(nn.Module):
                                dtype=dtype)
 
     def forward(self, x):
-        x = self.conv(x)
+        dt = x.dtype
+        x = conv2d(self.conv, x)
         x = F.group_norm(x.to(torch.float32), self.gn.num_groups,
                          self.gn.weight.to(torch.float32),
                          self.gn.bias.to(torch.float32), self.gn.eps)
-        return torch.relu(x).to(self.conv.weight.dtype)
+        return torch.relu(x).to(dt)
 
 
 class MLVLFuse(nn.Module):
@@ -68,9 +78,9 @@ class MLVLFuse(nn.Module):
             ConvModuleGN(d, gn_groups, device, dtype)
             for _ in range(num_fuse))
 
-    def forward(self, feats):
-        """List of (B, C, H, W) maps, largest first -> fused maps."""
-        dtype = self.input_conv[0].weight.dtype
+    def forward(self, feats, dtype):
+        """List of (B, C, H, W) maps, largest first -> fused maps in
+        ``dtype``."""
         withcoord = []
         for conv, f in zip(self.input_conv, feats):
             b, _, h, w = f.shape
@@ -79,7 +89,8 @@ class MLVLFuse(nn.Module):
             coord = torch.stack([xs[None, :].expand(h, w),
                                  ys[:, None].expand(h, w)], 0)
             coord = coord[None].expand(b, -1, -1, -1).to(dtype)
-            withcoord.append(conv(torch.cat([f.to(dtype), coord], dim=1)))
+            withcoord.append(conv2d(conv, torch.cat([f.to(dtype), coord],
+                                                    dim=1)))
         feats = withcoord
         d = feats[0].shape[1]
         shuffle = d // 4
@@ -125,8 +136,9 @@ class RegionEncoder(nn.Module):
     def __init__(self, embed_dims: int = 1024, out_dims: int = 4096,
                  num_levels: int = 3, image_size: int = 448,
                  roi_out: int = 14, num_fuse: int = 5, gn_groups: int = 64,
-                 device=None, dtype=None):
+                 device=None, dtype=None, compute_dtype=None):
         super().__init__()
+        self.compute_dtype = compute_dtype or dtype or torch.float32
         self.image_size = image_size
         self.roi_out = roi_out
         self.num_levels = num_levels
@@ -138,7 +150,7 @@ class RegionEncoder(nn.Module):
     def forward(self, mlvl_feats, boxes):
         """mlvl_feats: ``num_levels`` (B, L, C) token maps, finest last."""
         ra = self.roi_align
-        cdtype = ra.flatten_linear.weight.dtype
+        cdtype = self.compute_dtype
         b, r, _ = boxes.shape
         nl = self.num_levels
         feats2d = []
@@ -150,7 +162,7 @@ class RegionEncoder(nn.Module):
         to_shape = [(base * 2 ** lvl,) * 2 for lvl in range(nl)][::-1]
         feats2d = [resize_bilinear_align_corners(f, s, cdtype)
                    for f, s in zip(feats2d, to_shape)]
-        fused = self.mlvl_fuse(feats2d)
+        fused = self.mlvl_fuse(feats2d, cdtype)
 
         pos = ra.pos_embedd(boxes.to(torch.float32))            # (B, R, 1024)
         rois = (boxes * self.image_size).to(torch.float32)      # the quirk
@@ -162,9 +174,9 @@ class RegionEncoder(nn.Module):
                 spatial_scale=1.0 / ROI_STRIDES[lvl], sampling_ratio=2,
                 aligned=True)
             pooled = pooled.reshape(b * r, self.roi_out, self.roi_out, -1)
-            acc = acc + ra.pconvs[lvl](
-                pooled.permute(0, 3, 1, 2).to(cdtype)).to(torch.float32)
+            acc = acc + conv2d(ra.pconvs[lvl], pooled.permute(0, 3, 1, 2).to(
+                cdtype)).to(torch.float32)
         acc = torch.relu(acc.to(cdtype))                 # (B*R, C, out, out)
-        tokens = ra.flatten_linear(acc.reshape(b * r, -1))
+        tokens = linear(ra.flatten_linear, acc.reshape(b * r, -1))
         tokens = tokens.reshape(b, r, 1024) + pos.to(cdtype)
-        return ra.updims(tokens)
+        return linear(ra.updims, tokens)

@@ -1,9 +1,11 @@
 """Build and load the hand-written Hopper kernels of ``groma_tpu_torch/csrc``.
 
-Every ``*.cu`` file there is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes``.  The build
-runs at first use, never at import, into ``csrc/build/`` (git-ignored); the
-library's file name carries a hash of the sources, so an edit rebuilds it.
+Every ``*.cu`` file there is compiled by its own ``nvcc`` for ``sm_90a``,
+all of them at once, and the objects are linked into one shared library
+with a plain C interface, loaded with ``ctypes``.  The build runs at first
+use, never at import, into ``csrc/build/`` (git-ignored); the library's
+file name carries a hash of the sources and headers, so an edit rebuilds
+it.
 Nothing here imports anything CUDA-specific until :func:`library` is called.
 """
 
@@ -22,7 +24,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = CSRC / 'build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+              '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 _lock = threading.Lock()
 _lib = None
@@ -31,7 +33,7 @@ build_info: dict = {}      # path, seconds, ptxas log of the loaded library
 
 def _digest(sources) -> str:
     h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-    for p in sources:
+    for p in [*sources, *sorted(CSRC.glob('*.cuh'))]:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
@@ -55,6 +57,40 @@ def _declare(lib):
     lib.groma_int8_decode_attention.argtypes = [p, p, p, p, p, p, p,
                                                 i, i, i, i, p]
     lib.groma_int8_decode_attention.restype = i
+    f = ctypes.c_float
+    lib.groma_flash_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, i, p]
+    lib.groma_flash_fwd.restype = i
+    lib.groma_flash_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p,
+                                    i, i, i, i, i, f, p]
+    lib.groma_flash_bwd.restype = i
+
+
+def _build(sources, so: Path) -> str:
+    """One nvcc per source, all started together, then one link.
+    Returns the compilers' output (ptxas register and spill summaries)."""
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f'{src.stem}.o' for src in sources]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, '-c', str(src), '-o', str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(sources, objs)]
+        logs = [f'== {src.name}\n{proc.communicate()[0]}'
+                for src, proc in zip(sources, procs)]
+        log = ''.join(logs)
+        failed = [src.name for src, proc in zip(sources, procs)
+                  if proc.returncode != 0]
+        if failed:
+            raise RuntimeError(f'nvcc failed on {failed}:\n{log}')
+        lib = Path(tmp) / so.name
+        proc = subprocess.run([nvcc, '-shared', '-o', str(lib),
+                               *map(str, objs)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f'nvcc link failed:\n{proc.stdout}'
+                               f'{proc.stderr}')
+        os.replace(lib, so)       # atomic: concurrent builds agree
+    return log
 
 
 def library():
@@ -69,18 +105,9 @@ def library():
         seconds = 0.0
         if not so.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
-            os.close(fd)
             t0 = time.perf_counter()
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, '-o', tmp, *map(str, sources)],
-                capture_output=True, text=True)
+            log = _build(sources, so)
             seconds = time.perf_counter() - t0
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(f'nvcc failed ({proc.returncode}):\n{log}')
-            os.replace(tmp, so)       # atomic: concurrent builds agree
         lib = ctypes.CDLL(str(so))
         _declare(lib)
         build_info.update(path=str(so), seconds=seconds, log=log)

@@ -1,0 +1,44 @@
+"""VL-stage train step (counterpart of ``groma_tpu/train/steps.py``
+``make_vl_train_step``): the CE loss of the grounded token stream, its
+backward, and the optimizer's step."""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+BATCH_KEYS = ('images', 'input_ids', 'region_slot', 'valid', 'labels',
+              'refer_boxes', 'refer_valid', 'ground_boxes', 'ground_valid')
+
+
+def batch_to(batch: dict, device) -> dict:
+    """A collated numpy batch -> tensors on ``device`` (keys it lacks stay
+    out)."""
+    return {k: torch.as_tensor(batch[k]).to(device) for k in BATCH_KEYS
+            if k in batch}
+
+
+def make_vl_train_step(model, optimizer, use_flash: bool = False,
+                       permute_regions: bool = True) -> Callable:
+    """-> step(batch, generator) -> {'loss': f32 scalar tensor,
+    'updated': bool}.  ``generator`` (a torch.Generator) draws the region
+    permutation; each call is one micro-batch of ``optimizer``'s
+    accumulation."""
+
+    def step(batch: dict, generator=None) -> dict:
+        out = model(images=batch['images'], input_ids=batch['input_ids'],
+                    region_slot=batch['region_slot'],
+                    base_valid=batch['valid'], labels=batch['labels'],
+                    refer_boxes=batch.get('refer_boxes'),
+                    refer_valid=batch.get('refer_valid'),
+                    ground_boxes=batch.get('ground_boxes'),
+                    ground_valid=batch.get('ground_valid'),
+                    generator=generator, permute=permute_regions,
+                    use_flash=use_flash)
+        loss = out['loss']
+        loss.backward()
+        updated = optimizer.step()
+        return {'loss': loss.detach(), 'updated': updated}
+
+    return step
