@@ -11,12 +11,17 @@ Phases, each printed before the last line:
  2. each kernel against its plain PyTorch version on the card, at the
     shapes its path gives it, with the tolerance stated; kernel and plain
     times from CUDA events, L2 flushed before each launch: the int8 decode
-    matmul and decode attention (served path), the flash-attention
-    forward (bidirectional at the ViT's (2, 16, 1025, 64), causal at the
-    LLM's (2, 32, 2048, 128) under a grounded key mask) and the causal
-    backward; then the int8 LLaMA path at full width and two layers on the
-    card against the same weights and inputs through the plain versions on
-    the CPU;
+    matmul and decode attention (served path), the packed-int4 matmul (each
+    of the int4 tree's five shapes at M=1 and M=8, the engine's decode,
+    and at M=2048, a prefill; at down_proj the bound is also shown to flag
+    a wrong scale on the block that straddles K/2) and the paged decode
+    attention (8 slots, ragged lengths up to 2432, shuffled
+    pages, a frozen row), the flash-attention forward (bidirectional at the
+    ViT's (2, 16, 1025, 64), causal at the LLM's (2, 32, 2048, 128) under a
+    grounded key mask) and the causal backward; then the int8 LLaMA path
+    and the int4 + paged one (prefill, page compaction, paged decode) at
+    full width and two layers on the card against the same weights and
+    inputs through the plain versions on the CPU;
  3. stage-3 training (LLM trained) at full width and 2 LLM layers (108 GB
     of f32 Adam state at full depth does not fit one card): one step's
     loss and trainable gradients on the card against the same weights and
@@ -39,10 +44,17 @@ Phases, each printed before the last line:
     cache, max_len = max_seq_len + 64) with random weights from --seed: the
     port's ModelWorker answers 3 requests in-process, each checked, and
     both int8 kernels' launch counters must grow by exactly the count the
-    path implies.
+    path implies;
+ 6. the production server at full width (--engine --engine-slots 8
+    --quant_type int4 --kv-bits 8 --paged-kv, max_len 2432): the port's
+    ModelWorker answers ENGINE_REQUESTS requests sent from as many threads
+    at once, each checked; then every request finished, none truncated,
+    every page back in the pool, and exact launch counts (paged attention
+    L per decode step, int4 matmul 4L + 1 per prefill and per step), with
+    TTFT per request, aggregate tok/s and ms per decode step.
 Then one JSON line with the kernels (launches: the training path's for the
-flash kernels, the served path's for the int8 ones), and as the last line
-{"ok": true, "device": {...}}.  Any failed check exits non-zero and prints
+flash kernels, the served path's for the int8 ones, the engine's for the
+int4 and paged ones), and as the last line {"ok": true, "device": {...}}.  Any failed check exits non-zero and prints
 no result; so does a machine without a CUDA device.
 """
 
@@ -64,6 +76,20 @@ INT8_MATMUL_SHAPES = {          # (K, N) of every decode matmul at 7B width
     'lm_head (ragged N)': (4096, 32114),
 }
 LAYER_MATMULS = ('qkv_proj', 'o_proj', 'gate_up_proj', 'down_proj')
+INT4_MATMUL_SHAPES = {          # (K, N) of the int4 tree's matmuls
+    'qkv_proj': (4096, 12288),
+    'o_proj': (4096, 4096),
+    'gate_up_proj': (4096, 22016),
+    'down_proj': (11008, 4096),     # scale block 21 straddles K/2
+    'lm_head (padded to 512)': (4096, 32256),
+}
+INT4_PREFILL_ROWS = 2048        # M of a prefill: one stream of max_seq_len
+# the paged kernel at the engine's shapes: 8 slots, 32 heads of 128, a
+# 160-page pool, ragged lengths up to max_len = 2432 (19 pages), one frozen
+PAGED_LENGTHS = (2432, 2301, 1900, 1500, 1024, 700, 129, 0)
+PAGED_POOL_PAGES = 160
+ENGINE_REQUESTS = 12       # through 8 slots: 4 wait and join mid-decode
+ENGINE_MAX_NEW = 32
 MAX_NEW_TOKENS = 32        # the 2112-slot cache leaves 64 after prefill
 TRAIN_BATCH = 2            # vl_pretrain.sh's 16 does not fit one card
 TRAIN_STEPS = 4            # >= 2: the warmup-cosine schedule's lr is 0 first
@@ -386,6 +412,207 @@ def check_llm_path(torch, seed: int, card: str):
           f'path within {worst:.3e} x max|hidden| (tol 3e-2) [{card}]')
 
 
+def check_int4_matmul(torch, gen, timer, card):
+    """#7 against its plain version at every shape of the int4 tree: M=1
+    and M=8 (the engine's 8 slots) through the decode tile, M=2048 through
+    the prefill tile.  Returns (max_abs_err, (kernel ms, plain ms) summed
+    over the four layer matmuls at M=8)."""
+    from groma_tpu_torch.ops.quant4 import (INT4_BLOCK, int4_matmul,
+                                            int4_matmul_reference)
+    dev = 'cuda'
+    worst = 0.0
+    layer_ms = [0.0, 0.0]
+    cases = [(m, name, k, n) for m in (1, 8, INT4_PREFILL_ROWS)
+             for name, (k, n) in INT4_MATMUL_SHAPES.items()]
+    for m, name, k, n in cases:
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        packed = torch.randint(0, 256, (k // 2, n), generator=gen, device=dev,
+                               dtype=torch.uint8)
+        scale = torch.rand((k // 256, n), generator=gen, device=dev) \
+            * 1e-3 + 1e-4
+        got = int4_matmul(x, packed, scale).float()
+        want = int4_matmul_reference(x, packed, scale).float()
+        err = (got - want).abs()
+        # f32 sums in another order, then one bf16 rounding each: at most
+        # one bf16 step (2^-7 relative) apart, plus f32 noise
+        tol = 2.0 ** -7 * want.abs() + 1e-4 * want.abs().max()
+        ok = bool((err <= tol).all()) and bool(torch.isfinite(got).all())
+        max_err = err.max().item()
+        worst = max(worst, max_err)
+        ms = timer(lambda: int4_matmul(x, packed, scale))
+        plain_ms = timer(lambda: int4_matmul_reference(x, packed, scale))
+        if m == 8 and name in LAYER_MATMULS:
+            layer_ms[0] += ms
+            layer_ms[1] += plain_ms
+        ref_max = want.abs().max().item()
+        rate = (f'{2 * m * k * n / ms / 1e9:.1f} TFLOP/s' if m > 8 else
+                f'{(k * n / 2 + k * n // 64) / ms / 1e6:.1f} GB/s weights')
+        print(f'int4_matmul M={m} {name} K={k} N={n}: max_abs_err '
+              f'{max_err:.3e}, rel {max_err / ref_max:.3e} of max|plain| '
+              f'{ref_max:.3e} (tol 2^-7*|plain| + 1e-4*max|plain|) '
+              f'{"ok" if ok else "FAIL"}; kernel {ms:.4f} ms, plain '
+              f'{plain_ms:.4f} ms, {rate} [{card}]')
+        if not ok:
+            fail(f'int4_matmul disagrees with its plain version at M={m} '
+                 f'{name}')
+        if (k // 2) % INT4_BLOCK:
+            # the bound must see a wrong scale on the straddling block's
+            # high-nibble rows (K/2 up to its end): give them the next
+            # block's scale in the plain result and count what it flags
+            lo, hi = k // 2, (k // 2 // INT4_BLOCK + 1) * INT4_BLOCK
+            b = lo // INT4_BLOCK
+            q = (packed[:hi - lo] >> 4).float() - 8
+            wrong = want + x[:, lo:hi].float() @ (q * (scale[b + 1]
+                                                       - scale[b]))
+            flagged = ((wrong.to(torch.bfloat16).float() - want).abs()
+                       > tol).float().mean().item()
+            print(f'  the same bound flags {100 * flagged:.1f} % of the '
+                  f'outputs when rows {lo}..{hi - 1} (scale block {b}, high '
+                  f'nibbles) take block {b + 1}\'s scale [{card}]')
+            if flagged < 0.5:
+                fail(f'int4_matmul M={m} {name}: the bound misses a wrong '
+                     f'scale on the straddling block')
+        del x, packed, scale, got, want, err
+    return worst, layer_ms
+
+
+def _paged_case(torch, gen, dev):
+    """The engine's paged shapes: shuffled pages, repeat-last table tails,
+    a frozen row (length 0) on the trash page."""
+    from groma_tpu_torch.models.llama_quant import _quantize_tokens
+    from groma_tpu_torch.ops.paged_attention import PAGE
+    h, d = 32, 128
+    b = len(PAGED_LENGTHS)
+    np_ = -(-max(PAGED_LENGTHS) // PAGE)
+    k8, ks = _quantize_tokens(torch.randn(
+        (PAGED_POOL_PAGES, h, PAGE, d), generator=gen, device=dev))
+    v8, vs = _quantize_tokens(torch.randn(
+        (PAGED_POOL_PAGES, h, PAGE, d), generator=gen, device=dev))
+    ids = (torch.randperm(PAGED_POOL_PAGES - 1, generator=gen, device=dev)
+           + 1).tolist()
+    table = torch.zeros((b, np_), dtype=torch.int32)
+    for row, n in enumerate(PAGED_LENGTHS):
+        used = -(-n // PAGE)
+        if used:
+            table[row, :used] = torch.tensor(ids[:used])
+            table[row, used:] = ids[used - 1]
+            ids = ids[used:]
+    q = torch.randn((b, h, 1, d), generator=gen, device=dev)
+    lengths = torch.tensor(PAGED_LENGTHS, dtype=torch.int32, device=dev)
+    return (q, k8, ks, v8, vs, table.to(dev), lengths)
+
+
+def check_paged_attention(torch, gen, timer, card):
+    """#8 against its plain version at the engine's shapes.  Returns
+    (max_abs_err, kernel ms, plain ms)."""
+    from groma_tpu_torch.ops.paged_attention import (
+        PAGE, paged_int8_decode_attention, paged_int8_decode_attention_plain)
+    args = _paged_case(torch, gen, 'cuda')
+    got = paged_int8_decode_attention(*args)
+    want, step = paged_int8_decode_attention_plain(*args, with_step=True)
+    err = (got - want).abs()
+    # the kernel's f32 exp and sums may differ from torch's in the last
+    # bit, so a requantized p on a .5 tie may round the other way: allow
+    # two such units of any page, plus f32 noise
+    tol = 2 * step + 1e-5 * want.abs().max()
+    ok = bool((err <= tol).all()) and bool(torch.isfinite(got).all())
+    frozen = len(PAGED_LENGTHS) - 1
+    ok &= bool(got[frozen].abs().max() > 0)    # uniform p, not 0
+    max_err = err.max().item()
+    units = (err / step).max().item()
+    ms = timer(lambda: paged_int8_decode_attention(*args))
+    plain_ms = timer(lambda: paged_int8_decode_attention_plain(*args))
+    h, d = args[0].shape[1], args[0].shape[3]
+    pages = sum(-(-n // PAGE) if n else args[5].shape[1]
+                for n in PAGED_LENGTHS)
+    kv_bytes = pages * h * 2 * PAGE * (d + 4)
+    ref_max = want.abs().max().item()
+    print(f'paged_int8_decode_attention B={len(PAGED_LENGTHS)} H={h} D={d} '
+          f'lengths {PAGED_LENGTHS} over a {PAGED_POOL_PAGES}-page pool: '
+          f'max_abs_err {max_err:.3e}, rel {max_err / ref_max:.3e} of '
+          f'max|plain| {ref_max:.3e}, {units:.3f} p8 units (tol 2 units + '
+          f'1e-5*max|plain|), frozen row finite and uniform '
+          f'{"ok" if ok else "FAIL"}; kernel {ms:.4f} ms, plain '
+          f'{plain_ms:.4f} ms, {kv_bytes / ms / 1e6:.1f} GB/s KV [{card}]')
+    if not ok:
+        fail('paged_int8_decode_attention disagrees with its plain version')
+    return max_err, ms, plain_ms
+
+
+def check_int4_paged_path(torch, seed: int, card: str):
+    """The engine's LLaMA path at full width and two layers, int4 weights:
+    prefill into an int8 cache, its pages compacted into a page pool, then
+    paged decode steps; on the card (the kernels) against the same weights
+    and inputs on the CPU (the plain versions)."""
+    from groma_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from groma_tpu_torch.models.llama_quant import (make_quant_kv_cache,
+                                                    quant_llama_decode_paged,
+                                                    quant_llama_forward,
+                                                    quantize_llama_params)
+    from groma_tpu_torch.ops.paged_attention import (PAGE,
+                                                     insert_prefill_pages,
+                                                     make_kv_page_pool)
+    cfg = LlamaConfig(num_layers=2)           # Vicuna-7B width, bf16
+    torch.manual_seed(seed)
+    with torch.no_grad():
+        llm = LlamaForCausalLM(cfg, device='cuda')
+        qp = quantize_llama_params(llm.state_dict(), cfg, bits=4)
+        del llm
+    b, s, steps = 2, 2 * PAGE, 4          # prefill M = 512: the mma tile
+    gen = torch.Generator().manual_seed(seed)
+    emb = torch.randn((b, s, cfg.hidden_size), generator=gen)
+    valid = torch.ones((b, s), dtype=torch.bool)
+    valid[1, 100:140] = False             # a gap, compacted away
+    valid[1, 220:] = False
+    pos = (torch.cumsum(valid.long(), -1) - 1).clamp(min=0)
+    steps_in = [torch.randn((b, 1, cfg.hidden_size), generator=gen)
+                for _ in range(steps)]
+    # slot 0 on pages (3, 5, 2), slot 1 on (7, 1, 1); page 0 is trash
+    pages = [[3, 5, 2], [7, 1, 1]]
+
+    def run(device):
+        tree = {'norm': qp['norm'].to(device), 'layers': [
+            {k: ({kk: vv.to(device) for kk, vv in v.items()}
+                 if isinstance(v, dict) else v.to(device))
+             for k, v in lp.items()} for lp in qp['layers']]}
+        move = lambda t: t.to(device)          # noqa: E731
+        cache = make_quant_kv_cache(cfg, b, s, device=device)
+        h, cache = quant_llama_forward(tree, cfg, move(emb), move(valid),
+                                       move(pos), cache)
+        outs = [h.float().cpu()]
+        pools = make_kv_page_pool(cfg, 8, device=device)
+        for row in range(b):
+            insert_prefill_pages(pools, cache, row,
+                                 torch.tensor(pages[row][:2], device=device),
+                                 valid=cache['mask'][row])
+        table = torch.tensor(pages, dtype=torch.int32, device=device)
+        nxt = valid.sum(-1).long()[:, None]       # compacted write positions
+        for i, x in enumerate(steps_in):
+            p_ = move(nxt + i)
+            h, pools = quant_llama_decode_paged(
+                tree, cfg, move(x), p_, pools, table,
+                (p_[:, 0] + 1).to(torch.int32))
+            outs.append(h.float().cpu())
+        return outs
+
+    with torch.no_grad():
+        got, want = run('cuda'), run('cpu')
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        # bf16 activations rounded at other points by other summation
+        # orders: 3 % of the largest hidden value
+        err = (g - w).abs().max().item() / w.abs().max().item()
+        worst = max(worst, err)
+        if not (err <= 3e-2 and torch.isfinite(g).all()):
+            fail(f'int4 + paged LLaMA path: '
+                 f'{"prefill" if i == 0 else "paged decode"} step {i} '
+                 f'differs from the CPU plain path by {err:.3e}')
+    print(f'int4 + paged LLaMA path, full width, 2 layers, B={b}: prefill '
+          f'{s} tokens (int4 mma tile), compacted into pages, + {steps} paged '
+          f'decode steps on the card match the CPU plain path within '
+          f'{worst:.3e} x max|hidden| (tol 3e-2) [{card}]')
+
+
 def _train_args(batch):
     return dict(images=batch['images'], input_ids=batch['input_ids'],
                 region_slot=batch['region_slot'], base_valid=batch['valid'],
@@ -686,6 +913,128 @@ def serve_full_width(torch, np, seed: int, card: str):
     return int8_matmul.launches, int8_decode_attention.launches
 
 
+def serve_engine_full_width(torch, np, seed: int, card: str):
+    """The production server, ``--engine --engine-slots 8 --quant_type int4
+    --kv-bits 8 --paged-kv``, at full width: ENGINE_REQUESTS requests from
+    as many threads at once through the port's ModelWorker.  Returns the
+    int4 and paged kernels' launches."""
+    import threading
+    from groma_tpu_torch.ops.paged_attention import paged_int8_decode_attention
+    from groma_tpu_torch.ops.quant4 import int4_matmul
+    from groma_tpu_torch.serve.worker import ModelWorker
+
+    t0 = time.perf_counter()
+    worker = ModelWorker('random', seed=seed, quant_type='int4', kv_bits=8,
+                         device='cuda', use_engine=True, engine_slots=8,
+                         paged_kv=True)
+    engine, cfg = worker.engine, worker.cfg
+    torch.cuda.synchronize()
+    st = engine.stats()
+    print(f'engine: random full-width Groma-7B, int4 LLM, {st["max_slots"]} '
+          f'slots, max_len {engine.max_len} ({engine._np_max} pages of 128), '
+          f'{st["total_pages"]} pool pages, built in '
+          f'{time.perf_counter() - t0:.1f} s; device memory '
+          f'{torch.cuda.memory_allocated() / 2**30:.2f} GiB [{card}]')
+    sessions = {}                   # client thread name -> its Session
+    submit = engine.submit
+
+    def recording_submit(*a, **kw):
+        sess = submit(*a, **kw)
+        sessions[threading.current_thread().name] = sess
+        return sess
+    engine.submit = recording_submit
+    n_layers = cfg.llm.num_layers
+    prompts = ('Locate the dog on the left in the image.',
+               'What is in this picture? Give boxes for each object.',
+               'Find the red car.', 'Where is the person holding a cup?')
+    results = [None] * ENGINE_REQUESTS
+
+    def client(i):
+        request = {'image': random_image(np, seed + 10 + i,
+                                         cfg.perceiver.image_size),
+                   'prompt': prompts[i % len(prompts)],
+                   'max_new_tokens': ENGINE_MAX_NEW, 'stream_chunk': 1}
+        t_start = time.perf_counter()
+        frames, t_first = [], None
+        for f in worker.generate_stream(request):
+            t_first = t_first or time.perf_counter()
+            frames.append(f)
+        results[i] = (frames, t_first - t_start, time.perf_counter())
+
+    int4_matmul.launches = 0
+    paged_int8_decode_attention.launches = 0
+    threads = [threading.Thread(target=client, args=(i,), name=f'client{i}')
+               for i in range(ENGINE_REQUESTS)]
+    t_start = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    mm, att = int4_matmul.launches, paged_int8_decode_attention.launches
+    st = engine.stats()
+    engine.close()
+    if any(r is None for r in results) or len(sessions) != ENGINE_REQUESTS:
+        fail(f'engine: {sum(r is None for r in results)} requests did not '
+             f'finish')
+    vocab = cfg.vocab_size
+    tokens = 0
+    for i, (frames, ttft, _) in enumerate(results):
+        sess = sessions[f'client{i}']
+        final = frames[-1]
+        problems = []
+        if any(f['error_code'] != 0 for f in frames):
+            problems.append(f'error frame {final}')
+        toks = np.asarray(sess.tokens)
+        if not (len(toks) and ((toks >= 0) & (toks < vocab)).all()):
+            problems.append('token out of vocabulary range')
+        boxes, mask = sess.vis['selected_boxes'], sess.vis['selected_mask']
+        kept = boxes[mask]
+        if not mask.any() or not np.isfinite(boxes).all() or not (
+                (kept[:, 2:] > 0).all() and (kept >= 0).all()
+                and (kept <= 1).all()):
+            problems.append('malformed selected boxes')
+        if any(not (np.isfinite(b).all() and len(b) == 4)
+               for b in final.get('boxes', [])):
+            problems.append('malformed boxes in the answer')
+        if problems:
+            fail(f'engine request {i}: ' + '; '.join(problems))
+        tokens += len(toks)
+        print(f'engine request {i}: error_code 0, {len(toks)} tokens, '
+              f'{len(final["boxes"])} boxes in the answer, {int(mask.sum())} '
+              f'regions kept; TTFT {ttft * 1e3:.1f} ms (client clock, queue '
+              f'wait included), engine TTFT {sess.ttft * 1e3:.1f} ms [{card}]')
+    steps = att // n_layers
+    want_mm = (ENGINE_REQUESTS + steps) * (4 * n_layers + 1)
+    problems = []
+    if st['finished'] != ENGINE_REQUESTS or st['truncated'] != 0:
+        problems.append(f'finished {st["finished"]}, truncated '
+                        f'{st["truncated"]}')
+    if st['free_pages'] != st['total_pages']:
+        problems.append(f'{st["total_pages"] - st["free_pages"]} pages not '
+                        f'returned')
+    if st['nonfinite_logits']:
+        problems.append(f'{st["nonfinite_logits"]} prefills or bursts with '
+                        f'non-finite logits')
+    if att % n_layers or steps != st['decode_steps'] or mm != want_mm:
+        problems.append(f'launches int4_matmul {mm} (want {want_mm} = '
+                        f'({ENGINE_REQUESTS} prefills + {steps} steps) x '
+                        f'{4 * n_layers + 1}), paged attention {att} (want a '
+                        f'multiple of {n_layers}, {st["decode_steps"]} steps)')
+    if problems:
+        fail('engine: ' + '; '.join(problems))
+    print(f'engine: {ENGINE_REQUESTS} requests through {st["max_slots"]} '
+          f'slots in {wall:.2f} s: {tokens} tokens, {tokens / wall:.1f} tok/s '
+          f'aggregate, mean TTFT {st["mean_ttft_sec"] * 1e3:.1f} ms (engine '
+          f'clock), {st["decode_steps"]} decode steps at '
+          f'{st["decode_ms_per_step"]:.2f} ms/step (each step one token for '
+          f'every live slot); every page returned; launches int4_matmul {mm}, '
+          f'paged attention {att} [{card}]')
+    del worker, engine
+    return mm, att
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--seed', type=int, default=0,
@@ -720,9 +1069,14 @@ def main():
     timer = Timer(torch, 'cuda')
     mm_err, mm_ms = check_int8_matmul(torch, gen, timer, card)
     att_err, att_ms = check_decode_attention(torch, gen, timer, card)
+    int4_err, int4_ms = check_int4_matmul(torch, gen, timer, card)
+    paged_err, paged_ms, paged_plain_ms = check_paged_attention(
+        torch, gen, timer, card)
     flash = check_flash(torch, gen, timer, card)
     del timer
     check_llm_path(torch, args.seed, card)
+    check_int4_paged_path(torch, args.seed, card)
+    gc.collect()
     torch.cuda.empty_cache()
 
     check_stage3(torch, args.seed, card)
@@ -737,6 +1091,11 @@ def main():
     mm_n, att_n = serve_full_width(torch, np, args.seed, card)
     if not (mm_n and att_n):
         fail('a kernel of the served path was never launched')
+    gc.collect()
+    torch.cuda.empty_cache()
+    int4_n, paged_n = serve_engine_full_width(torch, np, args.seed, card)
+    if not (int4_n and paged_n):
+        fail('a kernel of the engine path was never launched')
     if 'jax' in sys.modules or 'flax' in sys.modules:
         fail('jax was imported')
 
@@ -766,6 +1125,16 @@ def main():
         flash_entry('flash_bwd_causal', 'backward',
                     'groma_tpu_torch/csrc/flash_attention_bwd.cu',
                     'groma_tpu/ops/flash_attention.py:527', flash_n[2]),
+        {'name': 'int4_matmul', 'route': 'cuda',
+         'source': 'groma_tpu_torch/csrc/int4_matmul.cu',
+         'replaces': 'groma_tpu/ops/quant4.py:85',
+         'launches': int4_n, 'max_abs_err': int4_err,
+         'ms': int4_ms[0], 'plain_ms': int4_ms[1]},
+        {'name': 'paged_int8_decode_attention', 'route': 'cuda',
+         'source': 'groma_tpu_torch/csrc/paged_attention.cu',
+         'replaces': 'groma_tpu/ops/paged_attention.py:51',
+         'launches': paged_n, 'max_abs_err': paged_err,
+         'ms': paged_ms, 'plain_ms': paged_plain_ms},
     ]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -29,6 +29,7 @@ from groma_tpu_torch.models.groma import GromaModel
 from groma_tpu_torch.models.llama_quant import (quantize_head,
                                                 quantize_llama_layer)
 
+QUANT_BITS = {'bf16': 16, 'int8': 8, 'int4': 4}   # --quant_type -> bits
 _SMALL_INIT = ('cls_token', 'position_embeddings',
                'query_position_embeddings.weight', 'embed_tokens.weight',
                'new_input_embs.weight')
@@ -87,10 +88,12 @@ def _fill(module: torch.nn.Module, gen: torch.Generator, prefix: str = ''):
 
 
 @torch.no_grad()
-def random_groma(cfg: GromaConfig, seed: int = 0, device='cpu'):
+def random_groma(cfg: GromaConfig, seed: int = 0, device='cpu',
+                 bits: int = 8):
     """Random weights from ``seed`` for any config, made on ``device``.
-    Returns (GromaModel, qp): the LLM lives only in qp, as int8 (the
-    model's ``llm`` keeps just its embedding table, for prefill)."""
+    Returns (GromaModel, qp): the LLM lives only in qp, quantized with
+    ``bits`` (8, 4 or 16; the model's ``llm`` keeps just its embedding
+    table, for prefill)."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     model = GromaModel(cfg, device='meta')
@@ -105,14 +108,14 @@ def random_groma(cfg: GromaConfig, seed: int = 0, device='cpu'):
     for layer in llm.model.layers:
         layer.to_empty(device=device)
         _fill(layer, gen)
-        qp['layers'].append(quantize_llama_layer(layer.state_dict()))
+        qp['layers'].append(quantize_llama_layer(layer.state_dict(), bits))
         layer.to_empty(device='meta')
     llm.model.norm.to_empty(device=device)
     _fill(llm.model.norm, gen)
     qp['norm'] = llm.model.norm.weight
     llm.lm_head.to_empty(device=device)
     _fill(llm.lm_head, gen)
-    qp['lm_head'] = quantize_head(llm.lm_head.weight)
+    qp['lm_head'] = quantize_head(llm.lm_head.weight, bits)
     llm.lm_head.to_empty(device='meta')
     qp['embed_tokens'] = llm.model.embed_tokens.weight.to(torch.bfloat16)
     qp['new_input_embs'] = model.new_input_embs.weight.to(torch.bfloat16)
@@ -132,13 +135,16 @@ def random_groma_full(cfg: GromaConfig, seed: int = 0, device='cpu'):
     return model
 
 
-def load_quantized(model_dir: str, device=None, seed: int = 0):
+def load_quantized(model_dir: str, device=None, seed: int = 0,
+                   bits: int = 8):
     """'tiny' (random tiny config), 'random' (random full-width
-    GromaConfig) or a checkpoint directory -> (GromaModel, int8 qp, cfg)."""
+    GromaConfig) or a checkpoint directory -> (GromaModel, qp, cfg), the
+    LLM quantized with ``bits`` (8, 4 or 16)."""
     from groma_tpu_torch.eval.generate_quant import quantize_groma_llm
     if model_dir in ('tiny', 'random'):
         cfg = tiny_groma_config() if model_dir == 'tiny' else GromaConfig()
-        model, qp = random_groma(cfg, seed=seed, device=device or 'cpu')
+        model, qp = random_groma(cfg, seed=seed, device=device or 'cpu',
+                                 bits=bits)
         return model, qp, cfg
     model, cfg = load_groma(model_dir, device)
-    return model, quantize_groma_llm(model, cfg), cfg
+    return model, quantize_groma_llm(model, cfg, bits), cfg

@@ -25,52 +25,17 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "decode_common.cuh"
+
 namespace {
 
-__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
+using decode::neg_inf;
+using decode::sbyte;
 
 constexpr int kThreads = 1024;   // one block per (b, h): many loads in flight
 constexpr int kWarps = kThreads / 32;
 constexpr int kD = 128;
 constexpr int kMaxS = 4096;   // 5 * S bytes of dynamic shared memory
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Every thread returns the block-wide result; `red` holds kWarps floats.
-__device__ float block_max(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = warp_max(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  v = warp_max(lane < kWarps ? red[lane] : neg_inf());
-  __syncthreads();
-  return v;
-}
-
-__device__ float block_sum(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = warp_sum(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  v = warp_sum(lane < kWarps ? red[lane] : 0.0f);
-  __syncthreads();
-  return v;
-}
-
-__device__ __forceinline__ int sbyte(uint32_t w, int i) {
-  return (int)(int8_t)(uint8_t)(w >> (8 * i));
-}
 
 __global__ void __launch_bounds__(kThreads)
 int8_decode_attention_kernel(const float* __restrict__ q,
@@ -100,15 +65,7 @@ int8_decode_attention_kernel(const float* __restrict__ q,
 
   // 1. quantize q: lane l packs dims 4l..4l+3 into one word
   if (warp == 0) {
-    const float4 qv = reinterpret_cast<const float4*>(q + (size_t)bh * kD)[lane];
-    const float a = warp_max(fmaxf(fmaxf(fabsf(qv.x), fabsf(qv.y)),
-                                   fmaxf(fabsf(qv.z), fabsf(qv.w))));
-    const float qs = a > 0.0f ? a / 127.0f : 1.0f;
-    const uint32_t b0 = (uint32_t)((int)rintf(qv.x / qs) & 0xff);
-    const uint32_t b1 = (uint32_t)((int)rintf(qv.y / qs) & 0xff);
-    const uint32_t b2 = (uint32_t)((int)rintf(qv.z / qs) & 0xff);
-    const uint32_t b3 = (uint32_t)((int)rintf(qv.w / qs) & 0xff);
-    q8s[lane] = b0 | (b1 << 8) | (b2 << 16) | (b3 << 24);
+    const float qs = decode::quantize_q_row(q + (size_t)bh * kD, q8s);
     if (lane == 0) qs_shared = qs;
   }
   __syncthreads();
@@ -126,10 +83,7 @@ int8_decode_attention_kernel(const float* __restrict__ q,
     if (pos < S) {
       const uint4 kw = __ldg(reinterpret_cast<const uint4*>(
                                  krows + (size_t)pos * kD) + sub);
-      dot = __dp4a((int)kw.x, (int)qw.x, dot);
-      dot = __dp4a((int)kw.y, (int)qw.y, dot);
-      dot = __dp4a((int)kw.z, (int)qw.z, dot);
-      dot = __dp4a((int)kw.w, (int)qw.w, dot);
+      dot = decode::dot16(kw, qw);
     }
     dot += __shfl_xor_sync(0xffffffffu, dot, 1);
     dot += __shfl_xor_sync(0xffffffffu, dot, 2);
@@ -141,7 +95,7 @@ int8_decode_attention_kernel(const float* __restrict__ q,
       local_max = fmaxf(local_max, s);
     }
   }
-  const float m = block_max(local_max, red);
+  const float m = decode::block_max<kWarps>(local_max, red);
 
   // 3-4. exp, denominator, fold the v scale into p, its max
   float dsum = 0.0f, rmax = 0.0f;
@@ -152,8 +106,8 @@ int8_decode_attention_kernel(const float* __restrict__ q,
     scores[pos] = ps;
     rmax = fmaxf(rmax, ps);
   }
-  const float denom = block_sum(dsum, red);
-  float r = block_max(rmax, red);
+  const float denom = decode::block_sum<kWarps>(dsum, red);
+  float r = decode::block_max<kWarps>(rmax, red);
   r = r > 0.0f ? r / 127.0f : 1.0f;
   for (int pos = tid; pos < S; pos += kThreads)
     p8[pos] = (int8_t)(int)rintf(scores[pos] / r);

@@ -1,6 +1,7 @@
-"""Int8-LLM Groma generation: vision in the model's dtypes, weight-only int8
-LLaMA, optional int8 KV cache (counterpart of
-``groma_tpu/eval/generate_quant.py``; greedy only, no speculative decoding).
+"""Quantized-LLM Groma generation: vision in the model's dtypes, weight-only
+int8 or int4 LLaMA (or the bf16 ``bits=16`` tree), optional int8 KV cache
+(counterpart of ``groma_tpu/eval/generate_quant.py``; greedy only, no
+speculative decoding).
 
 ``generate`` has the JAX generator's signature and return values: greedy
 tokens as a numpy (B, W) array, each row cut after its first EOS and
@@ -29,12 +30,30 @@ from groma_tpu_torch.models.llama_quant import (make_quant_kv_cache,
 
 def quantize_groma_llm(model: GromaModel, cfg: GromaConfig,
                        bits: int = 8) -> dict:
-    """The LLM branch of a GromaModel -> the int8 tree; embeddings and the
-    small extra head are kept in bf16."""
+    """The LLM branch of a GromaModel -> the quantized tree (``bits`` 8, 4
+    or 16, see ``quantize_llama_params``); embeddings and the small extra
+    head are kept in bf16."""
     qp = quantize_llama_params(model.llm.state_dict(), cfg.llm, bits=bits)
     qp['new_input_embs'] = model.new_input_embs.weight.to(torch.bfloat16)
     qp['extra_lm_head'] = model.extra_lm_head.weight.T.to(torch.bfloat16)
     return qp
+
+
+def quant_logits(qp: dict, hidden) -> torch.Tensor:
+    """Dual-head logits in f32: the quantized base head, then the bf16
+    extra head for the new tokens (f32 products)."""
+    base = quant_llama_logits(qp, hidden)
+    extra = hidden.to(torch.bfloat16).to(torch.float32) @ \
+        qp['extra_lm_head'].to(torch.float32)
+    return torch.cat([base.to(torch.float32), extra], dim=-1)
+
+
+def quant_embed(qp: dict, ids, base_vocab: int) -> torch.Tensor:
+    """Split-vocabulary embedding lookup from the tree's bf16 tables."""
+    is_new = ids >= base_vocab
+    e = qp['embed_tokens'][torch.where(is_new, 0, ids)]
+    n = qp['new_input_embs'][torch.where(is_new, ids - base_vocab, 0)]
+    return torch.where(is_new[..., None], n, e)
 
 
 def parse_region_tokens(tokens: np.ndarray, box_idx_start: int,
@@ -46,7 +65,7 @@ def parse_region_tokens(tokens: np.ndarray, box_idx_start: int,
 
 
 class QuantGenerator:
-    """Prefill + greedy decode with the int8 LLM.  ``kv_bits=8`` keeps the
+    """Prefill + greedy decode with the quantized LLM.  ``kv_bits=8`` keeps the
     KV cache in int8 with per-token scales (the served configuration).
 
     After each ``generate`` call, ``last_stats`` holds what a caller may
@@ -65,19 +84,6 @@ class QuantGenerator:
         self.kv_bits = kv_bits
         self.device = qp['norm'].device
         self.last_stats = None
-
-    def _logits(self, hidden):
-        base = quant_llama_logits(self.qp, hidden)
-        extra = hidden.to(torch.bfloat16).to(torch.float32) @ \
-            self.qp['extra_lm_head'].to(torch.float32)
-        return torch.cat([base.to(torch.float32), extra], dim=-1)
-
-    def _embed(self, ids):
-        base = self.cfg.llm.vocab_size
-        is_new = ids >= base
-        e = self.qp['embed_tokens'][torch.where(is_new, 0, ids)]
-        n = self.qp['new_input_embs'][torch.where(is_new, ids - base, 0)]
-        return torch.where(is_new[..., None], n, e)
 
     def _sync(self):
         if self.device.type == 'cuda':
@@ -122,7 +128,7 @@ class QuantGenerator:
                                             pos, cache)
         rows = torch.arange(b, device=self.device)
         last = torch.argmax(pos, dim=-1)
-        logits = self._logits(hidden[rows, last][:, None])[:, 0]
+        logits = quant_logits(self.qp, hidden[rows, last][:, None])[:, 0]
         next_pos = pos[rows, last][:, None] + 1
         self._sync()
         t1 = time.perf_counter()
@@ -139,9 +145,10 @@ class QuantGenerator:
             if i == max_new_tokens - 1 or bool(done.all()):
                 break
             hidden, cache = quant_llama_forward(
-                self.qp, cfg.llm, self._embed(tok[:, None]), ones,
-                next_pos + i, cache)
-            logits = self._logits(hidden)[:, -1]
+                self.qp, cfg.llm,
+                quant_embed(self.qp, tok[:, None], cfg.llm.vocab_size),
+                ones, next_pos + i, cache)
+            logits = quant_logits(self.qp, hidden)[:, -1]
             finite = finite & torch.isfinite(logits).all()
             forwards += 1
         toks = torch.stack(toks, dim=1).cpu().numpy().astype(np.int32)

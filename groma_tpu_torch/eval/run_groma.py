@@ -6,7 +6,8 @@ the image.
     python -m groma_tpu_torch.eval.run_groma --tiny --image-file img.png \\
         --query 'Locate the dog.' --quant_type int8 --kv-bits 8
 
-Only the int8 LLM is ported (``--quant_type int8``); the KV cache is int8
+The LLM is weight-only int8 (``--quant_type int8``), packed int4
+(``int4``) or the unquantized bf16 tree (``bf16``); the KV cache is int8
 (``--kv-bits 8``, the served configuration) or bf16 (16).
 """
 
@@ -15,6 +16,8 @@ from __future__ import annotations
 import argparse
 
 import numpy as np
+
+from groma_tpu_torch.checkpoint.loader import QUANT_BITS
 
 
 def draw_boxes(image: np.ndarray, boxes_cxcywh, path: str):
@@ -40,7 +43,8 @@ def main(argv=None):
     ap.add_argument('--query', required=True)
     ap.add_argument('--tokenizer', default=None,
                     help='HF tokenizer path (defaults to the model dir)')
-    ap.add_argument('--quant_type', default='int8', choices=['int8'])
+    ap.add_argument('--quant_type', default='int8',
+                    choices=sorted(QUANT_BITS))
     ap.add_argument('--kv-bits', type=int, default=8, choices=[16, 8])
     ap.add_argument('--max-new-tokens', type=int, default=64)
     ap.add_argument('--device', default=None,
@@ -62,7 +66,8 @@ def main(argv=None):
     if not model_dir:
         ap.error('--model-dir or --tiny is required')
     device = args.device or ('cuda' if torch.cuda.is_available() else 'cpu')
-    model, qp, cfg = load_quantized(model_dir, device=device)
+    model, qp, cfg = load_quantized(model_dir, device=device,
+                                    bits=QUANT_BITS[args.quant_type])
     if model_dir == 'tiny':
         tokenizer = StubTokenizer(cfg.llm.vocab_size, cfg.max_seq_len)
     else:

@@ -1,16 +1,23 @@
-"""Weight-only int8 LLaMA inference with an int8 KV cache (counterpart of
-``groma_tpu/models/llama_quant.py``).
+"""Weight-only int8 / int4 LLaMA inference with an int8 KV cache
+(counterpart of ``groma_tpu/models/llama_quant.py``).
 
 Weights are pre-quantized into a plain dict (qkv and gate/up fused along
-the output dim, per-column int8 scales exact under the concatenation); the
-matmuls go through ``ops.quant.int8_matmul`` and single-token attention over
-the int8 cache through ``ops.decode_attention.int8_decode_attention``.
+the output dim; per-column int8 scales, and int4's per-(256-row block,
+column) scales, stay exact under the concatenation).  ``_qmm`` dispatches
+on the stored dtype: uint8 is packed int4 (``ops.quant4.int4_matmul``),
+int8 per-column int8 (``ops.quant.int8_matmul``), bf16 the unquantized
+``bits=16`` tree.  Single-token attention over the int8 cache goes through
+``ops.decode_attention.int8_decode_attention``, over the engine's page pool
+through ``ops.paged_attention.paged_int8_decode_attention``.
 
 Ported: the scalar-index prefill and decode branches of
-``quant_llama_forward``.  The vector-index (continuous batching) and
-chunked-append branches belong to the serving engine and are not ported
-yet.  Unlike JAX, whose ``dynamic_update_slice`` clamps a write past the
-cache end, a write that does not fit raises.
+``quant_llama_forward``, its vector-index single-token decode (the
+continuous-batching engine, per-row positions) and
+``quant_llama_decode_paged``.  The vector-index multi-token append and
+``chunked=True`` (speculative verify, chunked prefill) are not ported and
+raise.  Unlike JAX, whose ``dynamic_update_slice`` clamps a write past the
+cache end, a scalar-index write that does not fit raises; a per-row index
+must stay inside the cache (the engine does not advance idle rows).
 """
 
 from __future__ import annotations
@@ -24,19 +31,38 @@ from groma_tpu.config import LlamaConfig
 from groma_tpu_torch.models.llama import (apply_rope, rms_norm, rope_tables,
                                           torch_dtype)
 from groma_tpu_torch.ops.decode_attention import int8_decode_attention
+from groma_tpu_torch.ops.paged_attention import (PAGE,
+                                                 paged_int8_decode_attention)
 from groma_tpu_torch.ops.quant import int8_matmul, quantize_weight, true_div
+from groma_tpu_torch.ops.quant4 import (INT4_BLOCK, int4_matmul,
+                                        quantize_weight_int4)
 
 NEG_INF = -1e30
 
 
-def quantize_llama_layer(w: dict) -> dict:
+def quantize_kernel(kernel: torch.Tensor, bits: int = 8,
+                    pad_to: int = 0) -> dict:
+    """One (K, N) kernel -> its leaf, by the JAX package's rule: ``bits=16``
+    keeps bf16 ({'q'}); ``bits=4`` packs int4 where K is a multiple of
+    INT4_BLOCK and falls back to int8 elsewhere ({'q', 'scale'}).
+    ``pad_to`` zero-pads N to a multiple."""
+    if bits not in (16, 8, 4):
+        raise ValueError(f'bits must be 16, 8 or 4, not {bits}')
+    if bits == 16:
+        if pad_to and kernel.shape[1] % pad_to:
+            kernel = F.pad(kernel, (0, (-kernel.shape[1]) % pad_to))
+        return {'q': kernel.to(torch.bfloat16).contiguous()}
+    if bits == 4 and kernel.shape[0] % INT4_BLOCK == 0:
+        qd = quantize_weight_int4(kernel, block=INT4_BLOCK, pad_to=pad_to)
+        return {'q': qd['q'], 'scale': qd['scale']}
+    qw, s = quantize_weight(kernel, pad_to=pad_to)
+    return {'q': qw, 'scale': s}
+
+
+def quantize_llama_layer(w: dict, bits: int = 8) -> dict:
     """One decoder layer's HF-named weights (``self_attn.q_proj.weight``,
     ``mlp.gate_proj.weight``, ``input_layernorm.weight`` ...) -> the fused
-    int8 layer dict.  Kernels are (K, N) = weight.T."""
-    def q(kernel):
-        qw, s = quantize_weight(kernel)
-        return {'q': qw, 'scale': s}
-
+    layer dict.  Kernels are (K, N) = weight.T."""
     qkv = torch.cat([w['self_attn.q_proj.weight'].T,
                      w['self_attn.k_proj.weight'].T,
                      w['self_attn.v_proj.weight'].T], dim=1)
@@ -45,46 +71,54 @@ def quantize_llama_layer(w: dict) -> dict:
     return {
         'input_layernorm': w['input_layernorm.weight'],
         'post_attention_layernorm': w['post_attention_layernorm.weight'],
-        'qkv_proj': q(qkv),
-        'o_proj': q(w['self_attn.o_proj.weight'].T),
-        'gate_up_proj': q(gate_up),
-        'down_proj': q(w['mlp.down_proj.weight'].T),
+        'qkv_proj': quantize_kernel(qkv, bits),
+        'o_proj': quantize_kernel(w['self_attn.o_proj.weight'].T, bits),
+        'gate_up_proj': quantize_kernel(gate_up, bits),
+        'down_proj': quantize_kernel(w['mlp.down_proj.weight'].T, bits),
     }
 
 
-def quantize_head(weight: torch.Tensor) -> dict:
-    """(V, D) head -> int8 (D, V') padded to a multiple of 512 columns; the
+def quantize_head(weight: torch.Tensor, bits: int = 8) -> dict:
+    """(V, D) head -> (D, V') padded to a multiple of 512 columns; the
     consumer slices logits back to V (quant_llama_logits)."""
-    qw, s = quantize_weight(weight.T, pad_to=512)
-    return {'q': qw, 'scale': s}
+    return quantize_kernel(weight.T, bits, pad_to=512)
 
 
 def quantize_llama_params(sd, cfg: LlamaConfig, bits: int = 8) -> dict:
     """HF-layout LLaMA state dict (``model.layers.N. ...``, ``model.norm``,
     ``model.embed_tokens``, ``lm_head``; or the module holding them) ->
-    the int8 tree of the JAX package's ``quantize_llama_params``."""
-    if bits != 8:
-        raise ValueError('only bits=8 is ported (int4 and the bf16 tree '
-                         'come with later parts of the port)')
+    the tree of the JAX package's ``quantize_llama_params`` (bits 8, 4 or
+    16)."""
     if isinstance(sd, torch.nn.Module):
         sd = sd.state_dict()
     out = {'layers': [], 'norm': sd['model.norm.weight']}
     for i in range(cfg.num_layers):
         p = f'model.layers.{i}.'
         out['layers'].append(quantize_llama_layer(
-            {k[len(p):]: v for k, v in sd.items() if k.startswith(p)}))
+            {k[len(p):]: v for k, v in sd.items() if k.startswith(p)}, bits))
     if 'model.embed_tokens.weight' in sd:
         out['embed_tokens'] = sd['model.embed_tokens.weight'].to(
             torch.bfloat16)
     if 'lm_head.weight' in sd:
-        out['lm_head'] = quantize_head(sd['lm_head.weight'])
+        out['lm_head'] = quantize_head(sd['lm_head.weight'], bits)
     return out
 
 
 def _qmm(x, qw):
-    """(..., K) @ int8 (K, N) through the int8 matmul."""
+    """(..., K) @ quantized (K, N): uint8 storage is packed int4, int8
+    per-column int8, bf16 the unquantized tree (a bf16 product with f32
+    sums, in x's dtype)."""
     lead = x.shape[:-1]
-    y = int8_matmul(x.reshape(-1, x.shape[-1]), qw['q'], qw['scale'])
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    q = qw['q']
+    if q.dtype == torch.bfloat16:
+        # JAX's bf16 dot with f32 sums, cast to x's dtype
+        y = x2 @ q if x2.dtype == torch.bfloat16 else \
+            (x2.to(torch.bfloat16).float() @ q.float()).to(x2.dtype)
+    elif q.dtype == torch.uint8:
+        y = int4_matmul(x2, q, qw['scale'])
+    else:
+        y = int8_matmul(x2, q, qw['scale'])
     return y.reshape(*lead, -1)
 
 
@@ -139,6 +173,30 @@ def _int8_cache_attention(q, k_q, k_s, v_q, v_s, mask_bias):
     return out.float() * r
 
 
+def _project_qkv(x, lp, cfg: LlamaConfig, cos, sin):
+    """A layer's input norm and fused qkv -> roped q, k and v
+    (B, H, S, hd) in the model dtype."""
+    dtype = torch_dtype(cfg.dtype)
+    b, s, _ = x.shape
+    nh, hd = cfg.num_heads, cfg.hidden_size // cfg.num_heads
+    h = rms_norm(x, lp['input_layernorm'], cfg.rms_norm_eps)
+    q, k, v = (t.reshape(b, s, nh, hd).transpose(1, 2)
+               for t in _qmm(h, lp['qkv_proj']).chunk(3, dim=-1))
+    return (apply_rope(q.to(dtype), cos, sin),
+            apply_rope(k.to(dtype), cos, sin), v.to(dtype))
+
+
+def _finish_layer(x, attn, lp, cfg: LlamaConfig):
+    """Attention output projection and the MLP, both residual."""
+    dtype = torch_dtype(cfg.dtype)
+    b, s, _ = x.shape
+    attn = attn.to(dtype).transpose(1, 2).reshape(b, s, -1)
+    x = x + _qmm(attn, lp['o_proj']).to(dtype)
+    h = rms_norm(x, lp['post_attention_layernorm'], cfg.rms_norm_eps)
+    gate, up = _qmm(h, lp['gate_up_proj']).chunk(2, dim=-1)
+    return x + _qmm((F.silu(gate) * up).to(dtype), lp['down_proj']).to(dtype)
+
+
 def quant_llama_forward(qp: dict, cfg: LlamaConfig, inputs_embeds,
                         attn_mask, position_ids,
                         cache: Optional[dict] = None):
@@ -147,14 +205,16 @@ def quant_llama_forward(qp: dict, cfg: LlamaConfig, inputs_embeds,
 
     A multi-token call with a cache is PREFILL into a fresh cache (index
     0): attention runs over this call's own keys.  A single-token call with
-    a cache is DECODE at the cache's scalar index: with an int8 cache the
-    attention is the int8 decode kernel over the whole buffer and its mask.
-    The cache is updated in place and returned.  Multi-head attention only
-    (Vicuna-7B): grouped-query configs raise."""
+    a cache is DECODE: at the cache's scalar index, or, when
+    ``cache['index']`` is a (B,) tensor, at each row's own index (the
+    continuous-batching engine), every row seeing the slots up to its
+    index.  With an int8 cache the attention is the int8 decode kernel over
+    the whole buffer and its mask.  The cache is updated in place and
+    returned; every row's index advances by S, as in JAX.  Multi-head
+    attention only (Vicuna-7B): grouped-query configs raise."""
     dtype = torch_dtype(cfg.dtype)
     hd = cfg.hidden_size // cfg.num_heads
-    nh = cfg.num_heads
-    if cfg.num_kv_heads != nh:
+    if cfg.num_kv_heads != cfg.num_heads:
         raise ValueError('num_kv_heads != num_heads (GQA) is not ported')
     cos, sin = rope_tables(position_ids, hd, cfg.rope_theta)
     x = inputs_embeds.to(dtype)
@@ -165,19 +225,25 @@ def quant_llama_forward(qp: dict, cfg: LlamaConfig, inputs_embeds,
     idx = 0
     kv_mask = attn_mask
     quant_kv = False
-    if cache is not None:
+    vector = cache is not None and torch.is_tensor(cache['index'])
+    rows = torch.arange(b, device=dev)
+    if vector:
         idx = cache['index']
-        if not isinstance(idx, int):
-            raise ValueError('per-row cache indices belong to the serving '
-                             'engine, which is not ported yet')
+        if s != 1:
+            raise ValueError('per-row cache indices take one token a row '
+                             '(multi-token appends are not ported)')
+        cache['mask'][rows, idx] = attn_mask[:, 0]
+    elif cache is not None:
+        idx = cache['index']
         if prefill and idx != 0:
             raise ValueError('a multi-token call fills a fresh cache '
-                             '(chunked appends are not ported yet)')
+                             '(chunked appends are not ported)')
         max_len = cache['mask'].shape[1]
         if idx + s > max_len:
             raise ValueError(f'KV cache overflow: {s} tokens at slot {idx} '
                              f'of a {max_len}-slot cache')
         cache['mask'][:, idx:idx + s] = attn_mask[:, :s]
+    if cache is not None:
         kv_mask = cache['mask']
         quant_kv = cache['k'][0].dtype == torch.int8
 
@@ -189,31 +255,32 @@ def quant_llama_forward(qp: dict, cfg: LlamaConfig, inputs_embeds,
         amask = kv_mask
     qi = torch.arange(s, device=dev)[:, None]
     kj = torch.arange(skv, device=dev)[None, :]
-    causal_ok = kj <= qi + (0 if prefill or cache is None else idx)
-    mask_bias = torch.where(causal_ok[None, None] & amask[:, None, None, :],
+    if vector:
+        causal_ok = (kj <= idx[:, None])[:, None, None, :]   # (B, 1, 1, S)
+    else:
+        causal_ok = (kj <= qi + (0 if prefill or cache is None
+                                 else idx))[None, None]
+    mask_bias = torch.where(causal_ok & amask[:, None, None, :],
                             0.0, NEG_INF).to(torch.float32)
 
     for i, lp in enumerate(qp['layers']):
-        h = rms_norm(x, lp['input_layernorm'], cfg.rms_norm_eps)
-        qkv = _qmm(h, lp['qkv_proj'])
-        q, k, v = (t.reshape(b, s, nh, hd).transpose(1, 2)
-                   for t in qkv.chunk(3, dim=-1))
-        q = apply_rope(q.to(dtype), cos, sin)
-        k = apply_rope(k.to(dtype), cos, sin)
-        v = v.to(dtype)
-
-        if quant_kv:
-            kq8, ksc = _quantize_tokens(k)
-            vq8, vsc = _quantize_tokens(v)
-            cache['k'][i][:, :, idx:idx + s] = kq8
-            cache['v'][i][:, :, idx:idx + s] = vq8
-            cache['k_scale'][i][:, :, idx:idx + s] = ksc
-            cache['v_scale'][i][:, :, idx:idx + s] = vsc
-        elif cache is not None:
-            cache['k'][i][:, :, idx:idx + s] = k
-            cache['v'][i][:, :, idx:idx + s] = v
-            if not prefill:
-                k, v = cache['k'][i], cache['v'][i]
+        q, k, v = _project_qkv(x, lp, cfg, cos, sin)
+        if cache is not None:
+            at = (rows, slice(None), idx) if vector \
+                else (slice(None), slice(None), slice(idx, idx + s))
+            one = (lambda t: t[:, :, 0]) if vector else (lambda t: t)
+            if quant_kv:
+                kq8, ksc = _quantize_tokens(k)
+                vq8, vsc = _quantize_tokens(v)
+                cache['k'][i][at] = one(kq8)
+                cache['v'][i][at] = one(vq8)
+                cache['k_scale'][i][at] = one(ksc)
+                cache['v_scale'][i][at] = one(vsc)
+            else:
+                cache['k'][i][at] = one(k)
+                cache['v'][i][at] = one(v)
+                if not prefill:
+                    k, v = cache['k'][i], cache['v'][i]
 
         if quant_kv and not prefill:
             attn = int8_decode_attention(
@@ -230,13 +297,7 @@ def quant_llama_forward(qp: dict, cfg: LlamaConfig, inputs_embeds,
             sc = sc + mask_bias.to(score_dtype)
             p = torch.softmax(sc.to(torch.float32), dim=-1)
             attn = torch.matmul(p.to(v.dtype), v)
-        attn = attn.to(dtype).transpose(1, 2).reshape(b, s, -1)
-        x = x + _qmm(attn, lp['o_proj']).to(dtype)
-
-        h = rms_norm(x, lp['post_attention_layernorm'], cfg.rms_norm_eps)
-        gate, up = _qmm(h, lp['gate_up_proj']).chunk(2, dim=-1)
-        x = x + _qmm((F.silu(gate) * up).to(dtype),
-                     lp['down_proj']).to(dtype)
+        x = _finish_layer(x, attn, lp, cfg)
 
     x = rms_norm(x, qp['norm'], cfg.rms_norm_eps)
     if cache is not None:
@@ -244,8 +305,50 @@ def quant_llama_forward(qp: dict, cfg: LlamaConfig, inputs_embeds,
     return x, cache
 
 
+def quant_llama_decode_paged(qp: dict, cfg: LlamaConfig, inputs_embeds,
+                             position_ids, pools: dict, table, lengths):
+    """Single-token decode against the engine's shared int8 KV page pools
+    (``ops.paged_attention``).
+
+    ``position_ids`` (B, 1): each row's write position (its kv length
+    before this token); the page comes from ``table`` (B, NP) int32.
+    ``lengths`` (B,) int32: the valid kv length after the write (pos + 1
+    for live rows; 0 freezes a row, whose output is then the uniform
+    average over its pages, finite and discarded).  Frozen rows of the
+    engine all write into the trash page 0, possibly at one offset: the
+    scatter takes duplicate indices, and that page's content is garbage by
+    design.  MHA only.  The pools are updated in place; returns
+    (hidden (B, 1, D), pools)."""
+    hd = cfg.hidden_size // cfg.num_heads
+    if cfg.num_kv_heads != cfg.num_heads:
+        raise ValueError('paged decode requires MHA')
+    b, s, _ = inputs_embeds.shape
+    if s != 1:
+        raise ValueError('paged decode takes one token a row')
+    cos, sin = rope_tables(position_ids, hd, cfg.rope_theta)
+    x = inputs_embeds.to(torch_dtype(cfg.dtype))
+    pos = position_ids[:, 0].long()
+    rows = torch.arange(b, device=x.device)
+    at = (table[rows, pos // PAGE].long(), slice(None), pos % PAGE)
+
+    for i, lp in enumerate(qp['layers']):
+        q, k, v = _project_qkv(x, lp, cfg, cos, sin)
+        kq8, ksc = _quantize_tokens(k)
+        vq8, vsc = _quantize_tokens(v)
+        pools['k'][i][at] = kq8[:, :, 0]
+        pools['v'][i][at] = vq8[:, :, 0]
+        pools['k_scale'][i][at] = ksc[:, :, 0]
+        pools['v_scale'][i][at] = vsc[:, :, 0]
+        attn = paged_int8_decode_attention(
+            q, pools['k'][i], pools['k_scale'][i], pools['v'][i],
+            pools['v_scale'][i], table, lengths)
+        x = _finish_layer(x, attn, lp, cfg)
+
+    return rms_norm(x, qp['norm'], cfg.rms_norm_eps), pools
+
+
 def quant_llama_logits(qp: dict, hidden):
-    """Base-vocabulary logits through the int8 head, its pad columns
-    dropped."""
+    """Base-vocabulary logits through the tree's head (int8, int4 or the
+    bits=16 bf16 one), its pad columns dropped."""
     logits = _qmm(hidden, qp['lm_head'])
     return logits[..., :qp['embed_tokens'].shape[0]]

@@ -63,6 +63,11 @@ def _declare(lib):
     lib.groma_flash_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p,
                                     i, i, i, i, i, f, p]
     lib.groma_flash_bwd.restype = i
+    lib.groma_int4_matmul.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.groma_int4_matmul.restype = i
+    lib.groma_paged_attention.argtypes = [p, p, p, p, p, p, p, p,
+                                          i, i, i, i, p]
+    lib.groma_paged_attention.restype = i
 
 
 def _build(sources, so: Path) -> str:

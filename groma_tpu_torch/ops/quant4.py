@@ -1,0 +1,144 @@
+"""4-bit weight-only quantization and the packed-int4 matmul.
+
+Counterpart of ``groma_tpu/ops/quant4.py`` (the int4 half; the nf4 codec is
+host-side format parity and is not ported yet).  ``int4_matmul`` replaces
+the TPU kernel ``_int4_matmul_kernel`` with the hand-written CUDA kernel in
+``csrc/int4_matmul.cu``, at every M: a weight-streaming tile for decode
+(M <= ``DECODE_MAX_ROWS``) and a tensor-core tile for prefill.
+
+Format (the JAX package's, byte for byte): symmetric q in [-7, 7] with a
+scale per (``INT4_BLOCK``-row K block, column), stored as q + 8 nibbles;
+rows k and k + K/2 share byte k of the (K/2, N) uint8 array, row k in the
+low nibble.
+
+* ``int4_matmul_reference`` is the plain PyTorch version, callable on any
+  device: the weights dequantized to f32, an f32 dot, the result in x's
+  dtype (the JAX wrapper's CPU path).
+* ``int4_matmul`` takes the plain version only for tensors on the CPU.  On
+  a CUDA tensor it launches the kernel or raises; there is no
+  dequantize-plus-matmul route.  ``int4_matmul.launches`` counts launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from groma_tpu_torch.ops.quant import true_div
+
+INT4_BLOCK = 256          # scale block of the packed-int4 LLM tree
+DECODE_MAX_ROWS = 8       # up to this many rows: the weight-streaming tile
+_PREFILL_TILE = (128, 64)  # rows, columns of the tensor-core tile
+
+
+def quantize_weight_int4(w: torch.Tensor, block: int = 128,
+                         pad_to: int = 0) -> dict:
+    """(K, N) float -> {'q': uint8 (K/2, N'), 'scale': f32 (K/block, N'),
+    'block': block}; ``pad_to`` zero-pads N to a multiple first (an
+    all-zero column gets scale 1.0)."""
+    k, n = w.shape
+    if k % 2 or k % block:
+        raise ValueError(f'quantize_weight_int4: K={k} is not a multiple of '
+                         f'2 and of the block {block}')
+    w = w.to(torch.float32)
+    if pad_to and n % pad_to:
+        w = torch.nn.functional.pad(w, (0, (-n) % pad_to))
+        n = w.shape[1]
+    amax = w.reshape(k // block, block, n).abs().amax(dim=1)
+    scale = torch.where(amax > 0, true_div(amax, 7.0), torch.ones_like(amax))
+    q = torch.round(w / scale.repeat_interleave(block, dim=0))
+    q = torch.clamp(q, -7, 7).to(torch.int32) + 8          # 1..15
+    packed = (q[:k // 2] | (q[k // 2:] << 4)).to(torch.uint8)
+    return {'q': packed.contiguous(), 'scale': scale.contiguous(),
+            'block': block}
+
+
+def dequantize_weight_int4(qd: dict, dtype=torch.float32) -> torch.Tensor:
+    packed = qd['q'].to(torch.int32)
+    q = torch.cat([(packed & 0xF) - 8, (packed >> 4) - 8], dim=0)
+    scale = qd['scale'].repeat_interleave(qd['block'], dim=0)
+    return (q.to(torch.float32) * scale).to(dtype)
+
+
+def int4_matmul_reference(x: torch.Tensor, packed: torch.Tensor,
+                          scale: torch.Tensor,
+                          block: int = INT4_BLOCK) -> torch.Tensor:
+    """x (M, K) @ packed int4 (K/2, N) with (K/block, N) scales: the f32
+    dot against the dequantized weights, result in x.dtype."""
+    w = dequantize_weight_int4({'q': packed, 'scale': scale, 'block': block})
+    return (x.to(torch.float32) @ w).to(x.dtype)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _row_tile(m: int) -> int:
+    return 1 if m == 1 else 2 if m == 2 else 4 if m <= 4 else 8
+
+
+def _launch(x, packed, scale):
+    from groma_tpu_torch.ops.cuda_lib import check, library, stream_ptr
+    m, k = x.shape
+    n = packed.shape[1]
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    partial = None
+    mt, chunk, splits = 0, 0, 1
+    if m <= DECODE_MAX_ROWS:
+        mt = _row_tile(m)
+        # split the K/2 packed rows (in 128-row chunks, each inside one
+        # scale block of either half) until there are about two blocks
+        # per SM; every split writes f32 partial sums
+        chunks = k // 256
+        blocks = _cdiv(n, 64)
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        splits = max(1, min(_cdiv(2 * sms, blocks), chunks))
+        chunk = _cdiv(chunks, splits) * 128
+        splits = _cdiv(k // 2, chunk)
+        if splits > 1:
+            partial = torch.empty((splits, m, n), dtype=torch.float32,
+                                  device=x.device)
+    status = library().groma_int4_matmul(
+        x.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        partial.data_ptr() if partial is not None else None,
+        m, k, n, mt, chunk, splits, stream_ptr(x))
+    check(status, 'int4_matmul')
+    int4_matmul.launches += 1
+    return out
+
+
+def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
+                block: int = INT4_BLOCK) -> torch.Tensor:
+    """x (M, K) @ packed int4 weights (K/2, N), per-(block, column) scales
+    -> (M, N).
+
+    CPU tensors: the plain version.  CUDA tensors: x bf16, packed uint8,
+    scale f32, all contiguous, block 256, K a multiple of 256 and N of 64;
+    the hand-written kernel at every M, the result in bf16."""
+    if x.device.type == 'cpu':
+        return int4_matmul_reference(x, packed, scale, block)
+    if x.device.type != 'cuda':
+        raise ValueError(f'int4_matmul: unsupported device {x.device}')
+    m, k = x.shape
+    n = packed.shape[1] if packed.dim() == 2 else -1
+    if (packed.dim() != 2 or packed.shape[0] * 2 != k or block != INT4_BLOCK
+            or k % INT4_BLOCK or n % _PREFILL_TILE[1] or m < 1
+            or scale.shape != (k // block, n)):
+        raise ValueError(f'int4_matmul: shapes x {tuple(x.shape)}, packed '
+                         f'{tuple(packed.shape)}, scale {tuple(scale.shape)}, '
+                         f'block {block}; the kernel takes block '
+                         f'{INT4_BLOCK}, K % {INT4_BLOCK} == 0, N % 64 == 0')
+    if (x.dtype, packed.dtype, scale.dtype) != (torch.bfloat16, torch.uint8,
+                                                torch.float32):
+        raise ValueError(f'int4_matmul: dtypes {x.dtype}, {packed.dtype}, '
+                         f'{scale.dtype}; the kernel takes bf16, uint8, f32')
+    if not (packed.device == scale.device == x.device):
+        raise ValueError('int4_matmul: tensors on different devices')
+    if not (x.is_contiguous() and packed.is_contiguous()
+            and scale.is_contiguous()) or packed.data_ptr() % 16 \
+            or x.data_ptr() % 16:
+        raise ValueError('int4_matmul: the kernel takes contiguous tensors '
+                         'with 16-byte-aligned x and weights')
+    return _launch(x, packed, scale)
+
+
+int4_matmul.launches = 0

@@ -1,13 +1,21 @@
 """Model worker on the port: streaming generation over HTTP + controller
-heartbeat (counterpart of ``groma_tpu/serve/worker.py``, non-engine
-``QuantGenerator`` path).
+heartbeat (counterpart of ``groma_tpu/serve/worker.py``).
 
-The HTTP handler, the status report and the controller heartbeat are the
-JAX package's (they hold no JAX); this class replaces model loading and
-generation.  A request that fails, for instance one asking for more new
-tokens than the KV cache has free slots, gets a final frame with
-``error_code`` 1 and the error's type and message; the traceback goes to
-the log.  The worker keeps serving other requests.
+The HTTP handler, the status report (with ``engine.stats()`` when the
+engine serves) and the controller heartbeat are the JAX package's (they
+hold no JAX); this class replaces model loading and generation.  Requests
+go to the continuous-batching ``BatchEngine`` (``--engine``; the
+production server is ``--engine --quant_type int4 --kv-bits 8
+--paged-kv``), or one at a time to ``QuantGenerator``.  A request that
+fails, for instance one asking the generator for more new tokens than its
+KV cache has free slots, gets a final frame with ``error_code`` 1 and the
+error's type and message; the traceback goes to the log.  The worker keeps
+serving other requests.
+
+    python -m groma_tpu_torch.serve.worker --tiny --device cpu --engine \
+        --quant_type int4 --kv-bits 8 --paged-kv      # tiny, on the CPU
+    python -m groma_tpu_torch.serve.worker --model-dir <dir> --engine \
+        --quant_type int4 --kv-bits 8 --paged-kv      # the card
 """
 
 from __future__ import annotations
@@ -20,11 +28,14 @@ from http.server import ThreadingHTTPServer
 import numpy as np
 
 from groma_tpu.serve import worker as jax_worker
+from groma_tpu_torch.checkpoint.loader import QUANT_BITS
 
 logger = logging.getLogger('groma_tpu_torch.serve.worker')
 
-# the cache holds max_seq_len + 64 slots, so 64 new tokens always fit
+# the generator's cache holds max_seq_len + 64 slots, so 64 new tokens
+# always fit; the engine's holds ENGINE_MAX_NEW_TOKENS + 8 more
 DEFAULT_MAX_NEW_TOKENS = 64
+ENGINE_MAX_NEW_TOKENS = 256
 
 
 class ModelWorker(jax_worker.ModelWorker):
@@ -32,19 +43,23 @@ class ModelWorker(jax_worker.ModelWorker):
                  worker_name: str = 'groma-worker',
                  model_name: str = 'groma', limit: int = 2,
                  controller_addr: str = '', quant_type: str = 'int8',
-                 kv_bits: int = 8, device=None, seed: int = 0):
+                 kv_bits: int = 8, device=None, seed: int = 0,
+                 use_engine: bool = False, engine_slots: int = 8,
+                 paged_kv: bool = False, kv_pool_tokens: int = 0):
         """``model_dir``: a checkpoint directory, 'tiny' or 'random'
-        (random weights from ``seed`` at the tiny or the full config)."""
+        (random weights from ``seed`` at the tiny or the full config).
+        ``quant_type``: 'int8', 'int4' or 'bf16' (the unquantized fused
+        tree)."""
         from groma_tpu.data.datasets.base import VLDataSpec
         from groma_tpu.data.tokenizer import StubTokenizer, load_tokenizer
         from groma_tpu_torch.checkpoint.loader import load_quantized
         from groma_tpu_torch.eval.generate_quant import QuantGenerator
 
-        if quant_type != 'int8':
-            raise ValueError('only the int8 LLM (--quant_type int8) is '
-                             'ported')
+        if quant_type not in QUANT_BITS:
+            raise ValueError(f'quant_type must be one of {sorted(QUANT_BITS)}')
         model, qp, self.cfg = load_quantized(model_dir, device=device,
-                                             seed=seed)
+                                             seed=seed,
+                                             bits=QUANT_BITS[quant_type])
         if model_dir in ('tiny', 'random'):
             self.tokenizer = StubTokenizer(self.cfg.llm.vocab_size,
                                            self.cfg.max_seq_len)
@@ -56,9 +71,19 @@ class ModelWorker(jax_worker.ModelWorker):
             max_region_num=self.cfg.max_region_num,
             max_seq_len=self.cfg.max_seq_len,
             image_size=self.cfg.perceiver.image_size)
-        self.generator = QuantGenerator(
-            model, qp, max_len=self.cfg.max_seq_len + 64, kv_bits=kv_bits)
-        self.engine = None
+        self.engine = self.generator = None
+        if use_engine:
+            from groma_tpu_torch.serve.engine import BatchEngine
+            self.engine = BatchEngine(
+                model, qp, max_slots=engine_slots,
+                max_len=self.cfg.max_seq_len + ENGINE_MAX_NEW_TOKENS + 8,
+                eos_id=self.tokenizer.sp.eos,
+                max_new_tokens=ENGINE_MAX_NEW_TOKENS, kv_bits=kv_bits,
+                paged_kv=paged_kv, kv_pool_tokens=kv_pool_tokens or None)
+            limit = max(limit, engine_slots)
+        else:
+            self.generator = QuantGenerator(
+                model, qp, max_len=self.cfg.max_seq_len + 64, kv_bits=kv_bits)
         self.worker_name = worker_name
         self.model_name = model_name
         self.semaphore = threading.Semaphore(limit)
@@ -75,7 +100,10 @@ class ModelWorker(jax_worker.ModelWorker):
 
     def generate_stream(self, request: dict):
         """Yield {'text': partial, 'error_code': 0} frames, then a final
-        frame that adds the answer's boxes.  Decoding is greedy."""
+        frame that adds the answer's boxes (and ``finish_reason:
+        truncated`` when the engine's page pool ran dry).  Decoding is
+        greedy, or sampled per request through the engine
+        (``temperature``)."""
         from groma_tpu.data.conversation import conv_templates
         from groma_tpu.data.datasets.base import intro_conversation
         from groma_tpu.data.tokenization import expand_template
@@ -108,25 +136,54 @@ class ModelWorker(jax_worker.ModelWorker):
                         return text[:text.index(stop_str)], True
                     return text, False
 
-                tokens, vis = self.generator.generate(
-                    image[None], t['input_ids'][None],
-                    t['region_slot'][None], t['valid'][None],
-                    max_new_tokens=max_new, eos_id=eos)
-                row = [int(x) for x in tokens[0]]
-                collected = []
-                for i in range(0, len(row), chunk):
-                    collected = [x for x in row[:i + chunk] if x != eos]
-                    text, hit = cut_stop(self.tokenizer.decode(collected))
-                    yield {'text': text, 'error_code': 0}
-                    if hit:
-                        break
+                truncated = False
+                if self.engine is not None:
+                    # tokens stream out as the engine's bursts land;
+                    # concurrent requests share the decode steps
+                    sess = self.engine.submit(
+                        image, t['input_ids'], t['region_slot'], t['valid'],
+                        max_new_tokens=max_new,
+                        temperature=float(request.get('temperature', 0.0)))
+                    collected = []
+                    for n, tk in enumerate(sess.token_stream(), 1):
+                        if tk != eos:
+                            collected.append(tk)
+                        if n % chunk == 0:
+                            text, hit = cut_stop(
+                                self.tokenizer.decode(collected))
+                            yield {'text': text, 'error_code': 0}
+                            if hit:
+                                sess.cancel()   # frees the slot next burst
+                                break
+                        if n >= max_new:
+                            break
+                    tokens = np.asarray([sess.tokens], np.int32)
+                    vis = {k: v[None] for k, v in sess.vis.items()}
+                    truncated = sess.truncated
+                else:
+                    tokens, vis = self.generator.generate(
+                        image[None], t['input_ids'][None],
+                        t['region_slot'][None], t['valid'][None],
+                        max_new_tokens=max_new, eos_id=eos)
+                    row = [int(x) for x in tokens[0]]
+                    for i in range(0, len(row), chunk):
+                        text, hit = cut_stop(self.tokenizer.decode(
+                            [x for x in row[:i + chunk] if x != eos]))
+                        yield {'text': text, 'error_code': 0}
+                        if hit:
+                            break
                 ks = parse_region_tokens(
                     tokens, self.tokenizer.sp.box_idx_start)[0]
                 cap = vis['selected_mask'].shape[1]
                 boxes = [vis['selected_boxes'][0, k].tolist() for k in ks
                          if k < cap and vis['selected_mask'][0, k]]
-                yield {'text': cut_stop(self.tokenizer.decode(collected))[0],
-                       'boxes': boxes, 'error_code': 0}
+                text = self.tokenizer.decode(
+                    [int(x) for x in tokens[0] if x != eos])
+                final = {'text': cut_stop(text)[0], 'boxes': boxes,
+                         'error_code': 0}
+                if truncated:
+                    final['finish_reason'] = 'truncated'
+                yield final
             except Exception as e:   # a request boundary: report, go on
                 logger.exception('request failed')
                 yield {'text': f'server error: {type(e).__name__}: {e}',
@@ -140,8 +197,18 @@ def main():
     ap.add_argument('--model-dir', default=None)
     ap.add_argument('--tiny', action='store_true',
                     help='random-weight tiny model (serving smoke test)')
-    ap.add_argument('--quant_type', default='int8', choices=['int8'])
+    ap.add_argument('--engine', action='store_true',
+                    help='continuous-batching engine (serve/engine.py)')
+    ap.add_argument('--engine-slots', type=int, default=8)
+    ap.add_argument('--quant_type', default='int8',
+                    choices=sorted(QUANT_BITS),
+                    help='weight-only int8 or int4 LLM, or the bf16 tree')
     ap.add_argument('--kv-bits', type=int, default=8, choices=[16, 8])
+    ap.add_argument('--paged-kv', action='store_true',
+                    help='shared 128-token int8 KV page pool (engine, '
+                         '--kv-bits 8)')
+    ap.add_argument('--kv-pool-tokens', type=int, default=0,
+                    help='page-pool size in tokens (0 = slots x max_len)')
     ap.add_argument('--device', default=None)
     ap.add_argument('--host', default='0.0.0.0')
     ap.add_argument('--port', type=int, default=21002)
@@ -156,7 +223,9 @@ def main():
                          limit=a.limit_model_concurrency,
                          controller_addr=a.controller_address,
                          quant_type=a.quant_type, kv_bits=a.kv_bits,
-                         device=a.device)
+                         device=a.device, use_engine=a.engine,
+                         engine_slots=a.engine_slots, paged_kv=a.paged_kv,
+                         kv_pool_tokens=a.kv_pool_tokens)
     httpd = ThreadingHTTPServer((a.host, a.port),
                                 jax_worker.make_handler(worker))
     httpd.serve_forever()
