@@ -10,7 +10,12 @@ Phases, each printed before the last line:
     every kernel in groma_tpu_torch/csrc (seconds, ptxas summary);
  2. each kernel against its plain PyTorch version on the card, at the
     shapes its path gives it, with the tolerance stated; kernel and plain
-    times from CUDA events, L2 flushed before each launch: the int8 decode
+    times from CUDA events, L2 flushed before each launch, beside the
+    kernel's bound (the larger of its bytes over 3.35 TB/s and its
+    operations over the peak rate of their type) and the time of one
+    PyTorch call that computes the same function where there is one
+    (torch._weight_int8pack_mm / _weight_int4pack_mm, the SDPA forward and
+    backward, the backend named): the int8 decode
     matmul and decode attention (served path), the packed-int4 matmul (each
     of the int4 tree's five shapes at M=1 and M=8, the engine's decode,
     and at M=2048, a prefill; at down_proj the bound is also shown to flag
@@ -18,7 +23,11 @@ Phases, each printed before the last line:
     attention (8 slots, ragged lengths up to 2432, shuffled
     pages, a frozen row), the flash-attention forward (bidirectional at the
     ViT's (2, 16, 1025, 64), causal at the LLM's (2, 32, 2048, 128) under a
-    grounded key mask) and the causal backward; then the int8 LLaMA path
+    grounded key mask), the causal backward, and the all-layer decode
+    megakernel at full width and 2 layers (B=8, a 1024-slot cache written
+    at slot 700, a ragged mask and a fully masked row: the hidden state,
+    the written column within one int8 unit, every other cache byte
+    unchanged); then the int8 LLaMA path
     and the int4 + paged one (prefill, page compaction, paged decode) at
     full width and two layers on the card against the same weights and
     inputs through the plain versions on the CPU;
@@ -51,11 +60,23 @@ Phases, each printed before the last line:
     at once, each checked; then every request finished, none truncated,
     every page back in the pool, and exact launch counts (paged attention
     L per decode step, int4 matmul 4L + 1 per prefill and per step), with
-    TTFT per request, aggregate tok/s and ms per decode step.
-Then one JSON line with the kernels (launches: the training path's for the
-flash kernels, the served path's for the int8 ones, the engine's for the
-int4 and paged ones), and as the last line {"ok": true, "device": {...}}.  Any failed check exits non-zero and prints
-no result; so does a machine without a CUDA device.
+    TTFT per request, aggregate tok/s and ms per decode step;
+ 7. the decode benchmark's path (bench_decode_quant.measure_megakernel) at
+    full depth: the random full-width Vicuna-7B int4 tree from --seed,
+    B=8, a 512-token random prompt prefilled per layer into a 1024-slot
+    int8 cache, MEGAKERNEL_STEPS greedy steps through
+    quant_llama_decode_megakernel (exactly one megakernel launch each),
+    then the same tokens teacher-forced through the per-layer
+    quant_llama_forward on a copy of the cache (int4 matmul 4L and decode
+    attention L launches a step); hidden states agree every step; ms/step
+    and tok/s of both, PROFILED_STEPS more steps of each under
+    torch.profiler (device time and operations a step), and the kernel
+    alone beside its plain version and its bound.
+Then one JSON line with the eight kernels (launches: the training path's
+for the flash kernels, the served path's for the int8 ones, the engine's
+for the int4 and paged ones, the decode path's for the megakernel), and as
+the last line {"ok": true, "device": {...}}.  Any failed check exits
+non-zero and prints no result; so does a machine without a CUDA device.
 """
 
 from __future__ import annotations
@@ -100,11 +121,51 @@ TRAIN_STEPS = 4            # >= 2: the warmup-cosine schedule's lr is 0 first
 STAGE3_LOSS_TOL = 1e-4     # relative
 STAGE3_GRAD_TOL = 3e-2     # relative Frobenius error, all trainable grads
 STAGE3_TENSOR_TOL = 8e-2   # the same, per gradient tensor
+# the all-layer decode megakernel (#9): (a) at full width, 2 stacked layers,
+# against its plain version; (b) the decode benchmark's path at full depth
+# (bench_decode_quant.measure_megakernel: B=8, a 512-token prompt into a
+# 1024-slot int8 cache), MEGAKERNEL_STEPS greedy steps (128 there, cut for
+# time) against the per-layer decode teacher-forced on the same tokens
+DECODE_BATCH, DECODE_PROMPT, DECODE_SLOTS = 8, 512, 1024
+MEGAKERNEL_POS = 700       # (a): the slot written, of DECODE_SLOTS
+MEGAKERNEL_STEPS = 64
+PROFILED_STEPS = 4         # each decode path, under torch.profiler
+# kernel against plain: f32 sums in another order flip a bf16 rounding of
+# h, attn or act, or an int8 k/v byte, now and then; measured on an H100
+# 5.2e-4 (hidden), 1.0e-3 (scales), ~0.5 % of the written bytes at 2
+# layers, and at most 1.2e-3 (hidden), 2.1e-4 (scales) and 0.01 % of the
+# bytes for any one of the path's 32 layers fed the same input: limits
+# about four times that.  Over 32 layers the step is chaotic under
+# rounding (the run prints how far the plain step moves when its input
+# moves by 1e-6 relative), and the one 32-layer launch parts from the plain
+# step by 8.6e-3, with 22 % of its written bytes off: it is held to
+# MEGAKERNEL_DEPTH_TOL and an unchanged cache outside the written column.
+# Megakernel path against the per-layer one (f32 against a bf16 residual
+# over 32 layers): measured 3.5e-2, limit 0.1
+MEGAKERNEL_HIDDEN_TOL = 5e-3     # relative to max|hidden|
+MEGAKERNEL_SCALE_TOL = 1e-2      # written k/v scales, relative
+MEGAKERNEL_DEPTH_TOL = 3e-2      # (b): one launch of all 32 layers
+MEGAKERNEL_PATH_TOL = 0.1        # (b): relative to max|hidden|, every step
+# published H100 SXM peaks (NVIDIA's datasheet): a kernel's bound is
+# the larger of its bytes over the memory rate and its operations over the
+# peak rate of their type
+H100_BYTES_PER_S = 3.35e12
+H100_BF16_FLOPS = 989e12
+H100_INT8_OPS = 1979e12
 
 
 def fail(msg: str):
     print(f'chip_smoke FAILED: {msg}', file=sys.stderr)
     sys.exit(1)
+
+
+def bound(nbytes: float, ops: float, peak: float = H100_BF16_FLOPS):
+    """(least ms, 'bytes' or 'operations') on one H100 for a function that
+    must move ``nbytes`` and do ``ops`` operations of a type whose peak rate
+    is ``peak``."""
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / peak * 1e3
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
 def device_line() -> str:
@@ -143,11 +204,60 @@ class Timer:
         return total / iters
 
 
+def library_time(torch, timer, name: str, fn, want, card: str,
+                 rel_tol: float = 1e-2):
+    """ms of one PyTorch call that computes what a kernel computes (a
+    yardstick: the port never calls it), once it has agreed with the plain
+    result within ``rel_tol`` of max|plain|; None, with the reason, where
+    the installed PyTorch has no such call or it computes something else."""
+    try:
+        got = fn()
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError, AttributeError, TypeError,
+            ValueError) as e:
+        first = (str(e).splitlines() or [''])[0][:140]
+        print(f'  library {name}: none ({type(e).__name__}: {first}) '
+              f'[{card}]')
+        return None
+    pairs = list(zip(got, want)) if isinstance(want, (tuple, list)) \
+        else [(got, want)]
+    rel = max((g.float() - w.float()).abs().max().item()
+              / w.float().abs().max().item() for g, w in pairs)
+    if not rel <= rel_tol:
+        print(f'  library {name}: none (differs from the plain version by '
+              f'{rel:.3e} of max|plain|) [{card}]')
+        return None
+    ms = timer(fn)
+    print(f'  library {name}: {ms:.4f} ms, within {rel:.2e} of max|plain| '
+          f'[{card}]')
+    return ms
+
+
+def kernel_names(torch, fn, top: int = 3) -> str:
+    """The CUDA kernels one call of ``fn`` launches, longest first (which
+    backend a PyTorch call picked)."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = {}
+    for e in prof.events():
+        if e.device_type.name == 'CUDA':
+            names[e.name] = names.get(e.name, 0.0) + e.device_time
+    return ', '.join(n[:60] for n, _ in sorted(names.items(),
+                                               key=lambda kv: -kv[1])[:top])
+
+
 def check_int8_matmul(torch, gen, timer, card):
+    """#1 against its plain version.  Returns (max_abs_err, (kernel ms,
+    plain ms), (bound ms, bound by), library ms), the sums over the four
+    layer matmuls at M=1."""
     from groma_tpu_torch.ops.quant import int8_matmul, int8_matmul_reference
     dev = 'cuda'
     worst = 0.0
     layer_ms = {1: [0.0, 0.0]}
+    layer_bound, bound_by, library = 0.0, '', 0.0
     for m in (1, 4):
         for name, (k, n) in INT8_MATMUL_SHAPES.items():
             x = torch.randn((m, k), generator=gen, device=dev).to(
@@ -169,6 +279,17 @@ def check_int8_matmul(torch, gen, timer, card):
             if m == 1 and name in LAYER_MATMULS:
                 layer_ms[1][0] += ms
                 layer_ms[1][1] += plain_ms
+                b_ms, bound_by = bound(k * n + 4 * n + 2 * m * (k + n),
+                                       2 * m * k * n)
+                layer_bound += b_ms
+                if library is not None:
+                    # bf16 scales (the plain version's are f32)
+                    w_t = w.T.contiguous()
+                    t = library_time(
+                        torch, timer, f'torch._weight_int8pack_mm {name}',
+                        lambda: torch._weight_int8pack_mm(
+                            x, w_t, scale.to(torch.bfloat16)), want, card)
+                    library = None if t is None else library + t
             ref_max = want.abs().max().item()
             print(f'int8_matmul M={m} {name} K={k} N={n}: max_abs_err '
                   f'{max_err:.3e}, rel {max_err / ref_max:.3e} of max|plain| '
@@ -179,10 +300,13 @@ def check_int8_matmul(torch, gen, timer, card):
             if not ok:
                 fail(f'int8_matmul disagrees with its plain version at '
                      f'M={m} {name}')
-    return worst, layer_ms[1]
+    return worst, layer_ms[1], (layer_bound, bound_by), library
 
 
 def check_decode_attention(torch, gen, timer, card):
+    """#2 against its plain version.  Returns (max_abs_err, (kernel ms,
+    plain ms), (bound ms, bound by)) at the served shape, B=1 and S=2112
+    (no PyTorch call computes int8-KV attention with p requantized)."""
     from groma_tpu_torch.models.llama_quant import _quantize_tokens
     from groma_tpu_torch.ops.decode_attention import (
         int8_decode_attention, int8_decode_attention_reference, p8_step)
@@ -217,9 +341,11 @@ def check_decode_attention(torch, gen, timer, card):
             worst = max(worst, max_err)
             ms = timer(lambda: int8_decode_attention(*args))
             plain_ms = timer(lambda: int8_decode_attention_reference(*args))
-            if b == 1 and s == 2112:
-                served = (ms, plain_ms)
             kv_bytes = 2 * b * h * s * d
+            if b == 1 and s == 2112:
+                served = ((ms, plain_ms), bound(
+                    kv_bytes + 2 * b * h * s * 4 + b * h * d * (2 + 4)
+                    + b * s * 4, 4 * b * h * s * d, H100_INT8_OPS))
             ref_max = want.abs().max().item()
             print(f'int8_decode_attention B={b} H={h} S={s} D={d}: '
                   f'max_abs_err {max_err:.3e}, rel {max_err / ref_max:.3e} '
@@ -231,7 +357,7 @@ def check_decode_attention(torch, gen, timer, card):
             if not ok:
                 fail(f'int8_decode_attention disagrees with its plain '
                      f'version at B={b} S={s}')
-    return worst, served
+    return (worst, *served)
 
 
 def _flash_tol(want, rel: float):
@@ -241,8 +367,11 @@ def _flash_tol(want, rel: float):
 
 def check_flash(torch, gen, timer, card):
     """The three flash kernels against their plain versions in f32 on the
-    same bf16 inputs, at the training path's shapes.  Returns
-    {kernel: (max_abs_err, ms, plain_ms)} at the path's own mask."""
+    same bf16 inputs, at the training path's shapes, and the same
+    functions through F.scaled_dot_product_attention (the backend it picks
+    named).  Returns {kernel: (max_abs_err, ms, plain_ms, (bound ms, bound
+    by), library ms)} at the path's own mask."""
+    import torch.nn.functional as F
     from groma_tpu_torch.models.groma import GromaConfig
     from groma_tpu_torch.ops.flash_attention import (
         flash_attention_bwd_reference, flash_bwd_causal, flash_fwd,
@@ -296,7 +425,15 @@ def check_flash(torch, gen, timer, card):
                f'2^-7*|plain| + 2^-9*max|plain|, lse 1e-3', ok, ms, plain_ms,
                4 * b * h * s * s * d)
         if case == 'all keys valid':
-            results['bidirectional'] = (err.max().item(), ms, plain_ms)
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, scale=d ** -0.5)
+            lib = library_time(torch, timer, 'F.scaled_dot_product_attention'
+                               ' (#3, no mask)', sdpa, want, card)
+            print(f'  its kernels: {kernel_names(torch, sdpa)} [{card}]')
+            results['bidirectional'] = (
+                err.max().item(), ms, plain_ms,
+                bound(4 * b * h * s * d * 2 + b * s, 4 * b * h * s * s * d),
+                lib)
         del got, want
 
     # --- #4 and #5: the LLM's causal forward and backward, (2, 32, 2048, 128)
@@ -319,7 +456,18 @@ def check_flash(torch, gen, timer, card):
     report('flash_fwd causal (#4)', (b, h, s, d), case, err.max().item(),
            want.abs().max().item(), '2^-7*|plain| + 2^-9*max|plain|, '
            'lse 1e-3', ok, ms, plain_ms, causal_flops)
-    results['causal'] = (err.max().item(), ms, plain_ms)
+    # the same function through SDPA: causal and key mask as one boolean
+    # mask (SDPA takes one or the other)
+    allowed = torch.ones((s, s), dtype=torch.bool, device=dev).tril()[
+        None, None] & mask[:, None, None, :]
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, attn_mask=allowed, scale=d ** -0.5)
+    lib = library_time(torch, timer, 'F.scaled_dot_product_attention (#4, '
+                       'causal & key mask)', sdpa, want, card)
+    print(f'  its kernels: {kernel_names(torch, sdpa)} [{card}]')
+    results['causal'] = (err.max().item(), ms, plain_ms,
+                         bound(4 * b * h * s * d * 2 + b * s + b * h * s * 4,
+                               causal_flops), lib)
 
     # the backward on one set of inputs: the plain forward's out and lse
     out = want.to(torch.bfloat16)
@@ -342,7 +490,17 @@ def check_flash(torch, gen, timer, card):
               f'of max|plain| {w_.abs().max().item():.3e} [{card}]')
         worst = max(worst, e.max().item())
         ref_max = max(ref_max, w_.abs().max().item())
-    del dq, dk, dv, wq, wk, wv
+    # SDPA's autograd backward, from its own forward
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=allowed,
+                                              scale=d ** -0.5)
+    sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
+        sdpa_out, leaves, do, retain_graph=True)
+    lib = library_time(torch, timer, 'F.scaled_dot_product_attention '
+                       'backward (#5)', sdpa_bwd, (wq, wk, wv), card,
+                       rel_tol=3e-2)
+    print(f'  its kernels: {kernel_names(torch, sdpa_bwd)} [{card}]')
+    del dq, dk, dv, wq, wk, wv, sdpa_out, leaves
     ms = timer(lambda: flash_bwd_causal(q, k, v, mask, out, lse, do,
                                         d ** -0.5))
     plain_ms = timer(lambda: flash_attention_bwd_reference(
@@ -350,7 +508,10 @@ def check_flash(torch, gen, timer, card):
     report('flash_bwd_causal (#5)', (b, h, s, d), case, worst, ref_max,
            '2^-6*|plain| + 2^-8*max|plain| per gradient', ok, ms, plain_ms,
            2.5 * causal_flops)
-    results['backward'] = (worst, ms, plain_ms)
+    results['backward'] = (
+        worst, ms, plain_ms,
+        bound(8 * b * h * s * d * 2 + b * h * s * 4 + b * s,
+              2.5 * causal_flops), lib)
     return results
 
 
@@ -415,13 +576,15 @@ def check_llm_path(torch, seed: int, card: str):
 def check_int4_matmul(torch, gen, timer, card):
     """#7 against its plain version at every shape of the int4 tree: M=1
     and M=8 (the engine's 8 slots) through the decode tile, M=2048 through
-    the prefill tile.  Returns (max_abs_err, (kernel ms, plain ms) summed
-    over the four layer matmuls at M=8)."""
+    the prefill tile.  Returns (max_abs_err, (kernel ms, plain ms), (bound
+    ms, bound by), library ms), the sums over the four layer matmuls at
+    M=8."""
     from groma_tpu_torch.ops.quant4 import (INT4_BLOCK, int4_matmul,
                                             int4_matmul_reference)
     dev = 'cuda'
     worst = 0.0
     layer_ms = [0.0, 0.0]
+    layer_bound, bound_by, library = 0.0, '', 0.0
     cases = [(m, name, k, n) for m in (1, 8, INT4_PREFILL_ROWS)
              for name, (k, n) in INT4_MATMUL_SHAPES.items()]
     for m, name, k, n in cases:
@@ -444,6 +607,22 @@ def check_int4_matmul(torch, gen, timer, card):
         if m == 8 and name in LAYER_MATMULS:
             layer_ms[0] += ms
             layer_ms[1] += plain_ms
+            b_ms, bound_by = bound(k * n // 2 + (k // 256) * n * 4
+                                   + 2 * m * (k + n), 2 * m * k * n)
+            layer_bound += b_ms
+            if library is not None:
+                try:
+                    fn = _tinygemm(torch, x, packed, scale)
+                except (RuntimeError, TypeError, AttributeError) as e:
+                    print(f'  library torch._weight_int4pack_mm: none '
+                          f'(the repacking failed: {type(e).__name__}: '
+                          f'{(str(e).splitlines() or [""])[0][:140]}) '
+                          f'[{card}]')
+                    fn = None
+                t = fn and library_time(
+                    torch, timer, f'torch._weight_int4pack_mm {name}', fn,
+                    want, card)
+                library = None if t is None else library + t
         ref_max = want.abs().max().item()
         rate = (f'{2 * m * k * n / ms / 1e9:.1f} TFLOP/s' if m > 8 else
                 f'{(k * n / 2 + k * n // 64) / ms / 1e6:.1f} GB/s weights')
@@ -473,7 +652,22 @@ def check_int4_matmul(torch, gen, timer, card):
                 fail(f'int4_matmul M={m} {name}: the bound misses a wrong '
                      f'scale on the straddling block')
         del x, packed, scale, got, want, err
-    return worst, layer_ms
+    return worst, layer_ms, (layer_bound, bound_by), library
+
+
+def _tinygemm(torch, x, packed, scale):
+    """The same product through PyTorch's tinygemm int4 call: our nibbles
+    (row k and k + K/2 in one byte) repacked into its layout (pairs of
+    adjacent k, then its own tiling), scales rounded to bf16 beside zero
+    points of 0, groups of 256 rows."""
+    p = packed.to(torch.int32)
+    q = torch.cat([p & 0xF, p >> 4], 0).T.contiguous()        # (N, K)
+    pairs = (q[:, ::2] << 4 | q[:, 1::2]).to(torch.uint8)
+    w = torch._convert_weight_to_int4pack(pairs, 8)
+    sz = torch.stack([scale.to(torch.bfloat16),
+                      torch.zeros_like(scale, dtype=torch.bfloat16)], -1)
+    sz = sz.contiguous()
+    return lambda: torch._weight_int4pack_mm(x, w, 256, sz)
 
 
 def _paged_case(torch, gen, dev):
@@ -504,7 +698,8 @@ def _paged_case(torch, gen, dev):
 
 def check_paged_attention(torch, gen, timer, card):
     """#8 against its plain version at the engine's shapes.  Returns
-    (max_abs_err, kernel ms, plain ms)."""
+    (max_abs_err, kernel ms, plain ms, (bound ms, bound by)); no PyTorch
+    call computes it."""
     from groma_tpu_torch.ops.paged_attention import (
         PAGE, paged_int8_decode_attention, paged_int8_decode_attention_plain)
     args = _paged_case(torch, gen, 'cuda')
@@ -536,7 +731,10 @@ def check_paged_attention(torch, gen, timer, card):
           f'{plain_ms:.4f} ms, {kv_bytes / ms / 1e6:.1f} GB/s KV [{card}]')
     if not ok:
         fail('paged_int8_decode_attention disagrees with its plain version')
-    return max_err, ms, plain_ms
+    b = len(PAGED_LENGTHS)
+    return max_err, ms, plain_ms, bound(
+        kv_bytes + 2 * b * h * d * 4 + args[5].numel() * 4 + b * 4,
+        4 * sum(PAGED_LENGTHS) * h * d, H100_INT8_OPS)
 
 
 def check_int4_paged_path(torch, seed: int, card: str):
@@ -611,6 +809,385 @@ def check_int4_paged_path(torch, seed: int, card: str):
           f'{s} tokens (int4 mma tile), compacted into pages, + {steps} paged '
           f'decode steps on the card match the CPU plain path within '
           f'{worst:.3e} x max|hidden| (tol 3e-2) [{card}]')
+
+
+def _megakernel_traffic(cfg, n_layers: int, b: int, s: int, reads):
+    """(bytes, operations) one decode step of #9 needs: every layer's int4
+    weights and scales and norm scales read once; per layer and (b, head),
+    the cache rows the kernel must read (``reads[b]`` positions, k and v
+    with their scales) and the written column; x in and out, the RoPE rows
+    and the mask entries read."""
+    d, f, h = cfg.hidden_size, cfg.intermediate_size, cfg.num_heads
+    shapes = ((d, 3 * d), (d, d), (d, 2 * f), (f, d))
+    weights = sum(k * n // 2 + (k // 256) * n * 4 for k, n in shapes)
+    params = sum(k * n for k, n in shapes)
+    kv = sum(reads) * h * 2 * (128 + 4)
+    per_layer = weights + 2 * d * 4 + kv + b * h * 2 * (128 + 4)
+    nbytes = n_layers * per_layer + 2 * b * d * 4 + 2 * b * 128 * 4 \
+        + sum(reads) * 4 + b * 4
+    ops = n_layers * (2 * b * params + 4 * sum(reads) * h * 128)
+    return nbytes, ops
+
+
+def _stacked_clone(torch, mk, st):
+    """A copy of a (stacked) cache on buffers of its own, stacked."""
+    return mk.stack_kv_cache({k: ([t.clone() for t in v] if isinstance(v, list)
+                                  else v) for k, v in st.items()})
+
+
+def _compare_step(torch, got, want, before, mine, theirs, pos: int) -> dict:
+    """#9's step (``got``, cache ``mine``) against its plain version
+    (``want``, cache ``theirs``), both run from the cache ``before``: the
+    hidden state relative to max|plain|, every layer's written column (int8
+    bytes that differ, the largest difference, scales relative) and whether
+    every other cache byte and scale is bitwise unchanged."""
+    err = (got - want).abs().max().item()
+    c = {'err': err, 'rel': err / want.abs().max().item(),
+         'finite': bool(torch.isfinite(got).all()), 'off': 0, 'bytes': 0,
+         'byte_diff': 0, 'scale_rel': 0.0, 'rest_equal': True}
+    for key in ('k', 'v'):
+        for li in range(len(before[key])):
+            kq, pq = mine[key][li], theirs[key][li]
+            diff = (kq[:, :, pos].int() - pq[:, :, pos].int()).abs()
+            c['byte_diff'] = max(c['byte_diff'], int(diff.max()))
+            c['off'] += int((diff > 0).sum())
+            c['bytes'] += diff.numel()
+            ks_ = mine[key + '_scale'][li][:, :, pos]
+            ps_ = theirs[key + '_scale'][li][:, :, pos]
+            c['scale_rel'] = max(c['scale_rel'],
+                                 ((ks_ - ps_).abs() / ps_).max().item())
+            for t, orig in ((kq, before[key][li]),
+                            (mine[key + '_scale'][li],
+                             before[key + '_scale'][li])):
+                rest = t.clone()
+                rest[:, :, pos] = orig[:, :, pos]
+                c['rest_equal'] &= torch.equal(rest, orig)
+    return c
+
+
+def _step_ok(c: dict, hidden_tol: float, column: bool = True) -> bool:
+    ok = c['finite'] and c['rel'] <= hidden_tol and c['rest_equal']
+    if column:
+        ok &= c['byte_diff'] <= 1 and c['scale_rel'] <= MEGAKERNEL_SCALE_TOL
+    return ok
+
+
+def _step_line(c: dict, hidden_tol: float, column: bool = True) -> str:
+    held = ((' (tol 1 unit)', f' (tol {MEGAKERNEL_SCALE_TOL})') if column
+            else (' (not held)', ' (not held)'))
+    return (f'hidden max_abs_err {c["err"]:.3e}, rel {c["rel"]:.3e} of '
+            f'max|plain| (tol {hidden_tol}); written column {c["off"]} of '
+            f'{c["bytes"]} int8 bytes off, by at most {c["byte_diff"]}'
+            f'{held[0]}, scales rel {c["scale_rel"]:.2e}{held[1]}; every '
+            f'other cache byte and scale unchanged: {c["rest_equal"]} '
+            f'{"ok" if _step_ok(c, hidden_tol, column) else "FAIL"}')
+
+
+def check_decode_megakernel(torch, gen, timer, seed: int, card: str):
+    """(a) #9 against its plain version at full width (D 4096, 32 heads of
+    128, F 11008) and 2 stacked layers: B=8, a 1024-slot cache written up
+    to MEGAKERNEL_POS, a ragged mask (rows valid to different lengths, a
+    hole in row 1) and row 7 fully masked (its token too)."""
+    from groma_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from groma_tpu_torch.models.llama_quant import (megakernel_step_inputs,
+                                                    quantize_llama_params)
+    from groma_tpu_torch.ops import decode_megakernel as mk
+    cfg = LlamaConfig(num_layers=2)
+    torch.manual_seed(seed)
+    with torch.no_grad():
+        llm = LlamaForCausalLM(cfg, device='cuda')
+        qp = quantize_llama_params(llm.state_dict(), cfg, bits=4)
+        del llm
+    sp = mk.stack_decode_params(qp)
+    b, s, pos = DECODE_BATCH, DECODE_SLOTS, MEGAKERNEL_POS
+    h, d, dev = cfg.num_heads, cfg.hidden_size, 'cuda'
+    cache = {'k': [], 'v': [], 'k_scale': [], 'v_scale': []}
+    for _ in range(cfg.num_layers):
+        for key in ('k', 'v'):
+            t = torch.randint(-127, 128, (b, h, s, 128), generator=gen,
+                              device=dev, dtype=torch.int8)
+            t[:, :, pos:] = 0
+            cache[key].append(t)
+            sc = torch.rand((b, h, s), generator=gen, device=dev) * 0.02 \
+                + 0.005
+            sc[:, :, pos:] = 0
+            cache[key + '_scale'].append(sc)
+    lengths = torch.tensor([pos - 37 * r for r in range(b)], device=dev)
+    valid = torch.arange(s, device=dev)[None] < lengths[:, None]
+    valid[1, 100:160] = False
+    valid[b - 1] = False
+    cache['mask'], cache['index'] = valid, pos
+    cur_valid = torch.ones((b, 1), dtype=torch.bool, device=dev)
+    cur_valid[b - 1] = False
+    mine, theirs = (_stacked_clone(torch, mk, cache) for _ in range(2))
+    x = torch.randn((b, d), generator=gen, device=dev)
+    inputs = megakernel_step_inputs(cfg, cache, cur_valid)
+    eps = cfg.rms_norm_eps
+    with torch.no_grad():
+        got = mk.fused_decode_step(sp, x, mine, *inputs, pos, eps=eps)
+        want = mk.fused_decode_step_plain(sp, x, theirs, *inputs, pos,
+                                          eps=eps)
+        torch.cuda.synchronize()
+        cmp = _compare_step(torch, got, want, cache, mine, theirs, pos)
+        ok = _step_ok(cmp, MEGAKERNEL_HIDDEN_TOL)
+        reads = [s if not bool(cur_valid[r]) else pos for r in range(b)]
+        bound_ms, bound_by = bound(*_megakernel_traffic(
+            cfg, cfg.num_layers, b, s, reads))
+        ms = timer(lambda: mk.fused_decode_step(sp, x, mine, *inputs, pos,
+                                                eps=eps))
+        plain_ms = timer(lambda: mk.fused_decode_step_plain(
+            sp, x, theirs, *inputs, pos, eps=eps), iters=3)
+    print(f'decode_megakernel (#9) full width, {cfg.num_layers} layers, '
+          f'B={b} S={s} pos={pos}, ragged mask, row {b - 1} fully masked: '
+          f'{_step_line(cmp, MEGAKERNEL_HIDDEN_TOL)}; kernel {ms:.4f} ms '
+          f'({mk.fused_decode_step.blocks} blocks), plain {plain_ms:.4f} ms, '
+          f'bound {bound_ms:.4f} ms ({bound_by}) [{card}]')
+    if not ok:
+        fail('decode_megakernel disagrees with its plain version')
+    del qp, sp, cache, mine, theirs
+
+
+def device_per_step(torch, step, n: int = PROFILED_STEPS):
+    """``n`` calls of ``step`` under torch.profiler -> (device ms, device
+    operations, wall ms) a call."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.events()
+              if e.device_type.name == 'CUDA' and e.device_time > 0]
+    return (sum(e.device_time for e in events) / 1e3 / n, len(events) / n,
+            wall * 1e3 / n)
+
+
+def decode_megakernel_path(torch, timer, seed: int, card: str):
+    """(b) the decode benchmark's path through the port at full depth: the
+    random full-width Vicuna-7B int4 tree from ``seed``, B=8, a 512-token
+    random prompt prefilled per layer into a 1024-slot int8 cache, then
+    MEGAKERNEL_STEPS greedy steps through quant_llama_decode_megakernel
+    (one launch each), then the same tokens teacher-forced through the
+    per-layer quant_llama_forward on a copy of the prefilled cache.
+    Then the kernel alone at the last slot against its plain version.
+    Returns the megakernel's launches and (max_abs_err, kernel ms, plain ms,
+    bound ms, bound by) at the last slot."""
+    from groma_tpu_torch.checkpoint.loader import random_groma
+    from groma_tpu_torch.models.groma import GromaConfig
+    from groma_tpu_torch.models.llama_quant import (
+        make_quant_kv_cache, megakernel_step_inputs,
+        quant_llama_decode_megakernel, quant_llama_forward,
+        quant_llama_logits)
+    from groma_tpu_torch.ops import decode_megakernel as mk
+    from groma_tpu_torch.ops.decode_attention import int8_decode_attention
+    from groma_tpu_torch.ops.quant4 import int4_matmul
+    gcfg = GromaConfig()
+    cfg = gcfg.llm
+    b, pre, slots, steps = (DECODE_BATCH, DECODE_PROMPT, DECODE_SLOTS,
+                            MEGAKERNEL_STEPS)
+    n_layers, dev = cfg.num_layers, 'cuda'
+    t0 = time.perf_counter()
+    model, qp = random_groma(gcfg, seed=seed, device=dev, bits=4)
+    del model
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 17)
+    ids = torch.randint(0, cfg.vocab_size, (b, pre), generator=gen,
+                        device=dev)
+    one = torch.ones((b, 1), dtype=torch.bool, device=dev)
+    with torch.no_grad():
+        cache = make_quant_kv_cache(cfg, b, slots, device=dev)
+        h, cache = quant_llama_forward(
+            qp, cfg, qp['embed_tokens'][ids],
+            torch.ones((b, pre), dtype=torch.bool, device=dev),
+            torch.arange(pre, device=dev)[None].expand(b, pre), cache)
+        tok = quant_llama_logits(qp, h[:, -1:])[:, 0].argmax(-1)
+        per_layer = {k: ([t.clone() for t in v] if isinstance(v, list)
+                         else v.clone() if torch.is_tensor(v) else v)
+                     for k, v in cache.items()}
+        sp = mk.stack_decode_params(qp)
+        st = mk.stack_kv_cache(cache)
+        torch.cuda.synchronize()
+        print(f'decode path: random full-width Vicuna-7B int4 tree '
+              f'({n_layers} layers) and a {b} x {pre}-token per-layer '
+              f'prefill into a {slots}-slot int8 cache in '
+              f'{time.perf_counter() - t0:.1f} s; device memory '
+              f'{torch.cuda.memory_allocated() / 2**30:.2f} GiB [{card}]')
+
+        def counts():
+            return (mk.fused_decode_step.launches, int4_matmul.launches,
+                    int8_decode_attention.launches)
+
+        def zero():
+            mk.fused_decode_step.launches = 0
+            int4_matmul.launches = 0
+            int8_decode_attention.launches = 0
+
+        # the megakernel path, greedy; the main path's counts
+        toks, hidden, wall, device_ms, per_step = [], [], [], [], set()
+        zero()
+        for _ in range(steps):
+            toks.append(tok)
+            before = mk.fused_decode_step.launches
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            e0.record()
+            hm, st = quant_llama_decode_megakernel(
+                qp, sp, cfg, qp['embed_tokens'][tok][:, None], one, st)
+            e1.record()
+            per_step.add(mk.fused_decode_step.launches - before)
+            tok = quant_llama_logits(qp, hm)[:, -1].argmax(-1)
+            torch.cuda.synchronize()
+            wall.append(time.perf_counter() - t0)
+            device_ms.append(e0.elapsed_time(e1))
+            hidden.append(hm[:, 0])
+        mk_counts = counts()
+        # the per-layer path on the same tokens
+        zero()
+        worst, worst_mean, pl_wall = 0.0, 0.0, []
+        for i in range(steps):
+            t0 = time.perf_counter()
+            hp, per_layer = quant_llama_forward(
+                qp, cfg, qp['embed_tokens'][toks[i]][:, None], one,
+                torch.full((b, 1), pre + i, device=dev), per_layer)
+            torch.cuda.synchronize()
+            pl_wall.append(time.perf_counter() - t0)
+            diff = (hidden[i].float() - hp[:, 0].float()).abs()
+            worst = max(worst, diff.max().item()
+                        / hp.float().abs().max().item())
+            worst_mean = max(worst_mean, diff.mean().item()
+                             / hp.float().abs().mean().item())
+        pl_counts = counts()
+
+        want_mk = (steps, steps, 0)                 # + the lm head a step
+        want_pl = (0, 4 * n_layers * steps, n_layers * steps)
+        finite = all(bool(torch.isfinite(x).all()) for x in hidden)
+        in_vocab = all(bool(((t >= 0) & (t < cfg.vocab_size)).all())
+                       for t in toks)
+        ok = (mk_counts == want_mk and per_step == {1}
+              and pl_counts == want_pl and finite
+              and in_vocab and worst <= MEGAKERNEL_PATH_TOL
+              and st['index'] == per_layer['index'] == pre + steps)
+        warm = sorted(wall[1:])
+        pl_warm = sorted(pl_wall[1:])
+        mk_ms = warm[len(warm) // 2] * 1e3
+        pl_ms = pl_warm[len(pl_warm) // 2] * 1e3
+        dev_ms = sorted(device_ms[1:])[len(device_ms) // 2]
+        avg_reads = pre + (steps - 1) / 2
+        avg_bound = bound(*_megakernel_traffic(cfg, n_layers, b, slots,
+                                               [avg_reads] * b))
+        print(f'decode path, megakernel: {steps} greedy steps at B={b}, '
+              f'{mk_ms:.2f} ms/step median ({b / mk_ms * 1e3:.1f} tok/s), '
+              f'device time of the decode call {dev_ms:.3f} ms/step median '
+              f'(CUDA events), bound {avg_bound[0]:.3f} ms/step at the mean '
+              f'slot ({avg_bound[1]}); launches megakernel {mk_counts[0]}, '
+              f'int4_matmul {mk_counts[1]} (the lm head), decode attention '
+              f'{mk_counts[2]} (want {want_mk}), megakernel launches in a '
+              f'step {sorted(per_step)} (want [1]) [{card}]')
+        print(f'decode path, per-layer (teacher-forced on the same tokens): '
+              f'{pl_ms:.2f} ms/step median ({b / pl_ms * 1e3:.1f} tok/s); '
+              f'launches megakernel {pl_counts[0]}, int4_matmul (#7) '
+              f'{pl_counts[1]}, decode attention (#2) {pl_counts[2]} (want '
+              f'{want_pl}); hidden states against the megakernel path: '
+              f'worst step max|diff| {worst:.3e} x max|hidden| (tol '
+              f'{MEGAKERNEL_PATH_TOL}), mean|diff| {worst_mean:.3e} x '
+              f'mean|hidden| {"ok" if ok else "FAIL"} [{card}]')
+        if not ok:
+            fail('the megakernel decode path failed its checks')
+
+        # device time and operations a step of each path, after the counts
+        def mk_step():
+            nonlocal tok, st
+            hm, st = quant_llama_decode_megakernel(
+                qp, sp, cfg, qp['embed_tokens'][tok][:, None], one, st)
+            tok = quant_llama_logits(qp, hm)[:, -1].argmax(-1)
+
+        def pl_step():
+            nonlocal per_layer
+            _, per_layer = quant_llama_forward(
+                qp, cfg, qp['embed_tokens'][tok][:, None], one,
+                torch.full((b, 1), per_layer['index'], device=dev),
+                per_layer)
+        for name, step in (('megakernel', mk_step), ('per-layer', pl_step)):
+            ms_dev, ops, wall_ms = device_per_step(torch, step)
+            print(f'decode path, {name}, {PROFILED_STEPS} steps under '
+                  f'torch.profiler: {ms_dev:.3f} ms of device time and '
+                  f'{ops:.0f} device operations a step, {wall_ms:.2f} ms '
+                  f'wall a step (profiler cost included): device busy '
+                  f'{100 * ms_dev / wall_ms:.1f} % [{card}]')
+
+        # the kernel alone at the path's last slot against its plain
+        # version, on copies of the path's cache: the path's 32-layer
+        # launch, then each layer alone on the plain version's input to it
+        index = st['index']
+        x = qp['embed_tokens'][tok].float()
+        inputs = megakernel_step_inputs(cfg, st, one)
+        eps = cfg.rms_norm_eps
+        mine, theirs = (_stacked_clone(torch, mk, st) for _ in range(2))
+        got = mk.fused_decode_step(sp, x, mine, *inputs, index, eps=eps)
+        want = mk.fused_decode_step_plain(sp, x, theirs, *inputs, index,
+                                          eps=eps)
+        cmp = _compare_step(torch, got, want, st, mine, theirs, index)
+        ok = _step_ok(cmp, MEGAKERNEL_DEPTH_TOL, column=False)
+        # the plain step against itself with its input moved by 1e-6
+        # relative: the drift that rounding alone causes over 32 layers
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed + 23)
+        moved = _stacked_clone(torch, mk, st)
+        drift = _compare_step(torch, mk.fused_decode_step_plain(
+            sp, x * (1 + 1e-6 * torch.randn(x.shape, generator=gen,
+                                             device=dev)),
+            moved, *inputs, index, eps=eps), want, st, moved, theirs, index)
+        del moved
+        layers, xi = [], x
+        for i in range(n_layers):
+            kv = {k: [st[k][i]] for k in ('k', 'v', 'k_scale', 'v_scale')}
+            kv.update(mask=st['mask'], index=index)
+            spi = mk.stack_decode_params({'layers': [qp['layers'][i]]})
+            mi, ti = (_stacked_clone(torch, mk, kv) for _ in range(2))
+            gi = mk.fused_decode_step(spi, xi, mi, *inputs, index, eps=eps)
+            xi = mk.fused_decode_step_plain(spi, xi, ti, *inputs, index,
+                                            eps=eps)
+            layers.append(_compare_step(torch, gi, xi, kv, mi, ti, index))
+            ok &= _step_ok(layers[-1], MEGAKERNEL_HIDDEN_TOL)
+        worst = max(range(n_layers), key=lambda i: layers[i]['rel'])
+        each = {'err': max(c['err'] for c in layers),
+                'rel': layers[worst]['rel'],
+                'finite': all(c['finite'] for c in layers),
+                'off': sum(c['off'] for c in layers),
+                'bytes': sum(c['bytes'] for c in layers),
+                'byte_diff': max(c['byte_diff'] for c in layers),
+                'scale_rel': max(c['scale_rel'] for c in layers),
+                'rest_equal': all(c['rest_equal'] for c in layers)}
+        ms = timer(lambda: mk.fused_decode_step(sp, x, mine, *inputs, index,
+                                                eps=eps))
+        plain_ms = timer(lambda: mk.fused_decode_step_plain(
+            sp, x, theirs, *inputs, index, eps=eps), iters=2)
+        bound_ms, bound_by = bound(*_megakernel_traffic(
+            cfg, n_layers, b, slots, [index] * b))
+        print(f'decode_megakernel (#9) alone, {n_layers} layers, B={b}, slot '
+              f'{index} of {slots}: '
+              f'{_step_line(cmp, MEGAKERNEL_DEPTH_TOL, column=False)}; '
+              f'kernel {ms:.3f} ms ({mk.fused_decode_step.blocks} blocks), '
+              f'plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms '
+              f'({bound_by}), {100 * bound_ms / ms:.1f} % of the bound '
+              f'[{card}]')
+        print(f'  the plain step against itself with its input moved by 1e-6 '
+              f'relative: hidden rel {drift["rel"]:.3e} of max|plain|, '
+              f'{drift["off"]} of {drift["bytes"]} written int8 bytes '
+              f'changed [{card}]')
+        print(f'  each of the {n_layers} layers alone (one launch, one '
+              f'layer\'s weights and cache) on the plain version\'s input to '
+              f'it: worst layer {worst}: '
+              f'{_step_line(each, MEGAKERNEL_HIDDEN_TOL)} [{card}]')
+        if not ok:
+            fail(f'decode_megakernel disagrees with its plain version at '
+                 f'{n_layers} layers')
+    del qp, sp, st, cache, per_layer, hidden, mine, theirs
+    return mk_counts[0], (cmp['err'], ms, plain_ms, bound_ms, bound_by)
 
 
 def _train_args(batch):
@@ -1067,12 +1644,16 @@ def main():
     gen = torch.Generator(device='cuda')
     gen.manual_seed(args.seed)
     timer = Timer(torch, 'cuda')
-    mm_err, mm_ms = check_int8_matmul(torch, gen, timer, card)
-    att_err, att_ms = check_decode_attention(torch, gen, timer, card)
-    int4_err, int4_ms = check_int4_matmul(torch, gen, timer, card)
-    paged_err, paged_ms, paged_plain_ms = check_paged_attention(
+    mm_err, mm_ms, mm_bound, mm_lib = check_int8_matmul(torch, gen, timer,
+                                                         card)
+    att_err, att_ms, att_bound = check_decode_attention(torch, gen, timer,
+                                                        card)
+    int4_err, int4_ms, int4_bound, int4_lib = check_int4_matmul(
+        torch, gen, timer, card)
+    paged_err, paged_ms, paged_plain_ms, paged_bound = check_paged_attention(
         torch, gen, timer, card)
     flash = check_flash(torch, gen, timer, card)
+    check_decode_megakernel(torch, gen, timer, args.seed, card)
     del timer
     check_llm_path(torch, args.seed, card)
     check_int4_paged_path(torch, args.seed, card)
@@ -1096,45 +1677,52 @@ def main():
     int4_n, paged_n = serve_engine_full_width(torch, np, args.seed, card)
     if not (int4_n and paged_n):
         fail('a kernel of the engine path was never launched')
+    gc.collect()
+    torch.cuda.empty_cache()
+    mk_n, mk_times = decode_megakernel_path(torch, Timer(torch, 'cuda'),
+                                            args.seed, card)
+    if not mk_n:
+        fail('the decode megakernel was never launched on its path')
     if 'jax' in sys.modules or 'flax' in sys.modules:
         fail('jax was imported')
 
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bnd,
+              library):
+        return {'name': name, 'route': 'cuda',
+                'source': f'groma_tpu_torch/csrc/{source}',
+                'replaces': replaces, 'launches': launches,
+                'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
+                'bound_ms': bnd[0], 'bound_by': bnd[1],
+                'library_ms': library}
+
     def flash_entry(name, key, source, replaces, n):
-        err, ms, plain_ms = flash[key]
-        return {'name': name, 'route': 'cuda', 'source': source,
-                'replaces': replaces, 'launches': n, 'max_abs_err': err,
-                'ms': ms, 'plain_ms': plain_ms}
+        err, ms, plain_ms, bnd, library = flash[key]
+        return entry(name, source, replaces, n, err, ms, plain_ms, bnd,
+                     library)
 
     print(json.dumps({'kernels': [
-        {'name': 'int8_matmul', 'route': 'cuda',
-         'source': 'groma_tpu_torch/csrc/int8_matmul.cu',
-         'replaces': 'groma_tpu/ops/quant.py:52',
-         'launches': mm_n, 'max_abs_err': mm_err,
-         'ms': mm_ms[0], 'plain_ms': mm_ms[1]},
-        {'name': 'int8_decode_attention', 'route': 'cuda',
-         'source': 'groma_tpu_torch/csrc/decode_attention.cu',
-         'replaces': 'groma_tpu/ops/decode_attention.py:32',
-         'launches': att_n, 'max_abs_err': att_err,
-         'ms': att_ms[0], 'plain_ms': att_ms[1]},
+        entry('int8_matmul', 'int8_matmul.cu', 'groma_tpu/ops/quant.py:52',
+              mm_n, mm_err, *mm_ms, mm_bound, mm_lib),
+        entry('int8_decode_attention', 'decode_attention.cu',
+              'groma_tpu/ops/decode_attention.py:32', att_n, att_err,
+              *att_ms, att_bound, None),
         flash_entry('flash_fwd (bidirectional)', 'bidirectional',
-                    'groma_tpu_torch/csrc/flash_attention_fwd.cu',
+                    'flash_attention_fwd.cu',
                     'groma_tpu/ops/flash_attention.py:68', flash_n[0]),
         flash_entry('flash_fwd (causal)', 'causal',
-                    'groma_tpu_torch/csrc/flash_attention_fwd.cu',
+                    'flash_attention_fwd.cu',
                     'groma_tpu/ops/flash_attention.py:222', flash_n[1]),
         flash_entry('flash_bwd_causal', 'backward',
-                    'groma_tpu_torch/csrc/flash_attention_bwd.cu',
+                    'flash_attention_bwd.cu',
                     'groma_tpu/ops/flash_attention.py:527', flash_n[2]),
-        {'name': 'int4_matmul', 'route': 'cuda',
-         'source': 'groma_tpu_torch/csrc/int4_matmul.cu',
-         'replaces': 'groma_tpu/ops/quant4.py:85',
-         'launches': int4_n, 'max_abs_err': int4_err,
-         'ms': int4_ms[0], 'plain_ms': int4_ms[1]},
-        {'name': 'paged_int8_decode_attention', 'route': 'cuda',
-         'source': 'groma_tpu_torch/csrc/paged_attention.cu',
-         'replaces': 'groma_tpu/ops/paged_attention.py:51',
-         'launches': paged_n, 'max_abs_err': paged_err,
-         'ms': paged_ms, 'plain_ms': paged_plain_ms},
+        entry('int4_matmul', 'int4_matmul.cu', 'groma_tpu/ops/quant4.py:85',
+              int4_n, int4_err, *int4_ms, int4_bound, int4_lib),
+        entry('paged_int8_decode_attention', 'paged_attention.cu',
+              'groma_tpu/ops/paged_attention.py:51', paged_n, paged_err,
+              paged_ms, paged_plain_ms, paged_bound, None),
+        entry('decode_megakernel', 'decode_megakernel.cu',
+              'groma_tpu/ops/decode_megakernel.py:192', mk_n, *mk_times[:3],
+              mk_times[3:], None),
     ]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -1,12 +1,14 @@
 """Weights for the port (counterpart of ``groma_tpu/checkpoint/loader.py``).
 
-The bridge from the JAX package: its ``hf_export.export_groma`` turns a
-JAX ``GromaModel`` param tree (numpy arrays) into the reference's torch
-state dict (every Dense/conv/convT transpose and the flatten permutation
-done, round-trip tested there), and the port's modules, which carry the
-reference's parameter names, take it with ``load_state_dict(strict=True)``.
-A released checkpoint directory goes through the JAX package's jax-free
-``import_groma`` first, then the same bridge.
+A reference-format checkpoint directory (``config.json`` with
+``llm_cfg``/``perceiver_cfg``, safetensors or ``.bin``) loads straight into
+the port's modules, which carry the reference's parameter names
+(``load_state_dict(strict=True)``).  The one transform on the way in is the
+one the JAX package's import applies: the DINOv2 position table is resized
+bicubically to the deploy grid.  ``from_jax_params`` takes a JAX
+``GromaModel`` param tree (numpy arrays) through the port's copy of
+``hf_export.export_groma`` (every Dense/conv/convT transpose and the flatten
+permutation undone).
 
 ``random_groma`` builds any ``GromaConfig`` with random weights from a
 seed directly on the target device, and quantizes the LLM one layer at a
@@ -14,17 +16,20 @@ time so its full-precision copy never exists at once; ``random_groma_full``
 keeps every weight in f32, for training.  ``full_precision=True`` loads a
 model for training: f32 master weights everywhere (the JAX package's
 params), the ViT and region encoder still computing in their config dtype.
+
+Entry points run on the card: ``device=None`` means ``cuda``, and without a
+CUDA device ``resolve_device`` raises (pass ``device='cpu'`` to run on the
+CPU).
 """
 
 from __future__ import annotations
 
-import json
-import os
-
 import numpy as np
 import torch
 
-from groma_tpu.config import GromaConfig, tiny_groma_config
+from groma_tpu_torch.config import (DDETRConfig, GromaConfig, LlamaConfig,
+                                    PerceiverConfig, ViTConfig,
+                                    tiny_groma_config)
 from groma_tpu_torch.models.groma import GromaModel
 from groma_tpu_torch.models.llama_quant import (quantize_head,
                                                 quantize_llama_layer)
@@ -33,6 +38,85 @@ QUANT_BITS = {'bf16': 16, 'int8': 8, 'int4': 4}   # --quant_type -> bits
 _SMALL_INIT = ('cls_token', 'position_embeddings',
                'query_position_embeddings.weight', 'embed_tokens.weight',
                'new_input_embs.weight')
+
+
+def resolve_device(device=None) -> str:
+    """``device`` as given, or ``'cuda'`` when None; raises when a CUDA
+    device is asked for and there is none (no silent CPU fallback)."""
+    device = str(device or 'cuda')
+    if device.startswith('cuda') and not torch.cuda.is_available():
+        raise RuntimeError(f'no CUDA device for --device {device}: pass '
+                           f'--device cpu to run on the CPU')
+    return device
+
+
+def hf_groma_config(d: dict) -> GromaConfig:
+    """Translate a reference groma config.json dict into GromaConfig."""
+    llm_d = d.get('llm_cfg', {})
+    perc_d = d.get('perceiver_cfg', {})
+    vit_d = perc_d.get('vis_encoder_cfg', {})
+    ddetr_d = perc_d.get('ddetr_cfg', {})
+    vit = ViTConfig(
+        dtype=vit_d.get('compute_dtype', ViTConfig.dtype),
+        hidden_size=vit_d.get('hidden_size', 1024),
+        num_layers=vit_d.get('num_hidden_layers', 24),
+        num_heads=vit_d.get('num_attention_heads', 16),
+        mlp_ratio=vit_d.get('mlp_ratio', 4),
+        patch_size=vit_d.get('patch_size', 14),
+        image_size=vit_d.get('image_size', 518),
+        layerscale_value=vit_d.get('layerscale_value', 1.0),
+        use_swiglu_ffn=vit_d.get('use_swiglu_ffn', False),
+    )
+    ddetr = DDETRConfig(
+        dtype=ddetr_d.get('compute_dtype', DDETRConfig.dtype),
+        d_model=ddetr_d.get('d_model', 256),
+        num_queries=ddetr_d.get('num_queries', 300),
+        encoder_layers=ddetr_d.get('encoder_layers', 6),
+        decoder_layers=ddetr_d.get('decoder_layers', 6),
+        num_heads=ddetr_d.get('encoder_attention_heads', 8),
+        ffn_dim=ddetr_d.get('encoder_ffn_dim', 1024),
+        num_feature_levels=ddetr_d.get('num_feature_levels', 1),
+        enc_n_points=ddetr_d.get('encoder_n_points', 4),
+        dec_n_points=ddetr_d.get('decoder_n_points', 4),
+        num_labels=ddetr_d.get('num_labels',
+                               len(ddetr_d.get('id2label', {0: 0})) or 1),
+        two_stage=ddetr_d.get('two_stage', True),
+        with_box_refine=ddetr_d.get('with_box_refine', True),
+        focal_alpha=ddetr_d.get('focal_alpha', 0.25),
+    )
+    perceiver = PerceiverConfig(
+        vit=vit, ddetr=ddetr,
+        vis_output_layer=perc_d.get('vis_output_layer', -1),
+        # reference checkpoints carry no deploy size (448 is groma.py's
+        # fixed input); exported-from-here dirs record theirs
+        image_size=perc_d.get('deploy_image_size', 448))
+    llm = LlamaConfig(
+        dtype=llm_d.get('compute_dtype', LlamaConfig.dtype),
+        vocab_size=llm_d.get('vocab_size', 32000),
+        hidden_size=llm_d.get('hidden_size', 4096),
+        intermediate_size=llm_d.get('intermediate_size', 11008),
+        num_layers=llm_d.get('num_hidden_layers', 32),
+        num_heads=llm_d.get('num_attention_heads', 32),
+        num_kv_heads=llm_d.get('num_key_value_heads',
+                               llm_d.get('num_attention_heads', 32)),
+        max_position_embeddings=llm_d.get('max_position_embeddings', 4096),
+        rope_theta=llm_d.get('rope_theta', 10000.0),
+        rms_norm_eps=llm_d.get('rms_norm_eps', 1e-5),
+    )
+    return GromaConfig(
+        llm=llm, perceiver=perceiver,
+        num_new_token=d.get('num_new_token', 114),
+        nms_thres=d.get('nms_thres', 0.6),
+        box_score_thres=d.get('box_score_thres', 0.15),
+        max_region_num=d.get('max_region_num', 100),
+        # framework-only shape knobs (absent from reference checkpoints,
+        # recorded by checkpoint/hf_export.export_config)
+        num_image_tokens=d.get('num_image_tokens', 256),
+        max_seq_len=d.get('max_seq_len', 2048),
+        region_roi_out=d.get('region_roi_out', 14),
+        region_num_fuse=d.get('region_num_fuse', 5),
+        region_gn_groups=d.get('region_gn_groups', 64),
+    )
 
 
 def from_state_dict(sd: dict, cfg: GromaConfig, device=None,
@@ -51,25 +135,31 @@ def from_state_dict(sd: dict, cfg: GromaConfig, device=None,
 def from_jax_params(params: dict, cfg: GromaConfig, device=None,
                     full_precision: bool = False):
     """JAX GromaModel params (a tree of numpy arrays) -> GromaModel."""
-    from groma_tpu.checkpoint.hf_export import export_groma
+    from groma_tpu_torch.checkpoint.hf_export import export_groma
     return from_state_dict(export_groma(params, cfg), cfg, device,
                            full_precision)
 
 
 def load_groma(path: str, device=None, full_precision: bool = False):
     """A reference-format checkpoint directory (config.json with
-    llm_cfg/perceiver_cfg + safetensors or .bin) -> (GromaModel, cfg)."""
-    from groma_tpu.checkpoint.hf_import import load_state_dict
-    from groma_tpu.checkpoint.loader import hf_groma_config, import_groma
-    with open(os.path.join(path, 'config.json')) as f:
-        cfg_d = json.load(f)
+    llm_cfg/perceiver_cfg + safetensors or .bin) -> (GromaModel, cfg), the
+    state dict loaded as it is but for the ViT position table, resized to
+    the deploy grid."""
+    from groma_tpu_torch.checkpoint.hf_import import (load_config_json,
+                                                      load_state_dict,
+                                                      resize_vit_pos_embed)
+    cfg_d = load_config_json(path)
     if 'config_type' in cfg_d:
         raise ValueError(f'{path} is an orbax checkpoint of the JAX package; '
                          'export it with groma_tpu.checkpoint.hf_export '
                          'first')
     cfg = hf_groma_config(cfg_d)
-    params = import_groma(load_state_dict(path), cfg)
-    return from_jax_params(params, cfg, device, full_precision), cfg
+    pc = cfg.perceiver
+    sd = resize_vit_pos_embed(
+        load_state_dict(path),
+        'perceiver.vis_encoder.embeddings.position_embeddings',
+        pc.image_size // pc.vit.patch_size)
+    return from_state_dict(sd, cfg, device, full_precision), cfg
 
 
 @torch.no_grad()
@@ -139,12 +229,13 @@ def load_quantized(model_dir: str, device=None, seed: int = 0,
                    bits: int = 8):
     """'tiny' (random tiny config), 'random' (random full-width
     GromaConfig) or a checkpoint directory -> (GromaModel, qp, cfg), the
-    LLM quantized with ``bits`` (8, 4 or 16)."""
+    LLM quantized with ``bits`` (8, 4 or 16), on ``device`` (None: the
+    card; see ``resolve_device``)."""
     from groma_tpu_torch.eval.generate_quant import quantize_groma_llm
+    device = resolve_device(device)
     if model_dir in ('tiny', 'random'):
         cfg = tiny_groma_config() if model_dir == 'tiny' else GromaConfig()
-        model, qp = random_groma(cfg, seed=seed, device=device or 'cpu',
-                                 bits=bits)
+        model, qp = random_groma(cfg, seed=seed, device=device, bits=bits)
         return model, qp, cfg
     model, cfg = load_groma(model_dir, device)
     return model, quantize_groma_llm(model, cfg, bits), cfg

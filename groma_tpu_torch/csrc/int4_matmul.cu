@@ -46,10 +46,13 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "decode_common.cuh"
 #include "flash_common.cuh"
 
 namespace {
 
+using decode::load16;
+using decode::nib4_to_float;
 using flash::bf16;
 
 constexpr int kScaleBlock = 256;   // K rows per scale row
@@ -62,27 +65,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kBlockN = 64;                         // columns per block
 constexpr int kColGroups = kBlockN / 16;            // threads per row piece
 constexpr int kRowLanes = kThreads / kColGroups;    // rows per step
-
-// 4 nibbles, one in the low bits of each byte of w -> 4 exact floats
-// nibble - 8: the byte placed in the low mantissa byte of 2^23 reads
-// 2^23 + nibble.
-__device__ __forceinline__ void nib4_to_float(uint32_t w, float* f) {
-  f[0] = __int_as_float(__byte_perm(w, 0x4B000000u, 0x7440)) - 8388616.0f;
-  f[1] = __int_as_float(__byte_perm(w, 0x4B000000u, 0x7441)) - 8388616.0f;
-  f[2] = __int_as_float(__byte_perm(w, 0x4B000000u, 0x7442)) - 8388616.0f;
-  f[3] = __int_as_float(__byte_perm(w, 0x4B000000u, 0x7443)) - 8388616.0f;
-}
-
-__device__ __forceinline__ void load16(const float* p, float* s) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(p) + i);
-    s[4 * i] = v.x;
-    s[4 * i + 1] = v.y;
-    s[4 * i + 2] = v.z;
-    s[4 * i + 3] = v.w;
-  }
-}
 
 template <int MT>
 __global__ void __launch_bounds__(kThreads)

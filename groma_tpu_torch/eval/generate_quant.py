@@ -19,7 +19,7 @@ import time
 import numpy as np
 import torch
 
-from groma_tpu.config import GromaConfig
+from groma_tpu_torch.config import GromaConfig
 from groma_tpu_torch.models.groma import GromaModel
 from groma_tpu_torch.models.llama import make_kv_cache
 from groma_tpu_torch.models.llama_quant import (make_quant_kv_cache,

@@ -8,7 +8,8 @@ the image.
 
 The LLM is weight-only int8 (``--quant_type int8``), packed int4
 (``int4``) or the unquantized bf16 tree (``bf16``); the KV cache is int8
-(``--kv-bits 8``, the served configuration) or bf16 (16).
+(``--kv-bits 8``, the served configuration) or bf16 (16).  It runs on the
+card; ``--device cpu`` runs it on the CPU.
 """
 
 from __future__ import annotations
@@ -47,25 +48,28 @@ def main(argv=None):
                     choices=sorted(QUANT_BITS))
     ap.add_argument('--kv-bits', type=int, default=8, choices=[16, 8])
     ap.add_argument('--max-new-tokens', type=int, default=64)
-    ap.add_argument('--device', default=None,
-                    help='torch device (default: cuda if available)')
+    ap.add_argument('--device', default='cuda',
+                    help="torch device (default cuda; 'cpu' to run on the "
+                         "CPU)")
     ap.add_argument('--output-image', default='output.jpg')
     args = ap.parse_args(argv)
 
-    import torch
-    from groma_tpu.data.conversation import conv_templates
-    from groma_tpu.data.datasets.base import VLDataSpec, intro_conversation
-    from groma_tpu.data.image_pipeline import load_image, normalize, resize
-    from groma_tpu.data.tokenization import expand_template
-    from groma_tpu.data.tokenizer import StubTokenizer, load_tokenizer
-    from groma_tpu_torch.checkpoint.loader import load_quantized
+    from groma_tpu_torch.checkpoint.loader import (load_quantized,
+                                                   resolve_device)
+    from groma_tpu_torch.data.conversation import conv_templates
+    from groma_tpu_torch.data.datasets.base import (VLDataSpec,
+                                                    intro_conversation)
+    from groma_tpu_torch.data.image_pipeline import (load_image, normalize,
+                                                     resize)
+    from groma_tpu_torch.data.tokenization import expand_template
+    from groma_tpu_torch.data.tokenizer import StubTokenizer, load_tokenizer
     from groma_tpu_torch.eval.generate_quant import (QuantGenerator,
                                                      parse_region_tokens)
 
     model_dir = 'tiny' if args.tiny else args.model_dir
     if not model_dir:
         ap.error('--model-dir or --tiny is required')
-    device = args.device or ('cuda' if torch.cuda.is_available() else 'cpu')
+    device = resolve_device(args.device)
     model, qp, cfg = load_quantized(model_dir, device=device,
                                     bits=QUANT_BITS[args.quant_type])
     if model_dir == 'tiny':

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from groma_tpu.config import DDETRConfig
+from groma_tpu_torch.config import DDETRConfig
 from groma_tpu_torch.models.layers import (MLP, multi_head_attention,
                                            proposal_position_embedding,
                                            sine_position_embedding_2d)

@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from groma_tpu.config import ViTConfig
+from groma_tpu_torch.config import ViTConfig
 from groma_tpu_torch.models.layers import (layer_norm, linear,
                                            multi_head_attention)
 

@@ -33,9 +33,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from groma_tpu.config import GromaConfig
-from groma_tpu.constants import IGNORE_INDEX
-from groma_tpu.data.tokenization import SpecialIds
+from groma_tpu_torch.config import GromaConfig
+from groma_tpu_torch.constants import IGNORE_INDEX
+from groma_tpu_torch.data.tokenization import SpecialIds
 from groma_tpu_torch.models.llama import LlamaForCausalLM, torch_dtype
 from groma_tpu_torch.models.perceiver import Perceiver
 from groma_tpu_torch.models.region_encoder import RegionEncoder

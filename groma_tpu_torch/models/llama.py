@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from groma_tpu.config import LlamaConfig
+from groma_tpu_torch.config import LlamaConfig
 from groma_tpu_torch.models.layers import cast_linear
 from groma_tpu_torch.ops.flash_attention import flash_attention
 

@@ -12,12 +12,14 @@ through ``ops.paged_attention.paged_int8_decode_attention``.
 
 Ported: the scalar-index prefill and decode branches of
 ``quant_llama_forward``, its vector-index single-token decode (the
-continuous-batching engine, per-row positions) and
-``quant_llama_decode_paged``.  The vector-index multi-token append and
-``chunked=True`` (speculative verify, chunked prefill) are not ported and
-raise.  Unlike JAX, whose ``dynamic_update_slice`` clamps a write past the
-cache end, a scalar-index write that does not fit raises; a per-row index
-must stay inside the cache (the engine does not advance idle rows).
+continuous-batching engine, per-row positions), ``quant_llama_decode_paged``
+and ``quant_llama_decode_megakernel`` (the whole int4 + int8-KV decode step
+in one launch of ``ops.decode_megakernel``).  The vector-index multi-token
+append and ``chunked=True`` (speculative verify, chunked prefill) are not
+ported and raise.  Unlike JAX, whose ``dynamic_update_slice`` clamps a
+write past the cache end, a scalar-index write that does not fit raises; a
+per-row index must stay inside the cache (the engine does not advance idle
+rows).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from groma_tpu.config import LlamaConfig
+from groma_tpu_torch.config import LlamaConfig
 from groma_tpu_torch.models.llama import (apply_rope, rms_norm, rope_tables,
                                           torch_dtype)
 from groma_tpu_torch.ops.decode_attention import int8_decode_attention
@@ -302,6 +304,57 @@ def quant_llama_forward(qp: dict, cfg: LlamaConfig, inputs_embeds,
     x = rms_norm(x, qp['norm'], cfg.rms_norm_eps)
     if cache is not None:
         cache['index'] = idx + s
+    return x, cache
+
+
+def megakernel_step_inputs(cfg: LlamaConfig, cache: dict, attn_mask):
+    """The per-step inputs of ``fused_decode_step`` at the cache's scalar
+    index: the (B, S) f32 bias over the OLD positions only (kj < index; the
+    kernel folds the current token into the softmax itself), the (B, 1) f32
+    bias of this token from ``attn_mask[:, :1]``, and the (B, 128) f32 RoPE
+    rows at the index.  Returns (mask_bias, cur_bias, cos, sin)."""
+    index = cache['index']
+    b, skv = cache['mask'].shape
+    dev = cache['mask'].device
+    kj = torch.arange(skv, device=dev)
+    mask_bias = torch.where((kj < index)[None, :] & cache['mask'], 0.0,
+                            NEG_INF).to(torch.float32)
+    cur_bias = torch.where(attn_mask[:, :1], 0.0, NEG_INF).to(torch.float32)
+    position_ids = torch.full((b, 1), index, dtype=torch.int32, device=dev)
+    cos, sin = rope_tables(position_ids, cfg.hidden_size // cfg.num_heads,
+                           cfg.rope_theta)
+    return (mask_bias, cur_bias.contiguous(), cos[:, 0].contiguous(),
+            sin[:, 0].contiguous())
+
+
+def quant_llama_decode_megakernel(qp: dict, sp: dict, cfg: LlamaConfig,
+                                  inputs_embeds, attn_mask, cache: dict):
+    """Single-token decode through the all-layer megakernel
+    (``ops.decode_megakernel.fused_decode_step``): one launch runs the
+    whole L-layer stack, the cache updated in place.
+
+    ``sp`` = ``stack_decode_params(qp)``; ``cache`` = ``stack_kv_cache`` of
+    an int8 cache, with a scalar index.  The token's position is the cache
+    index (the decode benchmark's contract; the engine's per-row positions
+    keep the per-layer path).  The semantics are those of
+    ``quant_llama_forward``'s cached decode; a write past the cache's end
+    raises.  Returns (hidden (B, 1, D), cache)."""
+    from groma_tpu_torch.ops.decode_megakernel import fused_decode_step
+    dtype = torch_dtype(cfg.dtype)
+    if inputs_embeds.shape[1] != 1:
+        raise ValueError('megakernel decode takes one token a row')
+    index = cache['index']
+    skv = cache['mask'].shape[1]
+    if index >= skv:
+        raise ValueError(f'KV cache overflow: a token at slot {index} of a '
+                         f'{skv}-slot cache')
+    x = fused_decode_step(
+        sp, inputs_embeds[:, 0].to(torch.float32).contiguous(), cache,
+        *megakernel_step_inputs(cfg, cache, attn_mask), index,
+        eps=cfg.rms_norm_eps)
+    x = rms_norm(x.to(dtype)[:, None, :], qp['norm'], cfg.rms_norm_eps)
+    cache['mask'][:, index] = attn_mask[:, 0]
+    cache['index'] = index + 1
     return x, cache
 
 

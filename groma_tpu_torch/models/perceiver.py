@@ -8,7 +8,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from groma_tpu.config import PerceiverConfig
+from groma_tpu_torch.config import PerceiverConfig
 from groma_tpu_torch.models.ddetr import DDETRTransformer
 from groma_tpu_torch.models.dinov2 import Dinov2Model
 

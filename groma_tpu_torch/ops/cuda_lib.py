@@ -68,6 +68,8 @@ def _declare(lib):
     lib.groma_paged_attention.argtypes = [p, p, p, p, p, p, p, p,
                                           i, i, i, i, p]
     lib.groma_paged_attention.restype = i
+    lib.groma_decode_megakernel.argtypes = [p] * 13 + [i] * 6 + [f, p, p]
+    lib.groma_decode_megakernel.restype = i
 
 
 def _build(sources, so: Path) -> str:

@@ -1,0 +1,328 @@
+"""The whole L-layer int4 + int8-KV decode step in one launch.
+
+Counterpart of ``groma_tpu/ops/decode_megakernel.py``.  ``fused_decode_step``
+replaces the TPU kernel ``_make_kernel`` (one ``pallas_call`` with
+``grid=(L,)``) with the hand-written cooperative CUDA kernel in
+``csrc/decode_megakernel.cu``: every layer's rms-norm, fused qkv, RoPE,
+int8 cache write, attention over the int8 cache, o-projection, rms-norm,
+gate/up, SiLU and down-projection, with the f32 residual carried across the
+layers, in a single launch.  The cache is updated in place at the scalar
+position ``pos``.
+
+The stacked forms are the port's own.  The kernel takes a device table of
+per-layer addresses, so neither the weights nor the cache are copied:
+
+* ``stack_decode_params(qp)`` keeps the per-layer int4 tensors of
+  ``llama_quant.quantize_llama_params(bits=4)`` under the JAX package's keys
+  (``wqkv``, ``sqkv``, ... as lists of L tensors), the two norm scales
+  stacked as (L, D) f32, and, on CUDA, ``table``: (L, 8) int64 addresses.
+* ``stack_kv_cache(cache)`` shares the per-layer (B, H, S, 128) int8 and
+  (B, H, S) f32 buffers of ``llama_quant.make_quant_kv_cache`` and adds, on
+  CUDA, ``table``: (L, 4) int64 addresses.  ``unstack_kv_cache`` is its
+  inverse.
+* Both keep ``ptrs``, the host-side tuple of the addresses they were
+  stacked from; ``fused_decode_step`` raises if a list entry has since been
+  replaced, since the kernel would read the freed buffer through the
+  table.  None of the TPU layout's padding (8-row scale blocks), its
+  (L, H, B, S) scale transpose or its aligned-tile column write carries
+  over.
+
+Numerics are the TPU megakernel's, not the per-layer path's: the residual
+stays f32 across layers, RoPE acts on the f32 qkv, each rms-norm rounds to
+bf16, attention output and SiLU product are rounded to bf16 before their
+matmuls, and q, k and v are quantized per (b, head) with IEEE division by
+127.  The int4 products differ from the TPU kernel's in f32 rounding only:
+the plain version follows its ``_int4_chunk_dot`` (biased nibbles, ``x@n -
+8*sum(x)`` per 256-row block, then the scale), while the CUDA kernel, as
+``csrc/int4_matmul.cu`` does, multiplies each unbiased nibble by its scale
+first and sums the products with FMAs.  The current token joins the
+softmax max, denominator and p requantization in registers, and its p8*v
+term joins the int32 sum before the f32 cast.  Attention reads the cache as
+it was before this step's column is written.
+
+* ``fused_decode_step_plain`` is the plain PyTorch version, on any device.
+* ``fused_decode_step`` takes the plain version only for CPU tensors.  On
+  CUDA tensors it launches the kernel or raises.  ``pos >= S`` raises on
+  both (JAX clamps the write).  ``fused_decode_step.launches`` counts
+  launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from groma_tpu_torch.ops.quant import true_div
+
+HEAD_DIM = 128
+INT4_BLOCK = 256
+MAX_BATCH = 8        # the kernel's matmul tile holds 8 rows
+_MATMULS = (('wqkv', 'sqkv', 'qkv_proj'), ('wo', 'so', 'o_proj'),
+            ('wgu', 'sgu', 'gate_up_proj'), ('wdn', 'sdn', 'down_proj'))
+
+
+def _addresses(form: dict, keys) -> tuple:
+    return tuple(t.data_ptr() for k in keys for t in form[k])
+
+
+def _address_table(rows, device) -> torch.Tensor:
+    return torch.tensor([[t.data_ptr() for t in row] for row in rows],
+                        dtype=torch.int64).to(device)
+
+
+_PARAM_KEYS = tuple(k for wk, sk, _ in _MATMULS for k in (wk, sk))
+_CACHE_KEYS = ('k', 'k_scale', 'v', 'v_scale')
+
+
+def stack_decode_params(qp: dict) -> dict:
+    """Per-layer int4 tree (``quantize_llama_params(bits=4)``) -> the
+    megakernel's form: the same weight tensors (no copy) as lists under the
+    JAX package's keys, the norm scales as (L, D) f32, and on CUDA an (L, 8)
+    table of the weights' addresses."""
+    layers = qp['layers']
+    for lp in layers:
+        for _, _, name in _MATMULS:
+            if lp[name]['q'].dtype != torch.uint8:
+                raise ValueError('the megakernel takes the packed-int4 tree '
+                                 '(bits=4)')
+    sp = {'ln1': torch.stack([lp['input_layernorm'].float()
+                              for lp in layers]).contiguous(),
+          'ln2': torch.stack([lp['post_attention_layernorm'].float()
+                              for lp in layers]).contiguous()}
+    for wk, sk, name in _MATMULS:
+        sp[wk] = [lp[name]['q'].contiguous() for lp in layers]
+        sp[sk] = [lp[name]['scale'].contiguous() for lp in layers]
+    dev = sp['ln1'].device
+    sp['table'] = _address_table(
+        [[sp[k][i] for k in _PARAM_KEYS] for i in range(len(layers))],
+        dev) if dev.type == 'cuda' else None
+    sp['ptrs'] = _addresses(sp, _PARAM_KEYS)
+    return sp
+
+
+def stack_kv_cache(cache: dict) -> dict:
+    """Per-layer int8 cache (``make_quant_kv_cache``) -> the megakernel's
+    form: the same buffers (no copy; the kernel writes them in place), and
+    on CUDA an (L, 4) table of their addresses (k, k_scale, v, v_scale)."""
+    st = {k: cache[k] for k in ('k', 'k_scale', 'v', 'v_scale', 'mask')}
+    st['index'] = int(cache['index'])
+    dev = st['k'][0].device
+    st['table'] = _address_table(
+        [[st[k][i] for k in _CACHE_KEYS] for i in range(len(st['k']))],
+        dev) if dev.type == 'cuda' else None
+    st['ptrs'] = _addresses(st, _CACHE_KEYS)
+    return st
+
+
+def unstack_kv_cache(st: dict, num_layers: int) -> dict:
+    """Inverse of ``stack_kv_cache``: the per-layer cache over the same
+    buffers."""
+    if len(st['k']) != num_layers:
+        raise ValueError(f'{len(st["k"])} layers in the cache, not '
+                         f'{num_layers}')
+    return {'k': list(st['k']), 'v': list(st['v']),
+            'k_scale': list(st['k_scale']), 'v_scale': list(st['v_scale']),
+            'mask': st['mask'], 'index': st['index']}
+
+
+def supported(cfg, batch: int, qp: dict) -> bool:
+    """The geometry the kernel takes: MHA with 128-wide heads, the
+    packed-int4 tree, K dimensions in whole 256-row scale blocks, at most
+    MAX_BATCH rows."""
+    d, f = cfg.hidden_size, cfg.intermediate_size
+    try:
+        int4 = qp['layers'][0]['qkv_proj']['q'].dtype == torch.uint8
+    except (KeyError, IndexError):
+        return False
+    return (int4 and cfg.num_heads == cfg.num_kv_heads
+            and d == cfg.num_heads * HEAD_DIM and d % INT4_BLOCK == 0
+            and f % INT4_BLOCK == 0 and 1 <= batch <= MAX_BATCH)
+
+
+# --------------------------------------------------------- plain version
+
+def _int4_chunk_dot(x_bf, packed, scale):
+    """(M, K) bf16 @ packed int4 (K/2, N) with (K/256, N) scales, the TPU
+    kernel's algebra: the biased nibbles' f32 dot per 256-row K block,
+    minus 8 times the block's x sum, times the block's scales, summed over
+    the blocks in order."""
+    m, k = x_bf.shape
+    p = packed.to(torch.int32)
+    nib = torch.cat([p & 0xF, p >> 4], 0).to(torch.float32)   # (K, N)
+    nblk = k // INT4_BLOCK
+    xb = x_bf.to(torch.float32).reshape(m, nblk, INT4_BLOCK).transpose(0, 1)
+    part = torch.bmm(xb, nib.reshape(nblk, INT4_BLOCK, -1))   # (nblk, M, N)
+    xsum = xb.sum(-1, keepdim=True)
+    acc = torch.zeros_like(part[0])
+    for b in range(nblk):
+        acc = acc + (part[b] - 8.0 * xsum[b]) * scale[b]
+    return acc
+
+
+def _rms(x32, scale_row, eps):
+    """(M, D) f32 -> bf16-rounded rms-norm."""
+    v = x32 * torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + eps)
+    return (v * scale_row).to(torch.bfloat16)
+
+
+def _rope(x32, cos, sin):
+    """(B, H, hd) f32 half-rotation by (B, hd) tables."""
+    half = x32.shape[-1] // 2
+    rot = torch.cat([-x32[..., half:], x32[..., :half]], dim=-1)
+    return x32 * cos[:, None] + rot * sin[:, None]
+
+
+def _quant_rows(x32):
+    """Symmetric per-row absmax int8 over the last dim (IEEE division)."""
+    a = x32.abs().amax(-1, keepdim=True)
+    s = torch.where(a > 0, true_div(a, 127.0), torch.ones_like(a))
+    return torch.clamp(torch.round(x32 / s), -127, 127), s
+
+
+def _attend(q, k, v, k8, ks, v8, vs, mask_bias, cur_bias, scale):
+    """One layer's attention for every (b, head): the old cache positions
+    (bias ``mask_bias``) plus the current token (``cur_bias``) folded in.
+    q/k/v (B, H, hd) f32 (roped) -> (attn (B, H, hd) f32, the current
+    token's int8 k and v (as floats) and their (B, H, 1) scales)."""
+    q8, qs = _quant_rows(q)
+    k8c, ksc = _quant_rows(k)
+    v8c, vsc = _quant_rows(v)
+    qsc = qs * scale
+    s_old = torch.einsum('bhd,bhsd->bhs', q8.double(),
+                         k8.double()).float()
+    s_old = s_old * qsc * ks + mask_bias[:, None, :]
+    s_cur = (q8.double() * k8c.double()).sum(-1, keepdim=True).float()
+    s_cur = s_cur * qsc * ksc + cur_bias[:, None, :]
+    m = torch.maximum(s_old.amax(-1, keepdim=True), s_cur)
+    p_old = torch.exp(s_old - m)
+    p_cur = torch.exp(s_cur - m)
+    denom = p_old.sum(-1, keepdim=True) + p_cur
+    ps_old = p_old * vs
+    ps_cur = p_cur * vsc
+    r = torch.maximum(ps_old.amax(-1, keepdim=True), ps_cur)
+    r = torch.where(r > 0, true_div(r, 127.0), torch.ones_like(r))
+    p8 = torch.round(ps_old / r)
+    p8c = torch.round(ps_cur / r)
+    o = torch.einsum('bhs,bhsd->bhd', p8.double(), v8.double())
+    o = o + p8c.double() * v8c.double()
+    attn = o.float() * (r / torch.clamp(denom, min=1e-30))
+    return attn, k8c, ksc, v8c, vsc
+
+
+def fused_decode_step_plain(sp: dict, x, kv: dict, mask_bias, cur_bias,
+                            cos, sin, pos: int, eps: float = 1e-5):
+    """The plain PyTorch version of ``fused_decode_step``, on any device;
+    ``kv``'s buffers are updated in place at ``pos``."""
+    b, d = x.shape
+    h = d // HEAD_DIM
+    scale = HEAD_DIM ** -0.5
+    x = x.to(torch.float32)
+    mask_bias = mask_bias.to(torch.float32)
+    cur_bias = cur_bias.to(torch.float32).reshape(b, 1)
+    cos, sin = cos.to(torch.float32), sin.to(torch.float32)
+    for i in range(len(sp['wqkv'])):
+        h1 = _rms(x, sp['ln1'][i], eps)
+        qkv = _int4_chunk_dot(h1, sp['wqkv'][i], sp['sqkv'][i])
+        q, k, v = (t.reshape(b, h, HEAD_DIM) for t in qkv.split(d, dim=-1))
+        attn, k8c, ksc, v8c, vsc = _attend(
+            _rope(q, cos, sin), _rope(k, cos, sin), v, kv['k'][i],
+            kv['k_scale'][i], kv['v'][i], kv['v_scale'][i], mask_bias,
+            cur_bias, scale)
+        kv['k'][i][:, :, pos] = k8c.to(torch.int8)
+        kv['v'][i][:, :, pos] = v8c.to(torch.int8)
+        kv['k_scale'][i][:, :, pos] = ksc[..., 0]
+        kv['v_scale'][i][:, :, pos] = vsc[..., 0]
+        x = x + _int4_chunk_dot(attn.reshape(b, d).to(torch.bfloat16),
+                                sp['wo'][i], sp['so'][i])
+        h2 = _rms(x, sp['ln2'][i], eps)
+        gate, up = _int4_chunk_dot(h2, sp['wgu'][i],
+                                   sp['sgu'][i]).chunk(2, dim=-1)
+        act = (F.silu(gate) * up).to(torch.bfloat16)
+        x = x + _int4_chunk_dot(act, sp['wdn'][i], sp['sdn'][i])
+    return x
+
+
+# --------------------------------------------------------------- wrapper
+
+def _launch(sp, x, kv, mask_bias, cur_bias, cos, sin, pos, eps):
+    from groma_tpu_torch.ops.cuda_lib import check, library, stream_ptr
+    b, d = x.shape
+    n_layers = len(sp['wqkv'])
+    f = sp['wdn'][0].shape[0] * 2
+    h, s = d // HEAD_DIM, kv['k'][0].shape[2]
+    out = torch.empty_like(x)
+    qkv = torch.empty((b, 3 * d), dtype=torch.float32, device=x.device)
+    attn = torch.empty((b, d), dtype=torch.bfloat16, device=x.device)
+    act = torch.empty((b, f), dtype=torch.bfloat16, device=x.device)
+    blocks = ctypes.c_int(0)
+    status = library().groma_decode_megakernel(
+        x.data_ptr(), out.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+        mask_bias.data_ptr(), cur_bias.data_ptr(), sp['ln1'].data_ptr(),
+        sp['ln2'].data_ptr(), sp['table'].data_ptr(), kv['table'].data_ptr(),
+        qkv.data_ptr(), attn.data_ptr(), act.data_ptr(),
+        n_layers, b, h, s, f, pos, eps, ctypes.addressof(blocks),
+        stream_ptr(x))
+    check(status, 'decode_megakernel')
+    fused_decode_step.launches += 1
+    fused_decode_step.blocks = blocks.value
+    return out
+
+
+def fused_decode_step(sp: dict, x, kv: dict, mask_bias, cur_bias, cos, sin,
+                      pos: int, eps: float = 1e-5):
+    """One decode step over all L layers.
+
+    sp: ``stack_decode_params``; x (B, D) f32, the hidden state after the
+    embedding; kv: ``stack_kv_cache``, updated in place at ``pos``;
+    mask_bias (B, S) f32 (0 / -1e30) over the OLD positions, -1e30 at
+    ``pos`` and beyond; cur_bias (B, 1) f32, this token's validity bias;
+    cos/sin (B, 128) f32 RoPE rows at this token's position; pos, the
+    scalar cache slot, 0 <= pos < S.  Returns the (B, D) f32 hidden state
+    before the final norm.
+
+    CPU tensors: the plain version.  CUDA tensors: the kernel, for B <= 8,
+    128-wide MHA heads, D and F multiples of 256; x, the biases and the
+    tables f32 and contiguous.  A launch sets ``fused_decode_step.blocks``
+    to its grid (the co-resident blocks)."""
+    s = kv['k'][0].shape[2]
+    if not 0 <= pos < s:
+        raise ValueError(f'decode position {pos} outside the {s}-slot '
+                         f'cache')
+    if (sp.get('ptrs') != _addresses(sp, _PARAM_KEYS)
+            or kv.get('ptrs') != _addresses(kv, _CACHE_KEYS)):
+        raise ValueError('fused_decode_step: a weight or cache buffer was '
+                         'replaced after stacking; stack again')
+    if x.device.type == 'cpu':
+        return fused_decode_step_plain(sp, x, kv, mask_bias, cur_bias, cos,
+                                       sin, pos, eps)
+    if x.device.type != 'cuda':
+        raise ValueError(f'fused_decode_step: unsupported device {x.device}')
+    b, d = x.shape
+    f = sp['wdn'][0].shape[0] * 2
+    if (not 1 <= b <= MAX_BATCH or d % HEAD_DIM
+            or d % INT4_BLOCK or f % INT4_BLOCK
+            or kv['k'][0].shape != (b, d // HEAD_DIM, s, HEAD_DIM)
+            or mask_bias.shape != (b, s) or cur_bias.numel() != b
+            or cos.shape != (b, HEAD_DIM) or sin.shape != (b, HEAD_DIM)):
+        raise ValueError(f'fused_decode_step: x {tuple(x.shape)}, F {f}, '
+                         f'cache {tuple(kv["k"][0].shape)}, mask '
+                         f'{tuple(mask_bias.shape)}; the kernel takes '
+                         f'B <= {MAX_BATCH}, 128-wide heads, D and F '
+                         f'multiples of {INT4_BLOCK}')
+    tensors = (x, mask_bias, cur_bias, cos, sin)
+    if any(t.dtype != torch.float32 or not t.is_contiguous()
+           or t.device != x.device for t in tensors):
+        raise ValueError('fused_decode_step: x, the biases and cos/sin must '
+                         'be contiguous f32 on the same device')
+    if sp.get('table') is None or kv.get('table') is None \
+            or sp['table'].device != x.device \
+            or kv['table'].device != x.device:
+        raise ValueError('fused_decode_step: stack the params and the cache '
+                         'on the device of x')
+    return _launch(sp, x, kv, mask_bias, cur_bias, cos, sin, pos, eps)
+
+
+fused_decode_step.launches = 0
+fused_decode_step.blocks = 0

@@ -2,8 +2,8 @@
 heartbeat (counterpart of ``groma_tpu/serve/worker.py``).
 
 The HTTP handler, the status report (with ``engine.stats()`` when the
-engine serves) and the controller heartbeat are the JAX package's (they
-hold no JAX); this class replaces model loading and generation.  Requests
+engine serves) and the controller heartbeat are copies of the JAX
+package's; model loading and generation are the port's own.  Requests
 go to the continuous-batching ``BatchEngine`` (``--engine``; the
 production server is ``--engine --quant_type int4 --kv-bits 8
 --paged-kv``), or one at a time to ``QuantGenerator``.  A request that
@@ -16,19 +16,24 @@ serving other requests.
         --quant_type int4 --kv-bits 8 --paged-kv      # tiny, on the CPU
     python -m groma_tpu_torch.serve.worker --model-dir <dir> --engine \
         --quant_type int4 --kv-bits 8 --paged-kv      # the card
+
+The worker runs on the card (``--device cuda``, the default); without a
+CUDA device it refuses to start unless given ``--device cpu``.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import threading
-from http.server import ThreadingHTTPServer
+import urllib.request
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
-from groma_tpu.serve import worker as jax_worker
 from groma_tpu_torch.checkpoint.loader import QUANT_BITS
+from groma_tpu_torch.constants import WORKER_HEART_BEAT_INTERVAL
 
 logger = logging.getLogger('groma_tpu_torch.serve.worker')
 
@@ -38,7 +43,7 @@ DEFAULT_MAX_NEW_TOKENS = 64
 ENGINE_MAX_NEW_TOKENS = 256
 
 
-class ModelWorker(jax_worker.ModelWorker):
+class ModelWorker:
     def __init__(self, model_dir: str, tokenizer_path=None,
                  worker_name: str = 'groma-worker',
                  model_name: str = 'groma', limit: int = 2,
@@ -49,9 +54,11 @@ class ModelWorker(jax_worker.ModelWorker):
         """``model_dir``: a checkpoint directory, 'tiny' or 'random'
         (random weights from ``seed`` at the tiny or the full config).
         ``quant_type``: 'int8', 'int4' or 'bf16' (the unquantized fused
-        tree)."""
-        from groma_tpu.data.datasets.base import VLDataSpec
-        from groma_tpu.data.tokenizer import StubTokenizer, load_tokenizer
+        tree).  ``device``: None is the card (``cuda``); 'cpu' runs on the
+        CPU."""
+        from groma_tpu_torch.data.datasets.base import VLDataSpec
+        from groma_tpu_torch.data.tokenizer import (StubTokenizer,
+                                                    load_tokenizer)
         from groma_tpu_torch.checkpoint.loader import load_quantized
         from groma_tpu_torch.eval.generate_quant import QuantGenerator
 
@@ -94,6 +101,42 @@ class ModelWorker(jax_worker.ModelWorker):
             self._register()
             threading.Thread(target=self._heartbeat_loop, daemon=True).start()
 
+    # ------------------------------------------------------- liveness
+
+    def status(self) -> dict:
+        out = {'model_names': [self.model_name], 'speed': 1,
+               'queue_length': self.queue_length}
+        if self.engine is not None:
+            # engine observability: TTFT, throughput, occupancy, pages
+            out['engine'] = self.engine.stats()
+        return out
+
+    def _post(self, path: str, payload: dict):
+        req = urllib.request.Request(
+            self.controller_addr + path,
+            data=json.dumps(payload).encode(),
+            headers={'Content-Type': 'application/json'})
+        with urllib.request.urlopen(req, timeout=5) as r:
+            return json.loads(r.read() or b'{}')
+
+    def _register(self):
+        self._post('/register_worker', {
+            'worker_name': self.worker_name, 'check_heart_beat': True,
+            'worker_status': self.status()})
+
+    def _heartbeat_loop(self):
+        import time
+        while True:
+            time.sleep(WORKER_HEART_BEAT_INTERVAL)
+            try:
+                ok = self._post('/receive_heart_beat', {
+                    'worker_name': self.worker_name,
+                    'queue_length': self.queue_length})
+                if not ok.get('exist'):
+                    self._register()
+            except Exception:
+                pass
+
     def _queued(self, delta: int):
         with self._count_lock:
             self.queue_length += delta
@@ -104,9 +147,9 @@ class ModelWorker(jax_worker.ModelWorker):
         truncated`` when the engine's page pool ran dry).  Decoding is
         greedy, or sampled per request through the engine
         (``temperature``)."""
-        from groma_tpu.data.conversation import conv_templates
-        from groma_tpu.data.datasets.base import intro_conversation
-        from groma_tpu.data.tokenization import expand_template
+        from groma_tpu_torch.data.conversation import conv_templates
+        from groma_tpu_torch.data.datasets.base import intro_conversation
+        from groma_tpu_torch.data.tokenization import expand_template
         from groma_tpu_torch.eval.generate_quant import parse_region_tokens
 
         with self.semaphore:
@@ -192,6 +235,37 @@ class ModelWorker(jax_worker.ModelWorker):
                 self._queued(-1)
 
 
+def make_handler(worker: ModelWorker):
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def do_POST(self):
+            n = int(self.headers.get('Content-Length', 0))
+            data = json.loads(self.rfile.read(n) or b'{}')
+            if self.path == '/worker_get_status':
+                body = json.dumps(worker.status()).encode()
+                self.send_response(200)
+                self.send_header('Content-Type', 'application/json')
+                self.end_headers()
+                self.wfile.write(body)
+            elif self.path == '/worker_generate_stream':
+                self.send_response(200)
+                self.send_header('Content-Type', 'application/jsonl')
+                self.send_header('Transfer-Encoding', 'chunked')
+                self.end_headers()
+                for chunk in worker.generate_stream(data):
+                    payload = (json.dumps(chunk) + '\0').encode()
+                    self.wfile.write(f'{len(payload):X}\r\n'.encode())
+                    self.wfile.write(payload + b'\r\n')
+                self.wfile.write(b'0\r\n\r\n')
+            else:
+                self.send_response(404)
+                self.end_headers()
+
+    return Handler
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument('--model-dir', default=None)
@@ -209,7 +283,9 @@ def main():
                          '--kv-bits 8)')
     ap.add_argument('--kv-pool-tokens', type=int, default=0,
                     help='page-pool size in tokens (0 = slots x max_len)')
-    ap.add_argument('--device', default=None)
+    ap.add_argument('--device', default='cuda',
+                    help="torch device (default cuda; 'cpu' to serve on the "
+                         "CPU)")
     ap.add_argument('--host', default='0.0.0.0')
     ap.add_argument('--port', type=int, default=21002)
     ap.add_argument('--controller-address', default='')
@@ -226,8 +302,7 @@ def main():
                          device=a.device, use_engine=a.engine,
                          engine_slots=a.engine_slots, paged_kv=a.paged_kv,
                          kv_pool_tokens=a.kv_pool_tokens)
-    httpd = ThreadingHTTPServer((a.host, a.port),
-                                jax_worker.make_handler(worker))
+    httpd = ThreadingHTTPServer((a.host, a.port), make_handler(worker))
     httpd.serve_forever()
 
 

@@ -12,10 +12,10 @@ from __future__ import annotations
 
 import numpy as np
 
-from groma_tpu.config import GromaConfig
-from groma_tpu.constants import IGNORE_INDEX
-from groma_tpu.data.build import collate_vl
-from groma_tpu.data.tokenization import SpecialIds, expand_template
+from groma_tpu_torch.config import GromaConfig
+from groma_tpu_torch.constants import IGNORE_INDEX
+from groma_tpu_torch.data.build import collate_vl
+from groma_tpu_torch.data.tokenization import SpecialIds, expand_template
 
 
 def grounded_batch(cfg: GromaConfig, batch_size: int, seed: int,

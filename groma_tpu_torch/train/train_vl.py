@@ -7,7 +7,7 @@
 
 The model is composed from ``--llm`` + ``--perceiver`` checkpoint
 directories, or loaded whole from ``--model_name_or_path``; the data comes
-through the JAX package's host-side pipeline (datasets, source-grouped
+through the port's copy of the host-side pipeline (datasets, source-grouped
 sampler, threaded loader, ``collate_vl``); AdamW on a warmup-cosine
 schedule with the freeze switches; gradient accumulation; checkpoints with
 ``torch.save`` every ``--save_steps`` updates and automatic resume from the
@@ -18,7 +18,9 @@ which ``groma_tpu_torch.checkpoint.loader.load_groma`` reads back.
 Boolean flags take ``True``/``False`` strings, as the reference's
 HfArgumentParser parses them.  ``--gradient_checkpointing`` is accepted and
 has no effect, as in the JAX package.  ``--tokenizer stub`` selects the
-deterministic word-hash tokenizer of smoke runs.
+deterministic word-hash tokenizer of smoke runs.  Training runs on the
+card; ``--device cpu`` runs it on the CPU (without a CUDA device, nothing
+else starts).
 """
 
 from __future__ import annotations
@@ -75,6 +77,9 @@ def parse_args(argv=None):
     ap.add_argument('--use_flash_attention', type=str2bool, default=True)
     ap.add_argument('--dataloader_num_workers', type=int, default=8)
     ap.add_argument('--seed', type=int, default=0)
+    ap.add_argument('--device', default='cuda',
+                    help="torch device (default cuda; 'cpu' to train on the "
+                         "CPU)")
     return ap.parse_args(argv)
 
 
@@ -85,13 +90,11 @@ def compose_model(args, device):
     the new-token embeddings start at the mean base embedding."""
     import torch
 
-    from groma_tpu.checkpoint.hf_export import export_llama, export_perceiver
-    from groma_tpu.checkpoint.hf_import import (import_llama,
-                                                import_perceiver,
-                                                load_config_json,
-                                                load_state_dict)
-    from groma_tpu.checkpoint.loader import hf_groma_config
-    from groma_tpu_torch.checkpoint.loader import (load_groma,
+    from groma_tpu_torch.checkpoint.hf_import import (load_config_json,
+                                                      load_state_dict,
+                                                      resize_vit_pos_embed)
+    from groma_tpu_torch.checkpoint.loader import (hf_groma_config,
+                                                   load_groma,
                                                    random_groma_full)
 
     if args.model_name_or_path:
@@ -111,19 +114,14 @@ def compose_model(args, device):
         'max_region_num': args.max_region_num,
     })
     model = random_groma_full(cfg, seed=args.seed, device=device)
-    nl = cfg.llm.num_layers
-    sd = export_llama(import_llama(load_state_dict(args.llm), nl), nl,
-                      prefix='llm.')
+    # both checkpoints carry the reference's names, which the port's
+    # modules keep; the ViT position table is resized to the deploy grid
     pc = cfg.perceiver
-    perc = import_perceiver(
-        load_state_dict(args.perceiver), pc.vit.num_layers,
-        pc.ddetr.encoder_layers, pc.ddetr.decoder_layers,
-        pc.ddetr.num_feature_levels, patch_size=pc.vit.patch_size,
-        deploy_grid=pc.image_size // pc.vit.patch_size)
-    sd.update({f'perceiver.{k}': v for k, v in export_perceiver(
-        perc, pc.vit.num_layers, pc.ddetr.encoder_layers,
-        pc.ddetr.decoder_layers, pc.ddetr.num_feature_levels,
-        patch_size=pc.vit.patch_size).items()})
+    perc = resize_vit_pos_embed(load_state_dict(args.perceiver),
+                                'vis_encoder.embeddings.position_embeddings',
+                                pc.image_size // pc.vit.patch_size)
+    sd = {f'llm.{k}': v for k, v in load_state_dict(args.llm).items()}
+    sd.update({f'perceiver.{k}': v for k, v in perc.items()})
     own = model.state_dict()
     missing = [k for k in own if k.startswith(('llm.', 'perceiver.'))
                and k not in sd]
@@ -185,7 +183,7 @@ def export_weights(output_dir, model, cfg):
     reference-format config.json."""
     import torch
 
-    from groma_tpu.checkpoint.hf_export import export_config
+    from groma_tpu_torch.checkpoint.hf_export import export_config
     os.makedirs(output_dir, exist_ok=True)
     with open(os.path.join(output_dir, 'config.json'), 'w') as f:
         json.dump(export_config(cfg), f, indent=1)
@@ -201,17 +199,18 @@ def main(argv=None):
     import numpy as np
     import torch
 
+    from groma_tpu_torch.checkpoint.loader import resolve_device
     # host-side data pipeline (PIL): imported here, not by the module
-    from groma_tpu.data.build import (SourceGroupedBatchSampler,
-                                      build_multi_datasets, collate_vl)
-    from groma_tpu.data.datasets.base import VLDataSpec
-    from groma_tpu.data.loader import DataLoader
-    from groma_tpu.data.tokenizer import StubTokenizer, load_tokenizer
+    from groma_tpu_torch.data.build import (SourceGroupedBatchSampler,
+                                            build_multi_datasets, collate_vl)
+    from groma_tpu_torch.data.datasets.base import VLDataSpec
+    from groma_tpu_torch.data.loader import DataLoader
+    from groma_tpu_torch.data.tokenizer import StubTokenizer, load_tokenizer
     from groma_tpu_torch.train.optimizer import (cosine_schedule,
                                                  freeze_predicate, make_adamw)
     from groma_tpu_torch.train.steps import batch_to, make_vl_train_step
 
-    device = 'cuda' if torch.cuda.is_available() else 'cpu'
+    device = resolve_device(args.device)
     torch.manual_seed(args.seed)
     model, cfg = compose_model(args, device)
     cfg = cfg.replace(max_seq_len=args.model_max_length)

@@ -189,4 +189,5 @@ def test_kernel_library_is_built_only_at_first_launch():
     assert cuda_lib._lib is None       # nothing above launched a kernel
     assert {p.name for p in cuda_lib.CSRC.glob('*.cu')} == {
         'int8_matmul.cu', 'decode_attention.cu', 'flash_attention_fwd.cu',
-        'flash_attention_bwd.cu', 'int4_matmul.cu', 'paged_attention.cu'}
+        'flash_attention_bwd.cu', 'int4_matmul.cu', 'paged_attention.cu',
+        'decode_megakernel.cu'}

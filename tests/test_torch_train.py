@@ -457,7 +457,7 @@ def test_train_vl_main_trains_saves_resumes_and_exports(coco_dir, tmp_path,
             '--gradient_accumulation_steps', '2', '--learning_rate', '3e-3',
             '--model_max_length', '128', '--save_steps', '1',
             '--save_total_limit', '2', '--dataloader_num_workers', '2',
-            '--gradient_checkpointing', 'True']
+            '--gradient_checkpointing', 'True', '--device', 'cpu']
     main(argv + ['--num_train_epochs', '1'])       # 4 batches -> 2 updates
     first = capsys.readouterr().out
     assert 'step 2/2' in first and 'training complete' in first
@@ -489,11 +489,13 @@ def test_compose_model_loads_llm_and_perceiver_checkpoints(tmp_path):
     with its config.json) land in the composed model; the new-token
     embeddings start at the mean base embedding."""
     from groma_tpu.checkpoint.hf_export import export_config, save_safetensors
-    from groma_tpu.config import ViTConfig
     from groma_tpu_torch.checkpoint.loader import random_groma_full
+    from groma_tpu_torch.config import ViTConfig
+    from groma_tpu_torch.config import tiny_groma_config as port_tiny_config
     from groma_tpu_torch.train.train_vl import compose_model, parse_args
-    # the released region encoder's 64 GroupNorm groups need 64k channels
-    base = tiny_groma_config()
+    # the released region encoder's 64 GroupNorm groups need 64k channels;
+    # the port reads the configs into its own config classes
+    base = port_tiny_config()
     cfg = base.replace(perceiver=base.perceiver.replace(vit=ViTConfig(
         hidden_size=64, num_layers=2, num_heads=4, patch_size=14,
         image_size=56, dtype='float32')))
