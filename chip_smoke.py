@@ -15,7 +15,7 @@ Phases, each printed before the last line:
     operations over the peak rate of their type) and the time of one
     PyTorch call that computes the same function where there is one
     (torch._weight_int8pack_mm / _weight_int4pack_mm, the SDPA forward and
-    backward, the backend named): the int8 decode
+    backward, torch._int_mm, the backend named): the int8 decode
     matmul and decode attention (served path), the packed-int4 matmul (each
     of the int4 tree's five shapes at M=1 and M=8, the engine's decode,
     and at M=2048, a prefill; at down_proj the bound is also shown to flag
@@ -23,7 +23,10 @@ Phases, each printed before the last line:
     attention (8 slots, ragged lengths up to 2432, shuffled
     pages, a frozen row), the flash-attention forward (bidirectional at the
     ViT's (2, 16, 1025, 64), causal at the LLM's (2, 32, 2048, 128) under a
-    grounded key mask), the causal backward, and the all-layer decode
+    grounded key mask), the backward (bidirectional at the ViT's shape
+    under a grounded key mask, also with a fully masked row; causal at the
+    LLM's), the probes' kernels (#10-#12, every variant at the probes'
+    shapes), and the all-layer decode
     megakernel at full width and 2 layers (B=8, a 1024-slot cache written
     at slot 700, a ragged mask and a fully masked row: the hidden state,
     the written column within one int8 unit, every other cache byte
@@ -72,11 +75,23 @@ Phases, each printed before the last line:
     and tok/s of both, PROFILED_STEPS more steps of each under
     torch.profiler (device time and operations a step), and the kernel
     alone beside its plain version and its bound.
-Then one JSON line with the eight kernels (launches: the training path's
-for the flash kernels, the served path's for the int8 ones, the engine's
-for the int4 and paged ones, the decode path's for the megakernel), and as
-the last line {"ok": true, "device": {...}}.  Any failed check exits
-non-zero and prints no result; so does a machine without a CUDA device.
+ 8. DINOv2-L at full width (24 layers, 448², B=2, bf16 on f32 master
+    weights) forward and backward through the port's Dinov2Model with
+    use_flash=True, the path of the bidirectional backward (#6): exactly
+    24 launches of its forward and of its backward, and the parameter
+    gradient of a fixed scalar against the same model with use_flash=False
+    on the card;
+ 9. the H100 probes #10-#12 (groma_tpu_torch/benchmarks; each kernel
+    variant was held against its plain version in phase 2): each probe's
+    entry point as `python -m groma_tpu_torch.benchmarks.<name>` runs it,
+    printing the probe's table.
+Then one JSON line with the seventeen kernels (launches: the training
+path's for the forward flash kernels and the causal backward, the DINOv2-L
+phase's for the bidirectional backward, the served path's for the int8
+ones, the engine's for the int4 and paged ones, the decode path's for the
+megakernel, the probes' entry points' for theirs), and as the last line
+{"ok": true, "device": {...}}.  Any failed check exits non-zero and prints
+no result; so does a machine without a CUDA device.
 """
 
 from __future__ import annotations
@@ -87,6 +102,12 @@ import json
 import subprocess
 import sys
 import time
+
+try:
+    from groma_tpu_torch.utils.profiling import H100_INT8_OPS, Timer, bound
+except ImportError as e:
+    sys.exit(f'chip_smoke FAILED: groma_tpu_torch not importable ({e}): run '
+             f'from the root of the repository')
 
 INT8_MATMUL_SHAPES = {          # (K, N) of every decode matmul at 7B width
     'qkv_proj': (4096, 12288),
@@ -146,26 +167,38 @@ MEGAKERNEL_HIDDEN_TOL = 5e-3     # relative to max|hidden|
 MEGAKERNEL_SCALE_TOL = 1e-2      # written k/v scales, relative
 MEGAKERNEL_DEPTH_TOL = 3e-2      # (b): one launch of all 32 layers
 MEGAKERNEL_PATH_TOL = 0.1        # (b): relative to max|hidden|, every step
-# published H100 SXM peaks (NVIDIA's datasheet): a kernel's bound is
-# the larger of its bytes over the memory rate and its operations over the
-# peak rate of their type
-H100_BYTES_PER_S = 3.35e12
-H100_BF16_FLOPS = 989e12
-H100_INT8_OPS = 1979e12
+# DINOv2-L forward + backward (#6's path): the parameter gradient with the
+# flash kernels (p and ds rounded to bf16) against the plain attention
+# (bf16 scores, f32 softmax) on the card, relative Frobenius error;
+# measured on an H100 1.15e-2 (whole gradient) and 0.100 (worst tensor, a
+# layer-22 query bias): limits about three times that
+VIT_BATCH = 2
+VIT_GRAD_TOL = 4e-2        # all parameters
+VIT_TENSOR_TOL = 0.3       # per tensor, the key biases aside
+# the probes' kernels: (TPU kernel, name, source, TPU file:line)
+PROBE_KERNELS = [
+    ('_kern_a', 'int4 unpack probe A', 'probe_int4_unpack.cu',
+     'benchmarks/exp_int4_unpack.py:38'),
+    ('_kern_b', 'int4 unpack probe B', 'probe_int4_unpack.cu',
+     'benchmarks/exp_int4_unpack.py:50'),
+    ('_kern_c', 'int4 unpack probe C', 'probe_int4_unpack.cu',
+     'benchmarks/exp_int4_unpack.py:62'),
+    ('_w8a8_kernel', 'M=8 probe w8a8', 'probe_decode_matmul_m8.cu',
+     'benchmarks/exp_decode_matmul_m8.py:72'),
+    ('_int4_a8_kernel', 'M=8 probe int4-a8', 'probe_decode_matmul_m8.cu',
+     'benchmarks/exp_decode_matmul_m8.py:94'),
+    ('k_floor', 'decode attn probe floor hb1', 'probe_decode_attn.cu',
+     'benchmarks/exp_decode_attn_variants.py:51'),
+    ('k_mxu', 'decode attn probe mxu hb1', 'probe_decode_attn.cu',
+     'benchmarks/exp_decode_attn_variants.py:63'),
+    ('k_mxu_sblk', 'decode attn probe mxu hb1 sb256', 'probe_decode_attn.cu',
+     'benchmarks/exp_decode_attn_variants.py:89'),
+]
 
 
 def fail(msg: str):
     print(f'chip_smoke FAILED: {msg}', file=sys.stderr)
     sys.exit(1)
-
-
-def bound(nbytes: float, ops: float, peak: float = H100_BF16_FLOPS):
-    """(least ms, 'bytes' or 'operations') on one H100 for a function that
-    must move ``nbytes`` and do ``ops`` operations of a type whose peak rate
-    is ``peak``."""
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = ops / peak * 1e3
-    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
 def device_line() -> str:
@@ -174,34 +207,6 @@ def device_line() -> str:
          '--format=csv,noheader'], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()
     return out[0].strip()
-
-
-class Timer:
-    """Device time of one call, from CUDA events, averaged over ``iters``
-    calls.  Before each call the L2 cache is overwritten (decode streams
-    every weight and cache byte cold) and the stream is held by a sleep
-    kernel, so the host's enqueue time is not counted."""
-
-    def __init__(self, torch, device):
-        self.torch = torch
-        self.flush = torch.empty(128 << 20, dtype=torch.uint8, device=device)
-
-    def __call__(self, fn, iters: int = 10) -> float:
-        torch = self.torch
-        fn()
-        torch.cuda.synchronize()
-        total = 0.0
-        for _ in range(iters):
-            self.flush.zero_()
-            torch.cuda._sleep(2_000_000)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            total += start.elapsed_time(end)
-        return total / iters
 
 
 def library_time(torch, timer, name: str, fn, want, card: str,
@@ -365,6 +370,36 @@ def _flash_tol(want, rel: float):
     return rel * want.abs() + 0.25 * rel * want.abs().max()
 
 
+def _grounded_key_mask(b: int, s: int):
+    """(B, S) numpy bool: per row a gap in the middle (unused region slots)
+    and a ragged padded tail."""
+    import numpy as np
+    mask = np.ones((b, s), bool)
+    for i in range(b):
+        lo = s // 4 + 7 * i
+        mask[i, lo:lo + s // 5] = False
+        mask[i, s - 13 - 11 * i:] = False
+    return mask
+
+
+def _grad_errors(torch, got, want, card):
+    """(worst max_abs_err, largest max|plain|, ok) of (dq, dk, dv) against
+    their plain versions: p and ds are rounded to bf16 before their products
+    and the results are bf16, so 2^-6 of |plain| + 2^-8 of max|plain| per
+    gradient, and finite."""
+    worst, ref_max, ok = 0.0, 0.0, True
+    for name, g_, w_ in zip(('dq', 'dk', 'dv'), got, want):
+        e = (g_.float() - w_).abs()
+        ok &= bool((e <= _flash_tol(w_, 2.0 ** -6)).all())
+        ok &= bool(torch.isfinite(g_).all())
+        rel = e.max().item() / w_.abs().max().item()
+        print(f'  {name}: max_abs_err {e.max().item():.3e}, rel {rel:.3e} '
+              f'of max|plain| {w_.abs().max().item():.3e} [{card}]')
+        worst = max(worst, e.max().item())
+        ref_max = max(ref_max, w_.abs().max().item())
+    return worst, ref_max, ok
+
+
 def check_flash(torch, gen, timer, card):
     """The three flash kernels against their plain versions in f32 on the
     same bf16 inputs, at the training path's shapes, and the same
@@ -374,8 +409,7 @@ def check_flash(torch, gen, timer, card):
     import torch.nn.functional as F
     from groma_tpu_torch.models.groma import GromaConfig
     from groma_tpu_torch.ops.flash_attention import (
-        flash_attention_bwd_reference, flash_bwd_causal, flash_fwd,
-        mha_reference)
+        flash_attention_bwd_reference, flash_bwd, flash_fwd, mha_reference)
     from groma_tpu_torch.train.synthetic import (grounded_batch,
                                                  grounded_kv_mask)
     dev = 'cuda'
@@ -436,6 +470,80 @@ def check_flash(torch, gen, timer, card):
                 lib)
         del got, want
 
+    # --- #6: the bidirectional backward at the ViT's shape, from the plain
+    # forward's out and lse; a grounded key mask (a gap and a ragged tail
+    # per row), then row 1 fully masked (its gradients must be exactly 0)
+    do = rand(b, h, s, d)
+    grounded = torch.from_numpy(_grounded_key_mask(b, s)).to(dev)
+    dead = grounded.clone()
+    dead[1] = False
+    bwd_flops = 2.5 * 4 * b * h * s * s * d
+    for case, mask in (('grounded key mask', grounded),
+                       ('grounded key mask, row 1 all masked', dead)):
+        want_out, lse = mha_reference(q.float(), k.float(), v.float(), mask,
+                                      False, d ** -0.5)
+        out = want_out.to(torch.bfloat16)
+        got = flash_bwd(q, k, v, mask, out, lse, do, False, d ** -0.5)
+        want = flash_attention_bwd_reference(
+            q.float(), k.float(), v.float(), mask, out.float(), lse,
+            do.float(), False, d ** -0.5)
+        worst, ref_max, ok = _grad_errors(torch, got, want, card)
+        if mask is dead:
+            ok &= all(bool((g_[1] == 0).all()) for g_ in got)
+        ms = timer(lambda: flash_bwd(q, k, v, mask, out, lse, do, False,
+                                     d ** -0.5))
+        plain_ms = timer(lambda: flash_attention_bwd_reference(
+            q, k, v, mask, out, lse, do, False, d ** -0.5))
+        if case == 'grounded key mask':
+            # SDPA's autograd backward under the same boolean mask
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            sdpa_out = F.scaled_dot_product_attention(
+                *leaves, attn_mask=mask[:, None, None, :], scale=d ** -0.5)
+            sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
+                sdpa_out, leaves, do, retain_graph=True)
+            lib = library_time(torch, timer, 'F.scaled_dot_product_attention '
+                               'backward (#6, key mask)', sdpa_bwd, want,
+                               card, rel_tol=3e-2)
+            print(f'  its kernels: {kernel_names(torch, sdpa_bwd)} [{card}]')
+            del sdpa_out, leaves
+            results['bidirectional backward'] = (
+                worst, ms, plain_ms,
+                bound(8 * b * h * s * d * 2 + b * h * s * 4 + b * s,
+                      bwd_flops), lib)
+        report('flash_bwd bidirectional (#6)', (b, h, s, d), case, worst,
+               ref_max, '2^-6*|plain| + 2^-8*max|plain| per gradient'
+               + (', row 1 exactly 0' if mask is dead else ''), ok, ms,
+               plain_ms, bwd_flops)
+        del got, want
+
+    # #6 at Sq != Skv (the cross-attention shape its TPU kernels allow):
+    # the ViT's 1025 queries over 1100 keys, then the JAX test's 100 x 130;
+    # a grounded key mask with row 1 fully masked, held as above
+    for sq, skv in ((s, 1100), (100, 130)):
+        q2, k2, v2, do2 = q[:, :, :sq], rand(b, h, skv, d), \
+            rand(b, h, skv, d), do[:, :, :sq]
+        mask = torch.from_numpy(_grounded_key_mask(b, skv)).to(dev)
+        mask[1] = False
+        want_out, lse = mha_reference(q2.float(), k2.float(), v2.float(),
+                                      mask, False, d ** -0.5)
+        out = want_out.to(torch.bfloat16)
+        got = flash_bwd(q2, k2, v2, mask, out, lse, do2, False, d ** -0.5)
+        want = flash_attention_bwd_reference(
+            q2.float(), k2.float(), v2.float(), mask, out.float(), lse,
+            do2.float(), False, d ** -0.5)
+        worst, ref_max, ok = _grad_errors(torch, got, want, card)
+        ok &= all(bool((g_[1] == 0).all()) for g_ in got)
+        ms = timer(lambda: flash_bwd(q2, k2, v2, mask, out, lse, do2, False,
+                                     d ** -0.5))
+        plain_ms = timer(lambda: flash_attention_bwd_reference(
+            q2, k2, v2, mask, out, lse, do2, False, d ** -0.5))
+        report('flash_bwd bidirectional (#6)', (b, h, sq, d),
+               f'Sq={sq} != Skv={skv}, grounded key mask, row 1 all masked',
+               worst, ref_max, '2^-6*|plain| + 2^-8*max|plain| per gradient, '
+               'row 1 exactly 0', ok, ms, plain_ms,
+               2.5 * 4 * b * h * sq * skv * d)
+        del got, want, k2, v2
+
     # --- #4 and #5: the LLM's causal forward and backward, (2, 32, 2048, 128)
     cfg = GromaConfig()
     b, h, s, d = 2, 32, cfg.max_seq_len, 128
@@ -474,22 +582,11 @@ def check_flash(torch, gen, timer, card):
     lse = wlse
     do = rand(b, h, s, d)
     del got, want, glse
-    dq, dk, dv = flash_bwd_causal(q, k, v, mask, out, lse, do, d ** -0.5)
+    dq, dk, dv = flash_bwd(q, k, v, mask, out, lse, do, True, d ** -0.5)
     wq, wk, wv = flash_attention_bwd_reference(
         q.float(), k.float(), v.float(), mask, out.float(), lse, do.float(),
         True, d ** -0.5)
-    # p and ds rounded to bf16 before their products, and bf16 results:
-    # 2^-6 of |plain| + 2^-8 of max|plain| per gradient
-    worst, ref_max, ok = 0.0, 0.0, True
-    for name, g_, w_ in (('dq', dq, wq), ('dk', dk, wk), ('dv', dv, wv)):
-        e = (g_.float() - w_).abs()
-        ok &= bool((e <= _flash_tol(w_, 2.0 ** -6)).all())
-        ok &= bool(torch.isfinite(g_).all())
-        rel = e.max().item() / w_.abs().max().item()
-        print(f'  {name}: max_abs_err {e.max().item():.3e}, rel {rel:.3e} '
-              f'of max|plain| {w_.abs().max().item():.3e} [{card}]')
-        worst = max(worst, e.max().item())
-        ref_max = max(ref_max, w_.abs().max().item())
+    worst, ref_max, ok = _grad_errors(torch, (dq, dk, dv), (wq, wk, wv), card)
     # SDPA's autograd backward, from its own forward
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=allowed,
@@ -501,11 +598,11 @@ def check_flash(torch, gen, timer, card):
                        rel_tol=3e-2)
     print(f'  its kernels: {kernel_names(torch, sdpa_bwd)} [{card}]')
     del dq, dk, dv, wq, wk, wv, sdpa_out, leaves
-    ms = timer(lambda: flash_bwd_causal(q, k, v, mask, out, lse, do,
-                                        d ** -0.5))
+    ms = timer(lambda: flash_bwd(q, k, v, mask, out, lse, do, True,
+                                 d ** -0.5))
     plain_ms = timer(lambda: flash_attention_bwd_reference(
         q, k, v, mask, out, lse, do, True, d ** -0.5))
-    report('flash_bwd_causal (#5)', (b, h, s, d), case, worst, ref_max,
+    report('flash_bwd causal (#5)', (b, h, s, d), case, worst, ref_max,
            '2^-6*|plain| + 2^-8*max|plain| per gradient', ok, ms, plain_ms,
            2.5 * causal_flops)
     results['backward'] = (
@@ -655,17 +752,19 @@ def check_int4_matmul(torch, gen, timer, card):
     return worst, layer_ms, (layer_bound, bound_by), library
 
 
-def _tinygemm(torch, x, packed, scale):
-    """The same product through PyTorch's tinygemm int4 call: our nibbles
-    (row k and k + K/2 in one byte) repacked into its layout (pairs of
-    adjacent k, then its own tiling), scales rounded to bf16 beside zero
-    points of 0, groups of 256 rows."""
+def _tinygemm(torch, x, packed, scale, zero: float = 0.0):
+    """The same product through PyTorch's tinygemm int4 call, which takes
+    (q - 8) * scale + zero: our nibbles (row k and k + K/2 in one byte)
+    repacked into its layout (pairs of adjacent k, then its own tiling),
+    scales rounded to bf16 beside zero points of ``zero`` (0 for #7's
+    biased nibbles, 8 with a scale of 1 for #10's unsigned ones), groups of
+    256 rows."""
     p = packed.to(torch.int32)
     q = torch.cat([p & 0xF, p >> 4], 0).T.contiguous()        # (N, K)
     pairs = (q[:, ::2] << 4 | q[:, 1::2]).to(torch.uint8)
     w = torch._convert_weight_to_int4pack(pairs, 8)
     sz = torch.stack([scale.to(torch.bfloat16),
-                      torch.zeros_like(scale, dtype=torch.bfloat16)], -1)
+                      torch.full_like(scale, zero, dtype=torch.bfloat16)], -1)
     sz = sz.contiguous()
     return lambda: torch._weight_int4pack_mm(x, w, 256, sz)
 
@@ -1298,8 +1397,7 @@ def train_full_width(torch, np, seed: int, card: str):
     launches over the checked steps."""
     from groma_tpu_torch.checkpoint.loader import random_groma_full
     from groma_tpu_torch.models.groma import GromaConfig
-    from groma_tpu_torch.ops.flash_attention import (flash_bwd_causal,
-                                                     flash_fwd)
+    from groma_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd
     from groma_tpu_torch.train.optimizer import (cosine_schedule,
                                                  freeze_predicate, make_adamw)
     from groma_tpu_torch.train.steps import batch_to, make_vl_train_step
@@ -1339,9 +1437,9 @@ def train_full_width(torch, np, seed: int, card: str):
 
     def counts():
         return (flash_fwd.launches['bidirectional'],
-                flash_fwd.launches['causal'], flash_bwd_causal.launches)
+                flash_fwd.launches['causal'], flash_bwd.launches['causal'])
     flash_fwd.launches.update(bidirectional=0, causal=0)
-    flash_bwd_causal.launches = 0
+    flash_bwd.launches.update(bidirectional=0, causal=0)
     per_step = (cfg.perceiver.vit.num_layers, cfg.llm.num_layers,
                 cfg.llm.num_layers)
     times = []
@@ -1420,6 +1518,258 @@ def profile_steps(torch, step_fn, batch, gen, slots: int, card: str,
 def random_image(np, seed: int, size: int):
     rng = np.random.default_rng(seed)
     return rng.standard_normal((size, size, 3)).astype(np.float32)
+
+
+def vit_backward_full_width(torch, seed: int, card: str):
+    """DINOv2-L at full width (24 layers, 448², B=VIT_BATCH, f32 master
+    weights computing in bf16) forward and backward through the port's
+    Dinov2Model with use_flash=True, and the same weights, images and scalar
+    with use_flash=False (the plain attention) on the card.  Each path runs
+    twice (the second run timed); the counts are zeroed before each run and
+    read after it: exactly one bidirectional forward and one bidirectional
+    backward launch per layer with the kernels, none without.  Returns the
+    bidirectional backward's launches of the last flash run."""
+    from groma_tpu_torch.checkpoint.loader import _fill
+    from groma_tpu_torch.models.dinov2 import Dinov2Model
+    from groma_tpu_torch.models.groma import GromaConfig
+    from groma_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd
+    pc = GromaConfig().perceiver
+    c = pc.vit
+    model = Dinov2Model(c, deploy_image_size=pc.image_size, device='meta',
+                        dtype=torch.float32, compute_dtype=torch.bfloat16)
+    model.to_empty(device='cuda')
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(seed)
+    with torch.no_grad():
+        _fill(model, gen)
+    images = torch.randn((VIT_BATCH, pc.image_size, pc.image_size, 3),
+                         generator=gen, device='cuda')
+    tokens = 1 + (pc.image_size // c.patch_size) ** 2
+    weight = torch.randn((VIT_BATCH, tokens, c.hidden_size), generator=gen,
+                         device='cuda')
+    runs = {}
+    for use_flash in (True, False):
+        for _ in range(2):
+            model.zero_grad(set_to_none=True)
+            flash_fwd.launches.update(bidirectional=0, causal=0)
+            flash_bwd.launches.update(bidirectional=0, causal=0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            last, _ = model(images, use_flash=use_flash)
+            loss = (last.float() * weight).sum()
+            loss.backward()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            n = (flash_fwd.launches['bidirectional'],
+                 flash_bwd.launches['bidirectional'])
+            want = (c.num_layers, c.num_layers) if use_flash else (0, 0)
+            if n != want or flash_fwd.launches['causal'] \
+                    or flash_bwd.launches['causal']:
+                fail(f'DINOv2-L backward (use_flash={use_flash}): launches '
+                     f'{flash_fwd.launches} forward, {flash_bwd.launches} '
+                     f'backward; want {want[0]} bidirectional each')
+        runs[use_flash] = (loss.item(), dt, n, {
+            k: p.grad.float() for k, p in model.named_parameters()})
+    (f_loss, f_s, f_n, f_g), (p_loss, p_s, _, p_g) = runs[True], runs[False]
+    # a key bias shifts every score of a query alike, which the softmax
+    # ignores: its true gradient is 0 and both paths give rounding noise,
+    # so it is held only inside the whole gradient
+    rel = {k: ((f_g[k] - p_g[k]).norm()
+               / p_g[k].norm().clamp(min=1e-30)).item() for k in p_g
+           if not k.endswith('attention.key.bias')}
+    total = (sum(((f_g[k] - p_g[k]) ** 2).sum() for k in p_g)
+             / sum((p_g[k] ** 2).sum() for k in p_g)).sqrt().item()
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:3]
+    ok = total <= VIT_GRAD_TOL and all(v <= VIT_TENSOR_TOL
+                                       for v in rel.values()) and all(
+        bool(torch.isfinite(g).all()) for g in f_g.values())
+    print(f'DINOv2-L forward + backward, full width ({c.num_layers} layers, '
+          f'{pc.image_size}², B={VIT_BATCH}, bf16): use_flash {f_s * 1e3:.1f} '
+          f'ms, plain attention {p_s * 1e3:.1f} ms (host clock, warm); '
+          f'launches bidirectional fwd {f_n[0]}, bwd {f_n[1]}; loss '
+          f'{f_loss:.6e} vs {p_loss:.6e}; {len(p_g)} parameter gradients, '
+          f'whole-gradient rel err {total:.3e} (tol {VIT_GRAD_TOL}), worst '
+          f'tensors but the key biases ' + ', '.join(f'{k} {v:.2e}'
+                                                      for k, v in worst)
+          + f' (tol {VIT_TENSOR_TOL}) {"ok" if ok else "FAIL"} [{card}]')
+    if not ok:
+        fail('DINOv2-L: the flash gradient disagrees with the plain one')
+    del model, runs, f_g, p_g
+    return f_n[1]
+
+
+def check_probes(torch, timer, seed: int, card: str):
+    """The H100 probes #10-#12 against their plain versions on the card at
+    the probes' shapes, every kernel variant.  Returns {TPU kernel name:
+    (max_abs_err, ms, plain_ms, (bound ms, bound by), library ms)}: #10 at
+    down_proj, #11 summed over the four layer matmuls, #12 per layer
+    (floor hb1, mxu hb1, mxu hb1 sb256)."""
+    from groma_tpu_torch.benchmarks import (exp_decode_attn_variants as attn,
+                                            exp_decode_matmul_m8 as m8,
+                                            exp_int4_unpack as unpack)
+    from groma_tpu_torch.ops.decode_attention import (
+        int8_decode_attention_reference, p8_step)
+    res = {}
+
+    def held(name, got, want, tol, tol_txt):
+        err = (got - want).abs()
+        ok = bool((err <= tol).all()) and bool(torch.isfinite(got).all())
+        ref_max = want.abs().max().item()
+        print(f'{name}: max_abs_err {err.max().item():.3e}, rel '
+              f'{err.max().item() / max(ref_max, 1e-30):.3e} of max|plain| '
+              f'{ref_max:.3e} (tol {tol_txt}) {"ok" if ok else "FAIL"} '
+              f'[{card}]')
+        if not ok:
+            fail(f'{name} disagrees with its plain version')
+        return err.max().item()
+
+    # #10: f32 sums in another order (split rows added with atomics); the
+    # library yardstick is tinygemm with a scale of 1 and a zero of 8, which
+    # takes the unsigned nibbles as they are (the output rounded to bf16)
+    for shape, (kh, n) in unpack.SHAPES.items():
+        x, p = unpack.make_inputs(kh, n, 'cuda', seed)
+        want = unpack.unpack_matmul_reference(x, p)
+        plain_ms = timer(lambda: unpack.unpack_matmul_reference(x, p))
+        try:
+            fn = _tinygemm(torch, x, p, torch.ones(
+                (2 * kh // 256, n), device='cuda'), zero=8.0)
+        except (RuntimeError, TypeError, AttributeError) as e:
+            print(f'  library torch._weight_int4pack_mm: none (the repacking '
+                  f'failed: {type(e).__name__}: '
+                  f'{(str(e).splitlines() or [""])[0][:140]}) [{card}]')
+            fn = None
+        lib = fn and library_time(
+            torch, timer, f'torch._weight_int4pack_mm (#10) {shape}, scale 1, '
+            f'zero 8', fn, want, card)
+        for v in unpack.VARIANTS:
+            err = held(f'int4 unpack probe (#10) {v} {shape} KH={kh} N={n}',
+                       unpack.unpack_matmul(x, p, v), want,
+                       1e-5 * want.abs().max(), '1e-5*max|plain|')
+            ms = timer(lambda: unpack.unpack_matmul(x, p, v))
+            bnd = unpack.unpack_bound(kh, n)
+            print(f'  kernel {ms * 1e3:.1f} us ({kh * n / ms / 1e6:.0f} GB/s '
+                  f'packed), plain {plain_ms * 1e3:.1f} us, bound '
+                  f'{bnd[0] * 1e3:.1f} us ({bnd[1]}) [{card}]')
+            if shape == 'down_proj':
+                res[f'_kern_{v.lower()}'] = (err, ms, plain_ms, bnd, lib)
+        del x, p, want, fn
+
+    # #11: integer dots exact, the same f32 epilogue; int4-a8's per-chunk
+    # f32 sums in another order
+    xs, _, forms = m8.make_inputs('cuda', seed)
+    for key, fn, plain, form in (
+            ('_w8a8_kernel', m8.w8a8_matmul, m8.w8a8_reference, 'int8'),
+            ('_int4_a8_kernel', m8.int4_a8_matmul, m8.int4_a8_reference,
+             'int4')):
+        worst, ms, plain_ms, lib = 0.0, 0.0, 0.0, 0.0
+        for k, kd, n in m8.SHAPES:
+            x, w = xs[k], forms[form][k]
+            want = plain(x, *w)
+            worst = max(worst, held(
+                f'M=8 probe (#11) {key} {k} K={kd} N={n}', fn(x, *w), want,
+                1e-5 * want.abs().max(), '1e-5*max|plain|'))
+            ms += timer(lambda: fn(x, *w))
+            plain_ms += timer(lambda: plain(x, *w))
+            if form == 'int8' and lib is not None:
+                xq = m8.act_quant(x)[0]
+                xp = torch.nn.functional.pad(
+                    xq, (0, 0, 0, m8.INT_MM_ROWS - xq.shape[0]))
+                acc = (xp.double() @ w[0].double()).float()
+                t = library_time(torch, timer, f'torch._int_mm {k} (the int8 '
+                                 f'product alone, x padded to 32 rows)',
+                                 lambda: torch._int_mm(xp, w[0]), acc, card,
+                                 rel_tol=0.0)
+                lib = None if t is None else lib + t
+        bnd = m8.layer_bound(form)
+        print(f'  {key}, the four layer matmuls: kernel {ms:.4f} ms, plain '
+              f'{plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), '
+              f'{m8.layer_bytes(form) / ms / 1e6:.0f} GB/s weights [{card}]')
+        res[key] = (worst, ms, plain_ms, bnd,
+                    lib if form == 'int8' else None)
+    del xs, forms
+
+    # #12 on two layers of KV (Lstack: one launch for both)
+    q, k8, ks, v8, vs, bias = attn.make_inputs(2, 'cuda', seed)
+
+    def layer(i):
+        return q, k8[i], ks[i], v8[i], vs[i], bias
+
+    def plain_and_tol(body, sblk, i):
+        a = layer(i)
+        if body == 'floor':
+            want = attn.floor_reference(*a)
+            return want, 1e-5 * want.abs().max(), '1e-5*max|plain|'
+        if body == 'mxu':
+            want = int8_decode_attention_reference(*a)
+            step = p8_step(a[0], a[1], a[2], a[4], a[5])
+        else:
+            want = attn.mxu_sblk_reference(*a, sblk)
+            step = attn.mxu_sblk_step(*a, sblk)
+        return (want, 2 * step + 1e-5 * want.abs().max(),
+                '2 p8 units + 1e-5*max|plain|')
+
+    timed = {'floor hb1': 'k_floor', 'mxu hb1': 'k_mxu',
+             'mxu hb1 sb256': 'k_mxu_sblk'}
+    for name, body, hb, sblk, stacked in attn.variants():
+        if stacked:
+            got = attn.probe_decode_attention(q, k8, ks, v8, vs, bias, body,
+                                              hb, sblk)
+            err = max(held(f'decode attn probe (#12) {name}, layer {i}',
+                           got[i], *plain_and_tol(body, sblk, i))
+                      for i in range(2))
+        else:
+            err = held(f'decode attn probe (#12) {name}',
+                       attn.probe_decode_attention(*layer(0), body, hb, sblk),
+                       *plain_and_tol(body, sblk, 0))
+        if name in timed:
+            ms = timer(lambda: attn.probe_decode_attention(*layer(0), body,
+                                                           hb, sblk))
+            plain = attn.plain_version(body, sblk)
+            plain_ms = timer(lambda: plain(*layer(0)))
+            bnd = attn.layer_bound()
+            print(f'  kernel {ms:.4f} ms per layer, plain {plain_ms:.4f} ms, '
+                  f'bound {bnd[0]:.4f} ms ({bnd[1]}) [{card}]')
+            res[timed[name]] = (err, ms, plain_ms, bnd, None)
+    return res
+
+
+def probes_main_path(card: str):
+    """The three probes' entry points, as ``python -m
+    groma_tpu_torch.benchmarks.<name>`` runs them, with the probe kernels'
+    counts zeroed just before and read just after.  Returns {TPU kernel
+    name: launches}."""
+    from groma_tpu_torch.benchmarks import (exp_decode_attn_variants as attn,
+                                            exp_decode_matmul_m8 as m8,
+                                            exp_int4_unpack as unpack)
+    unpack.unpack_matmul.launches.update({v: 0 for v in unpack.VARIANTS})
+    m8.w8a8_matmul.launches = 0
+    m8.int4_a8_matmul.launches = 0
+    attn.probe_decode_attention.launches.update(
+        {b: 0 for b in attn.BODIES})
+    t0 = time.perf_counter()
+    print(f'-- probe #10: python -m groma_tpu_torch.benchmarks.'
+          f'exp_int4_unpack [{card}]', flush=True)
+    unpack.main([])
+    print(f'-- probe #11: python -m groma_tpu_torch.benchmarks.'
+          f'exp_decode_matmul_m8 [{card}]', flush=True)
+    m8.main([])
+    print(f'-- probe #12: python -m groma_tpu_torch.benchmarks.'
+          f'exp_decode_attn_variants [{card}]', flush=True)
+    bad = attn.main([])
+    if bad:
+        fail(f'decode attention probe: parity gate failed for {bad}')
+    n = {f'_kern_{v.lower()}': unpack.unpack_matmul.launches[v]
+         for v in unpack.VARIANTS}
+    n.update(_w8a8_kernel=m8.w8a8_matmul.launches,
+             _int4_a8_kernel=m8.int4_a8_matmul.launches,
+             k_floor=attn.probe_decode_attention.launches['floor'],
+             k_mxu=attn.probe_decode_attention.launches['mxu'],
+             k_mxu_sblk=attn.probe_decode_attention.launches['mxu_sblk'])
+    print(f'probes: entry points ran in {time.perf_counter() - t0:.1f} s; '
+          f'launches {n} [{card}]')
+    if not all(n.values()):
+        fail(f'a probe kernel was never launched by its entry point: {n}')
+    return n
 
 
 def serve_full_width(torch, np, seed: int, card: str):
@@ -1622,11 +1972,7 @@ def main():
     import torch
     if not torch.cuda.is_available():
         fail('no CUDA device: this script runs only on the GPU')
-    try:
-        from groma_tpu_torch.ops import cuda_lib
-    except ImportError as e:
-        fail(f'groma_tpu_torch not importable ({e}): run from the root of '
-             f'the repository')
+    from groma_tpu_torch.ops import cuda_lib
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1643,7 +1989,7 @@ def main():
 
     gen = torch.Generator(device='cuda')
     gen.manual_seed(args.seed)
-    timer = Timer(torch, 'cuda')
+    timer = Timer('cuda')
     mm_err, mm_ms, mm_bound, mm_lib = check_int8_matmul(torch, gen, timer,
                                                          card)
     att_err, att_ms, att_bound = check_decode_attention(torch, gen, timer,
@@ -1654,6 +2000,7 @@ def main():
         torch, gen, timer, card)
     flash = check_flash(torch, gen, timer, card)
     check_decode_megakernel(torch, gen, timer, args.seed, card)
+    probes = check_probes(torch, timer, args.seed, card)
     del timer
     check_llm_path(torch, args.seed, card)
     check_int4_paged_path(torch, args.seed, card)
@@ -1668,6 +2015,9 @@ def main():
     torch.cuda.empty_cache()
     if not all(flash_n):
         fail('a flash kernel of the training path was never launched')
+    vit_bwd_n = vit_backward_full_width(torch, args.seed, card)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     mm_n, att_n = serve_full_width(torch, np, args.seed, card)
     if not (mm_n and att_n):
@@ -1679,10 +2029,13 @@ def main():
         fail('a kernel of the engine path was never launched')
     gc.collect()
     torch.cuda.empty_cache()
-    mk_n, mk_times = decode_megakernel_path(torch, Timer(torch, 'cuda'),
+    mk_n, mk_times = decode_megakernel_path(torch, Timer('cuda'),
                                             args.seed, card)
     if not mk_n:
         fail('the decode megakernel was never launched on its path')
+    gc.collect()
+    torch.cuda.empty_cache()
+    probe_n = probes_main_path(card)
     if 'jax' in sys.modules or 'flax' in sys.modules:
         fail('jax was imported')
 
@@ -1712,7 +2065,7 @@ def main():
         flash_entry('flash_fwd (causal)', 'causal',
                     'flash_attention_fwd.cu',
                     'groma_tpu/ops/flash_attention.py:222', flash_n[1]),
-        flash_entry('flash_bwd_causal', 'backward',
+        flash_entry('flash_bwd (causal)', 'backward',
                     'flash_attention_bwd.cu',
                     'groma_tpu/ops/flash_attention.py:527', flash_n[2]),
         entry('int4_matmul', 'int4_matmul.cu', 'groma_tpu/ops/quant4.py:85',
@@ -1723,6 +2076,12 @@ def main():
         entry('decode_megakernel', 'decode_megakernel.cu',
               'groma_tpu/ops/decode_megakernel.py:192', mk_n, *mk_times[:3],
               mk_times[3:], None),
+        flash_entry('flash_bwd (bidirectional)', 'bidirectional backward',
+                    'flash_attention_bwd.cu',
+                    'groma_tpu/ops/flash_attention.py:453', vit_bwd_n),
+        *[entry(f'{name} ({key})', source, replaces, probe_n[key],
+                *probes[key][:3], probes[key][3], probes[key][4])
+          for key, name, source, replaces in PROBE_KERNELS],
     ]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -1,22 +1,34 @@
-// Causal flash-attention backward on Hopper (sm_90a): dq, dk, dv in bf16
-// from bf16 q/k/v/do, the forward's f32 lse and delta = rowsum(do * out),
-// with f32 accumulation.
+// Flash-attention backward on Hopper (sm_90a), causal and bidirectional:
+// dq, dk, dv in bf16 from bf16 q/k/v/do, the forward's f32 lse and
+// delta = rowsum(do * out), with f32 accumulation.
 //
-// Replaces the TPU kernel `_bwd_fused_kernel` of
-// groma_tpu/ops/flash_attention.py (LLaMA at (B, 32, 2048, 128)), with its
-// numerics: p = exp(scale * q.k - lse) under the key mask and the causal
-// mask, dv += p^T do with p rounded to bf16, dp = do v^T,
+// Replaces two TPU kernels of groma_tpu/ops/flash_attention.py, one
+// template instantiation each:
+//   * CAUSAL = true: `_bwd_fused_kernel` (LLaMA at (B, 32, 2048, 128));
+//   * CAUSAL = false: `_bwd_dkv_kernel` + `_bwd_dq_kernel`, the backward of
+//     every bidirectional call (DINOv2-L at (B, 16, 1025, 64)), Sq != Skv
+//     allowed.
+// Their numerics: p = exp(scale * q.k - lse) under the key mask (and the
+// causal mask), dv += p^T do with p rounded to bf16, dp = do v^T,
 // ds = p (dp - delta) scale rounded to bf16, dk += ds^T q, dq += ds k.
-// The TPU kernel walks kv-major live block pairs in one pass and carries dq
-// for the whole sequence in a VMEM scratch from one grid step to the next.
-// Hopper blocks run in no order, so nothing can carry over between them;
-// this port splits the work into two kernels with no atomics instead:
+// A query row past Sq (the tail tile of S = 1025 holds one real row) gets
+// p = 0 from an explicit row test, not from a padded lse: exp(s + 1e30) is
+// inf.  A batch row whose keys are all masked gets p = 0 everywhere, so its
+// gradients are exactly 0.
+// The TPU's causal kernel walks kv-major live block pairs in one pass and
+// carries dq for the whole sequence in a VMEM scratch from one grid step to
+// the next; its bidirectional pair carries dk/dv (or dq) across the
+// sequential q (or kv) grid axis.  Hopper blocks run in no order, so
+// nothing can carry over between them; this port runs two kernels with no
+// atomics for both masks:
 //   * `dkdv`: one block per 64-key tile (4 warps x 16 keys) walks the query
-//     tiles from the diagonal down, recomputing p and dp^T in registers;
+//     tiles (causal: from the diagonal down; bidirectional: all of them),
+//     recomputing p and dp^T in registers;
 //   * `dq`: one block per 64-query tile (4 warps x 16 rows) walks the key
-//     tiles up to the diagonal, as the forward does.
-// The price is one more q.k and do.v^T product per live tile pair (7
-// products instead of 5); the gain is a deterministic dq.  What bounds it:
+//     tiles (causal: up to the diagonal; bidirectional: all of them), as
+//     the forward does.
+// The price is one more q.k and do.v^T product per tile pair (7 products
+// instead of 5); the gain is a deterministic dq.  What bounds it:
 // tensor-core work, as in the forward.  Each product operand is staged in
 // shared memory in the orientation its fragment needs (row-major and
 // transposed copies, rows padded by 8 bf16).  Plain version and wrapper:
@@ -42,7 +54,7 @@ struct DkdvSmem {
       + 2 * BQ * sizeof(float);
 };
 
-template <int D>
+template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(128)
 flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v,
@@ -85,9 +97,9 @@ flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.0f;
 
-  // the first query that sees key k0 is k0 - off
+  // causal: the first query that sees key k0 is k0 - off
   const int nq = (Sq + BQ - 1) / BQ;
-  const int qt_first = max(0, k0 - off) / BQ;
+  const int qt_first = CAUSAL ? max(0, k0 - off) / BQ : 0;
   const int wr = warp * 16;   // this warp's rows in ks / vs
 
   for (int qtile = qt_first; qtile < nq; ++qtile) {
@@ -131,7 +143,7 @@ flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int e = 0; e < 4; ++e) {
         const int qc = nt * 8 + 2 * tig + (e & 1);
         const bool ok = kv_ok[e >> 1] && q0 + qc < Sq
-                        && kr[e >> 1] <= q0 + qc + off;
+                        && (!CAUSAL || kr[e >> 1] <= q0 + qc + off);
         const float p = ok ? __expf(st[nt][e] * scale - lse_s[qc]) : 0.0f;
         st[nt][e] = p;
         dpt[nt][e] = p * (dpt[nt][e] - delta_s[qc]) * scale;
@@ -168,7 +180,7 @@ flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // -------------------------------------------------------------------- dq
-template <int D>
+template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(128)
 flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v,
@@ -212,7 +224,9 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int e = 0; e < 4; ++e) dq_acc[i][e] = 0.0f;
 
   const int last = q0 + BQ - 1 + off;
-  const int n_kv = min((Skv + BK - 1) / BK, last >= 0 ? last / BK + 1 : 0);
+  const int n_kv = CAUSAL ? min((Skv + BK - 1) / BK,
+                                last >= 0 ? last / BK + 1 : 0)
+                          : (Skv + BK - 1) / BK;
   for (int ktile = 0; ktile < n_kv; ++ktile) {
     const int k0 = ktile * BK;
     __syncthreads();
@@ -242,7 +256,8 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = nt * 8 + 2 * tig + (e & 1);
-        const bool ok = kv_ok[col] && k0 + col <= row[e >> 1] + off;
+        const bool ok =
+            kv_ok[col] && (!CAUSAL || k0 + col <= row[e >> 1] + off);
         const float p =
             ok ? __expf(s[nt][e] * scale - lse_r[e >> 1]) : 0.0f;
         dp[nt][e] = p * (dp[nt][e] - delta_r[e >> 1]) * scale;
@@ -271,14 +286,15 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D>
+template <int D, bool CAUSAL>
 int launch(const void* q, const void* k, const void* v, const void* mask,
            const void* dout, const void* lse, const void* delta, void* dq,
            void* dk, void* dv, int B, int H, int Sq, int Skv, float scale,
            cudaStream_t stream) {
   const size_t smem = DkdvSmem<D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dkdv_kernel<D, CAUSAL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const auto* qp = static_cast<const bf16*>(q);
@@ -288,38 +304,52 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
   const auto* dop = static_cast<const bf16*>(dout);
   const auto* lp = static_cast<const float*>(lse);
   const auto* dlp = static_cast<const float*>(delta);
-  flash_bwd_dkdv_kernel<D><<<dim3((Skv + 63) / 64, B * H), 128, smem,
-                             stream>>>(qp, kp, vp, mp, dop, lp, dlp,
+  flash_bwd_dkdv_kernel<D, CAUSAL><<<dim3((Skv + 63) / 64, B * H), 128,
+                                     smem, stream>>>(qp, kp, vp, mp, dop, lp, dlp,
                                        static_cast<bf16*>(dk),
                                        static_cast<bf16*>(dv), H, Sq, Skv,
                                        scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_kernel<D><<<dim3((Sq + 63) / 64, B * H), 128, 0, stream>>>(
+  flash_bwd_dq_kernel<D, CAUSAL><<<dim3((Sq + 63) / 64, B * H), 128, 0,
+                                   stream>>>(
       qp, kp, vp, mp, dop, lp, dlp, static_cast<bf16*>(dq), H, Sq, Skv,
       scale);
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int launch_mask(const void* q, const void* k, const void* v,
+                const void* mask, const void* dout, const void* lse,
+                const void* delta, void* dq, void* dk, void* dv, int B, int H,
+                int Sq, int Skv, float scale, int causal,
+                cudaStream_t stream) {
+  return causal ? launch<D, true>(q, k, v, mask, dout, lse, delta, dq, dk, dv,
+                                  B, H, Sq, Skv, scale, stream)
+                : launch<D, false>(q, k, v, mask, dout, lse, delta, dq, dk,
+                                   dv, B, H, Sq, Skv, scale, stream);
+}
+
 }  // namespace
 
-// Causal only.  q/do (B, H, Sq, D), k/v (B, H, Skv, D) bf16; mask (B, Skv)
-// uint8; lse/delta (B, H, Sq) f32; dq (B, H, Sq, D), dk/dv (B, H, Skv, D)
-// bf16; all contiguous and 16-byte aligned; D is 64 or 128.  Launches the
-// dk/dv kernel, then the dq kernel, on `stream`.  Returns
+// q/do (B, H, Sq, D), k/v (B, H, Skv, D) bf16; mask (B, Skv) uint8;
+// lse/delta (B, H, Sq) f32; dq (B, H, Sq, D), dk/dv (B, H, Skv, D) bf16;
+// all contiguous and 16-byte aligned; D is 64 or 128; causal 0 or 1.
+// Launches the dk/dv kernel, then the dq kernel, on `stream`.  Returns
 // cudaGetLastError() after the launches (0 = launched).
 extern "C" int groma_flash_bwd(const void* q, const void* k, const void* v,
                                const void* mask, const void* dout,
                                const void* lse, const void* delta, void* dq,
                                void* dk, void* dv, int B, int H, int Sq,
-                               int Skv, int D, float scale, void* stream) {
+                               int Skv, int D, float scale, int causal,
+                               void* stream) {
   if (B < 1 || H < 1 || Sq < 1 || Skv < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 64)
-    return launch<64>(q, k, v, mask, dout, lse, delta, dq, dk, dv, B, H, Sq,
-                      Skv, scale, st);
+    return launch_mask<64>(q, k, v, mask, dout, lse, delta, dq, dk, dv, B, H,
+                           Sq, Skv, scale, causal, st);
   if (D == 128)
-    return launch<128>(q, k, v, mask, dout, lse, delta, dq, dk, dv, B, H, Sq,
-                       Skv, scale, st);
+    return launch_mask<128>(q, k, v, mask, dout, lse, delta, dq, dk, dv, B,
+                            H, Sq, Skv, scale, causal, st);
   return (int)cudaErrorInvalidValue;
 }

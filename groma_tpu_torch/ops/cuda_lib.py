@@ -61,7 +61,7 @@ def _declare(lib):
     lib.groma_flash_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, i, p]
     lib.groma_flash_fwd.restype = i
     lib.groma_flash_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p,
-                                    i, i, i, i, i, f, p]
+                                    i, i, i, i, i, f, i, p]
     lib.groma_flash_bwd.restype = i
     lib.groma_int4_matmul.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
     lib.groma_int4_matmul.restype = i
@@ -70,6 +70,12 @@ def _declare(lib):
     lib.groma_paged_attention.restype = i
     lib.groma_decode_megakernel.argtypes = [p] * 13 + [i] * 6 + [f, p, p]
     lib.groma_decode_megakernel.restype = i
+    lib.groma_probe_int4_unpack.argtypes = [p, p, p, i, i, i, i, i, p]
+    lib.groma_probe_int4_unpack.restype = i
+    lib.groma_probe_m8_matmul.argtypes = [p] * 8 + [i] * 5 + [p]
+    lib.groma_probe_m8_matmul.restype = i
+    lib.groma_probe_decode_attn.argtypes = [p] * 10 + [i] * 8 + [p]
+    lib.groma_probe_decode_attn.restype = i
 
 
 def _build(sources, so: Path) -> str:

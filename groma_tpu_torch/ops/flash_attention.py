@@ -1,9 +1,9 @@
-"""Flash attention: forward with a key mask, causal backward.
+"""Flash attention: forward and backward with a key mask, causal or not.
 
 Counterpart of ``groma_tpu/ops/flash_attention.py``.  Layout (B, H, S, D);
 a (B, S_kv) key-validity mask applied to the scores before the row max;
-rows with no valid key output 0 and have lse -1e30.  Three TPU kernels
-become hand-written CUDA kernels:
+rows with no valid key output 0 and have lse -1e30 (and get gradients 0).
+Four TPU kernels become hand-written CUDA kernels:
 
 * ``flash_fwd`` launches ``csrc/flash_attention_fwd.cu``, one kernel
   template: its bidirectional instantiation replaces ``_fwd_wholekv_kernel``
@@ -11,22 +11,22 @@ become hand-written CUDA kernels:
   The TPU kernels split at 4096 keys because the whole-kv one holds every
   key in VMEM; the card's kernel streams key tiles at any length, so the
   port splits on the causal flag alone;
-* ``flash_bwd_causal`` replaces ``_bwd_fused_kernel`` and launches
-  ``csrc/flash_attention_bwd.cu``.
-
-The bidirectional backward (TPU kernel ``_bwd_dkv_kernel`` +
-``_bwd_dq_kernel``) is not ported: no training path differentiates the
-encoders, which run without gradients.
+* ``flash_bwd`` launches ``csrc/flash_attention_bwd.cu``, one kernel pair
+  templated on the causal flag: its causal instantiation replaces
+  ``_bwd_fused_kernel`` (the LLaMA decoder), its bidirectional one
+  ``_bwd_dkv_kernel`` + ``_bwd_dq_kernel`` (the backward of every
+  bidirectional call, e.g. DINOv2 trained with ``use_flash``; Sq != Skv
+  allowed).
 
 * ``mha_reference`` and ``flash_attention_bwd_reference`` are the plain
   PyTorch versions, in f32 on any device.
 * Each wrapper takes the plain version only for tensors on the CPU.  On
   CUDA tensors it launches its kernel (bf16 q/k/v, head dim 64 or 128) or
-  raises; ``<wrapper>.launches`` counts its launches (``flash_fwd``'s per
-  instantiation: ``{'bidirectional': n, 'causal': n}``).
+  raises; ``<wrapper>.launches`` counts its launches per instantiation:
+  ``{'bidirectional': n, 'causal': n}``.
 * ``flash_attention`` is the differentiable entry (an autograd Function):
   its forward keeps the lse when a gradient is wanted, its backward runs
-  the causal backward.
+  ``flash_bwd`` with the forward's mask flag.
 """
 
 from __future__ import annotations
@@ -35,8 +35,6 @@ import torch
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
-TPU_BWD_NONCAUSAL = ('groma_tpu/ops/flash_attention.py _bwd_dkv_kernel + '
-                     '_bwd_dq_kernel')
 
 
 def _valid(kv_mask, causal, sq, skv, device):
@@ -144,17 +142,18 @@ def flash_fwd(q, k, v, kv_mask, causal, scale, need_lse=True):
     return res
 
 
-def flash_bwd_causal(q, k, v, kv_mask, out, lse, do, scale):
-    """Causal backward -> (dq, dk, dv) in q's dtype."""
+def flash_bwd(q, k, v, kv_mask, out, lse, do, causal, scale):
+    """Backward -> (dq, dk, dv) in q's dtype, for either mask; causal skips
+    the tile pairs above the diagonal."""
     if q.device.type == 'cpu':
         return flash_attention_bwd_reference(q, k, v, kv_mask, out, lse, do,
-                                             True, scale)
-    _check_cuda('flash_bwd_causal', q, k, v, kv_mask)
+                                             causal, scale)
+    _check_cuda('flash_bwd', q, k, v, kv_mask)
     b, h, sq, d = q.shape
     if (out.shape != q.shape or do.shape != q.shape
             or lse.shape != (b, h, sq) or lse.dtype != torch.float32):
-        raise ValueError('flash_bwd_causal: out/do must match q, lse be '
-                         '(B, H, Sq) f32')
+        raise ValueError('flash_bwd: out/do must match q, lse be (B, H, Sq) '
+                         'f32')
     from groma_tpu_torch.ops.cuda_lib import check, library, stream_ptr
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     do = _aligned(do.to(q.dtype))
@@ -167,27 +166,14 @@ def flash_bwd_causal(q, k, v, kv_mask, out, lse, do, scale):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), b, h, sq, k.shape[2], d, float(scale),
-        stream_ptr(q))
+        int(causal), stream_ptr(q))
     check(status, 'flash_attention_bwd')
-    flash_bwd_causal.launches += 1
+    flash_bwd.launches['causal' if causal else 'bidirectional'] += 1
     return dq, dk, dv
 
 
 flash_fwd.launches = {'bidirectional': 0, 'causal': 0}
-flash_bwd_causal.launches = 0
-
-
-def flash_backward(q, k, v, kv_mask, out, lse, do, causal, scale):
-    """CPU tensors: the plain backward, either mask.  Elsewhere only the
-    causal one is ported."""
-    if q.device.type == 'cpu':
-        return flash_attention_bwd_reference(q, k, v, kv_mask, out, lse, do,
-                                             causal, scale)
-    if not causal:
-        raise NotImplementedError(
-            f'the bidirectional flash-attention backward (TPU kernel '
-            f'{TPU_BWD_NONCAUSAL}) is not ported to CUDA')
-    return flash_bwd_causal(q, k, v, kv_mask, out, lse, do, scale)
+flash_bwd.launches = {'bidirectional': 0, 'causal': 0}
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -203,8 +189,8 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, kv_mask, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_backward(q, k, v, kv_mask, out, lse, do,
-                                    ctx.causal, ctx.scale)
+        dq, dk, dv = flash_bwd(q, k, v, kv_mask, out, lse, do, ctx.causal,
+                               ctx.scale)
         return dq, dk, dv, None, None, None
 
 

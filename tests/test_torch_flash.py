@@ -16,8 +16,9 @@ import torch
 
 from groma_tpu.ops import flash_attention as jfa
 from groma_tpu_torch.ops.flash_attention import (
-    NEG_INF, flash_attention, flash_attention_bwd_reference, flash_backward,
-    flash_bwd_causal, flash_fwd, mha_reference)
+    NEG_INF, flash_attention, flash_attention_bwd_reference, flash_bwd,
+    flash_fwd, mha_reference)
+from groma_tpu_torch.ops import flash_attention as tfa
 
 torch.set_num_threads(2)
 TOL = 1e-5
@@ -99,14 +100,22 @@ def test_fully_masked_rows_give_zero_and_lse_neg_inf(causal):
     np.testing.assert_array_equal(lse.numpy() == NEG_INF, want_lse <= -1e29)
 
 
-@pytest.mark.parametrize('causal', [True, False])
-def test_gradients_match_jax_grad_of_the_pallas_kernels(causal):
+@pytest.mark.parametrize('causal,sq,skv,dead_row', [
+    pytest.param(True, 150, 150, False, id='True'),
+    pytest.param(False, 150, 150, False, id='False'),
+    pytest.param(False, 100, 130, True, id='False-sq100-skv130-dead_row')])
+def test_gradients_match_jax_grad_of_the_pallas_kernels(causal, sq, skv,
+                                                        dead_row):
     """dq, dk, dv of the autograd Function (the plain backward from the
     lse recompute) against jax.grad through the Pallas backward kernels
-    (the fused causal one, or the two-kernel bidirectional split)."""
-    s = 150
-    q, k, v = _inputs(3, 2, 2, s, 32)
-    mask = _grounded_mask(2, s)
+    (the fused causal one, or the two-kernel bidirectional split
+    _bwd_dkv_kernel + _bwd_dq_kernel), under a key mask with gaps and a
+    masked tail; bidirectional also at Sq != Skv (a padded query tail tile)
+    with batch row 1 fully masked, whose gradients must be exactly 0."""
+    q, k, v = _inputs(3, 2, 2, sq, 32, skv)
+    mask = _grounded_mask(2, skv)
+    if dead_row:
+        mask[1] = False
     do = np.random.default_rng(4).standard_normal(q.shape).astype(np.float32)
 
     def loss(q_, k_, v_):
@@ -122,6 +131,8 @@ def test_gradients_match_jax_grad_of_the_pallas_kernels(causal):
     for got, w in zip((tq.grad, tk.grad, tv.grad), want):
         np.testing.assert_allclose(got.numpy(), np.asarray(w),
                                    atol=GRAD_TOL, rtol=GRAD_TOL)
+        if dead_row:
+            assert (got[1] == 0).all() and (np.asarray(w)[1] == 0).all()
 
 
 def test_plain_backward_matches_autograd_of_the_plain_forward():
@@ -139,7 +150,7 @@ def test_plain_backward_matches_autograd_of_the_plain_forward():
 
 
 def test_cpu_wrappers_take_the_plain_versions_and_launch_nothing():
-    before = (dict(flash_fwd.launches), flash_bwd_causal.launches)
+    before = (dict(flash_fwd.launches), dict(flash_bwd.launches))
     q, k, v = (_t(x) for x in _inputs(6, 1, 2, 24, 16))
     mask = torch.ones((1, 24), dtype=torch.bool)
     want, lse = mha_reference(q, k, v, mask, True)
@@ -147,24 +158,40 @@ def test_cpu_wrappers_take_the_plain_versions_and_launch_nothing():
     assert torch.equal(out, want) and torch.equal(got_lse, lse)
     assert flash_fwd(q, k, v, mask, False, 0.25, need_lse=False)[1] is None
     do = torch.randn_like(q)
-    for a, b in zip(flash_bwd_causal(q, k, v, mask, out, lse, do, 0.25),
-                    flash_attention_bwd_reference(q, k, v, mask, out, lse,
-                                                  do, True, 0.25)):
-        assert torch.equal(a, b)
-    assert (flash_fwd.launches, flash_bwd_causal.launches) == before
+    for causal in (True, False):
+        for a, b in zip(flash_bwd(q, k, v, mask, out, lse, do, causal, 0.25),
+                        flash_attention_bwd_reference(q, k, v, mask, out, lse,
+                                                      do, causal, 0.25)):
+            assert torch.equal(a, b)
+    assert (flash_fwd.launches, flash_bwd.launches) == before
 
 
-def test_non_causal_backward_is_refused_off_the_cpu():
-    """The bidirectional backward (TPU kernel #6) is not ported: any
-    non-CPU tensor raises, naming it; the causal one goes to its kernel
-    wrapper, which refuses devices other than CUDA."""
+def test_non_causal_backward_goes_to_its_kernel_wrapper(monkeypatch):
+    """Both masks' backward (the bidirectional one is TPU kernel #6) go
+    from ``flash_attention``'s autograd to the kernel wrapper ``flash_bwd``
+    with the forward's mask flag; it refuses devices other than CUDA,
+    naming the device, and launches nothing."""
     q = torch.zeros((1, 2, 8, 64), device='meta')
     mask = torch.ones((1, 8), dtype=torch.bool, device='meta')
     lse = torch.zeros((1, 2, 8), device='meta')
-    with pytest.raises(NotImplementedError, match='_bwd_dkv_kernel'):
-        flash_backward(q, q, q, mask, q, lse, q, False, 0.125)
-    with pytest.raises(ValueError, match='unsupported device'):
-        flash_backward(q, q, q, mask, q, lse, q, True, 0.125)
+    before = dict(flash_bwd.launches)
+    for causal in (False, True):
+        with pytest.raises(ValueError,
+                           match='flash_bwd: unsupported device meta'):
+            flash_bwd(q, q, q, mask, q, lse, q, causal, 0.125)
+    assert flash_bwd.launches == before
+
+    seen = []
+
+    def spy(*args):
+        seen.append(args[7])
+        return flash_bwd(*args)
+
+    monkeypatch.setattr(tfa, 'flash_bwd', spy)
+    x = _t(_inputs(3, 1, 2, 8, 16)[0]).requires_grad_()
+    for causal in (False, True):
+        flash_attention(x, x, x, causal=causal).sum().backward()
+    assert seen == [False, True]
 
 
 @pytest.mark.parametrize('fn', ['wholekv', 'tiled'])

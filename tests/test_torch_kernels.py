@@ -190,4 +190,5 @@ def test_kernel_library_is_built_only_at_first_launch():
     assert {p.name for p in cuda_lib.CSRC.glob('*.cu')} == {
         'int8_matmul.cu', 'decode_attention.cu', 'flash_attention_fwd.cu',
         'flash_attention_bwd.cu', 'int4_matmul.cu', 'paged_attention.cu',
-        'decode_megakernel.cu'}
+        'decode_megakernel.cu', 'probe_int4_unpack.cu',
+        'probe_decode_matmul_m8.cu', 'probe_decode_attn.cu'}
