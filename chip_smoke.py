@@ -6,8 +6,10 @@ Run from the root of the repository:
     python3 chip_smoke.py [--seed N]
 
 Phases, each printed before the last line:
- 1. the card's name and power limit (nvidia-smi), then the nvcc build of
-    every kernel in groma_tpu_torch/csrc (seconds, ptxas summary);
+ 1. the card's name and power limit (nvidia-smi), then the nvcc builds of
+    the two kernel libraries of groma_tpu_torch/csrc, side by side: the
+    production kernels and the probes' csrc/probe_*.cu (seconds, ptxas
+    summary);
  2. each kernel against its plain PyTorch version on the card, at the
     shapes its path gives it, with the tolerance stated; kernel and plain
     times from CUDA events, L2 flushed before each launch, beside the
@@ -24,9 +26,11 @@ Phases, each printed before the last line:
     pages, a frozen row), the flash-attention forward (bidirectional at the
     ViT's (2, 16, 1025, 64), causal at the LLM's (2, 32, 2048, 128) under a
     grounded key mask), the backward (bidirectional at the ViT's shape
-    under a grounded key mask, also with a fully masked row; causal at the
-    LLM's), the probes' kernels (#10-#12, every variant at the probes'
-    shapes), and the all-layer decode
+    under a grounded key mask, also with a fully masked row and at
+    Sq != Skv; causal at the LLM's and at S=1500; each called twice, dk and
+    dv bitwise equal, and #5 and #6 with their TFLOP/s, share of the bound
+    and ratio to SDPA's backward), the probes' kernels (#10-#12, every
+    variant at the probes' shapes), and the all-layer decode
     megakernel at full width and 2 layers (B=8, a 1024-slot cache written
     at slot 700, a ragged mask and a fully masked row: the hidden state,
     the written column within one int8 unit, every other cache byte
@@ -101,6 +105,7 @@ import gc
 import json
 import subprocess
 import sys
+import threading
 import time
 
 try:
@@ -173,6 +178,7 @@ MEGAKERNEL_PATH_TOL = 0.1        # (b): relative to max|hidden|, every step
 # measured on an H100 1.15e-2 (whole gradient) and 0.100 (worst tensor, a
 # layer-22 query bias): limits about three times that
 VIT_BATCH = 2
+VIT_RUNS = 4               # per path; the first is not timed
 VIT_GRAD_TOL = 4e-2        # all parameters
 VIT_TENSOR_TOL = 0.3       # per tensor, the key biases aside
 # the probes' kernels: (TPU kernel, name, source, TPU file:line)
@@ -400,6 +406,34 @@ def _grad_errors(torch, got, want, card):
     return worst, ref_max, ok
 
 
+def _bwd_repeat(torch, name, call, got, want, card):
+    """A second call of the backward on the same inputs: dk and dv bitwise
+    equal to the first (one CTA per key tile, the query tiles in a fixed
+    order), dq within the same limit of the plain version (its f32 parts
+    are added in an order that varies from run to run)."""
+    again = call()
+    same = all(torch.equal(a, b) for a, b in zip(got[1:], again[1:]))
+    dq_ok = bool(((again[0].float() - want[0]).abs()
+                  <= _flash_tol(want[0], 2.0 ** -6)).all())
+    moved = (again[0].float() - got[0].float()).abs().max().item()
+    print(f'  {name} called twice: dk, dv bitwise equal {same}; dq moved by '
+          f'{moved:.3e}, within 2^-6*|plain| + 2^-8*max|plain| {dq_ok} '
+          f'[{card}]')
+    if not (same and dq_ok):
+        fail(f'{name}: a second call changed dk/dv or put dq out of limits')
+
+
+def _bwd_rate(name, flops, ms, bnd, lib, card):
+    """#5's or #6's rate, share of its bound and ratio to SDPA, a line
+    each."""
+    print(f'  {name} rate: {flops / ms / 1e9:.1f} TFLOP/s [{card}]')
+    print(f'  {name} share of bound: {100 * bnd[0] / ms:.1f} % of its '
+          f'{bnd[0]:.4f} ms ({bnd[1]}) [{card}]')
+    print(f'  {name} against SDPA backward: '
+          + (f'{ms / lib:.3f} x its {lib:.4f} ms' if lib else 'no SDPA time')
+          + f' [{card}]')
+
+
 def check_flash(torch, gen, timer, card):
     """The three flash kernels against their plain versions in f32 on the
     same bf16 inputs, at the training path's shapes, and the same
@@ -510,10 +544,16 @@ def check_flash(torch, gen, timer, card):
                 worst, ms, plain_ms,
                 bound(8 * b * h * s * d * 2 + b * h * s * 4 + b * s,
                       bwd_flops), lib)
+            _bwd_repeat(torch, 'flash_bwd bidirectional (#6)',
+                        lambda: flash_bwd(q, k, v, mask, out, lse, do, False,
+                                          d ** -0.5), got, want, card)
         report('flash_bwd bidirectional (#6)', (b, h, s, d), case, worst,
                ref_max, '2^-6*|plain| + 2^-8*max|plain| per gradient'
                + (', row 1 exactly 0' if mask is dead else ''), ok, ms,
                plain_ms, bwd_flops)
+        if case == 'grounded key mask':
+            _bwd_rate('flash_bwd bidirectional (#6)', bwd_flops, ms,
+                      results['bidirectional backward'][3], lib, card)
         del got, want
 
     # #6 at Sq != Skv (the cross-attention shape its TPU kernels allow):
@@ -587,6 +627,10 @@ def check_flash(torch, gen, timer, card):
         q.float(), k.float(), v.float(), mask, out.float(), lse, do.float(),
         True, d ** -0.5)
     worst, ref_max, ok = _grad_errors(torch, (dq, dk, dv), (wq, wk, wv), card)
+    _bwd_repeat(torch, 'flash_bwd causal (#5)',
+                lambda: flash_bwd(q, k, v, mask, out, lse, do, True,
+                                  d ** -0.5), (dq, dk, dv), (wq, wk, wv),
+                card)
     # SDPA's autograd backward, from its own forward
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=allowed,
@@ -609,6 +653,35 @@ def check_flash(torch, gen, timer, card):
         worst, ms, plain_ms,
         bound(8 * b * h * s * d * 2 + b * h * s * 4 + b * s,
               2.5 * causal_flops), lib)
+    _bwd_rate('flash_bwd causal (#5)', 2.5 * causal_flops, ms,
+              results['backward'][3], lib, card)
+    del q, k, v, out, lse, do
+
+    # #5 at S = 1500, ragged against both the 64-query and 128-key tiles,
+    # under a grounded key mask, from the plain forward
+    s = 1500
+    q, k, v, do = (rand(b, h, s, d) for _ in range(4))
+    mask = torch.from_numpy(_grounded_key_mask(b, s)).to(dev)
+    want_out, lse = mha_reference(q.float(), k.float(), v.float(), mask,
+                                  True, d ** -0.5)
+    out = want_out.to(torch.bfloat16)
+    got = flash_bwd(q, k, v, mask, out, lse, do, True, d ** -0.5)
+    want = flash_attention_bwd_reference(
+        q.float(), k.float(), v.float(), mask, out.float(), lse, do.float(),
+        True, d ** -0.5)
+    worst, ref_max, ok = _grad_errors(torch, got, want, card)
+    _bwd_repeat(torch, 'flash_bwd causal (#5), S=1500',
+                lambda: flash_bwd(q, k, v, mask, out, lse, do, True,
+                                  d ** -0.5), got, want, card)
+    ms = timer(lambda: flash_bwd(q, k, v, mask, out, lse, do, True,
+                                 d ** -0.5))
+    plain_ms = timer(lambda: flash_attention_bwd_reference(
+        q, k, v, mask, out, lse, do, True, d ** -0.5))
+    report('flash_bwd causal (#5)', (b, h, s, d),
+           'causal, S=1500 (ragged against 64 and 128), grounded key mask',
+           worst, ref_max, '2^-6*|plain| + 2^-8*max|plain| per gradient', ok,
+           ms, plain_ms, 2.5 * 4 * b * h * s * s * d / 2)
+    del got, want
     return results
 
 
@@ -1520,15 +1593,24 @@ def random_image(np, seed: int, size: int):
     return rng.standard_normal((size, size, 3)).astype(np.float32)
 
 
+def _spread(seconds) -> str:
+    """'median ms (min to max)' of sorted host-clock times."""
+    mid = seconds[len(seconds) // 2]
+    return (f'{mid * 1e3:.1f} ms ({seconds[0] * 1e3:.1f} to '
+            f'{seconds[-1] * 1e3:.1f})')
+
+
 def vit_backward_full_width(torch, seed: int, card: str):
     """DINOv2-L at full width (24 layers, 448², B=VIT_BATCH, f32 master
     weights computing in bf16) forward and backward through the port's
     Dinov2Model with use_flash=True, and the same weights, images and scalar
     with use_flash=False (the plain attention) on the card.  Each path runs
-    twice (the second run timed); the counts are zeroed before each run and
-    read after it: exactly one bidirectional forward and one bidirectional
-    backward launch per layer with the kernels, none without.  Returns the
-    bidirectional backward's launches of the last flash run."""
+    VIT_RUNS times (all but the first timed on the host clock), then twice
+    under torch.profiler (device kernel time); the counts are zeroed before
+    each checked run and read after it: exactly one bidirectional forward
+    and one bidirectional backward launch per layer with the kernels, none
+    without.  Returns the bidirectional backward's launches of the last
+    checked flash run."""
     from groma_tpu_torch.checkpoint.loader import _fill
     from groma_tpu_torch.models.dinov2 import Dinov2Model
     from groma_tpu_torch.models.groma import GromaConfig
@@ -1547,9 +1629,10 @@ def vit_backward_full_width(torch, seed: int, card: str):
     tokens = 1 + (pc.image_size // c.patch_size) ** 2
     weight = torch.randn((VIT_BATCH, tokens, c.hidden_size), generator=gen,
                          device='cuda')
-    runs = {}
+    runs, device = {}, {}
     for use_flash in (True, False):
-        for _ in range(2):
+        warm = []
+        for _ in range(VIT_RUNS):
             model.zero_grad(set_to_none=True)
             flash_fwd.launches.update(bidirectional=0, causal=0)
             flash_bwd.launches.update(bidirectional=0, causal=0)
@@ -1560,6 +1643,7 @@ def vit_backward_full_width(torch, seed: int, card: str):
             loss.backward()
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
+            warm.append(dt)
             n = (flash_fwd.launches['bidirectional'],
                  flash_bwd.launches['bidirectional'])
             want = (c.num_layers, c.num_layers) if use_flash else (0, 0)
@@ -1568,8 +1652,15 @@ def vit_backward_full_width(torch, seed: int, card: str):
                 fail(f'DINOv2-L backward (use_flash={use_flash}): launches '
                      f'{flash_fwd.launches} forward, {flash_bwd.launches} '
                      f'backward; want {want[0]} bidirectional each')
-        runs[use_flash] = (loss.item(), dt, n, {
+        warm = sorted(warm[1:])
+        runs[use_flash] = (loss.item(), warm, n, {
             k: p.grad.float() for k, p in model.named_parameters()})
+
+        def once():
+            model.zero_grad(set_to_none=True)
+            out, _ = model(images, use_flash=use_flash)
+            (out.float() * weight).sum().backward()
+        device[use_flash] = device_per_step(torch, once, 2)[0]
     (f_loss, f_s, f_n, f_g), (p_loss, p_s, _, p_g) = runs[True], runs[False]
     # a key bias shifts every score of a query alike, which the softmax
     # ignores: its true gradient is 0 and both paths give rounding noise,
@@ -1584,8 +1675,11 @@ def vit_backward_full_width(torch, seed: int, card: str):
                                        for v in rel.values()) and all(
         bool(torch.isfinite(g).all()) for g in f_g.values())
     print(f'DINOv2-L forward + backward, full width ({c.num_layers} layers, '
-          f'{pc.image_size}², B={VIT_BATCH}, bf16): use_flash {f_s * 1e3:.1f} '
-          f'ms, plain attention {p_s * 1e3:.1f} ms (host clock, warm); '
+          f'{pc.image_size}², B={VIT_BATCH}, bf16): use_flash '
+          f'{_spread(f_s)}, plain attention {_spread(p_s)} (host clock, '
+          f'{VIT_RUNS - 1} warm runs each), device kernel time '
+          f'{device[True]:.1f} against {device[False]:.1f} ms '
+          f'(torch.profiler, 2 runs each); '
           f'launches bidirectional fwd {f_n[0]}, bwd {f_n[1]}; loss '
           f'{f_loss:.6e} vs {p_loss:.6e}; {len(p_g)} parameter gradients, '
           f'whole-gradient rel err {total:.3e} (tol {VIT_GRAD_TOL}), worst '
@@ -1979,13 +2073,18 @@ def main():
     card = device_line()
     print(card)
     t0 = time.perf_counter()
+    # the production library and the probes' own, built side by side
+    probe_build = threading.Thread(target=cuda_lib.probe_library)
+    probe_build.start()
     cuda_lib.library()
-    print(f'kernels built in {time.perf_counter() - t0:.1f} s '
-          f'(nvcc {cuda_lib.build_info["seconds"]:.1f} s) -> '
-          f'{cuda_lib.build_info["path"]}')
-    for line in cuda_lib.build_info['log'].splitlines():
-        if 'registers' in line or 'spill' in line or 'Compiling' in line:
-            print(f'  ptxas: {line.strip()}')
+    probe_build.join()
+    cuda_lib.probe_library()        # raises here if its build failed
+    print(f'kernels built in {time.perf_counter() - t0:.1f} s')
+    for info in (cuda_lib.build_info, cuda_lib.probe_build_info):
+        print(f'  nvcc {info["seconds"]:.1f} s -> {info["path"]}')
+        for line in info['log'].splitlines():
+            if 'registers' in line or 'spill' in line or 'Compiling' in line:
+                print(f'  ptxas: {line.strip()}')
 
     gen = torch.Generator(device='cuda')
     gen.manual_seed(args.seed)

@@ -162,7 +162,7 @@ def probe_decode_attention(q, k8, ks, v8, vs, bias, body: str = 'mxu',
         raise ValueError('probe_decode_attention: the kernel takes '
                          'contiguous q/ks/vs/bias f32 and k8/v8 int8 on one '
                          'device')
-    from groma_tpu_torch.ops.cuda_lib import check, library, stream_ptr
+    from groma_tpu_torch.ops.cuda_lib import check, probe_library, stream_ptr
     out = torch.empty(kv_shape[:-2] + (1, d), dtype=torch.float32,
                       device=q.device)
     parts = [None] * 3
@@ -173,7 +173,7 @@ def probe_decode_attention(q, k8, ks, v8, vs, bias, body: str = 'mxu',
         op = torch.empty((lyr, b, h, nsb, d), dtype=torch.float32,
                          device=q.device)
         parts = [mdp[0].data_ptr(), mdp[1].data_ptr(), op.data_ptr()]
-    status = library().groma_probe_decode_attn(
+    status = probe_library().groma_probe_decode_attn(
         q.data_ptr(), k8.data_ptr(), ks.data_ptr(), v8.data_ptr(),
         vs.data_ptr(), bias.data_ptr(), out.data_ptr(), *parts, lyr, b, h, s,
         d, BODIES.index(body), hb, sb, stream_ptr(q))

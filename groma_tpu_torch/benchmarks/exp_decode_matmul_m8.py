@@ -90,7 +90,7 @@ def int4_a8_reference(x, packed, scale, block: int = INT4_BLOCK):
 
 
 def _launch(name, x, w, scale, int4: bool):
-    from groma_tpu_torch.ops.cuda_lib import check, library, stream_ptr
+    from groma_tpu_torch.ops.cuda_lib import check, probe_library, stream_ptr
     m, k = x.shape
     n = w.shape[1]
     rows = k // 2 if int4 else k
@@ -117,7 +117,7 @@ def _launch(name, x, w, scale, int4: bool):
     xs = torch.empty((M,), dtype=torch.float32, device=dev)
     xsum = torch.empty((M, k // _SEG), dtype=torch.int32, device=dev)
     acc = torch.empty((M, n), dtype=torch.float32, device=dev)
-    status = library().groma_probe_m8_matmul(
+    status = probe_library().groma_probe_m8_matmul(
         x.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(),
         xq.data_ptr(), xs.data_ptr(), xsum.data_ptr(), acc.data_ptr(), k, n,
         int(int4), per_split, splits, stream_ptr(x))

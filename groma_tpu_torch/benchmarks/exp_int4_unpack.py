@@ -76,7 +76,7 @@ def unpack_matmul(x: torch.Tensor, p: torch.Tensor,
                          f'{tuple(x.shape)} {x.dtype}, p {tuple(p.shape)} '
                          f'{p.dtype}; the kernels take x (8, 2 KH) bf16, p '
                          f'(KH, N) uint8, KH % 128 == 0, N % 64 == 0')
-    from groma_tpu_torch.ops.cuda_lib import check, library, stream_ptr
+    from groma_tpu_torch.ops.cuda_lib import check, probe_library, stream_ptr
     x, p = x.contiguous(), p.contiguous()
     # split the packed rows until about two blocks run per SM
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
@@ -85,7 +85,7 @@ def unpack_matmul(x: torch.Tensor, p: torch.Tensor,
     chunk = _cdiv(chunks, splits) * _ROWS
     splits = _cdiv(kh, chunk)
     out = torch.empty((M, n), dtype=torch.float32, device=x.device)
-    status = library().groma_probe_int4_unpack(
+    status = probe_library().groma_probe_int4_unpack(
         x.data_ptr(), p.data_ptr(), out.data_ptr(), kh, n,
         'ABC'.index(variant), chunk, splits, stream_ptr(x))
     check(status, 'unpack_matmul')

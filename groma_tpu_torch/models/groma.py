@@ -59,6 +59,9 @@ class GromaModel(nn.Module):
     def __init__(self, cfg: GromaConfig, device=None,
                  full_precision: bool = False):
         super().__init__()
+        if cfg.vision_int8:
+            raise ValueError('vision_int8 (the W8A8 fuse and pconv convs) is '
+                             'not ported: ROADMAP.md §1 item 4')
         self.cfg = cfg
         vit_d, llm_d = cfg.perceiver.vit.hidden_size, cfg.llm.hidden_size
         vdt = torch_dtype(cfg.perceiver.vit.dtype)

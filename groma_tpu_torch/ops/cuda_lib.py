@@ -1,12 +1,19 @@
 """Build and load the hand-written Hopper kernels of ``groma_tpu_torch/csrc``.
 
-Every ``*.cu`` file there is compiled by its own ``nvcc`` for ``sm_90a``,
-all of them at once, and the objects are linked into one shared library
-with a plain C interface, loaded with ``ctypes``.  The build runs at first
-use, never at import, into ``csrc/build/`` (git-ignored); the library's
-file name carries a hash of the sources and headers, so an edit rebuilds
-it.
-Nothing here imports anything CUDA-specific until :func:`library` is called.
+Two shared libraries with a plain C interface, loaded with ``ctypes``:
+
+* :func:`library`, the production kernels: every ``csrc/*.cu`` but the
+  probes.  The model, the trainer and the server load it.
+* :func:`probe_library`, the H100 probes ``csrc/probe_*.cu``, loaded only
+  by ``groma_tpu_torch/benchmarks/exp_*.py``, so that a probe that fails to
+  build takes nothing else down.
+
+Each source is compiled by its own ``nvcc`` for ``sm_90a``, all of a
+library's sources at once, and the objects are linked into the library.
+The build runs at first use, never at import, into ``csrc/build/``
+(git-ignored); a library's file name carries a hash of its sources and of
+the headers, so an edit rebuilds it.  Nothing here imports anything
+CUDA-specific until a library is asked for.
 """
 
 from __future__ import annotations
@@ -25,15 +32,30 @@ CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = CSRC / 'build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+PROBE_PREFIX = 'probe_'
 
 _lock = threading.Lock()
+_probe_lock = threading.Lock()
 _lib = None
-build_info: dict = {}      # path, seconds, ptxas log of the loaded library
+_probe_lib = None
+build_info: dict = {}        # path, seconds, ptxas log of the loaded library
+probe_build_info: dict = {}  # the same for the probe library
 
 
-def _digest(sources) -> str:
+def sources() -> list:
+    """The production library's sources."""
+    return sorted(p for p in CSRC.glob('*.cu')
+                  if not p.name.startswith(PROBE_PREFIX))
+
+
+def probe_sources() -> list:
+    """The probe library's sources."""
+    return sorted(CSRC.glob(f'{PROBE_PREFIX}*.cu'))
+
+
+def _digest(srcs) -> str:
     h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-    for p in [*sources, *sorted(CSRC.glob('*.cuh'))]:
+    for p in [*srcs, *sorted(CSRC.glob('*.cuh'))]:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
@@ -51,16 +73,15 @@ def _nvcc() -> str:
 
 
 def _declare(lib):
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.groma_int8_matmul.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
     lib.groma_int8_matmul.restype = i
     lib.groma_int8_decode_attention.argtypes = [p, p, p, p, p, p, p,
                                                 i, i, i, i, p]
     lib.groma_int8_decode_attention.restype = i
-    f = ctypes.c_float
     lib.groma_flash_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, i, p]
     lib.groma_flash_fwd.restype = i
-    lib.groma_flash_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p,
+    lib.groma_flash_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p,
                                     i, i, i, i, i, f, i, p]
     lib.groma_flash_bwd.restype = i
     lib.groma_int4_matmul.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
@@ -70,6 +91,10 @@ def _declare(lib):
     lib.groma_paged_attention.restype = i
     lib.groma_decode_megakernel.argtypes = [p] * 13 + [i] * 6 + [f, p, p]
     lib.groma_decode_megakernel.restype = i
+
+
+def _declare_probes(lib):
+    p, i = ctypes.c_void_p, ctypes.c_int
     lib.groma_probe_int4_unpack.argtypes = [p, p, p, i, i, i, i, i, p]
     lib.groma_probe_int4_unpack.restype = i
     lib.groma_probe_m8_matmul.argtypes = [p] * 8 + [i] * 5 + [p]
@@ -78,20 +103,20 @@ def _declare(lib):
     lib.groma_probe_decode_attn.restype = i
 
 
-def _build(sources, so: Path) -> str:
+def _build(srcs, so: Path) -> str:
     """One nvcc per source, all started together, then one link.
     Returns the compilers' output (ptxas register and spill summaries)."""
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs = [Path(tmp) / f'{src.stem}.o' for src in sources]
+        objs = [Path(tmp) / f'{src.stem}.o' for src in srcs]
         procs = [subprocess.Popen(
             [nvcc, *NVCC_FLAGS, '-c', str(src), '-o', str(obj)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for src, obj in zip(sources, objs)]
+            for src, obj in zip(srcs, objs)]
         logs = [f'== {src.name}\n{proc.communicate()[0]}'
-                for src, proc in zip(sources, procs)]
+                for src, proc in zip(srcs, procs)]
         log = ''.join(logs)
-        failed = [src.name for src, proc in zip(sources, procs)
+        failed = [src.name for src, proc in zip(srcs, procs)
                   if proc.returncode != 0]
         if failed:
             raise RuntimeError(f'nvcc failed on {failed}:\n{log}')
@@ -106,26 +131,40 @@ def _build(sources, so: Path) -> str:
     return log
 
 
+def _load(stem: str, srcs, declare, info: dict):
+    so = BUILD_DIR / f'{stem}_{_digest(srcs)}.so'
+    log = ''
+    seconds = 0.0
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        log = _build(srcs, so)
+        seconds = time.perf_counter() - t0
+    lib = ctypes.CDLL(str(so))
+    declare(lib)
+    info.update(path=str(so), seconds=seconds, log=log)
+    return lib
+
+
 def library():
-    """The loaded kernel library, built first if its sources changed."""
+    """The loaded production kernel library, built first if its sources
+    changed."""
     global _lib
     with _lock:
-        if _lib is not None:
-            return _lib
-        sources = sorted(CSRC.glob('*.cu'))
-        so = BUILD_DIR / f'libgroma_kernels_{_digest(sources)}.so'
-        log = ''
-        seconds = 0.0
-        if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            t0 = time.perf_counter()
-            log = _build(sources, so)
-            seconds = time.perf_counter() - t0
-        lib = ctypes.CDLL(str(so))
-        _declare(lib)
-        build_info.update(path=str(so), seconds=seconds, log=log)
-        _lib = lib
-        return lib
+        if _lib is None:
+            _lib = _load('libgroma_kernels', sources(), _declare, build_info)
+        return _lib
+
+
+def probe_library():
+    """The loaded probe library (``csrc/probe_*.cu``), built first if its
+    sources changed."""
+    global _probe_lib
+    with _probe_lock:
+        if _probe_lib is None:
+            _probe_lib = _load('libgroma_probes', probe_sources(),
+                               _declare_probes, probe_build_info)
+        return _probe_lib
 
 
 def check(status: int, name: str):

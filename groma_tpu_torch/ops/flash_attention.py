@@ -11,12 +11,15 @@ Four TPU kernels become hand-written CUDA kernels:
   The TPU kernels split at 4096 keys because the whole-kv one holds every
   key in VMEM; the card's kernel streams key tiles at any length, so the
   port splits on the causal flag alone;
-* ``flash_bwd`` launches ``csrc/flash_attention_bwd.cu``, one kernel pair
+* ``flash_bwd`` launches ``csrc/flash_attention_bwd.cu``, one kernel
   templated on the causal flag: its causal instantiation replaces
   ``_bwd_fused_kernel`` (the LLaMA decoder), its bidirectional one
   ``_bwd_dkv_kernel`` + ``_bwd_dq_kernel`` (the backward of every
   bidirectional call, e.g. DINOv2 trained with ``use_flash``; Sq != Skv
-  allowed).
+  allowed).  It is one pass over key tiles on wgmma fed by TMA; each key
+  tile adds its part of dq into an f32 workspace that the wrapper zeroes,
+  so dq's sums run in an order that varies from call to call, while dk
+  and dv are bitwise deterministic.
 
 * ``mha_reference`` and ``flash_attention_bwd_reference`` are the plain
   PyTorch versions, in f32 on any device.
@@ -95,22 +98,27 @@ def _aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _check_cuda(name, q, k, v, kv_mask):
+def _check_cuda(name, q, k, v, kv_mask, extra=()):
+    """Raise one ValueError naming every reason the kernel refuses these
+    tensors (device, shapes, dtypes, and the caller's ``extra`` ones)."""
+    problems = []
     if q.device.type != 'cuda':
-        raise ValueError(f'{name}: unsupported device {q.device}')
+        problems.append(f'unsupported device {q.device}')
     b, h, sq, d = q.shape
     skv = k.shape[2]
     if (k.shape != (b, h, skv, d) or v.shape != k.shape
             or kv_mask.shape != (b, skv) or d not in HEAD_DIMS):
-        raise ValueError(f'{name}: shapes q {tuple(q.shape)}, k '
-                         f'{tuple(k.shape)}, v {tuple(v.shape)}, mask '
-                         f'{tuple(kv_mask.shape)}; the kernel takes '
-                         f'(B, H, S, D) with D in {HEAD_DIMS}')
+        problems.append(f'shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v '
+                        f'{tuple(v.shape)}, mask {tuple(kv_mask.shape)}; the '
+                        f'kernel takes (B, H, S, D) with D in {HEAD_DIMS}')
     if {q.dtype, k.dtype, v.dtype} != {torch.bfloat16}:
-        raise ValueError(f'{name}: dtypes {q.dtype}, {k.dtype}, {v.dtype}; '
-                         f'the kernel takes bf16')
+        problems.append(f'dtypes {q.dtype}, {k.dtype}, {v.dtype}; the kernel '
+                        f'takes bf16')
     if any(t.device != q.device for t in (k, v, kv_mask)):
-        raise ValueError(f'{name}: tensors on different devices')
+        problems.append('tensors on different devices')
+    problems += extra
+    if problems:
+        raise ValueError(f'{name}: ' + '; '.join(problems))
 
 
 def _launch_fwd(q, k, v, kv_mask, causal, scale, need_lse):
@@ -148,12 +156,12 @@ def flash_bwd(q, k, v, kv_mask, out, lse, do, causal, scale):
     if q.device.type == 'cpu':
         return flash_attention_bwd_reference(q, k, v, kv_mask, out, lse, do,
                                              causal, scale)
-    _check_cuda('flash_bwd', q, k, v, kv_mask)
     b, h, sq, d = q.shape
-    if (out.shape != q.shape or do.shape != q.shape
-            or lse.shape != (b, h, sq) or lse.dtype != torch.float32):
-        raise ValueError('flash_bwd: out/do must match q, lse be (B, H, Sq) '
-                         'f32')
+    bad_io = (out.shape != q.shape or do.shape != q.shape
+              or lse.shape != (b, h, sq) or lse.dtype != torch.float32)
+    _check_cuda('flash_bwd', q, k, v, kv_mask,
+                ['out/do must match q, lse be (B, H, Sq) f32'] if bad_io
+                else [])
     from groma_tpu_torch.ops.cuda_lib import check, library, stream_ptr
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     do = _aligned(do.to(q.dtype))
@@ -161,12 +169,14 @@ def flash_bwd(q, k, v, kv_mask, out, lse, do, causal, scale):
     # delta = rowsum(do * out), outside the kernel as on the TPU
     delta = (do.float() * out.float()).sum(-1).contiguous()
     mask = kv_mask.to(torch.uint8).contiguous()
+    # dq's f32 workspace: every key tile adds its part into it
+    dq_ws = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     status = library().groma_flash_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), b, h, sq, k.shape[2], d, float(scale),
-        int(causal), stream_ptr(q))
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq_ws.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, sq, k.shape[2], d,
+        float(scale), int(causal), stream_ptr(q))
     check(status, 'flash_attention_bwd')
     flash_bwd.launches['causal' if causal else 'bidirectional'] += 1
     return dq, dk, dv

@@ -211,3 +211,63 @@ def test_forward_keeps_no_lse_without_a_gradient():
     assert out.grad_fn is None
     out = flash_attention(q.requires_grad_(), k, v, causal=True)
     assert out.grad_fn is not None
+
+
+@pytest.mark.parametrize('causal,sq,skv,dead_row', [
+    pytest.param(True, 129, 129, False, id='causal-S129'),
+    pytest.param(False, 65, 193, True, id='bidirectional-sq65-skv193-dead')])
+def test_plain_backward_at_the_hopper_tile_edges(causal, sq, skv, dead_row):
+    """The backward the card's kernel must reproduce, at the edges of its
+    tiles (64 queries a step, 128 keys a CTA): causal S = 129, one row past
+    a 128-key tile; bidirectional 65 queries (one past a query tile) over
+    193 keys (one key tile and a ragged one) with batch row 1 fully masked.
+    ``flash_bwd``'s plain version from the port's forward against jax.grad
+    through the Pallas backward kernels in interpret mode."""
+    q, k, v = _inputs(8, 2, 2, sq, 64, skv)
+    mask = _grounded_mask(2, skv)
+    if dead_row:
+        mask[1] = False
+    do = np.random.default_rng(9).standard_normal(q.shape).astype(np.float32)
+
+    def loss(q_, k_, v_):
+        o = jfa.flash_attention(q_, k_, v_, kv_mask=jnp.asarray(mask),
+                                causal=causal, block_q=64, block_k=64,
+                                interpret=True)
+        return jnp.sum(o * do)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv, tmask = _t(q), _t(k), _t(v), _t(mask)
+    out, lse = flash_fwd(tq, tk, tv, tmask, causal, 64 ** -0.5)
+    got = flash_bwd(tq, tk, tv, tmask, out, lse, _t(do), causal, 64 ** -0.5)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=GRAD_TOL,
+                                   rtol=GRAD_TOL)
+        if dead_row:
+            assert (g[1] == 0).all() and (np.asarray(w)[1] == 0).all()
+
+
+@pytest.mark.parametrize('what,d,dtype,lse_shape,match', [
+    ('head dim 32', 32, torch.bfloat16, (1, 2, 8), r'D in \(64, 128\)'),
+    ('head dim 256', 256, torch.bfloat16, (1, 2, 8), r'D in \(64, 128\)'),
+    ('f16', 64, torch.float16, (1, 2, 8), 'the kernel takes bf16'),
+    ('lse (B, H)', 64, torch.bfloat16, (1, 2), 'lse be'),
+    ('lse (B, H, Sq, 1)', 64, torch.bfloat16, (1, 2, 8, 1), 'lse be')])
+def test_backward_wrapper_refuses_what_its_kernel_does_not_take(
+        monkeypatch, what, d, dtype, lse_shape, match):
+    """On meta tensors (no data, no card) ``flash_bwd`` names the head dim
+    outside (64, 128), a dtype other than bf16 or a malformed lse, raises
+    ValueError, launches nothing and never asks for the kernel library."""
+    from groma_tpu_torch.ops import cuda_lib
+
+    def no_build():
+        raise AssertionError('the kernel library was asked for')
+    monkeypatch.setattr(cuda_lib, 'library', no_build)
+    q = torch.zeros((1, 2, 8, d), dtype=dtype, device='meta')
+    mask = torch.ones((1, 8), dtype=torch.bool, device='meta')
+    lse = torch.zeros(lse_shape, device='meta')
+    before = dict(flash_bwd.launches)
+    for causal in (False, True):
+        with pytest.raises(ValueError, match=match):
+            flash_bwd(q, q, q, mask, q, lse, q, causal, d ** -0.5)
+    assert flash_bwd.launches == before
+    assert cuda_lib._lib is None

@@ -187,8 +187,21 @@ def test_wrappers_refuse_other_devices(rng):
 def test_kernel_library_is_built_only_at_first_launch():
     from groma_tpu_torch.ops import cuda_lib
     assert cuda_lib._lib is None       # nothing above launched a kernel
-    assert {p.name for p in cuda_lib.CSRC.glob('*.cu')} == {
+    assert {p.name for p in cuda_lib.sources()} == {
         'int8_matmul.cu', 'decode_attention.cu', 'flash_attention_fwd.cu',
         'flash_attention_bwd.cu', 'int4_matmul.cu', 'paged_attention.cu',
-        'decode_megakernel.cu', 'probe_int4_unpack.cu',
-        'probe_decode_matmul_m8.cu', 'probe_decode_attn.cu'}
+        'decode_megakernel.cu'}
+
+
+def test_probe_library_holds_the_probes_alone():
+    """The probes build into their own library, which only the probes'
+    entry points load: a probe's compile error leaves the production
+    library whole."""
+    from groma_tpu_torch.ops import cuda_lib
+    assert cuda_lib._probe_lib is None
+    assert {p.name for p in cuda_lib.probe_sources()} == {
+        'probe_int4_unpack.cu', 'probe_decode_matmul_m8.cu',
+        'probe_decode_attn.cu'}
+    assert not set(cuda_lib.sources()) & set(cuda_lib.probe_sources())
+    assert {p.name for p in cuda_lib.CSRC.glob('*.cu')} == {
+        p.name for p in cuda_lib.sources() + cuda_lib.probe_sources()}

@@ -188,6 +188,16 @@ def test_cache_overflow_raises(models):
                             torch.full((1, 1), 4), cache)
 
 
+def test_vision_int8_is_refused():
+    """JAX runs the fuse and pconv convs through w8a8_conv under
+    vision_int8; the port has no such path yet and must not build the bf16
+    convs in its place."""
+    from groma_tpu_torch.config import tiny_groma_config as t_config
+    from groma_tpu_torch.models.groma import GromaModel
+    with pytest.raises(ValueError, match='ROADMAP.md §1 item 4'):
+        GromaModel(t_config(vision_int8=True), device='meta')
+
+
 def test_four_level_input_projection_pyramid(rng):
     """The multi-level pyramid (strided conv, 2x and 4x transposed convs,
     whose taps the weight bridge mirrors) against JAX; Groma itself ships
