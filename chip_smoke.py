@@ -24,8 +24,11 @@ Phases, each printed before the last line:
     a wrong scale on the block that straddles K/2) and the paged decode
     attention (8 slots, ragged lengths up to 2432, shuffled
     pages, a frozen row), the flash-attention forward (bidirectional at the
-    ViT's (2, 16, 1025, 64), causal at the LLM's (2, 32, 2048, 128) under a
-    grounded key mask), the backward (bidirectional at the ViT's shape
+    ViT's (2, 16, 1025, 64), also with a fully masked row and at Sq != Skv;
+    causal at the LLM's (2, 32, 2048, 128) under a grounded key mask and at
+    S=1500; each head dim in each mode; each called twice, out and lse
+    bitwise equal; #3 and #4 with their TFLOP/s, share of the bound and
+    ratio to SDPA), the backward (bidirectional at the ViT's shape
     under a grounded key mask, also with a fully masked row and at
     Sq != Skv; causal at the LLM's and at S=1500; each called twice, dk and
     dv bitwise equal, and #5 and #6 with their TFLOP/s, share of the bound
@@ -423,13 +426,13 @@ def _bwd_repeat(torch, name, call, got, want, card):
         fail(f'{name}: a second call changed dk/dv or put dq out of limits')
 
 
-def _bwd_rate(name, flops, ms, bnd, lib, card):
-    """#5's or #6's rate, share of its bound and ratio to SDPA, a line
-    each."""
+def _rate(name, flops, ms, bnd, lib, lib_name, card):
+    """A flash kernel's rate, share of its bound and ratio to the PyTorch
+    call ``lib_name`` (SDPA), a line each."""
     print(f'  {name} rate: {flops / ms / 1e9:.1f} TFLOP/s [{card}]')
     print(f'  {name} share of bound: {100 * bnd[0] / ms:.1f} % of its '
           f'{bnd[0]:.4f} ms ({bnd[1]}) [{card}]')
-    print(f'  {name} against SDPA backward: '
+    print(f'  {name} against {lib_name}: '
           + (f'{ms / lib:.3f} x its {lib:.4f} ms' if lib else 'no SDPA time')
           + f' [{card}]')
 
@@ -466,43 +469,69 @@ def check_flash(torch, gen, timer, card):
 
     # bf16 out (2^-9) from bf16-rounded p: 2^-7 of |plain| + 2^-9 of max
     fwd_rel = 2.0 ** -7
-    # --- #3: the ViT's bidirectional whole-kv forward, (2, 16, 1025, 64)
-    b, h, s, d = 2, 16, 1025, 64
-    q, k, v = rand(b, h, s, d), rand(b, h, s, d), rand(b, h, s, d)
-    masks = {'all keys valid': torch.ones((b, s), dtype=torch.bool,
-                                          device=dev)}
-    m = torch.ones((b, s), dtype=torch.bool, device=dev)
-    m[0, 700:] = False                        # a masked tail
-    m[1] = False                              # every key masked
-    masks['row 0 tail masked, row 1 all masked'] = m
-    for case, mask in masks.items():
-        got, glse = flash_fwd(q, k, v, mask, False, d ** -0.5)
+
+    def check_fwd(name, q, k, v, mask, causal, case, dead=False,
+                  need_lse=True):
+        """The forward against mha_reference in f32 on the same inputs
+        (lse within 1e-3; batch row 1 exactly 0 and -1e30 when ``dead``),
+        then called again: out and lse bitwise equal (no atomics).  Times
+        it with the lse only when ``need_lse`` (as its path calls it).
+        Returns (max_abs_err, ms, plain_ms, plain out, plain lse)."""
+        d = q.shape[-1]
+        got, glse = flash_fwd(q, k, v, mask, causal, d ** -0.5)
         want, wlse = mha_reference(q.float(), k.float(), v.float(), mask,
-                                   False, d ** -0.5)
+                                   causal, d ** -0.5)
         err = (got.float() - want).abs()
         ok = bool((err <= _flash_tol(want, fwd_rel)).all())
+        ok &= bool(torch.isfinite(got).all())
         ok &= bool((glse - wlse).abs().max() <= 1e-3)
-        if case != 'all keys valid':
+        if dead:
             ok &= bool((got[1] == 0).all()) and bool((glse[1] == -1e30).all())
-        ms = timer(lambda: flash_fwd(q, k, v, mask, False, d ** -0.5,
-                                     need_lse=False))
-        plain_ms = timer(lambda: mha_reference(q, k, v, mask, False,
+        again, alse = flash_fwd(q, k, v, mask, causal, d ** -0.5)
+        same = torch.equal(got, again) and torch.equal(glse, alse)
+        ms = timer(lambda: flash_fwd(q, k, v, mask, causal, d ** -0.5,
+                                     need_lse=need_lse))
+        plain_ms = timer(lambda: mha_reference(q, k, v, mask, causal,
                                                d ** -0.5))
-        report('flash_fwd bidirectional (#3)', (b, h, s, d), case,
-               err.max().item(), want.abs().max().item(),
-               f'2^-7*|plain| + 2^-9*max|plain|, lse 1e-3', ok, ms, plain_ms,
-               4 * b * h * s * s * d)
-        if case == 'all keys valid':
-            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                q, k, v, scale=d ** -0.5)
-            lib = library_time(torch, timer, 'F.scaled_dot_product_attention'
-                               ' (#3, no mask)', sdpa, want, card)
-            print(f'  its kernels: {kernel_names(torch, sdpa)} [{card}]')
-            results['bidirectional'] = (
-                err.max().item(), ms, plain_ms,
-                bound(4 * b * h * s * d * 2 + b * s, 4 * b * h * s * s * d),
-                lib)
-        del got, want
+        b, h, sq, _ = q.shape
+        flops = 4 * b * h * sq * k.shape[2] * d / (2 if causal else 1)
+        report(name, tuple(q.shape), f'{case}; called twice, out and lse '
+               f'bitwise equal {same}', err.max().item(),
+               want.abs().max().item(), '2^-7*|plain| + 2^-9*max|plain|, '
+               'lse 1e-3' + (', row 1 exactly 0 and -1e30' if dead else ''),
+               ok and same, ms, plain_ms, flops)
+        return err.max().item(), ms, plain_ms, want, wlse
+
+    # --- #3: the ViT's bidirectional whole-kv forward, (2, 16, 1025, 64),
+    # timed without the lse as the ViT calls it
+    b, h, s, d = 2, 16, 1025, 64
+    q, k, v = rand(b, h, s, d), rand(b, h, s, d), rand(b, h, s, d)
+    mask = torch.ones((b, s), dtype=torch.bool, device=dev)
+    err, ms, plain_ms, want, _ = check_fwd(
+        'flash_fwd bidirectional (#3)', q, k, v, mask, False,
+        'all keys valid', need_lse=False)
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, scale=d ** -0.5)
+    lib = library_time(torch, timer, 'F.scaled_dot_product_attention'
+                       ' (#3, no mask)', sdpa, want, card)
+    print(f'  its kernels: {kernel_names(torch, sdpa)} [{card}]')
+    results['bidirectional'] = (
+        err, ms, plain_ms,
+        bound(4 * b * h * s * d * 2 + b * s, 4 * b * h * s * s * d), lib)
+    _rate('flash_fwd bidirectional (#3)', 4 * b * h * s * s * d, ms,
+          results['bidirectional'][3], lib, 'SDPA', card)
+    m = mask.clone()
+    m[0, 700:] = False                        # a masked tail
+    m[1] = False                              # every key masked
+    check_fwd('flash_fwd bidirectional (#3)', q, k, v, m, False,
+              'row 0 tail masked, row 1 all masked', dead=True,
+              need_lse=False)
+    # the causal instantiation at D = 64 (on no path of the model), under
+    # a grounded key mask
+    check_fwd('flash_fwd causal, D=64', q, k, v,
+              torch.from_numpy(_grounded_key_mask(b, s)).to(dev), True,
+              'causal, grounded key mask')
+    del want
 
     # --- #6: the bidirectional backward at the ViT's shape, from the plain
     # forward's out and lse; a grounded key mask (a gap and a ragged tail
@@ -552,8 +581,9 @@ def check_flash(torch, gen, timer, card):
                + (', row 1 exactly 0' if mask is dead else ''), ok, ms,
                plain_ms, bwd_flops)
         if case == 'grounded key mask':
-            _bwd_rate('flash_bwd bidirectional (#6)', bwd_flops, ms,
-                      results['bidirectional backward'][3], lib, card)
+            _rate('flash_bwd bidirectional (#6)', bwd_flops, ms,
+                  results['bidirectional backward'][3], lib, 'SDPA backward',
+                  card)
         del got, want
 
     # #6 at Sq != Skv (the cross-attention shape its TPU kernels allow):
@@ -564,6 +594,9 @@ def check_flash(torch, gen, timer, card):
             rand(b, h, skv, d), do[:, :, :sq]
         mask = torch.from_numpy(_grounded_key_mask(b, skv)).to(dev)
         mask[1] = False
+        check_fwd('flash_fwd bidirectional (#3)', q2, k2, v2, mask, False,
+                  f'Sq={sq} != Skv={skv}, grounded key mask, row 1 all '
+                  'masked', dead=True, need_lse=False)
         want_out, lse = mha_reference(q2.float(), k2.float(), v2.float(),
                                       mask, False, d ** -0.5)
         out = want_out.to(torch.bfloat16)
@@ -593,17 +626,8 @@ def check_flash(torch, gen, timer, card):
     case = (f'causal, grounded key mask ({int(mask[0].sum())} and '
             f'{int(mask[1].sum())} of {s} valid, region-slot gaps + pad tail)')
     causal_flops = 4 * b * h * s * s * d / 2
-    got, glse = flash_fwd(q, k, v, mask, True, d ** -0.5)
-    want, wlse = mha_reference(q.float(), k.float(), v.float(), mask, True,
-                               d ** -0.5)
-    err = (got.float() - want).abs()
-    ok = bool((err <= _flash_tol(want, fwd_rel)).all())
-    ok &= bool((glse - wlse).abs().max() <= 1e-3)
-    ms = timer(lambda: flash_fwd(q, k, v, mask, True, d ** -0.5))
-    plain_ms = timer(lambda: mha_reference(q, k, v, mask, True, d ** -0.5))
-    report('flash_fwd causal (#4)', (b, h, s, d), case, err.max().item(),
-           want.abs().max().item(), '2^-7*|plain| + 2^-9*max|plain|, '
-           'lse 1e-3', ok, ms, plain_ms, causal_flops)
+    err, ms, plain_ms, want, wlse = check_fwd('flash_fwd causal (#4)', q,
+                                              k, v, mask, True, case)
     # the same function through SDPA: causal and key mask as one boolean
     # mask (SDPA takes one or the other)
     allowed = torch.ones((s, s), dtype=torch.bool, device=dev).tril()[
@@ -613,15 +637,20 @@ def check_flash(torch, gen, timer, card):
     lib = library_time(torch, timer, 'F.scaled_dot_product_attention (#4, '
                        'causal & key mask)', sdpa, want, card)
     print(f'  its kernels: {kernel_names(torch, sdpa)} [{card}]')
-    results['causal'] = (err.max().item(), ms, plain_ms,
+    results['causal'] = (err, ms, plain_ms,
                          bound(4 * b * h * s * d * 2 + b * s + b * h * s * 4,
                                causal_flops), lib)
+    _rate('flash_fwd causal (#4)', causal_flops, ms, results['causal'][3],
+          lib, 'SDPA', card)
+    # the bidirectional instantiation at D = 128 (on no path of the model)
+    check_fwd('flash_fwd bidirectional, D=128', q, k, v, mask, False,
+              'grounded key mask')
 
     # the backward on one set of inputs: the plain forward's out and lse
     out = want.to(torch.bfloat16)
     lse = wlse
     do = rand(b, h, s, d)
-    del got, want, glse
+    del want
     dq, dk, dv = flash_bwd(q, k, v, mask, out, lse, do, True, d ** -0.5)
     wq, wk, wv = flash_attention_bwd_reference(
         q.float(), k.float(), v.float(), mask, out.float(), lse, do.float(),
@@ -653,8 +682,8 @@ def check_flash(torch, gen, timer, card):
         worst, ms, plain_ms,
         bound(8 * b * h * s * d * 2 + b * h * s * 4 + b * s,
               2.5 * causal_flops), lib)
-    _bwd_rate('flash_bwd causal (#5)', 2.5 * causal_flops, ms,
-              results['backward'][3], lib, card)
+    _rate('flash_bwd causal (#5)', 2.5 * causal_flops, ms,
+          results['backward'][3], lib, 'SDPA backward', card)
     del q, k, v, out, lse, do
 
     # #5 at S = 1500, ragged against both the 64-query and 128-key tiles,
@@ -662,6 +691,8 @@ def check_flash(torch, gen, timer, card):
     s = 1500
     q, k, v, do = (rand(b, h, s, d) for _ in range(4))
     mask = torch.from_numpy(_grounded_key_mask(b, s)).to(dev)
+    check_fwd('flash_fwd causal (#4)', q, k, v, mask, True,
+              'causal, S=1500 (ragged against 128), grounded key mask')
     want_out, lse = mha_reference(q.float(), k.float(), v.float(), mask,
                                   True, d ** -0.5)
     out = want_out.to(torch.bfloat16)

@@ -51,7 +51,6 @@
 //     the most query tiles are launched first.
 // Plain version and wrapper: groma_tpu_torch/ops/flash_attention.py.
 
-#include <cuda.h>           // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -94,12 +93,6 @@ struct Cfg {
   static constexpr size_t SMEM = OFF_BAR + (2 * STAGES + 1) * 8 + 1024;
   static_assert(D % 64 == 0 && NDQ % 32 == 0, "tile shapes");
 };
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // d (64 x N) += a (64 x 16, registers) . b (16 x N, shared, MN-major)
 template <int N>
@@ -273,7 +266,7 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
           if (band) ok = ok && kr <= q + off;
           const float lv = (e & 1) ? l2.y : l2.x;
           st[4 * j + e] =
-              ok ? ex2(fmaf(st[4 * j + e], sl2, -lv)) : 0.0f;
+              ok ? sm90::ex2(fmaf(st[4 * j + e], sl2, -lv)) : 0.0f;
         }
       }
       // dv += p^T do (p^T as bf16 A fragments of the k16 slices over the
@@ -396,49 +389,6 @@ __global__ void dq_to_bf16(const float4* __restrict__ src,
 }
 
 // ------------------------------------------------------------------ host
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, without linking libcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                         cudaEnableDefault, &q) == cudaSuccess
-        && q == cudaDriverEntryPointSuccess)
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) == cudaSuccess
-        && q == cudaDriverEntryPointSuccess)
-#endif
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// (BH, S, D) bf16 as a 3-d map, boxes of 64 columns x `rows` rows of one
-// (b, h), 128-byte swizzled; rows past S read as zeros.
-bool make_map(CUtensorMap* map, const void* ptr, int D, int S, int BH,
-              int rows) {
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
-  const cuuint32_t estr[3] = {1, 1, 1};
-  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                        const_cast<void*>(ptr), dims, strides, box, estr,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D, bool CAUSAL>
 int launch(const void* q, const void* k, const void* v, const void* mask,
            const void* dout, const void* lse, const void* delta,
@@ -458,13 +408,13 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)C::SMEM);
   if (err != cudaSuccess) return (int)err;
-  if (encode_tiled() == nullptr) return (int)cudaErrorSymbolNotFound;
+  if (sm90::encode_tiled() == nullptr) return (int)cudaErrorSymbolNotFound;
   CUtensorMap tq, tk, tv, tdo;
   const int BH = B * H;
-  if (!make_map(&tq, q, D, Sq, BH, BQ)
-      || !make_map(&tdo, dout, D, Sq, BH, BQ)
-      || !make_map(&tk, k, D, Skv, BH, C::BK)
-      || !make_map(&tv, v, D, Skv, BH, C::BK))
+  if (!sm90::make_map(&tq, q, D, Sq, BH, BQ)
+      || !sm90::make_map(&tdo, dout, D, Sq, BH, BQ)
+      || !sm90::make_map(&tk, k, D, Skv, BH, C::BK)
+      || !sm90::make_map(&tv, v, D, Skv, BH, C::BK))
     return (int)cudaErrorInvalidValue;
   kernel<<<dim3(BH, (Skv + C::BK - 1) / C::BK), C::THREADS, C::SMEM,
            stream>>>(tq, tk, tv, tdo, static_cast<const uint8_t*>(mask),

@@ -10,7 +10,9 @@ Four TPU kernels become hand-written CUDA kernels:
   (the DINOv2 encoder), its causal one ``_fwd_kernel`` (the LLaMA decoder).
   The TPU kernels split at 4096 keys because the whole-kv one holds every
   key in VMEM; the card's kernel streams key tiles at any length, so the
-  port splits on the causal flag alone;
+  port splits on the causal flag alone.  It runs on wgmma fed by TMA, one
+  query tile per CTA, with no atomics: out and lse are bitwise the same
+  from call to call;
 * ``flash_bwd`` launches ``csrc/flash_attention_bwd.cu``, one kernel
   templated on the causal flag: its causal instantiation replaces
   ``_bwd_fused_kernel`` (the LLaMA decoder), its bidirectional one

@@ -9,6 +9,7 @@ function, from the bytes it must move and the operations it must do.
 
 from __future__ import annotations
 
+import statistics
 import time
 
 import torch
@@ -30,20 +31,21 @@ def bound(nbytes: float, ops: float, peak: float = H100_BF16_FLOPS):
 
 
 class Timer:
-    """Device time of one call, from CUDA events, averaged over ``iters``
-    calls.  Before each call the L2 cache is overwritten (decode streams
-    every weight and cache byte cold) and the stream is held by a sleep
-    kernel, so the host's enqueue time is not counted."""
+    """Device time of one call, from CUDA events: the median of ``iters``
+    calls, so that one stalled call does not move it.  Before each call the
+    L2 cache is overwritten (decode streams every weight and cache byte
+    cold) and the stream is held by a sleep kernel, so the host's enqueue
+    time is not counted."""
 
     def __init__(self, device='cuda'):
         self.flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8,
                                  device=device)
 
     def __call__(self, fn, iters: int = 10) -> float:
-        """Milliseconds per call of ``fn`` (warmed up once first)."""
+        """Median milliseconds per call of ``fn`` (warmed up once first)."""
         fn()
         torch.cuda.synchronize()
-        total = 0.0
+        times = []
         for _ in range(iters):
             self.flush.zero_()
             torch.cuda._sleep(2_000_000)
@@ -53,8 +55,8 @@ class Timer:
             fn()
             end.record()
             end.synchronize()
-            total += start.elapsed_time(end)
-        return total / iters
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
 
 
 def host_timer(fn, iters: int = 3) -> float:

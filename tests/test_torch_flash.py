@@ -271,3 +271,55 @@ def test_backward_wrapper_refuses_what_its_kernel_does_not_take(
             flash_bwd(q, q, q, mask, q, lse, q, causal, d ** -0.5)
     assert flash_bwd.launches == before
     assert cuda_lib._lib is None
+
+
+@pytest.mark.parametrize('what,d,dtype,match', [
+    ('head dim 32', 32, torch.bfloat16, r'D in \(64, 128\)'),
+    ('head dim 256', 256, torch.bfloat16, r'D in \(64, 128\)'),
+    ('f16', 64, torch.float16, 'the kernel takes bf16')])
+def test_forward_wrapper_refuses_what_its_kernel_does_not_take(
+        monkeypatch, what, d, dtype, match):
+    """On meta tensors (no data, no card) ``flash_fwd`` names the head dim
+    outside (64, 128) or a dtype other than bf16, for both masks, raises
+    ValueError, launches nothing and never asks for the kernel library."""
+    from groma_tpu_torch.ops import cuda_lib
+
+    def no_build():
+        raise AssertionError('the kernel library was asked for')
+    monkeypatch.setattr(cuda_lib, 'library', no_build)
+    q = torch.zeros((1, 2, 8, d), dtype=dtype, device='meta')
+    mask = torch.ones((1, 8), dtype=torch.bool, device='meta')
+    before = dict(flash_fwd.launches)
+    for causal in (False, True):
+        for need_lse in (True, False):
+            with pytest.raises(ValueError, match=match):
+                flash_fwd(q, q, q, mask, causal, d ** -0.5, need_lse)
+    assert flash_fwd.launches == before
+    assert cuda_lib._lib is None
+
+
+@pytest.mark.parametrize('causal,sq,skv,d,dead_row', [
+    pytest.param(True, 129, 129, 128, False, id='causal-S129-D128'),
+    pytest.param(False, 129, 193, 64, True,
+                 id='bidirectional-sq129-skv193-D64-dead'),
+    pytest.param(True, 100, 130, 64, False, id='causal-sq100-skv130')])
+def test_plain_forward_at_the_hopper_tile_edges(causal, sq, skv, d,
+                                                dead_row):
+    """The forward the card's kernel must reproduce, at the edges of its
+    tiles (128 query rows and 128 keys a tile at D = 128; 64 and 64 at
+    D = 64): causal S = 129, one row past a query tile and a key tile;
+    bidirectional 129 queries over 193 keys with batch row 1 fully masked
+    (out exactly 0, lse exactly -1e30); causal 100 queries over 130 keys,
+    the band's offset Skv - Sq = 30.  ``flash_fwd``'s plain version
+    against the Pallas kernels in interpret mode, out and lse."""
+    q, k, v = _inputs(10, 2, 2, sq, d, skv)
+    mask = _grounded_mask(2, skv)
+    if dead_row:
+        mask[1] = False
+    want_out, want_lse = _jax_fwd(q, k, v, mask, causal)
+    out, lse = flash_fwd(_t(q), _t(k), _t(v), _t(mask), causal, d ** -0.5)
+    np.testing.assert_allclose(out.numpy(), want_out, atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(lse.numpy(), want_lse, atol=TOL, rtol=TOL)
+    if dead_row:
+        assert (out[1] == 0).all() and (lse[1] == NEG_INF).all()
+        assert (want_out[1] == 0).all() and (want_lse[1] <= -1e29).all()
