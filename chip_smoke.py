@@ -20,8 +20,12 @@ Phases, each printed before the last line:
     backward, torch._int_mm, the backend named): the int8 decode
     matmul and decode attention (served path), the packed-int4 matmul (each
     of the int4 tree's five shapes at M=1 and M=8, the engine's decode,
-    and at M=2048, a prefill; at down_proj the bound is also shown to flag
-    a wrong scale on the block that straddles K/2) and the paged decode
+    and at M=2048, a prefill, each beside torch._weight_int4pack_mm; the
+    decode tile also at a ragged N (N % 128 = 64) and with scales 2^0 to
+    2^10 apart from block to block, two calls bitwise equal at M=8, and
+    ptxas's registers and spills for it; at down_proj the bound is also
+    shown to flag a wrong scale on the block that straddles K/2) and the
+    paged decode
     attention (8 slots, ragged lengths up to 2432, shuffled
     pages, a frozen row), the flash-attention forward (bidirectional at the
     ViT's (2, 16, 1025, 64), also with a fully masked row and at Sq != Skv;
@@ -70,7 +74,9 @@ Phases, each printed before the last line:
     at once, each checked; then every request finished, none truncated,
     every page back in the pool, and exact launch counts (paged attention
     L per decode step, int4 matmul 4L + 1 per prefill and per step), with
-    TTFT per request, aggregate tok/s and ms per decode step;
+    TTFT per request, aggregate tok/s and ms per decode step; then one
+    more request per slot, ENGINE_PROFILED_BURSTS of whose bursts with
+    every slot live run under torch.profiler (device time a step);
  7. the decode benchmark's path (bench_decode_quant.measure_megakernel) at
     full depth: the random full-width Vicuna-7B int4 tree from --seed,
     B=8, a 512-token random prompt prefilled per layer into a 1024-slot
@@ -140,6 +146,7 @@ PAGED_LENGTHS = (2432, 2301, 1900, 1500, 1024, 700, 129, 0)
 PAGED_POOL_PAGES = 160
 ENGINE_REQUESTS = 12       # through 8 slots: 4 wait and join mid-decode
 ENGINE_MAX_NEW = 32
+ENGINE_PROFILED_BURSTS = 2  # of 8 steps each, every slot live
 MAX_NEW_TOKENS = 32        # the 2112-slot cache leaves 64 after prefill
 TRAIN_BATCH = 2            # vl_pretrain.sh's 16 does not fit one card
 TRAIN_STEPS = 4            # >= 2: the warmup-cosine schedule's lr is 0 first
@@ -774,68 +781,120 @@ def check_llm_path(torch, seed: int, card: str):
           f'path within {worst:.3e} x max|hidden| (tol 3e-2) [{card}]')
 
 
+def _ptxas_summary(log: str, kernel: str) -> str:
+    """ptxas's registers, stack and spills of the entry points whose names
+    hold ``kernel``, from the build's -v log."""
+    found, lines, keep = [], log.splitlines(), False
+    for line in lines:
+        if 'Compiling entry function' in line:
+            keep = kernel in line
+            continue
+        if keep and ('registers' in line or 'spill' in line):
+            found.append(line.split(':', 1)[-1].strip()
+                         if 'ptxas' in line else line.strip())
+    return '; '.join(found) or 'not in the log (library not rebuilt here)'
+
+
 def check_int4_matmul(torch, gen, timer, card):
     """#7 against its plain version at every shape of the int4 tree: M=1
     and M=8 (the engine's 8 slots) through the decode tile, M=2048 through
-    the prefill tile.  Returns (max_abs_err, (kernel ms, plain ms), (bound
-    ms, bound by), library ms), the sums over the four layer matmuls at
-    M=8."""
-    from groma_tpu_torch.ops.quant4 import (INT4_BLOCK, int4_matmul,
+    the prefill tile; the decode tile also at a ragged N (N % 128 = 64,
+    M=5) and with scales that differ strongly between blocks, and twice at
+    M=8 (bitwise-equal outputs).  Each shape's torch._weight_int4pack_mm
+    time beside it, and a plain read of the same weight bytes.  Returns
+    (max_abs_err over the cases with random scales, (kernel ms, plain ms),
+    (bound ms, bound by), library ms), the sums over the four layer
+    matmuls at M=8."""
+    from groma_tpu_torch.ops import cuda_lib
+    from groma_tpu_torch.ops.quant4 import (INT4_BLOCK, decode_plan,
+                                            int4_matmul,
                                             int4_matmul_reference)
     dev = 'cuda'
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ptxas = _ptxas_summary(cuda_lib.build_info.get('log', ''),
+                           'int4_decode_kernel')
+    print(f'int4_matmul decode tile, ptxas: {ptxas} [{card}]')
     worst = 0.0
-    layer_ms = [0.0, 0.0]
-    layer_bound, bound_by, library = 0.0, '', 0.0
-    cases = [(m, name, k, n) for m in (1, 8, INT4_PREFILL_ROWS)
+    # M -> [kernel, plain, bound, library, bound by, plain read] ms over the
+    # four layer matmuls
+    sums = {}
+    cases = [(m, name, k, n, 'random') for m in (1, 8, INT4_PREFILL_ROWS)
              for name, (k, n) in INT4_MATMUL_SHAPES.items()]
-    for m, name, k, n in cases:
+    cases += [(5, 'ragged N', 4096, 4160, 'random'),
+              (8, 'ragged N', 512, 192, 'random'),
+              (8, 'down_proj', 11008, 4096, 'per-block'),
+              (1, 'down_proj', 11008, 4096, 'per-block')]
+    for m, name, k, n, scales in cases:
         x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
         packed = torch.randint(0, 256, (k // 2, n), generator=gen, device=dev,
                                dtype=torch.uint8)
         scale = torch.rand((k // 256, n), generator=gen, device=dev) \
             * 1e-3 + 1e-4
-        got = int4_matmul(x, packed, scale).float()
+        if scales == 'per-block':
+            # 2^0 .. 2^10 from block to block (neighbours far apart): a low
+            # nibble paired with the high half's x or scale, or a fold at
+            # the wrong block, moves outputs far past the bound
+            scale = scale * 2.0 ** ((torch.arange(k // 256, device=dev)
+                                     * 7 % 11)[:, None].float())
+        got = int4_matmul(x, packed, scale)
         want = int4_matmul_reference(x, packed, scale).float()
+        again = int4_matmul(x, packed, scale) if m <= 8 else got
+        stable = bool(torch.equal(got, again))
+        got = got.float()
         err = (got - want).abs()
         # f32 sums in another order, then one bf16 rounding each: at most
         # one bf16 step (2^-7 relative) apart, plus f32 noise
         tol = 2.0 ** -7 * want.abs() + 1e-4 * want.abs().max()
-        ok = bool((err <= tol).all()) and bool(torch.isfinite(got).all())
+        ok = bool((err <= tol).all()) and bool(torch.isfinite(got).all()) \
+            and stable
         max_err = err.max().item()
-        worst = max(worst, max_err)
+        if scales == 'random':
+            worst = max(worst, max_err)
         ms = timer(lambda: int4_matmul(x, packed, scale))
         plain_ms = timer(lambda: int4_matmul_reference(x, packed, scale))
-        if m == 8 and name in LAYER_MATMULS:
-            layer_ms[0] += ms
-            layer_ms[1] += plain_ms
-            b_ms, bound_by = bound(k * n // 2 + (k // 256) * n * 4
-                                   + 2 * m * (k + n), 2 * m * k * n)
-            layer_bound += b_ms
-            if library is not None:
-                try:
-                    fn = _tinygemm(torch, x, packed, scale)
-                except (RuntimeError, TypeError, AttributeError) as e:
-                    print(f'  library torch._weight_int4pack_mm: none '
-                          f'(the repacking failed: {type(e).__name__}: '
-                          f'{(str(e).splitlines() or [""])[0][:140]}) '
-                          f'[{card}]')
-                    fn = None
-                t = fn and library_time(
-                    torch, timer, f'torch._weight_int4pack_mm {name}', fn,
-                    want, card)
-                library = None if t is None else library + t
+        b_ms, bound_by = bound(k * n // 2 + (k // 256) * n * 4
+                               + 2 * m * (k + n), 2 * m * k * n)
+        lib = None
+        if scales == 'random' and name in INT4_MATMUL_SHAPES:
+            try:
+                fn = _tinygemm(torch, x, packed, scale)
+            except (RuntimeError, TypeError, AttributeError) as e:
+                print(f'  library torch._weight_int4pack_mm: none (the '
+                      f'repacking failed: {type(e).__name__}: '
+                      f'{(str(e).splitlines() or [""])[0][:140]}) [{card}]')
+                fn = None
+            lib = fn and library_time(
+                torch, timer, f'torch._weight_int4pack_mm M={m} {name}', fn,
+                want, card)
+        # the same weight bytes read by one plain PyTorch reduction, under
+        # the same timer: what streaming them costs on this card as timed
+        read_ms = timer(lambda: packed.view(torch.int32).amax()) \
+            if m <= 8 else 0.0
+        if scales == 'random' and name in LAYER_MATMULS:
+            acc = sums.setdefault(m, [0.0, 0.0, 0.0, 0.0, bound_by, 0.0])
+            acc[0] += ms
+            acc[1] += plain_ms
+            acc[2] += b_ms
+            acc[3] = None if lib is None or acc[3] is None else acc[3] + lib
+            acc[5] += read_ms
         ref_max = want.abs().max().item()
         rate = (f'{2 * m * k * n / ms / 1e9:.1f} TFLOP/s' if m > 8 else
-                f'{(k * n / 2 + k * n // 64) / ms / 1e6:.1f} GB/s weights')
-        print(f'int4_matmul M={m} {name} K={k} N={n}: max_abs_err '
-              f'{max_err:.3e}, rel {max_err / ref_max:.3e} of max|plain| '
-              f'{ref_max:.3e} (tol 2^-7*|plain| + 1e-4*max|plain|) '
-              f'{"ok" if ok else "FAIL"}; kernel {ms:.4f} ms, plain '
-              f'{plain_ms:.4f} ms, {rate} [{card}]')
+                f'{(k * n / 2 + k * n // 64) / ms / 1e6:.1f} GB/s weights, '
+                f'{100 * b_ms / ms:.1f} % of the bound {b_ms:.4f} ms '
+                f'({bound_by}), a plain read of the weight bytes (amax) '
+                f'{read_ms:.4f} ms; plan {decode_plan(k, n, sms)} (split '
+                f'rows, splits), two calls '
+                f'{"bitwise equal" if stable else "DIFFER"}')
+        print(f'int4_matmul M={m} {name} K={k} N={n}'
+              f'{", scales 2^0..2^10 by block" if scales != "random" else ""}'
+              f': max_abs_err {max_err:.3e}, rel {max_err / ref_max:.3e} of '
+              f'max|plain| {ref_max:.3e} (tol 2^-7*|plain| + '
+              f'1e-4*max|plain|) {"ok" if ok else "FAIL"}; kernel {ms:.4f} '
+              f'ms, plain {plain_ms:.4f} ms, {rate} [{card}]')
         if not ok:
             fail(f'int4_matmul disagrees with its plain version at M={m} '
-                 f'{name}')
-        if (k // 2) % INT4_BLOCK:
+                 f'{name} K={k} N={n} ({scales} scales), or two calls differ')
+        if (k // 2) % INT4_BLOCK and scales == 'random':
             # the bound must see a wrong scale on the straddling block's
             # high-nibble rows (K/2 up to its end): give them the next
             # block's scale in the plain result and count what it flags
@@ -852,8 +911,18 @@ def check_int4_matmul(torch, gen, timer, card):
             if flagged < 0.5:
                 fail(f'int4_matmul M={m} {name}: the bound misses a wrong '
                      f'scale on the straddling block')
-        del x, packed, scale, got, want, err
-    return worst, layer_ms, (layer_bound, bound_by), library
+        del x, packed, scale, got, want, err, again
+    for m, (ms, plain_ms, b_ms, lib, by, read_ms) in sums.items():
+        lib_txt = 'none' if lib is None else f'{lib:.4f} ms'
+        ratio = '' if lib is None else f', {ms / lib:.3f} x the library'
+        read = f', a plain read of the weights {read_ms:.4f} ms' \
+            if read_ms else ''
+        print(f'int4_matmul M={m}, the four layer matmuls: kernel {ms:.4f} '
+              f'ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by}), '
+              f'{100 * b_ms / ms:.1f} % of the bound, '
+              f'torch._weight_int4pack_mm {lib_txt}{ratio}{read} [{card}]')
+    ms, plain_ms, b_ms, lib, by, _ = sums[8]
+    return worst, [ms, plain_ms], (b_ms, by), lib
 
 
 def _tinygemm(torch, x, packed, scale, zero: float = 0.0):
@@ -2026,7 +2095,6 @@ def serve_engine_full_width(torch, np, seed: int, card: str):
     wall = time.perf_counter() - t_start
     mm, att = int4_matmul.launches, paged_int8_decode_attention.launches
     st = engine.stats()
-    engine.close()
     if any(r is None for r in results) or len(sessions) != ENGINE_REQUESTS:
         fail(f'engine: {sum(r is None for r in results)} requests did not '
              f'finish')
@@ -2083,8 +2151,68 @@ def serve_engine_full_width(torch, np, seed: int, card: str):
           f'{st["decode_ms_per_step"]:.2f} ms/step (each step one token for '
           f'every live slot); every page returned; launches int4_matmul {mm}, '
           f'paged attention {att} [{card}]')
+    engine_device_per_step(torch, np, worker, card)
+    engine.close()
     del worker, engine
     return mm, att
+
+
+def engine_device_per_step(torch, np, worker, card: str):
+    """Device time a decode step of the engine with every slot live: one
+    more request per slot, after the timed run (starting and stopping the
+    profiler would hold the queue), and ENGINE_PROFILED_BURSTS of their
+    bursts each under torch.profiler on the engine's thread."""
+    import threading
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    engine, cfg = worker.engine, worker.cfg
+    burst = engine._decode_burst
+    profiled = []                   # (steps, {kernel: device ms})
+
+    def profiled_burst():
+        if len(profiled) >= ENGINE_PROFILED_BURSTS or not engine._active.all():
+            return burst()
+        steps0 = engine._n_steps
+        torch.cuda.synchronize()
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            burst()
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in prof.events():
+            if e.device_type.name == 'CUDA' and e.device_time > 0:
+                by_name[e.name] = by_name.get(e.name, 0.0) \
+                    + e.device_time / 1e3
+        profiled.append((engine._n_steps - steps0, by_name))
+    engine._decode_burst = profiled_burst
+
+    def client(i):
+        for _ in worker.generate_stream({
+                'image': random_image(np, 100 + i, cfg.perceiver.image_size),
+                'prompt': 'Find the red car.',
+                'max_new_tokens': ENGINE_MAX_NEW, 'stream_chunk': 1}):
+            pass
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(engine.max_slots)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    engine._decode_burst = burst
+    if not profiled:
+        print(f'engine: no burst ran with every slot live, device time a '
+              f'step not measured [{card}]')
+        return
+    n = sum(p[0] for p in profiled)
+    by_name = {}
+    for _, names in profiled:
+        for k, v in names.items():
+            by_name[k] = by_name.get(k, 0.0) + v
+    top = ', '.join(f'{k[:48]} {v / n:.3f}' for k, v in sorted(
+        by_name.items(), key=lambda kv: -kv[1])[:4])
+    print(f'engine, {len(profiled)} bursts ({n} decode steps) with all '
+          f'{engine.max_slots} slots live under torch.profiler: '
+          f'{sum(by_name.values()) / n:.3f} ms of device time a step; the '
+          f'longest kernels, ms a step: {top} [{card}]')
 
 
 def main():

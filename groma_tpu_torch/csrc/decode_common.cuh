@@ -2,8 +2,7 @@
 // a block of kWarps warps returns the block-wide result; `red` holds kWarps
 // floats), int8 dot products and q quantization for the single-token
 // attention kernels (decode_attention.cu, paged_attention.cu,
-// decode_megakernel.cu), and the packed-int4 unpack of int4_matmul.cu and
-// decode_megakernel.cu.
+// decode_megakernel.cu), and the packed-int4 unpack of decode_megakernel.cu.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -7,7 +7,7 @@
 // from x (8, 2 KH) bf16 and p (KH, N) uint8: unsigned nibbles, no bias, no
 // scale, f32 accumulation.  The card's three variants, in place of the
 // TPU's lane widths:
-//   A  the unpack #7's decode tile ships (int4_matmul.cu): 32-bit words,
+//   A  the unpack of #7's first decode tile (CUDA-core FMAs): 32-bit words,
 //      a byte-permute of each nibble into the mantissa of 2^23, one FADD,
 //      then f32 FMAs on the CUDA cores;
 //   B  a per-nibble integer shift and mask, then an int-to-float

@@ -2,8 +2,9 @@
 // from TMA through mbarrier rings: shared-memory barriers, 3-d TMA tile
 // loads, wgmma shared-memory descriptors and products, warpgroup register
 // rebalancing, named barriers, and the f32 reduce-add into device memory;
-// on the host, the 3-d tensor maps that the TMA loads read.  Users:
-// flash_attention_fwd.cu and flash_attention_bwd.cu.
+// on the host, the tensor maps that the TMA loads read.  Users:
+// flash_attention_fwd.cu, flash_attention_bwd.cu (3-d bf16 maps) and
+// int4_matmul.cu (2-d maps of the packed weights and the scales).
 //
 // Layout conventions (PTX ISA, "Matrix Descriptor" and "Shared Memory
 // Matrix Layout"), for bf16 tiles that TMA writes with the 128-byte swizzle:
@@ -80,6 +81,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const void* map,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// One box of a 2-d tensor map (coordinates innermost first).
+__device__ __forceinline__ void tma_load_2d(void* dst, const void* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1)
       : "memory");
 }
 
@@ -344,6 +356,28 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int D, int S, int BH,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// (rows, cols) row-major as a 2-d map of `elem_bytes`-byte elements
+// (uint8 or f32), boxes of box_cols x box_rows, 128-byte swizzled or not;
+// elements past either edge read as zeros.  The row pitch, cols x
+// elem_bytes, must be a multiple of 16; with the swizzle a box row is at
+// most 128 bytes.
+inline bool make_map_2d(CUtensorMap* map, const void* ptr, int elem_bytes,
+                        int cols, int rows, int box_cols, int box_rows,
+                        bool swizzle) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t estr[2] = {1, 1};
+  return encode_tiled()(map, elem_bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                             : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                        2, const_cast<void*>(ptr), dims, strides, box, estr,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        swizzle ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -33,11 +33,11 @@ bf16, attention output and SiLU product are rounded to bf16 before their
 matmuls, and q, k and v are quantized per (b, head) with IEEE division by
 127.  The int4 products differ from the TPU kernel's in f32 rounding only:
 the plain version follows its ``_int4_chunk_dot`` (biased nibbles, ``x@n -
-8*sum(x)`` per 256-row block, then the scale), while the CUDA kernel, as
-``csrc/int4_matmul.cu`` does, multiplies each unbiased nibble by its scale
-first and sums the products with FMAs.  The current token joins the
-softmax max, denominator and p requantization in registers, and its p8*v
-term joins the int32 sum before the f32 cast.  Attention reads the cache as
+8*sum(x)`` per 256-row block, then the scale), while the CUDA kernel
+multiplies each unbiased nibble by its scale first and sums the products
+with FMAs.  The current token joins the softmax max, denominator and p
+requantization in registers, and its p8*v term joins the int32 sum before
+the f32 cast.  Attention reads the cache as
 it was before this step's column is written.
 
 * ``fused_decode_step_plain`` is the plain PyTorch version, on any device.

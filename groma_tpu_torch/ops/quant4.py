@@ -3,8 +3,10 @@
 Counterpart of ``groma_tpu/ops/quant4.py`` (the int4 half; the nf4 codec is
 host-side format parity and is not ported yet).  ``int4_matmul`` replaces
 the TPU kernel ``_int4_matmul_kernel`` with the hand-written CUDA kernel in
-``csrc/int4_matmul.cu``, at every M: a weight-streaming tile for decode
-(M <= ``DECODE_MAX_ROWS``) and a tensor-core tile for prefill.
+``csrc/int4_matmul.cu``, at every M: for decode (M <= ``DECODE_MAX_ROWS``)
+a tile that streams the weights through a TMA ring into ``mma.sync`` with
+the batch as N, split over K by ``decode_plan``; for prefill a tensor-core
+tile that unpacks in registers.
 
 Format (the JAX package's, byte for byte): symmetric q in [-7, 7] with a
 scale per (``INT4_BLOCK``-row K block, column), stored as q + 8 nibbles;
@@ -72,8 +74,43 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _row_tile(m: int) -> int:
-    return 1 if m == 1 else 2 if m == 2 else 4 if m <= 4 else 8
+DECODE_TILE = (64, 128)     # packed rows, columns of one TMA box
+DECODE_CTAS_PER_SM = 2      # the decode tile's occupancy (registers)
+
+
+def decode_plan(k: int, n: int, sms: int) -> tuple:
+    """(split_rows, splits) of the decode tile for x (M <= 8, K) @ packed
+    (K/2, N) on a card with ``sms`` SMs: the K/2 packed rows cut into
+    ``splits`` ranges of ``split_rows`` (whole 64-row tiles, the last one
+    shorter and not empty).  The 128-column tiles times the splits fill at
+    most one wave of ``DECODE_CTAS_PER_SM`` CTAs per SM, with equal ranges,
+    but at least one CTA per SM where the shape has that many tiles.  Each
+    64-row tile lies in one scale block of each nibble half, since K/2 is a
+    multiple of 128."""
+    rows, cols = DECODE_TILE
+    tiles = k // 2 // rows
+    col_tiles = _cdiv(n, cols)
+    splits = min(tiles, max(1, DECODE_CTAS_PER_SM * sms // col_tiles))
+    per = _cdiv(tiles, splits)
+    while per > 1 and col_tiles * _cdiv(tiles, per) < sms:
+        per -= 1
+    return per * rows, _cdiv(tiles, per)
+
+
+_counters = {}   # device -> int32 arrival counters, one per column tile
+
+
+def _tile_counters(device, col_tiles: int) -> torch.Tensor:
+    """The split-K arrival counters of ``device``: zeroed once, and left at
+    zero by every launch (its last CTA of each column tile resets its
+    own), so calls in stream order, and a CUDA graph replaying them, share
+    one buffer."""
+    buf = _counters.get(device)
+    if buf is None or buf.numel() < col_tiles:
+        buf = torch.zeros(max(col_tiles, 256), dtype=torch.int32,
+                          device=device)
+        _counters[device] = buf
+    return buf
 
 
 def _launch(x, packed, scale):
@@ -81,26 +118,20 @@ def _launch(x, packed, scale):
     m, k = x.shape
     n = packed.shape[1]
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
-    partial = None
-    mt, chunk, splits = 0, 0, 1
+    partial = counters = None
+    split_rows, splits = 0, 1
     if m <= DECODE_MAX_ROWS:
-        mt = _row_tile(m)
-        # split the K/2 packed rows (in 128-row chunks, each inside one
-        # scale block of either half) until there are about two blocks
-        # per SM; every split writes f32 partial sums
-        chunks = k // 256
-        blocks = _cdiv(n, 64)
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        splits = max(1, min(_cdiv(2 * sms, blocks), chunks))
-        chunk = _cdiv(chunks, splits) * 128
-        splits = _cdiv(k // 2, chunk)
+        split_rows, splits = decode_plan(k, n, sms)
         if splits > 1:
             partial = torch.empty((splits, m, n), dtype=torch.float32,
                                   device=x.device)
+            counters = _tile_counters(x.device, _cdiv(n, DECODE_TILE[1]))
     status = library().groma_int4_matmul(
         x.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
         partial.data_ptr() if partial is not None else None,
-        m, k, n, mt, chunk, splits, stream_ptr(x))
+        counters.data_ptr() if counters is not None else None,
+        m, k, n, split_rows, splits, stream_ptr(x))
     check(status, 'int4_matmul')
     int4_matmul.launches += 1
     return out
@@ -135,9 +166,9 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
         raise ValueError('int4_matmul: tensors on different devices')
     if not (x.is_contiguous() and packed.is_contiguous()
             and scale.is_contiguous()) or packed.data_ptr() % 16 \
-            or x.data_ptr() % 16:
+            or x.data_ptr() % 16 or scale.data_ptr() % 16:
         raise ValueError('int4_matmul: the kernel takes contiguous tensors '
-                         'with 16-byte-aligned x and weights')
+                         'with 16-byte-aligned x, weights and scales')
     return _launch(x, packed, scale)
 
 

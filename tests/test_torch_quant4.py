@@ -6,7 +6,9 @@ Tolerances:
   the Pallas interpreter (per-block dots on biased nibbles, the
   straddling block split in two) and against the JAX wrapper's CPU path
   (the same f32 dot against the same dequantized weights), both summed in
-  another order.
+  another order;
+* the decode tile's split plan (``decode_plan``, computed on the host):
+  exact coverage of K/2, tiles inside scale blocks, CTAs for every SM.
 On CPU tensors the wrapper takes the plain version and launches nothing.
 """
 
@@ -28,8 +30,10 @@ from groma_tpu.ops.quant4 import int4_matmul as j_int4_matmul
 from groma_tpu.ops.quant4 import quantize_weight_int4 as j_quantize
 from groma_tpu_torch.models.llama_quant import \
     quantize_llama_params as t_quantize_llama
-from groma_tpu_torch.ops.quant4 import (INT4_BLOCK, dequantize_weight_int4,
-                                        int4_matmul, int4_matmul_reference,
+from groma_tpu_torch.ops.quant4 import (DECODE_CTAS_PER_SM, DECODE_TILE,
+                                        INT4_BLOCK, decode_plan,
+                                        dequantize_weight_int4, int4_matmul,
+                                        int4_matmul_reference,
                                         quantize_weight_int4)
 
 torch.set_num_threads(2)
@@ -67,7 +71,7 @@ def _tpu_kernel_body(x, packed, scale):
         interpret=True)(x, packed, scale)
 
 
-@pytest.mark.parametrize('m', [1, 5, 64])
+@pytest.mark.parametrize('m', [1, 5, 8, 64])
 @pytest.mark.parametrize('k', [512, 768])    # 768: block 1 straddles K/2
 def test_int4_matmul_reference_matches_jax(rng, m, k):
     """Against the TPU kernel body, and against the JAX wrapper's CPU path
@@ -89,6 +93,42 @@ def test_int4_matmul_reference_matches_jax(rng, m, k):
     # the wrapper on CPU tensors is the plain version
     np.testing.assert_array_equal(
         int4_matmul(_t(x), _t(qd['q']), _t(qd['scale'])).numpy(), got)
+
+
+# (K, N) of the int4 tree's matmuls at 7B width (chip_smoke's shapes) and
+# the tiny ones of these tests (N % 128 = 64: a half-empty column tile)
+_PLAN_SHAPES = {'qkv_proj': (4096, 12288), 'o_proj': (4096, 4096),
+                'gate_up_proj': (4096, 22016), 'down_proj': (11008, 4096),
+                'lm_head': (4096, 32256), 'tiny': (512, 192),
+                'tiny straddling': (768, 192)}
+
+
+@pytest.mark.parametrize('sms', [132, 114, 78])
+@pytest.mark.parametrize('m', [1, 8])
+@pytest.mark.parametrize('shape', list(_PLAN_SHAPES))
+def test_decode_plan_covers_k_once_inside_scale_blocks(shape, m, sms):
+    """The decode tile's split of the K/2 packed rows: whole 64-row tiles,
+    each packed row in exactly one split, no split empty, at most one wave
+    of CTAs, every tile inside one scale block of each nibble half
+    (down_proj's block 21 straddles K/2 = 5504), and at least one CTA per
+    SM where the shape has that many tiles."""
+    k, n = _PLAN_SHAPES[shape]
+    kh = k // 2
+    rows, cols = DECODE_TILE
+    split_rows, splits = decode_plan(k, n, sms)
+    assert split_rows % rows == 0 and split_rows > 0
+    seen = np.zeros(kh, dtype=int)
+    for s in range(splits):
+        lo, hi = s * split_rows, min((s + 1) * split_rows, kh)
+        assert lo < hi
+        seen[lo:hi] += 1
+        for r in range(lo, hi, rows):
+            assert r // INT4_BLOCK == (r + rows - 1) // INT4_BLOCK
+            assert (kh + r) // INT4_BLOCK == (kh + r + rows - 1) // INT4_BLOCK
+    assert (seen == 1).all()
+    col_tiles = -(-n // cols)
+    assert col_tiles * splits >= min(sms, col_tiles * kh // rows)
+    assert splits == 1 or col_tiles * splits <= DECODE_CTAS_PER_SM * sms
 
 
 def _llama_params(rng, cfg):
