@@ -20,12 +20,15 @@ Phases, each printed before the last line:
     backward, torch._int_mm, the backend named): the int8 decode
     matmul and decode attention (served path), the packed-int4 matmul (each
     of the int4 tree's five shapes at M=1 and M=8, the engine's decode,
-    and at M=2048, a prefill, each beside torch._weight_int4pack_mm; the
-    decode tile also at a ragged N (N % 128 = 64) and with scales 2^0 to
-    2^10 apart from block to block, two calls bitwise equal at M=8, and
-    ptxas's registers and spills for it; at down_proj the bound is also
-    shown to flag a wrong scale on the block that straddles K/2) and the
-    paged decode
+    through the decode tile, and at M=9, 200 and 2048, a prefill, through
+    the wgmma prefill tile; at M=1, 8 and 2048 beside
+    torch._weight_int4pack_mm, at M=2048 also beside torch.matmul in bf16
+    on a dequantized copy of the weights; both tiles also at a ragged N
+    (N % 128 = 64) and with scales 2^0 to 2^10 apart from block to block;
+    every case called twice, bitwise equal; ptxas's registers and spills
+    for both tiles and any wgmma serialization warning (a failure); at
+    down_proj the bound is also shown to flag a wrong scale on the block
+    that straddles K/2) and the paged decode
     attention (8 slots, ragged lengths up to 2432, shuffled
     pages, a frozen row), the flash-attention forward (bidirectional at the
     ViT's (2, 16, 1025, 64), also with a fully masked row and at Sq != Skv;
@@ -73,14 +76,16 @@ Phases, each printed before the last line:
     ModelWorker answers ENGINE_REQUESTS requests sent from as many threads
     at once, each checked; then every request finished, none truncated,
     every page back in the pool, and exact launch counts (paged attention
-    L per decode step, int4 matmul 4L + 1 per prefill and per step), with
-    TTFT per request, aggregate tok/s and ms per decode step; then one
+    L per decode step, int4 matmul 4L + 1 per prefill and per step, of
+    them the prefill tile 4L per prefill), with TTFT per request, each
+    prefill's time, aggregate tok/s and ms per decode step; then one
     more request per slot, ENGINE_PROFILED_BURSTS of whose bursts with
     every slot live run under torch.profiler (device time a step);
  7. the decode benchmark's path (bench_decode_quant.measure_megakernel) at
     full depth: the random full-width Vicuna-7B int4 tree from --seed,
     B=8, a 512-token random prompt prefilled per layer into a 1024-slot
-    int8 cache, MEGAKERNEL_STEPS greedy steps through
+    int8 cache (timed; its 4L layer matmuls at M=4096 through the prefill
+    tile, counted), MEGAKERNEL_STEPS greedy steps through
     quant_llama_decode_megakernel (exactly one megakernel launch each),
     then the same tokens teacher-forced through the per-layer
     quant_llama_forward on a copy of the cache (int4 matmul 4L and decode
@@ -98,7 +103,8 @@ Phases, each printed before the last line:
     variant was held against its plain version in phase 2): each probe's
     entry point as `python -m groma_tpu_torch.benchmarks.<name>` runs it,
     printing the probe's table.
-Then one JSON line with the seventeen kernels (launches: the training
+Then one JSON line with the eighteen kernels, the int4 matmul's two tiles
+apart (launches: the training
 path's for the forward flash kernels and the causal backward, the DINOv2-L
 phase's for the bidirectional backward, the served path's for the int8
 ones, the engine's for the int4 and paged ones, the decode path's for the
@@ -795,35 +801,62 @@ def _ptxas_summary(log: str, kernel: str) -> str:
     return '; '.join(found) or 'not in the log (library not rebuilt here)'
 
 
+def _ptxas_wgmma_warnings(log: str, source: str) -> list:
+    """ptxas's lines that say it serialized wgmma products (C7515, C7520)
+    in the build of ``source`` (the log's '== <source>' section)."""
+    found, keep = [], False
+    for line in log.splitlines():
+        if line.startswith('== '):
+            keep = line[3:].strip() == source
+        elif keep and 'wgmma' in line and 'serializ' in line:
+            found.append(line.strip())
+    return found
+
+
 def check_int4_matmul(torch, gen, timer, card):
     """#7 against its plain version at every shape of the int4 tree: M=1
-    and M=8 (the engine's 8 slots) through the decode tile, M=2048 through
-    the prefill tile; the decode tile also at a ragged N (N % 128 = 64,
-    M=5) and with scales that differ strongly between blocks, and twice at
-    M=8 (bitwise-equal outputs).  Each shape's torch._weight_int4pack_mm
-    time beside it, and a plain read of the same weight bytes.  Returns
-    (max_abs_err over the cases with random scales, (kernel ms, plain ms),
-    (bound ms, bound by), library ms), the sums over the four layer
-    matmuls at M=8."""
+    and M=8 (the engine's 8 slots) through the decode tile, M=9, 200 and
+    2048 (a prefill) through the prefill tile; both tiles also at a ragged
+    N (N % 128 = 64: M=5 and M=200) and with scales that differ strongly
+    between blocks (down_proj at M=1, 8 and 2048), and every case called
+    twice (bitwise-equal outputs).  Each shape's torch._weight_int4pack_mm
+    time beside it, a plain read of the same weight bytes at M <= 8 and, at
+    M=2048, torch.matmul in bf16 on a dequantized copy of the weights.
+    Returns two tuples, the decode tile's (the four layer matmuls at M=8)
+    and the prefill tile's (at M=2048): (max_abs_err over the tile's cases
+    with random scales, (kernel ms, plain ms), (bound ms, bound by),
+    library ms)."""
     from groma_tpu_torch.ops import cuda_lib
     from groma_tpu_torch.ops.quant4 import (INT4_BLOCK, decode_plan,
+                                            dequantize_weight_int4,
                                             int4_matmul,
-                                            int4_matmul_reference)
+                                            int4_matmul_reference,
+                                            prefill_plan)
     dev = 'cuda'
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    ptxas = _ptxas_summary(cuda_lib.build_info.get('log', ''),
-                           'int4_decode_kernel')
-    print(f'int4_matmul decode tile, ptxas: {ptxas} [{card}]')
-    worst = 0.0
-    # M -> [kernel, plain, bound, library, bound by, plain read] ms over the
-    # four layer matmuls
+    log = cuda_lib.build_info.get('log', '')
+    for tile, kernel in (('decode', 'int4_decode_kernel'),
+                         ('prefill', 'int4_prefill_kernel')):
+        print(f'int4_matmul {tile} tile, ptxas: '
+              f'{_ptxas_summary(log, kernel)} [{card}]')
+    serialized = _ptxas_wgmma_warnings(log, 'int4_matmul.cu')
+    print(f'int4_matmul prefill tile, ptxas wgmma serialization warnings: '
+          f'{"; ".join(serialized) or "none"} [{card}]')
+    if serialized:
+        fail('ptxas serialized the wgmma products of int4_prefill_kernel')
+    worst = {False: 0.0, True: 0.0}      # by m > 8
+    # M -> [kernel, plain, bound, library, bound by, plain read, bf16
+    # matmul] ms over the four layer matmuls
     sums = {}
-    cases = [(m, name, k, n, 'random') for m in (1, 8, INT4_PREFILL_ROWS)
+    cases = [(m, name, k, n, 'random')
+             for m in (1, 8, 9, 200, INT4_PREFILL_ROWS)
              for name, (k, n) in INT4_MATMUL_SHAPES.items()]
     cases += [(5, 'ragged N', 4096, 4160, 'random'),
+              (200, 'ragged N', 4096, 4160, 'random'),
               (8, 'ragged N', 512, 192, 'random'),
               (8, 'down_proj', 11008, 4096, 'per-block'),
-              (1, 'down_proj', 11008, 4096, 'per-block')]
+              (1, 'down_proj', 11008, 4096, 'per-block'),
+              (INT4_PREFILL_ROWS, 'down_proj', 11008, 4096, 'per-block')]
     for m, name, k, n, scales in cases:
         x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
         packed = torch.randint(0, 256, (k // 2, n), generator=gen, device=dev,
@@ -838,7 +871,7 @@ def check_int4_matmul(torch, gen, timer, card):
                                      * 7 % 11)[:, None].float())
         got = int4_matmul(x, packed, scale)
         want = int4_matmul_reference(x, packed, scale).float()
-        again = int4_matmul(x, packed, scale) if m <= 8 else got
+        again = int4_matmul(x, packed, scale)
         stable = bool(torch.equal(got, again))
         got = got.float()
         err = (got - want).abs()
@@ -849,13 +882,14 @@ def check_int4_matmul(torch, gen, timer, card):
             and stable
         max_err = err.max().item()
         if scales == 'random':
-            worst = max(worst, max_err)
+            worst[m > 8] = max(worst[m > 8], max_err)
         ms = timer(lambda: int4_matmul(x, packed, scale))
         plain_ms = timer(lambda: int4_matmul_reference(x, packed, scale))
         b_ms, bound_by = bound(k * n // 2 + (k // 256) * n * 4
                                + 2 * m * (k + n), 2 * m * k * n)
         lib = None
-        if scales == 'random' and name in INT4_MATMUL_SHAPES:
+        if scales == 'random' and name in INT4_MATMUL_SHAPES \
+                and m in (1, 8, INT4_PREFILL_ROWS):
             try:
                 fn = _tinygemm(torch, x, packed, scale)
             except (RuntimeError, TypeError, AttributeError) as e:
@@ -870,26 +904,45 @@ def check_int4_matmul(torch, gen, timer, card):
         # the same timer: what streaming them costs on this card as timed
         read_ms = timer(lambda: packed.view(torch.int32).amax()) \
             if m <= 8 else 0.0
+        # a dense bf16 product of the same size (not the same function: a
+        # 4x larger weight copy), what such a product costs on this card
+        dense_ms = 0.0
+        if m == INT4_PREFILL_ROWS and scales == 'random':
+            wd = dequantize_weight_int4({'q': packed, 'scale': scale,
+                                         'block': INT4_BLOCK},
+                                        torch.bfloat16)
+            dense_ms = timer(lambda: torch.matmul(x, wd))
+            print(f'  torch.matmul bf16 on a dequantized copy M={m} {name}: '
+                  f'{dense_ms:.4f} ms ({2 * m * k * n / dense_ms / 1e9:.1f} '
+                  f'TFLOP/s) [{card}]')
+            del wd
         if scales == 'random' and name in LAYER_MATMULS:
-            acc = sums.setdefault(m, [0.0, 0.0, 0.0, 0.0, bound_by, 0.0])
+            acc = sums.setdefault(m, [0.0, 0.0, 0.0, 0.0, bound_by, 0.0,
+                                      0.0])
             acc[0] += ms
             acc[1] += plain_ms
             acc[2] += b_ms
             acc[3] = None if lib is None or acc[3] is None else acc[3] + lib
             acc[5] += read_ms
+            acc[6] += dense_ms
         ref_max = want.abs().max().item()
-        rate = (f'{2 * m * k * n / ms / 1e9:.1f} TFLOP/s' if m > 8 else
-                f'{(k * n / 2 + k * n // 64) / ms / 1e6:.1f} GB/s weights, '
-                f'{100 * b_ms / ms:.1f} % of the bound {b_ms:.4f} ms '
-                f'({bound_by}), a plain read of the weight bytes (amax) '
-                f'{read_ms:.4f} ms; plan {decode_plan(k, n, sms)} (split '
-                f'rows, splits), two calls '
-                f'{"bitwise equal" if stable else "DIFFER"}')
+        if m > 8:
+            rate = (f'{2 * m * k * n / ms / 1e9:.1f} TFLOP/s, '
+                    f'{100 * b_ms / ms:.1f} % of the bound {b_ms:.4f} ms '
+                    f'({bound_by}); plan {prefill_plan(m, n, sms)} (ctas, '
+                    f'token tiles, column tiles)')
+        else:
+            rate = (f'{(k * n / 2 + k * n // 64) / ms / 1e6:.1f} GB/s '
+                    f'weights, {100 * b_ms / ms:.1f} % of the bound '
+                    f'{b_ms:.4f} ms ({bound_by}), a plain read of the '
+                    f'weight bytes (amax) {read_ms:.4f} ms; plan '
+                    f'{decode_plan(k, n, sms)} (split rows, splits)')
         print(f'int4_matmul M={m} {name} K={k} N={n}'
               f'{", scales 2^0..2^10 by block" if scales != "random" else ""}'
               f': max_abs_err {max_err:.3e}, rel {max_err / ref_max:.3e} of '
               f'max|plain| {ref_max:.3e} (tol 2^-7*|plain| + '
-              f'1e-4*max|plain|) {"ok" if ok else "FAIL"}; kernel {ms:.4f} '
+              f'1e-4*max|plain|) {"ok" if ok else "FAIL"}, two calls '
+              f'{"bitwise equal" if stable else "DIFFER"}; kernel {ms:.4f} '
               f'ms, plain {plain_ms:.4f} ms, {rate} [{card}]')
         if not ok:
             fail(f'int4_matmul disagrees with its plain version at M={m} '
@@ -912,17 +965,23 @@ def check_int4_matmul(torch, gen, timer, card):
                 fail(f'int4_matmul M={m} {name}: the bound misses a wrong '
                      f'scale on the straddling block')
         del x, packed, scale, got, want, err, again
-    for m, (ms, plain_ms, b_ms, lib, by, read_ms) in sums.items():
+    for m, (ms, plain_ms, b_ms, lib, by, read_ms, dense_ms) in sums.items():
         lib_txt = 'none' if lib is None else f'{lib:.4f} ms'
         ratio = '' if lib is None else f', {ms / lib:.3f} x the library'
         read = f', a plain read of the weights {read_ms:.4f} ms' \
             if read_ms else ''
+        dense = (f', torch.matmul bf16 on dequantized copies {dense_ms:.4f} '
+                 f'ms ({ms / dense_ms:.3f} x)' if dense_ms else '')
         print(f'int4_matmul M={m}, the four layer matmuls: kernel {ms:.4f} '
               f'ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by}), '
               f'{100 * b_ms / ms:.1f} % of the bound, '
-              f'torch._weight_int4pack_mm {lib_txt}{ratio}{read} [{card}]')
-    ms, plain_ms, b_ms, lib, by, _ = sums[8]
-    return worst, [ms, plain_ms], (b_ms, by), lib
+              f'torch._weight_int4pack_mm {lib_txt}{ratio}{read}{dense} '
+              f'[{card}]')
+
+    def result(m):
+        ms, plain_ms, b_ms, lib, by = sums[m][:5]
+        return worst[m > 8], [ms, plain_ms], (b_ms, by), lib
+    return result(8), result(INT4_PREFILL_ROWS)
 
 
 def _tinygemm(torch, x, packed, scale, zero: float = 0.0):
@@ -1271,11 +1330,27 @@ def decode_megakernel_path(torch, timer, seed: int, card: str):
     one = torch.ones((b, 1), dtype=torch.bool, device=dev)
     with torch.no_grad():
         cache = make_quant_kv_cache(cfg, b, slots, device=dev)
+        int4_matmul.launches = int4_matmul.prefill_launches = 0
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
         h, cache = quant_llama_forward(
             qp, cfg, qp['embed_tokens'][ids],
             torch.ones((b, pre), dtype=torch.bool, device=dev),
             torch.arange(pre, device=dev)[None].expand(b, pre), cache)
         tok = quant_llama_logits(qp, h[:, -1:])[:, 0].argmax(-1)
+        e1.record()
+        torch.cuda.synchronize()
+        prefill_counts = (int4_matmul.launches, int4_matmul.prefill_launches)
+        print(f'decode path: the {b} x {pre}-token prefill (the LLM at M = '
+              f'{b * pre}) and its logits: {e0.elapsed_time(e1):.1f} ms '
+              f'(CUDA events, the first call); launches int4_matmul '
+              f'{prefill_counts[0]}, of them the prefill tile '
+              f'{prefill_counts[1]} (want {(4 * n_layers + 1, 4 * n_layers)}) '
+              f'[{card}]')
+        if prefill_counts != (4 * n_layers + 1, 4 * n_layers):
+            fail('decode path: the prefill did not run its layer matmuls '
+                 'through the int4 prefill tile')
         per_layer = {k: ([t.clone() for t in v] if isinstance(v, list)
                          else v.clone() if torch.is_tensor(v) else v)
                      for k, v in cache.items()}
@@ -2058,6 +2133,15 @@ def serve_engine_full_width(torch, np, seed: int, card: str):
           f'{torch.cuda.memory_allocated() / 2**30:.2f} GiB [{card}]')
     sessions = {}                   # client thread name -> its Session
     submit = engine.submit
+    prefill, prefill_ms = engine._prefill, []
+
+    def timed_prefill(reqs):
+        # host clock: the prefill ends by copying positions to the host
+        t = time.perf_counter()
+        out = prefill(reqs)
+        prefill_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+    engine._prefill = timed_prefill
 
     def recording_submit(*a, **kw):
         sess = submit(*a, **kw)
@@ -2083,6 +2167,7 @@ def serve_engine_full_width(torch, np, seed: int, card: str):
         results[i] = (frames, t_first - t_start, time.perf_counter())
 
     int4_matmul.launches = 0
+    int4_matmul.prefill_launches = 0
     paged_int8_decode_attention.launches = 0
     threads = [threading.Thread(target=client, args=(i,), name=f'client{i}')
                for i in range(ENGINE_REQUESTS)]
@@ -2094,6 +2179,8 @@ def serve_engine_full_width(torch, np, seed: int, card: str):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_start
     mm, att = int4_matmul.launches, paged_int8_decode_attention.launches
+    mm_prefill = int4_matmul.prefill_launches
+    engine._prefill = prefill
     st = engine.stats()
     if any(r is None for r in results) or len(sessions) != ENGINE_REQUESTS:
         fail(f'engine: {sum(r is None for r in results)} requests did not '
@@ -2137,11 +2224,17 @@ def serve_engine_full_width(torch, np, seed: int, card: str):
     if st['nonfinite_logits']:
         problems.append(f'{st["nonfinite_logits"]} prefills or bursts with '
                         f'non-finite logits')
-    if att % n_layers or steps != st['decode_steps'] or mm != want_mm:
+    # every prompt is packed into the fixed max_seq_len layout, so each
+    # prefill runs its 4 L layer matmuls at M = 2048 (the prefill tile)
+    want_prefill = ENGINE_REQUESTS * 4 * n_layers
+    if att % n_layers or steps != st['decode_steps'] or mm != want_mm \
+            or mm_prefill != want_prefill:
         problems.append(f'launches int4_matmul {mm} (want {want_mm} = '
                         f'({ENGINE_REQUESTS} prefills + {steps} steps) x '
-                        f'{4 * n_layers + 1}), paged attention {att} (want a '
-                        f'multiple of {n_layers}, {st["decode_steps"]} steps)')
+                        f'{4 * n_layers + 1}), of them the prefill tile\'s '
+                        f'{mm_prefill} (want {want_prefill}), paged attention '
+                        f'{att} (want a multiple of {n_layers}, '
+                        f'{st["decode_steps"]} steps)')
     if problems:
         fail('engine: ' + '; '.join(problems))
     print(f'engine: {ENGINE_REQUESTS} requests through {st["max_slots"]} '
@@ -2149,12 +2242,17 @@ def serve_engine_full_width(torch, np, seed: int, card: str):
           f'aggregate, mean TTFT {st["mean_ttft_sec"] * 1e3:.1f} ms (engine '
           f'clock), {st["decode_steps"]} decode steps at '
           f'{st["decode_ms_per_step"]:.2f} ms/step (each step one token for '
-          f'every live slot); every page returned; launches int4_matmul {mm}, '
-          f'paged attention {att} [{card}]')
+          f'every live slot); every page returned; launches int4_matmul {mm} '
+          f'(the prefill tile {mm_prefill}), paged attention {att} [{card}]')
+    pm = sorted(prefill_ms)
+    print(f'engine: {len(pm)} prefills (vision, surgery, the LLM at M = '
+          f'{cfg.max_seq_len}, first logits; host clock), ms: first '
+          f'{prefill_ms[0]:.1f}, median of the rest {pm[len(pm) // 2]:.1f}, '
+          f'min {pm[0]:.1f}, max {pm[-1]:.1f} [{card}]')
     engine_device_per_step(torch, np, worker, card)
     engine.close()
     del worker, engine
-    return mm, att
+    return mm, att, mm_prefill
 
 
 def engine_device_per_step(torch, np, worker, card: str):
@@ -2252,8 +2350,7 @@ def main():
                                                          card)
     att_err, att_ms, att_bound = check_decode_attention(torch, gen, timer,
                                                         card)
-    int4_err, int4_ms, int4_bound, int4_lib = check_int4_matmul(
-        torch, gen, timer, card)
+    int4_decode, int4_prefill = check_int4_matmul(torch, gen, timer, card)
     paged_err, paged_ms, paged_plain_ms, paged_bound = check_paged_attention(
         torch, gen, timer, card)
     flash = check_flash(torch, gen, timer, card)
@@ -2282,8 +2379,9 @@ def main():
         fail('a kernel of the served path was never launched')
     gc.collect()
     torch.cuda.empty_cache()
-    int4_n, paged_n = serve_engine_full_width(torch, np, args.seed, card)
-    if not (int4_n and paged_n):
+    int4_n, paged_n, int4_prefill_n = serve_engine_full_width(
+        torch, np, args.seed, card)
+    if not (int4_n and paged_n and int4_prefill_n):
         fail('a kernel of the engine path was never launched')
     gc.collect()
     torch.cuda.empty_cache()
@@ -2327,7 +2425,10 @@ def main():
                     'flash_attention_bwd.cu',
                     'groma_tpu/ops/flash_attention.py:527', flash_n[2]),
         entry('int4_matmul', 'int4_matmul.cu', 'groma_tpu/ops/quant4.py:85',
-              int4_n, int4_err, *int4_ms, int4_bound, int4_lib),
+              int4_n, int4_decode[0], *int4_decode[1], *int4_decode[2:]),
+        entry('int4_matmul (prefill tile, M > 8)', 'int4_matmul.cu',
+              'groma_tpu/ops/quant4.py:85', int4_prefill_n, int4_prefill[0],
+              *int4_prefill[1], *int4_prefill[2:]),
         entry('paged_int8_decode_attention', 'paged_attention.cu',
               'groma_tpu/ops/paged_attention.py:51', paged_n, paged_err,
               paged_ms, paged_plain_ms, paged_bound, None),

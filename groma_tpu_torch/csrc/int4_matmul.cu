@@ -1,5 +1,5 @@
 // Weight-only packed-int4 GEMM for LLaMA decode and prefill on Hopper
-// (sm_90a).
+// (sm_90a): a decode tile on mma.sync and a prefill tile on wgmma.
 //
 // Replaces the TPU kernel groma_tpu/ops/quant4.py `_int4_matmul_kernel`
 // (entry `int4_matmul`).  Computes out (M, N) bf16 =
@@ -60,24 +60,71 @@
 //   distributed shared memory in place of the workspace were all slower;
 //   scales read with plain loads at each block's end stalled the warps.
 //
-// * prefill (M > 8): tensor cores, mma.sync m16n8k16 bf16 with f32
-//   accumulators (flash_common.cuh).  A 256-thread block owns a 128 x 64
-//   output tile (8 warps of 32 x 32) and walks K in 64-row tiles; each tile
-//   lies in one half and one scale block.  x is staged into shared memory
-//   as it is; the weight tile's nibbles are unpacked to bf16 (q, exact in
-//   -7..7) and stored transposed, so the B fragments are 32-bit loads.  The
-//   products of one scale block accumulate in a second set of f32
-//   registers, which is scaled per column and added at the block's end:
-//   the dot runs on the exact integer weights and the scale is applied
-//   after it, as on the TPU.  The next tile's global loads are issued into
-//   registers before the current tile's products.
+// * prefill (M > 8): bound by the tensor cores, 2 M K N operations at
+//   989 TFLOP/s bf16 (the four layer matmuls at M = 2048: 0.838 ms; the
+//   bytes they must move: 0.11 ms).  A wgmma product with the weights
+//   unpacked in registers:
+//   - the operands are swapped, outT = W^T x^T, on wgmma.m64n128k16 bf16 ->
+//     f32: A (64 weight columns x 16 k) from registers, B (16 k x 128
+//     tokens) is x as TMA wrote it, K-major (k contiguous, 128-byte
+//     swizzle: a k16 step is +32 bytes, SBO 1024), wgmma's plain case.  A's
+//     rows are permuted so that a warp's bytes are one 16-byte chunk of a
+//     packed row: ldmatrix.x4.trans of the packed bytes as b16 pairs gives
+//     each thread two columns at two k rows in one register, and the
+//     nibble to bf16 is a shift, a lop3 and a bf16x2 FMA (exact, as for
+//     decode; int4_mma.cuh `ldsm_pairs`, `wgmma_a`).  So no unpacked weight
+//     touches shared memory and one A fragment serves 128 tokens;
+//   - a CTA owns 128 weight columns (two consumer warpgroups of 64) x 128
+//     tokens and walks K in stages of 128 rows: the low half (low nibbles of
+//     packed rows k, against x[:, k]) and then the high half (high nibbles,
+//     against x[:, K/2 + k]), each stage inside one half and one scale
+//     block.  A stage's block dot accumulates in one f32 set (64 registers
+//     a thread) and is folded into the output set with the block's scale
+//     (one register per accumulator row: a column) where the block or the
+//     half ends; down_proj's block 21, straddling K/2 = 5504, folds at K/2
+//     and at its end.  Sweeping the halves one after the other reads each
+//     packed byte twice (from L2) but keeps two accumulator sets, not three;
+//   - one producer thread keeps a 4-stage TMA ring in flight through
+//     mbarriers; a stage is the packed box (128 rows x 128 columns, 16 KB,
+//     swizzled), x's two 128-token x 64-k boxes (32 KB) and, where a block
+//     ends, its scale row.  Rows past M and columns past N read as zeros and
+//     are never written.  197 KB of dynamic shared memory: one CTA per SM;
+//   - each warpgroup unpacks a stage's eight A fragments, then issues its
+//     eight products back to back and waits for them once; the other
+//     warpgroup's products keep the tensor cores busy meanwhile.  Every A
+//     fragment and accumulator is fenced before wgmma_fence, and the
+//     mbarrier wait precedes the products (ptxas serializes them otherwise);
+//   - a persistent grid of one CTA per SM (the wrapper's `prefill_plan`)
+//     walks the output tiles with the tokens fastest, so the CTAs in
+//     flight share few column tiles: each packed tile comes from device
+//     memory about once and x stays in L2.  No split K: every output is
+//     written by one CTA, and two calls give bitwise-equal outputs;
+//   - epilogue: a thread's accumulator rows are two adjacent output
+//     columns, so each of its 32-bit stores is one (token, column pair) and
+//     the 8 lanes that share t fill a 32-byte sector: no staging through
+//     shared memory;
+//   - budget (ptxas -v on sm_90a): 168 registers a thread at launch (384
+//     threads), setmaxnreg moves the producer warpgroup to 24 and the
+//     consumers to 240; no spills, no serialized wgmma.  The launch is
+//     refused (an error, not a hang) where the shared memory or the
+//     registers cannot be had.
+//   Measured on an H100 while choosing this (development builds, not kept):
+//   unpacking with four 16-bit loads a k16 step, interleaved with the
+//   products, took about 1.25 times the present time; 64-row stages, a
+//   3-stage ring and explicit ping-pong ordering of the two warpgroups were
+//   no faster; unpacking the next stage under the current stage's products
+//   was slower and gave wrong outputs: its SASS shows ptxas writing the new
+//   fragments into the registers that the in-flight products read (an
+//   empty asm fence emits no PTX), so a fragment is written only while no
+//   product that reads it runs; dropping the x or the weight loads did not
+//   change the time of the first version (the consumers' instruction
+//   stream, not L2, set the pace).
 // Plain version and wrapper: groma_tpu_torch/ops/quant4.py.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-#include "flash_common.cuh"
 #include "int4_mma.cuh"
 #include "sm90_common.cuh"
 
@@ -89,7 +136,6 @@ using int4mma::kTileCols;
 using int4mma::kTileRows;
 
 constexpr int kScaleBlock = 256;   // K rows per scale row
-constexpr int kThreads = 256;      // the prefill tile's block
 
 // ----------------------------------------------------------------- decode
 
@@ -285,154 +331,213 @@ int launch_decode(const void* x, const void* w, const void* scale, void* out,
 
 // ---------------------------------------------------------------- prefill
 
-constexpr int kBM = 128;             // output rows a block
-constexpr int kBN = 64;              // output columns a block
-constexpr int kBK = 64;              // K rows a tile
-constexpr int kPitch = kBK + 8;      // 36 words: fragment loads hit 32 banks
+constexpr int kPTok = 128;           // tokens a tile: wgmma's N
+constexpr int kPCols = 128;          // weight columns a tile: two warpgroups
+constexpr int kPRows = 128;          // k rows a stage (packed rows of a half)
+constexpr int kPStages = 4;          // depth of the ring
+constexpr int kPConsumerWarps = 8;   // two warpgroups of 64 columns
+constexpr int kPThreads = 32 * kPConsumerWarps + 128;   // + the producer's
+// setmaxnreg moves the producer warpgroup's registers to the consumers
+constexpr int kPProducerRegs = 24;
+constexpr int kPConsumerRegs =
+    (((65536 / kPThreads) & ~7) * kPThreads - 128 * kPProducerRegs)
+    / (32 * kPConsumerWarps) & ~7;                        // 240
+static_assert(kPConsumerRegs <= 256, "setmaxnreg takes at most 256");
+constexpr int kPBoxBytes = kPTok * 64 * 2;     // x: 128 tokens x 64 k bf16
+// a stage: the packed box (128 rows x 128 columns), x's two 64-k boxes
+// and, where a scale block ends, its scale row
+constexpr int kPOffX = kPRows * kPCols;
+constexpr int kPOffScale = kPOffX + (kPRows / 64) * kPBoxBytes;
+constexpr int kPStageBytes = kPOffScale + 1024;                 // 49 KB
+static_assert(kPStageBytes % 1024 == 0, "swizzled tiles are 1024-aligned");
+constexpr size_t kPrefillSmem = 1024 + (size_t)kPStages * kPStageBytes
+                                + 2 * kPStages * sizeof(uint64_t);
 
-struct PrefillRegs {
-  uint4 x[kBM * kBK / 8 / kThreads];   // 4 x 16 bytes of x
-  uint2 w[2];                          // 8 bytes of two packed rows
-};
+// A stage [k0, k0 + kPRows) of K lies in one half and one scale block (K/2
+// is a multiple of 128); its block's dot is folded where the block or the
+// half ends.
+__device__ __forceinline__ bool prefill_fold(int k0, int kh) {
+  const int end = k0 + kPRows;
+  return end % kScaleBlock == 0 || end == kh;
+}
 
-__device__ __forceinline__ void prefill_load(PrefillRegs& rg,
-                                             const bf16* __restrict__ x,
-                                             const uint8_t* __restrict__ w,
-                                             int m0, int n0, int k0, int M,
-                                             int K, int N, int tid) {
+__global__ void __launch_bounds__(kPThreads, 1)
+int4_prefill_kernel(const __grid_constant__ CUtensorMap tm_w,
+                    const __grid_constant__ CUtensorMap tm_x,
+                    const __grid_constant__ CUtensorMap tm_s,
+                    bf16* __restrict__ out, int M, int K, int N) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring =
+      smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kPStages * kPStageBytes);
+  uint64_t* empty = full + kPStages;
+
   const int kh = K / 2;
-  const int p0 = k0 < kh ? k0 : k0 - kh;
-#pragma unroll
-  for (int i = 0; i < kBM * kBK / 8 / kThreads; ++i) {
-    const int idx = tid + i * kThreads;
-    const int r = idx / (kBK / 8), c = (idx % (kBK / 8)) * 8;
-    rg.x[i] = m0 + r < M
-                  ? __ldg(reinterpret_cast<const uint4*>(
-                        x + (size_t)(m0 + r) * K + k0 + c))
-                  : make_uint4(0u, 0u, 0u, 0u);
-  }
-  // thread -> (row pair tid % 32, 8-column group tid / 32)
-  const int rp = tid & 31, cgrp = tid >> 5;
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-    rg.w[j] = __ldg(reinterpret_cast<const uint2*>(
-        w + (size_t)(p0 + 2 * rp + j) * N + n0 + cgrp * 8));
-}
-
-__device__ __forceinline__ void prefill_store(const PrefillRegs& rg,
-                                              bf16* As, bf16* Bs, bool high,
-                                              int tid) {
-#pragma unroll
-  for (int i = 0; i < kBM * kBK / 8 / kThreads; ++i) {
-    const int idx = tid + i * kThreads;
-    const int r = idx / (kBK / 8), c = (idx % (kBK / 8)) * 8;
-    *reinterpret_cast<uint4*>(As + r * kPitch + c) = rg.x[i];
-  }
-  const int rp = tid & 31, cgrp = tid >> 5;
-  const int shift = high ? 4 : 0;
-  const uint32_t r0[2] = {rg.w[0].x, rg.w[0].y};
-  const uint32_t r1[2] = {rg.w[1].x, rg.w[1].y};
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int q0 = (int)((r0[j >> 2] >> (8 * (j & 3) + shift)) & 0xFu) - 8;
-    const int q1 = (int)((r1[j >> 2] >> (8 * (j & 3) + shift)) & 0xFu) - 8;
-    // Bs[n][k]: column n of the tile holds its k rows 2 rp, 2 rp + 1
-    *reinterpret_cast<uint32_t*>(Bs + (cgrp * 8 + j) * kPitch + 2 * rp) =
-        flash::pack((float)q0, (float)q1);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-int4_prefill_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ w,
-                    const float* __restrict__ scale, bf16* __restrict__ out,
-                    int M, int K, int N) {
-  __shared__ __align__(16) bf16 As[kBM * kPitch];
-  __shared__ __align__(16) bf16 Bs[kBN * kPitch];
-
+  const int ksteps = K / kPRows;
+  const int tok_tiles = (M + kPTok - 1) / kPTok;
+  const int tiles = tok_tiles * ((N + kPCols - 1) / kPCols);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp >> 1, wn = warp & 1;           // 4 x 2 warps
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int kh = K / 2;
-  const int ktiles = K / kBK;
 
-  float acc[2][4][4], part[2][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = part[mi][ni][e] = 0.0f;
-
-  PrefillRegs rg;
-  prefill_load(rg, x, w, m0, n0, 0, M, K, N, tid);
-  for (int kt = 0; kt < ktiles; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();                 // the previous tile's fragments are read
-    prefill_store(rg, As, Bs, k0 >= kh, tid);
-    __syncthreads();
-    if (kt + 1 < ktiles)
-      prefill_load(rg, x, w, m0, n0, k0 + kBK, M, K, N, tid);
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t a[2][4], b[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        flash::load_a(a[mi], As, kPitch, wm * 32 + mi * 16 + g,
-                      kk * 16 + 2 * t);
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-        flash::load_b(b[ni], Bs, kPitch, wn * 32 + ni * 8 + g,
-                      kk * 16 + 2 * t);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) flash::mma_bf16(part[mi][ni], a[mi], b[ni]);
+  if (tid == 0) {
+    for (int s = 0; s < kPStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], kPConsumerWarps);   // lane 0 of each
     }
-    const int blk = k0 / kScaleBlock;
-    if (kt + 1 == ktiles || (k0 + kBK) / kScaleBlock != blk) {
-      // the scale block ends: scale its products per column, add, reset
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+
+  // tile -> (column tile tile / tok_tiles, token tile tile % tok_tiles):
+  // the CTAs in flight share few column tiles, so each packed tile comes
+  // from device memory about once and x stays in L2
+  if (warp >= kPConsumerWarps) {
+    // --------------------------------------------------------- producer
+    sm90::setmaxnreg_dec<kPProducerRegs>();
+    if (warp == kPConsumerWarps && lane == 0) {
+      sm90::prefetch_map(&tm_w);
+      sm90::prefetch_map(&tm_x);
+      sm90::prefetch_map(&tm_s);
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int col0 = tile / tok_tiles * kPCols;
+        const int tok0 = tile % tok_tiles * kPTok;
+        for (int ks = 0; ks < ksteps; ++ks, ++it) {
+          const int s = it % kPStages, k0 = ks * kPRows;
+          const bool fold = prefill_fold(k0, kh);
+          uint8_t* st = ring + s * kPStageBytes;
+          sm90::mbar_wait(&empty[s], ((it / kPStages) & 1) ^ 1);
+          sm90::mbar_arrive_expect_tx(
+              &full[s], kPOffScale + (fold ? kPCols * 4 : 0));
+          sm90::tma_load_2d(st, &tm_w, &full[s], col0, k0 < kh ? k0 : k0 - kh);
+          // rows of x past M and columns past N read as zeros
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int col = n0 + wn * 32 + ni * 8 + 2 * t;
-        const float2 s = __ldg(reinterpret_cast<const float2*>(
-            scale + (size_t)blk * N + col));
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          acc[mi][ni][0] = fmaf(part[mi][ni][0], s.x, acc[mi][ni][0]);
-          acc[mi][ni][1] = fmaf(part[mi][ni][1], s.y, acc[mi][ni][1]);
-          acc[mi][ni][2] = fmaf(part[mi][ni][2], s.x, acc[mi][ni][2]);
-          acc[mi][ni][3] = fmaf(part[mi][ni][3], s.y, acc[mi][ni][3]);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) part[mi][ni][e] = 0.0f;
+          for (int b = 0; b < kPRows / 64; ++b)
+            sm90::tma_load_3d(st + kPOffX + b * kPBoxBytes, &tm_x, &full[s],
+                              k0 + 64 * b, tok0, 0);
+          if (fold)
+            sm90::tma_load_2d(st + kPOffScale, &tm_s, &full[s], col0,
+                              k0 / kScaleBlock);
         }
       }
     }
+    return;
   }
 
+  // ---------------------------------------------------------- consumers
+  sm90::setmaxnreg_inc<kPConsumerRegs>();
+  // warpgroup wg owns columns 64 wg.. of the tile; this thread's
+  // accumulator rows are the columns cb and cb + 1 (int4_mma.cuh `wgmma_a`),
+  // element 4j + e at column cb + (e >> 1), token 8j + 2t + (e & 1)
+  const int g = lane >> 2, t = lane & 3;
+  const int c16 = 64 * (warp >> 2) + 16 * (warp & 3);   // the warp's chunk
+  const int cb = c16 + 2 * g;
+  float acc[64], part[64];
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+  for (int i = 0; i < 64; ++i) part[i] = 0.0f;
+  int it = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int col0 = tile / tok_tiles * kPCols;
+    const int tok0 = tile % tok_tiles * kPTok;
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int row = m0 + wm * 32 + mi * 16 + g;
-      const int col = n0 + wn * 32 + ni * 8 + 2 * t;
-      if (row < M)
-        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * N + col) =
-            __floats2bfloat162_rn(acc[mi][ni][0], acc[mi][ni][1]);
-      if (row + 8 < M)
-        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)(row + 8) * N + col) =
-            __floats2bfloat162_rn(acc[mi][ni][2], acc[mi][ni][3]);
+    for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+    bool fresh = true;           // the next product starts a block's dot
+    for (int ks = 0; ks < ksteps; ++ks, ++it) {
+      const int s = it % kPStages, k0 = ks * kPRows;
+      const int shift = k0 < kh ? 0 : 4;
+      const uint8_t* st = ring + s * kPStageBytes;
+      const uint32_t sx = sm90::smem_u32(st + kPOffX);
+      // the wait before the products: a spin loop between two of them
+      // would make ptxas serialize them
+      sm90::mbar_wait(&full[s], (it / kPStages) & 1);
+      // the stage's A fragments, then its products back to back; the
+      // other warpgroup's products run while this one unpacks
+      uint32_t v[kPRows / 32][4], a[kPRows / 16][4];
+#pragma unroll
+      for (int q = 0; q < kPRows / 32; ++q)
+        int4mma::ldsm_pairs(v[q], st, 32 * q, c16);
+#pragma unroll
+      for (int kk = 0; kk < kPRows / 16; ++kk)
+        int4mma::wgmma_a(a[kk], v[kk / 2][2 * (kk & 1)],
+                         v[kk / 2][2 * (kk & 1) + 1], shift);
+      sm90::fence_regs<kPRows / 4>(&a[0][0]);
+      sm90::fence_regs<64>(part);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kPRows / 16; ++kk) {
+        const uint64_t db = sm90::desc(
+            sx + (kk / 4) * kPBoxBytes + (kk % 4) * 32, 16, 1024);
+        sm90::wgmma_rs_n128<0>(part, a[kk], db, !(fresh && kk == 0));
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs<64>(part);
+      fresh = prefill_fold(k0, kh);
+      if (fresh) {
+        // acc += the block's dot x its column's scale (zeros past N)
+        const float2 sc = *reinterpret_cast<const float2*>(
+            reinterpret_cast<const float*>(st + kPOffScale) + cb);
+#pragma unroll
+        for (int i = 0; i < 64; ++i)
+          acc[i] = fmaf(part[i], (i & 2) ? sc.y : sc.x, acc[i]);
+      }
+      __syncwarp();
+      if (lane == 0) sm90::mbar_arrive(&empty[s]);
     }
+    // out rows tok, tok + 1, columns col, col + 1: 32-bit stores, a warp's
+    // 8 lanes of one t filling a 32-byte sector
+    const int col = col0 + cb;
+    if (col < N) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int tok = tok0 + 8 * j + 2 * t;
+        if (tok < M)
+          *reinterpret_cast<uint32_t*>(out + (size_t)tok * N + col) =
+              sm90::pack_bf16(acc[4 * j], acc[4 * j + 2]);
+        if (tok + 1 < M)
+          *reinterpret_cast<uint32_t*>(out + (size_t)(tok + 1) * N + col) =
+              sm90::pack_bf16(acc[4 * j + 1], acc[4 * j + 3]);
+      }
+    }
+  }
+}
+
+int launch_prefill(const void* x, const void* w, const void* scale,
+                   void* out, int M, int K, int N, int ctas,
+                   cudaStream_t stream) {
+  if (ctas < 1) return (int)cudaErrorInvalidValue;
+  // setmaxnreg moves registers within the CTA's launch allocation: refuse
+  // to launch (rather than hang) if it is too small
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, int4_prefill_kernel);
+  if (err != cudaSuccess) return (int)err;
+  if (attr.numRegs * kPThreads
+      < 128 * kPProducerRegs + 32 * kPConsumerWarps * kPConsumerRegs)
+    return (int)cudaErrorInvalidConfiguration;
+  err = cudaFuncSetAttribute(
+      int4_prefill_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kPrefillSmem);
+  if (err != cudaSuccess) return (int)err;     // the ring cannot be had
+  if (sm90::encode_tiled() == nullptr) return (int)cudaErrorSymbolNotFound;
+  CUtensorMap tw, tx, ts;
+  if (!sm90::make_map_2d(&tw, w, 1, N, K / 2, kPCols, kPRows, true)
+      || !sm90::make_map(&tx, x, K, M, 1, kPTok)
+      || !sm90::make_map_2d(&ts, scale, 4, N, K / kScaleBlock, kPCols, 1,
+                            false))
+    return (int)cudaErrorInvalidValue;
+  int4_prefill_kernel<<<ctas, kPThreads, kPrefillSmem, stream>>>(
+      tw, tx, ts, static_cast<bf16*>(out), M, K, N);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // x (M, K) bf16, w (K/2, N) uint8, scale (K/256, N) f32, out (M, N) bf16,
 // all contiguous, x, w and scale 16-byte aligned.  split_rows = 0 runs the
-// prefill tile (any M); else the decode tile (M <= 8) over `splits` ranges
-// of split_rows packed rows (a multiple of 64, at most 1024) that cover K/2,
-// the last one not empty.  With splits > 1, `partial` is an f32 (splits, M,
-// N) workspace and `counters` one int per 128-column tile, zero before the
+// prefill tile (any M) on a persistent grid of `splits` CTAs; else the
+// decode tile (M <= 8) over `splits` ranges of split_rows packed rows (a
+// multiple of 64, at most 1024) that cover K/2, the last one not empty.
+// With split_rows > 0 and splits > 1, `partial` is an f32 (splits, M, N)
+// workspace and `counters` one int per 128-column tile, zero before the
 // call and zero again after it.  Returns cudaGetLastError() after the
 // launch (0 = launched).
 extern "C" int groma_int4_matmul(const void* x, const void* w,
@@ -440,14 +545,10 @@ extern "C" int groma_int4_matmul(const void* x, const void* w,
                                  void* counters, int M, int K, int N,
                                  int split_rows, int splits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (M < 1 || K < kScaleBlock || K % kScaleBlock || N < kBN || N % kBN)
+  if (M < 1 || K < kScaleBlock || K % kScaleBlock || N < 64 || N % 64)
     return (int)cudaErrorInvalidValue;
   if (split_rows > 0)
     return launch_decode(x, w, scale, out, partial, counters, M, K, N,
                          split_rows, splits, s);
-  const dim3 grid(N / kBN, (M + kBM - 1) / kBM);
-  int4_prefill_kernel<<<grid, kThreads, 0, s>>>(
-      static_cast<const bf16*>(x), static_cast<const uint8_t*>(w),
-      static_cast<const float*>(scale), static_cast<bf16*>(out), M, K, N);
-  return (int)cudaGetLastError();
+  return launch_prefill(x, w, scale, out, M, K, N, splits, s);
 }

@@ -1,20 +1,22 @@
-// The packed-int4 decode product on mma.sync with the batch as N, for
-// weight tiles that TMA wrote into shared memory with the 128-byte swizzle:
-// the fragment loads, the nibble unpack, the two products of a k16 step
-// and the scale fold.  User: int4_matmul.cu (the decode tile); written to
-// be called by the megakernel's strips as well.
+// The packed-int4 products for weight tiles that TMA wrote into shared
+// memory with the 128-byte swizzle: the fragment loads, the nibble unpack,
+// and, for the decode tile, the mma.sync products of a k16 step and the
+// scale fold.  User: int4_matmul.cu (the decode tile on mma.sync with the
+// batch as N, the prefill tile on wgmma with the weights as the register
+// A operand); written to be called by the megakernel's strips as well.
 //
 // The weights are the JAX package's bytes: packed (K/2, N) uint8, row k in
 // the low nibble of byte (k, n) and row k + K/2 in its high nibble, each
-// stored as q + 8.  A tile is 64 packed rows x 128 columns (one 128-byte
-// line a row, 8 KB, 1024-byte aligned); the swizzle stores the 16-byte
-// chunk c of row r at chunk c ^ (r % 8).
+// stored as q + 8.  A tile is 64 (decode) or 128 (prefill) packed rows x
+// 128 columns (one 128-byte line a row, 1024-byte aligned); the swizzle
+// stores the 16-byte chunk c of row r at chunk c ^ (r % 8).
 //
-// outT = W^T x^T with mma.sync.m16n8k16 bf16 -> f32 (flash_common.cuh has
-// the fragment layout): A is 16 weight columns x 16 k, B is 16 k x 8 batch
-// rows, so N = 8 is the batch and nothing is padded at M = 8.  The order of
-// k and of A's 16 rows inside one product is free; both are chosen so that
-// a thread's bytes are whole 32-bit words of the tile:
+// Decode: outT = W^T x^T with mma.sync.m16n8k16 bf16 -> f32
+// (flash_common.cuh has the fragment layout): A is 16 weight columns x 16
+// k, B is 16 k x 8 batch rows, so N = 8 is the batch and nothing is padded
+// at M = 8.  The order of k and of A's 16 rows inside one product is free;
+// both are chosen so that a thread's bytes are whole 32-bit words of the
+// tile:
 //   * k: the product's k index i is packed row i of the step (identity);
 //     thread t reads rows 2t, 2t+1, 2t+8, 2t+9;
 //   * A rows: in a 64-column group, n-tile j (0..3) maps row g to column
@@ -72,6 +74,46 @@ __device__ __forceinline__ uint32_t low_nibbles(uint32_t p) {
 
 __device__ __forceinline__ uint32_t high_nibbles(uint32_t p) {
   return ((p >> 4) & 0x000F000Fu) | 0x43004300u;
+}
+
+// Prefill: outT = W^T x^T on wgmma.m64nNk16 with A, 64 weight columns x 16
+// k, from registers: warp w of the warpgroup holds A rows 16w..16w+15 in
+// the m16n8k16 A layout.  The k index i of a k16 step is the step's packed
+// row i (B, x's 16 k, comes from shared memory in the same order).  A's
+// rows are permuted so that a warp reads one 16-byte chunk of each row:
+// row 16w + g is the warpgroup's column 16w + 2g and row 16w + g + 8 the
+// column after it, so the accumulator rows g and g + 8 of thread (g, t)
+// are the output columns cb = c0 + 16w + 2g and cb + 1.  One
+// ldmatrix.x4.trans of the bytes as b16 pairs (`ldsm_pairs`) gives lane
+// (g, t) the pair of columns 2g, 2g + 1 of the chunk at rows 2t (bits
+// 0..15) and 2t + 1 (16..31) of four 8-row groups: two k16 steps.  The
+// 8 rows of a group are 8 chunks that the swizzle puts on distinct banks.
+
+// Four 8 x 8 b16 matrices of the 128-byte-swizzled tile, transposed:
+// lane l gives the address of row `row0 + l` (chunk `col` / 16) and gets
+// d[j] = matrix j's (rows 2t, 2t + 1; b16 column g).
+__device__ __forceinline__ void ldsm_pairs(uint32_t* d, const uint8_t* tile,
+                                           int row0, int col) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t addr = static_cast<uint32_t>(
+      __cvta_generic_to_shared(tile + swz(row0 + lane, col)));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]) : "r"(addr)
+      : "memory");
+}
+
+// The A fragment of one k16 step from its two `ldsm_pairs` words (rows
+// 0..7 and 8..15 of the step): a0 (row g = column cb, k 2t, 2t+1) is byte 0
+// and byte 2 of v0, a1 (row g + 8 = column cb + 1) bytes 1 and 3, a2, a3
+// the same of v1.  `shift` 0 takes the low nibbles (the half k < K/2), 4
+// the high ones.
+__device__ __forceinline__ void wgmma_a(uint32_t* a, uint32_t v0,
+                                        uint32_t v1, int shift) {
+  a[0] = unbias(((v0 >> shift) & 0x000F000Fu) | 0x43004300u);
+  a[1] = unbias(((v0 >> (shift + 8)) & 0x000F000Fu) | 0x43004300u);
+  a[2] = unbias(((v1 >> shift) & 0x000F000Fu) | 0x43004300u);
+  a[3] = unbias(((v1 >> (shift + 8)) & 0x000F000Fu) | 0x43004300u);
 }
 
 // One warp's k16 step over packed rows r0..r0+15 and the 64 columns

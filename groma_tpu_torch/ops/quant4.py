@@ -5,8 +5,10 @@ host-side format parity and is not ported yet).  ``int4_matmul`` replaces
 the TPU kernel ``_int4_matmul_kernel`` with the hand-written CUDA kernel in
 ``csrc/int4_matmul.cu``, at every M: for decode (M <= ``DECODE_MAX_ROWS``)
 a tile that streams the weights through a TMA ring into ``mma.sync`` with
-the batch as N, split over K by ``decode_plan``; for prefill a tensor-core
-tile that unpacks in registers.
+the batch as N, split over K by ``decode_plan``; for prefill a tile on
+``wgmma`` with the unpacked weights as the register operand and x from a
+TMA ring, on a persistent grid that ``prefill_plan`` sizes (its tiles and
+k stages: ``prefill_tiles``, ``prefill_stages``).
 
 Format (the JAX package's, byte for byte): symmetric q in [-7, 7] with a
 scale per (``INT4_BLOCK``-row K block, column), stored as q + 8 nibbles;
@@ -18,7 +20,9 @@ low nibble.
   dtype (the JAX wrapper's CPU path).
 * ``int4_matmul`` takes the plain version only for tensors on the CPU.  On
   a CUDA tensor it launches the kernel or raises; there is no
-  dequantize-plus-matmul route.  ``int4_matmul.launches`` counts launches.
+  dequantize-plus-matmul route.  ``int4_matmul.launches`` counts launches,
+  one per call at every M, and ``int4_matmul.prefill_launches`` those of
+  the prefill tile.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ from groma_tpu_torch.ops.quant import true_div
 
 INT4_BLOCK = 256          # scale block of the packed-int4 LLM tree
 DECODE_MAX_ROWS = 8       # up to this many rows: the weight-streaming tile
-_PREFILL_TILE = (128, 64)  # rows, columns of the tensor-core tile
+_N_MULTIPLE = 64          # the kernel takes N % 64 == 0
 
 
 def quantize_weight_int4(w: torch.Tensor, block: int = 128,
@@ -97,6 +101,45 @@ def decode_plan(k: int, n: int, sms: int) -> tuple:
     return per * rows, _cdiv(tiles, per)
 
 
+PREFILL_TILE = (128, 128)   # tokens, weight columns of one output tile
+PREFILL_STAGE_ROWS = 128    # k rows of one stage of the prefill ring
+
+
+def prefill_plan(m: int, n: int, sms: int) -> tuple:
+    """(ctas, token_tiles, column_tiles) of the prefill tile for x (M, K) @
+    packed (K/2, N): one persistent CTA per SM (its shared memory and
+    registers hold one), at most one per output tile."""
+    tok_tiles = _cdiv(m, PREFILL_TILE[0])
+    col_tiles = _cdiv(n, PREFILL_TILE[1])
+    return min(sms, tok_tiles * col_tiles), tok_tiles, col_tiles
+
+
+def prefill_tiles(m: int, n: int, sms: int) -> list:
+    """The output tiles of each CTA of the prefill grid in the kernel's
+    order, as (token tile, column tile): CTA c takes tiles c, c + ctas, ...,
+    and tile i is column tile i // token_tiles, token tile i % token_tiles,
+    so the CTAs in flight share few column tiles."""
+    ctas, tok_tiles, col_tiles = prefill_plan(m, n, sms)
+    return [[(i % tok_tiles, i // tok_tiles)
+             for i in range(c, tok_tiles * col_tiles, ctas)]
+            for c in range(ctas)]
+
+
+def prefill_stages(k: int) -> list:
+    """The k stages of one prefill output tile in the kernel's order, as
+    (k0, packed row, nibble half, scale block, fold): the low half's rows k
+    < K/2 first (low nibbles of packed rows k), then the high half's (high
+    nibbles of packed rows k - K/2); a stage's block dot is folded into the
+    output with the block's scale where the block or the half ends."""
+    kh, rows = k // 2, PREFILL_STAGE_ROWS
+    out = []
+    for k0 in range(0, k, rows):
+        end = k0 + rows
+        out.append((k0, k0 % kh, int(k0 >= kh), k0 // INT4_BLOCK,
+                    end % INT4_BLOCK == 0 or end == kh))
+    return out
+
+
 _counters = {}   # device -> int32 arrival counters, one per column tile
 
 
@@ -119,9 +162,10 @@ def _launch(x, packed, scale):
     n = packed.shape[1]
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
     partial = counters = None
-    split_rows, splits = 0, 1
-    if m <= DECODE_MAX_ROWS:
-        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    if m > DECODE_MAX_ROWS:
+        split_rows, splits = 0, prefill_plan(m, n, sms)[0]
+    else:
         split_rows, splits = decode_plan(k, n, sms)
         if splits > 1:
             partial = torch.empty((splits, m, n), dtype=torch.float32,
@@ -134,6 +178,8 @@ def _launch(x, packed, scale):
         m, k, n, split_rows, splits, stream_ptr(x))
     check(status, 'int4_matmul')
     int4_matmul.launches += 1
+    if split_rows == 0:
+        int4_matmul.prefill_launches += 1
     return out
 
 
@@ -152,7 +198,7 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
     m, k = x.shape
     n = packed.shape[1] if packed.dim() == 2 else -1
     if (packed.dim() != 2 or packed.shape[0] * 2 != k or block != INT4_BLOCK
-            or k % INT4_BLOCK or n % _PREFILL_TILE[1] or m < 1
+            or k % INT4_BLOCK or n % _N_MULTIPLE or m < 1
             or scale.shape != (k // block, n)):
         raise ValueError(f'int4_matmul: shapes x {tuple(x.shape)}, packed '
                          f'{tuple(packed.shape)}, scale {tuple(scale.shape)}, '
@@ -173,3 +219,4 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
 
 
 int4_matmul.launches = 0
+int4_matmul.prefill_launches = 0

@@ -8,7 +8,12 @@ Tolerances:
   (the same f32 dot against the same dequantized weights), both summed in
   another order;
 * the decode tile's split plan (``decode_plan``, computed on the host):
-  exact coverage of K/2, tiles inside scale blocks, CTAs for every SM.
+  exact coverage of K/2, tiles inside scale blocks, CTAs for every SM;
+* the prefill tile's plan (``prefill_plan``, ``prefill_tiles``,
+  ``prefill_stages``): every output tile once, every k stage once inside
+  one nibble half and one scale block, folds at every block's end; its
+  schedule emulated on the host in f32 against the plain matmul, rtol and
+  atol 1e-5 (the same sums in another order).
 On CPU tensors the wrapper takes the plain version and launches nothing.
 """
 
@@ -31,9 +36,11 @@ from groma_tpu.ops.quant4 import quantize_weight_int4 as j_quantize
 from groma_tpu_torch.models.llama_quant import \
     quantize_llama_params as t_quantize_llama
 from groma_tpu_torch.ops.quant4 import (DECODE_CTAS_PER_SM, DECODE_TILE,
-                                        INT4_BLOCK, decode_plan,
+                                        INT4_BLOCK, PREFILL_STAGE_ROWS,
+                                        PREFILL_TILE, decode_plan,
                                         dequantize_weight_int4, int4_matmul,
-                                        int4_matmul_reference,
+                                        int4_matmul_reference, prefill_plan,
+                                        prefill_stages, prefill_tiles,
                                         quantize_weight_int4)
 
 torch.set_num_threads(2)
@@ -71,7 +78,7 @@ def _tpu_kernel_body(x, packed, scale):
         interpret=True)(x, packed, scale)
 
 
-@pytest.mark.parametrize('m', [1, 5, 8, 64])
+@pytest.mark.parametrize('m', [1, 5, 8, 64, 130])   # 130: two token tiles
 @pytest.mark.parametrize('k', [512, 768])    # 768: block 1 straddles K/2
 def test_int4_matmul_reference_matches_jax(rng, m, k):
     """Against the TPU kernel body, and against the JAX wrapper's CPU path
@@ -129,6 +136,95 @@ def test_decode_plan_covers_k_once_inside_scale_blocks(shape, m, sms):
     col_tiles = -(-n // cols)
     assert col_tiles * splits >= min(sms, col_tiles * kh // rows)
     assert splits == 1 or col_tiles * splits <= DECODE_CTAS_PER_SM * sms
+
+
+@pytest.mark.parametrize('m', [9, 200, 2048, 4096])
+@pytest.mark.parametrize('shape', list(_PLAN_SHAPES))
+def test_prefill_plan_covers_every_tile_and_stage_once(shape, m):
+    """The prefill tile's persistent grid: every (token tile, column tile)
+    in exactly one CTA, no CTA idle, at most one CTA per SM, the CTAs in
+    flight on few column tiles (tokens fastest); its k stages: K covered
+    once, the packed rows of each nibble half once, every stage inside one
+    half and one scale block, a fold where a block or a half ends and
+    nowhere else (down_proj's block 21 folds at K/2 and again at its end)."""
+    k, n = _PLAN_SHAPES[shape]
+    tok, cols = PREFILL_TILE
+    for sms in (132, 114, 78):
+        ctas, tok_tiles, col_tiles = prefill_plan(m, n, sms)
+        assert (tok_tiles, col_tiles) == (-(-m // tok), -(-n // cols))
+        assert 1 <= ctas == min(sms, tok_tiles * col_tiles)
+        per_cta = prefill_tiles(m, n, sms)
+        assert len(per_cta) == ctas and all(per_cta)
+        seen = np.zeros((tok_tiles, col_tiles), dtype=int)
+        for tiles in per_cta:
+            for t, c in tiles:
+                seen[t, c] += 1
+        assert (seen == 1).all()
+        for r in range(max(map(len, per_cta))):
+            in_flight = {c for tiles in per_cta if r < len(tiles)
+                         for _, c in tiles[r:r + 1]}
+            assert len(in_flight) <= -(-ctas // tok_tiles) + 1
+    kh, rows = k // 2, PREFILL_STAGE_ROWS
+    stages = prefill_stages(k)
+    assert [s[0] for s in stages] == list(range(0, k, rows))
+    for half in (0, 1):
+        packed = sorted(s[1] for s in stages if s[2] == half)
+        assert packed == list(range(0, kh, rows))
+    for k0, r, half, blk, fold in stages:
+        assert half == int(k0 >= kh) and r == k0 - half * kh
+        assert blk == k0 // INT4_BLOCK == (k0 + rows - 1) // INT4_BLOCK
+        end = k0 + rows
+        assert fold == (end % INT4_BLOCK == 0 or end == kh)
+    assert stages[-1][4]                      # the last stage folds
+    if kh % INT4_BLOCK:                       # the block straddling K/2
+        b = kh // INT4_BLOCK
+        mine = [s for s in stages if s[3] == b]
+        assert {s[2] for s in mine} == {0, 1}
+        assert [s[4] for s in mine if s[0] + rows == kh] == [True]
+
+
+@pytest.mark.parametrize('m,k,n', [(130, 512, 192), (9, 768, 192),
+                                   (200, 768, 320)])
+def test_prefill_schedule_computes_the_matmul(rng, m, k, n):
+    """The prefill tile's arithmetic in its own order on the host: per
+    output tile (rows past M and columns past N zero, as TMA fills them),
+    per stage the dot of x's 128 k with the stage's nibble half of its
+    packed rows on exact integers, folded with the block's scale where
+    the plan folds; equal to the plain matmul."""
+    x = _t(rng.standard_normal((m, k)).astype(np.float32))
+    # weights of a trained layer's scale, N(0, 1/K): outputs of order 1
+    qd = quantize_weight_int4(_t(rng.standard_normal((k, n)) / np.sqrt(k)),
+                              block=INT4_BLOCK)
+    packed, scale = qd['q'].to(torch.int32), qd['scale']
+    tok, cols = PREFILL_TILE
+    rows = PREFILL_STAGE_ROWS
+    ctas, tok_tiles, col_tiles = prefill_plan(m, n, 7)
+    xp = torch.zeros((tok_tiles * tok, k))
+    xp[:m] = x
+    pp = torch.zeros((k // 2, col_tiles * cols), dtype=torch.int32)
+    pp[:, :n] = packed
+    sp = torch.zeros((k // INT4_BLOCK, col_tiles * cols))
+    sp[:, :n] = scale
+    out = torch.full((m, n), float('nan'))
+    for tiles in prefill_tiles(m, n, 7):
+        for t, c in tiles:
+            xs, cs = slice(t * tok, (t + 1) * tok), slice(c * cols,
+                                                         (c + 1) * cols)
+            acc = torch.zeros((tok, cols))
+            part = torch.zeros((tok, cols))
+            for k0, r, half, blk, fold in prefill_stages(k):
+                q = ((pp[r:r + rows, cs] >> (4 * half)) & 0xF) - 8
+                part += xp[xs, k0:k0 + rows] @ q.float()
+                if fold:
+                    acc += part * sp[blk, cs]
+                    part.zero_()
+            keep = min(tok, m - t * tok), min(cols, n - c * cols)
+            if keep[1] > 0:
+                out[t * tok:t * tok + keep[0],
+                    c * cols:c * cols + keep[1]] = acc[:keep[0], :keep[1]]
+    want = int4_matmul_reference(x, qd['q'], scale)
+    np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
 
 
 def _llama_params(rng, cfg):
