@@ -44,7 +44,10 @@ Phases, each printed before the last line:
     megakernel at full width and 2 layers (B=8, a 1024-slot cache written
     at slot 700, a ragged mask and a fully masked row: the hidden state,
     the written column within one int8 unit, every other cache byte
-    unchanged); then the int8 LLaMA path
+    unchanged, two calls on copies of the cache bitwise equal; ptxas's
+    registers and spills, a failure if it spills; the same on plans of 114
+    and 78 CTAs, two attention pairs a CTA, at slot 64 beside a fully
+    masked row; a misaligned mask refused); then the int8 LLaMA path
     and the int4 + paged one (prefill, page compaction, paged decode) at
     full width and two layers on the card against the same weights and
     inputs through the plain versions on the CPU;
@@ -92,7 +95,11 @@ Phases, each printed before the last line:
     attention L launches a step); hidden states agree every step; ms/step
     and tok/s of both, PROFILED_STEPS more steps of each under
     torch.profiler (device time and operations a step), and the kernel
-    alone beside its plain version and its bound.
+    alone beside its plain version and its bound (two calls bitwise equal;
+    its time below the per-layer path's device time a step, or the phase
+    fails), and one launch with %globaltimer stamps: how its time splits
+    among the phases' work, the idle tails of uneven rounds and the grid
+    barriers, and the count of grid barriers a step.
  8. DINOv2-L at full width (24 layers, 448², B=2, bf16 on f32 master
     weights) forward and backward through the port's Dinov2Model with
     use_flash=True, the path of the bidirectional backward (#6): exactly
@@ -1196,6 +1203,16 @@ def _compare_step(torch, got, want, before, mine, theirs, pos: int) -> dict:
     return c
 
 
+def _bitwise_repeat(torch, mk, sp, x, inputs, pos: int, eps, got, mine,
+                    again) -> bool:
+    """A second call of #9 on ``again``, a copy of the cache ``mine``
+    started from: the same hidden state and cache, bit for bit."""
+    out = mk.fused_decode_step(sp, x, again, *inputs, pos, eps=eps)
+    return torch.equal(out, got) and all(
+        torch.equal(a, b) for key in ('k', 'v', 'k_scale', 'v_scale')
+        for a, b in zip(mine[key], again[key]))
+
+
 def _step_ok(c: dict, hidden_tol: float, column: bool = True) -> bool:
     ok = c['finite'] and c['rel'] <= hidden_tol and c['rest_equal']
     if column:
@@ -1231,18 +1248,8 @@ def check_decode_megakernel(torch, gen, timer, seed: int, card: str):
         del llm
     sp = mk.stack_decode_params(qp)
     b, s, pos = DECODE_BATCH, DECODE_SLOTS, MEGAKERNEL_POS
-    h, d, dev = cfg.num_heads, cfg.hidden_size, 'cuda'
-    cache = {'k': [], 'v': [], 'k_scale': [], 'v_scale': []}
-    for _ in range(cfg.num_layers):
-        for key in ('k', 'v'):
-            t = torch.randint(-127, 128, (b, h, s, 128), generator=gen,
-                              device=dev, dtype=torch.int8)
-            t[:, :, pos:] = 0
-            cache[key].append(t)
-            sc = torch.rand((b, h, s), generator=gen, device=dev) * 0.02 \
-                + 0.005
-            sc[:, :, pos:] = 0
-            cache[key + '_scale'].append(sc)
+    d, dev = cfg.hidden_size, 'cuda'
+    cache = _megakernel_cache(torch, gen, cfg, b, s, pos)
     lengths = torch.tensor([pos - 37 * r for r in range(b)], device=dev)
     valid = torch.arange(s, device=dev)[None] < lengths[:, None]
     valid[1, 100:160] = False
@@ -1250,10 +1257,19 @@ def check_decode_megakernel(torch, gen, timer, seed: int, card: str):
     cache['mask'], cache['index'] = valid, pos
     cur_valid = torch.ones((b, 1), dtype=torch.bool, device=dev)
     cur_valid[b - 1] = False
-    mine, theirs = (_stacked_clone(torch, mk, cache) for _ in range(2))
+    mine, again, theirs = (_stacked_clone(torch, mk, cache)
+                           for _ in range(3))
     x = torch.randn((b, d), generator=gen, device=dev)
     inputs = megakernel_step_inputs(cfg, cache, cur_valid)
     eps = cfg.rms_norm_eps
+    from groma_tpu_torch.ops import cuda_lib
+    ptxas = _ptxas_summary(cuda_lib.build_info.get('log', ''),
+                           'decode_megakernel')
+    print(f'decode_megakernel (#9) ptxas: {ptxas} [{card}]')
+    if 'spill' in ptxas and not all(
+            f' 0 bytes spill {kind}' in f' {ptxas}'
+            for kind in ('stores', 'loads')):
+        fail('ptxas spilled registers of decode_megakernel')
     with torch.no_grad():
         got = mk.fused_decode_step(sp, x, mine, *inputs, pos, eps=eps)
         want = mk.fused_decode_step_plain(sp, x, theirs, *inputs, pos,
@@ -1261,6 +1277,9 @@ def check_decode_megakernel(torch, gen, timer, seed: int, card: str):
         torch.cuda.synchronize()
         cmp = _compare_step(torch, got, want, cache, mine, theirs, pos)
         ok = _step_ok(cmp, MEGAKERNEL_HIDDEN_TOL)
+        stable = _bitwise_repeat(torch, mk, sp, x, inputs, pos, eps, got,
+                                 mine, again)
+        ok &= stable
         reads = [s if not bool(cur_valid[r]) else pos for r in range(b)]
         bound_ms, bound_by = bound(*_megakernel_traffic(
             cfg, cfg.num_layers, b, s, reads))
@@ -1270,12 +1289,117 @@ def check_decode_megakernel(torch, gen, timer, seed: int, card: str):
             sp, x, theirs, *inputs, pos, eps=eps), iters=3)
     print(f'decode_megakernel (#9) full width, {cfg.num_layers} layers, '
           f'B={b} S={s} pos={pos}, ragged mask, row {b - 1} fully masked: '
-          f'{_step_line(cmp, MEGAKERNEL_HIDDEN_TOL)}; kernel {ms:.4f} ms '
-          f'({mk.fused_decode_step.blocks} blocks), plain {plain_ms:.4f} ms, '
-          f'bound {bound_ms:.4f} ms ({bound_by}) [{card}]')
+          f'{_step_line(cmp, MEGAKERNEL_HIDDEN_TOL)}; two calls on copies '
+          f'of the cache {"bitwise equal" if stable else "DIFFER"}; kernel '
+          f'{ms:.4f} ms ({mk.fused_decode_step.blocks} blocks, '
+          f'{mk.fused_decode_step.smem} bytes of dynamic shared memory, '
+          f'{mk.fused_decode_step.barriers} grid barriers), plain '
+          f'{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) [{card}]')
     if not ok:
-        fail('decode_megakernel disagrees with its plain version')
-    del qp, sp, cache, mine, theirs
+        fail('decode_megakernel disagrees with its plain version, or two '
+             'calls differ')
+    del sp, cache, mine, again, theirs
+    check_megakernel_two_pairs(torch, gen, mk, cfg, qp, card)
+    del qp
+
+
+def _megakernel_cache(torch, gen, cfg, b: int, s: int, pos: int):
+    """A random int8 cache of ``cfg``'s layers written up to ``pos``."""
+    cache = {'k': [], 'v': [], 'k_scale': [], 'v_scale': []}
+    for _ in range(cfg.num_layers):
+        for key in ('k', 'v'):
+            t = torch.randint(-127, 128, (b, cfg.num_heads, s, 128),
+                              generator=gen, device='cuda', dtype=torch.int8)
+            t[:, :, pos:] = 0
+            cache[key].append(t)
+            sc = torch.rand((b, cfg.num_heads, s), generator=gen,
+                            device='cuda') * 0.02 + 0.005
+            sc[:, :, pos:] = 0
+            cache[key + '_scale'].append(sc)
+    return cache
+
+
+# (a'): grids of fewer CTAs than the card's 132 SMs, so that a CTA runs two
+# attention pairs, at a short slot beside a fully masked row (2 ring stages
+# an item against 32): the two consumer groups' skew between pairs
+MEGAKERNEL_SKEW_POS, MEGAKERNEL_SKEW_ROW = 64, 3
+MEGAKERNEL_SKEW_CTAS = (114, 78)
+
+
+def check_megakernel_two_pairs(torch, gen, mk, cfg, qp, card: str):
+    """(a') #9 on plans of MEGAKERNEL_SKEW_CTAS CTAs at full width and 2
+    layers, B=8, slot MEGAKERNEL_SKEW_POS, row MEGAKERNEL_SKEW_ROW fully
+    masked, against its plain version with (a)'s limits, two calls bitwise
+    equal; and a mask that does not start at a 16-byte aligned address is
+    refused."""
+    from groma_tpu_torch.models.llama_quant import megakernel_step_inputs
+    b, s, pos = DECODE_BATCH, DECODE_SLOTS, MEGAKERNEL_SKEW_POS
+    cache = _megakernel_cache(torch, gen, cfg, b, s, pos)
+    valid = torch.arange(s, device='cuda')[None].expand(b, s) < pos
+    valid = valid.clone()
+    valid[MEGAKERNEL_SKEW_ROW] = False
+    cache['mask'], cache['index'] = valid, pos
+    cur_valid = torch.ones((b, 1), dtype=torch.bool, device='cuda')
+    cur_valid[MEGAKERNEL_SKEW_ROW] = False
+    inputs = megakernel_step_inputs(cfg, cache, cur_valid)
+    x = torch.randn((b, cfg.hidden_size), generator=gen, device='cuda')
+    eps, ok = cfg.rms_norm_eps, True
+    with torch.no_grad():
+        for ctas in MEGAKERNEL_SKEW_CTAS:
+            sp = mk.stack_decode_params(qp, ctas=ctas)
+            mine, again, theirs = (_stacked_clone(torch, mk, cache)
+                                   for _ in range(3))
+            got = mk.fused_decode_step(sp, x, mine, *inputs, pos, eps=eps)
+            blocks = mk.fused_decode_step.blocks
+            want = mk.fused_decode_step_plain(sp, x, theirs, *inputs, pos,
+                                              eps=eps)
+            cmp = _compare_step(torch, got, want, cache, mine, theirs, pos)
+            stable = _bitwise_repeat(torch, mk, sp, x, inputs, pos, eps, got,
+                                     mine, again)
+            good = _step_ok(cmp, MEGAKERNEL_HIDDEN_TOL) and stable \
+                and blocks == ctas
+            ok &= good
+            print(f'decode_megakernel (#9) on {blocks} CTAs (two attention '
+                  f'pairs a CTA), full width, {cfg.num_layers} layers, B={b} '
+                  f'S={s} pos={pos}, row {MEGAKERNEL_SKEW_ROW} fully masked: '
+                  f'{_step_line(cmp, MEGAKERNEL_HIDDEN_TOL)}; two calls on '
+                  f'copies of the cache '
+                  f'{"bitwise equal" if stable else "DIFFER"} [{card}]')
+            del sp, mine, again, theirs
+        # a call on a second stream gets workspace words of its own and
+        # the same result, bit for bit
+        sp = mk.stack_decode_params(qp)
+        kv0, kv1 = (_stacked_clone(torch, mk, cache) for _ in range(2))
+        got = mk.fused_decode_step(sp, x, kv0, *inputs, pos, eps=eps)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            other = mk.fused_decode_step(sp, x, kv1, *inputs, pos, eps=eps)
+            own = any(k[1] == side.cuda_stream for k in mk._workspaces)
+        torch.cuda.current_stream().wait_stream(side)
+        same = torch.equal(got, other) and all(
+            torch.equal(u, v) for k in ('k', 'v', 'k_scale', 'v_scale')
+            for u, v in zip(kv0[k], kv1[k]))
+        ok &= own and same
+        print(f'decode_megakernel (#9) on a second stream: workspace of its '
+              f'own {own}, bitwise equal to the first stream\'s '
+              f'{same} [{card}]')
+        del kv0, kv1
+        shifted = torch.zeros(b * s + 1, device='cuda')[1:].view(b, s)
+        shifted.copy_(inputs[0])
+        try:
+            mk.fused_decode_step(sp, x, _stacked_clone(torch, mk, cache),
+                                 shifted, *inputs[1:], pos, eps=eps)
+            refused = False
+        except ValueError as e:
+            refused = 'aligned' in str(e)
+        ok &= refused
+        print(f'decode_megakernel (#9): a mask 4 bytes past a 16-byte '
+              f'boundary {"refused" if refused else "NOT refused"} [{card}]')
+    if not ok:
+        fail('decode_megakernel on a grid of two attention pairs a CTA '
+             'disagrees with its plain version, or a misaligned mask was '
+             'taken')
 
 
 def device_per_step(torch, step, n: int = PROFILED_STEPS):
@@ -1458,8 +1582,10 @@ def decode_megakernel_path(torch, timer, seed: int, card: str):
                 qp, cfg, qp['embed_tokens'][tok][:, None], one,
                 torch.full((b, 1), per_layer['index'], device=dev),
                 per_layer)
+        device = {}
         for name, step in (('megakernel', mk_step), ('per-layer', pl_step)):
             ms_dev, ops, wall_ms = device_per_step(torch, step)
+            device[name] = ms_dev
             print(f'decode path, {name}, {PROFILED_STEPS} steps under '
                   f'torch.profiler: {ms_dev:.3f} ms of device time and '
                   f'{ops:.0f} device operations a step, {wall_ms:.2f} ms '
@@ -1473,12 +1599,16 @@ def decode_megakernel_path(torch, timer, seed: int, card: str):
         x = qp['embed_tokens'][tok].float()
         inputs = megakernel_step_inputs(cfg, st, one)
         eps = cfg.rms_norm_eps
-        mine, theirs = (_stacked_clone(torch, mk, st) for _ in range(2))
+        mine, again, theirs = (_stacked_clone(torch, mk, st)
+                               for _ in range(3))
         got = mk.fused_decode_step(sp, x, mine, *inputs, index, eps=eps)
         want = mk.fused_decode_step_plain(sp, x, theirs, *inputs, index,
                                           eps=eps)
         cmp = _compare_step(torch, got, want, st, mine, theirs, index)
-        ok = _step_ok(cmp, MEGAKERNEL_DEPTH_TOL, column=False)
+        stable = _bitwise_repeat(torch, mk, sp, x, inputs, index, eps, got,
+                                 mine, again)
+        del again
+        ok = _step_ok(cmp, MEGAKERNEL_DEPTH_TOL, column=False) and stable
         # the plain step against itself with its input moved by 1e-6
         # relative: the drift that rounding alone causes over 32 layers
         gen = torch.Generator(device=dev)
@@ -1515,13 +1645,17 @@ def decode_megakernel_path(torch, timer, seed: int, card: str):
             sp, x, theirs, *inputs, index, eps=eps), iters=2)
         bound_ms, bound_by = bound(*_megakernel_traffic(
             cfg, n_layers, b, slots, [index] * b))
+        ok &= ms < device['per-layer']
         print(f'decode_megakernel (#9) alone, {n_layers} layers, B={b}, slot '
               f'{index} of {slots}: '
               f'{_step_line(cmp, MEGAKERNEL_DEPTH_TOL, column=False)}; '
+              f'two calls on copies of the cache '
+              f'{"bitwise equal" if stable else "DIFFER"}; '
               f'kernel {ms:.3f} ms ({mk.fused_decode_step.blocks} blocks), '
               f'plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms '
-              f'({bound_by}), {100 * bound_ms / ms:.1f} % of the bound '
-              f'[{card}]')
+              f'({bound_by}), {100 * bound_ms / ms:.1f} % of the bound; the '
+              f'per-layer path takes {device["per-layer"]:.3f} ms of device '
+              f'time a step [{card}]')
         print(f'  the plain step against itself with its input moved by 1e-6 '
               f'relative: hidden rel {drift["rel"]:.3e} of max|plain|, '
               f'{drift["off"]} of {drift["bytes"]} written int8 bytes '
@@ -1530,11 +1664,40 @@ def decode_megakernel_path(torch, timer, seed: int, card: str):
               f'layer\'s weights and cache) on the plain version\'s input to '
               f'it: worst layer {worst}: '
               f'{_step_line(each, MEGAKERNEL_HIDDEN_TOL)} [{card}]')
+        megakernel_phase_split(torch, mk, sp, x, st, inputs, index, eps,
+                               n_layers, card)
         if not ok:
             fail(f'decode_megakernel disagrees with its plain version at '
-                 f'{n_layers} layers')
+                 f'{n_layers} layers, two calls differ, or it is not faster '
+                 f'than the per-layer path')
     del qp, sp, st, cache, per_layer, hidden, mine, theirs
     return mk_counts[0], (cmp['err'], ms, plain_ms, bound_ms, bound_by)
+
+
+def megakernel_phase_split(torch, mk, sp, x, st, inputs, pos: int, eps,
+                           n_layers: int, card: str):
+    """One launch of #9 with its phase stamps, on a copy of the cache: how
+    its time splits among the matmul phases, attention, the idle tails of
+    uneven rounds and the grid barriers (``mk.phase_split``)."""
+    kv = _stacked_clone(torch, mk, st)
+    mk.phase_stamps(sp, x, kv, *inputs, pos, eps=eps)     # warm
+    kv = _stacked_clone(torch, mk, st)
+    _, stamps = mk.phase_stamps(sp, x, kv, *inputs, pos, eps=eps)
+    split = mk.phase_split(stamps.cpu(), n_layers)
+    del kv
+    work = {k: v for k, v in split.items() if k in mk.PHASES}
+    tails = sum(v for k, v in split.items() if k.endswith(' tail'))
+    waits = sum(v for k, v in split.items() if k.endswith(' barrier'))
+    print(f'decode_megakernel (#9) phase split, {n_layers} layers, slot {pos}'
+          f' (%globaltimer, one launch, {len(stamps)} blocks): total '
+          f'{split["total"]:.4f} ms = work '
+          + ', '.join(f'{k} {v:.4f}' for k, v in work.items())
+          + f' + idle tails {tails:.4f} + barriers {waits:.4f} + exit '
+          f'{split["end"]:.4f} ms; grid barriers a step '
+          f'{mk.fused_decode_step.barriers} [{card}]')
+    print('  per phase (work / tail / barrier ms): '
+          + '; '.join(f'{k} {split[k]:.4f} / {split[k + " tail"]:.4f} / '
+                      f'{split[k + " barrier"]:.4f}' for k in mk.PHASES))
 
 
 def _train_args(batch):

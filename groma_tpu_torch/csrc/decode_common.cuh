@@ -1,8 +1,8 @@
-// Helpers shared by the decode kernels: block reductions (every thread of
-// a block of kWarps warps returns the block-wide result; `red` holds kWarps
-// floats), int8 dot products and q quantization for the single-token
-// attention kernels (decode_attention.cu, paged_attention.cu,
-// decode_megakernel.cu), and the packed-int4 unpack of decode_megakernel.cu.
+// Helpers shared by the decode kernels: warp and block reductions (every
+// thread of a block of kWarps warps returns the block-wide result; `red`
+// holds kWarps floats), int8 dot products and q quantization for the
+// single-token attention kernels (decode_attention.cu, paged_attention.cu,
+// decode_megakernel.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -75,28 +75,6 @@ __device__ __forceinline__ int dot16(const uint4& kw, const uint4& qw) {
   dot = __dp4a((int)kw.y, (int)qw.y, dot);
   dot = __dp4a((int)kw.z, (int)qw.z, dot);
   return __dp4a((int)kw.w, (int)qw.w, dot);
-}
-
-// 4 nibbles, one in the low bits of each byte of w -> 4 exact floats
-// nibble - 8: the byte placed in the low mantissa byte of 2^23 reads
-// 2^23 + nibble.
-__device__ __forceinline__ void nib4_to_float(uint32_t w, float* f) {
-  f[0] = __int_as_float(__byte_perm(w, 0x4B000000u, 0x7440)) - 8388616.0f;
-  f[1] = __int_as_float(__byte_perm(w, 0x4B000000u, 0x7441)) - 8388616.0f;
-  f[2] = __int_as_float(__byte_perm(w, 0x4B000000u, 0x7442)) - 8388616.0f;
-  f[3] = __int_as_float(__byte_perm(w, 0x4B000000u, 0x7443)) - 8388616.0f;
-}
-
-// 16 consecutive floats (16-byte aligned, read-only in the kernel).
-__device__ __forceinline__ void load16(const float* p, float* s) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(p) + i);
-    s[4 * i] = v.x;
-    s[4 * i + 1] = v.y;
-    s[4 * i + 2] = v.z;
-    s[4 * i + 3] = v.w;
-  }
 }
 
 }  // namespace decode

@@ -1,9 +1,10 @@
 // The packed-int4 products for weight tiles that TMA wrote into shared
 // memory with the 128-byte swizzle: the fragment loads, the nibble unpack,
 // and, for the decode tile, the mma.sync products of a k16 step and the
-// scale fold.  User: int4_matmul.cu (the decode tile on mma.sync with the
+// scale fold.  Users: int4_matmul.cu (the decode tile on mma.sync with the
 // batch as N, the prefill tile on wgmma with the weights as the register
-// A operand); written to be called by the megakernel's strips as well.
+// A operand) and decode_megakernel.cu (every layer matmul of the decode
+// step: `step`, `load_b` and `fold`, as the decode tile calls them).
 //
 // The weights are the JAX package's bytes: packed (K/2, N) uint8, row k in
 // the low nibble of byte (k, n) and row k + K/2 in its high nibble, each

@@ -1,10 +1,12 @@
 // Hopper (sm_90a) building blocks in raw PTX, for kernels that feed wgmma
-// from TMA through mbarrier rings: shared-memory barriers, 3-d TMA tile
-// loads, wgmma shared-memory descriptors and products, warpgroup register
-// rebalancing, named barriers, and the f32 reduce-add into device memory;
+// or mma.sync from TMA through mbarrier rings: shared-memory barriers, 2-d
+// and 3-d TMA tile loads and 1-d bulk copies, wgmma shared-memory
+// descriptors and products, warpgroup register rebalancing, named
+// barriers, and the f32 reduce-add into device memory;
 // on the host, the tensor maps that the TMA loads read.  Users:
-// flash_attention_fwd.cu, flash_attention_bwd.cu (3-d bf16 maps) and
-// int4_matmul.cu (2-d maps of the packed weights and the scales).
+// flash_attention_fwd.cu, flash_attention_bwd.cu (3-d bf16 maps),
+// int4_matmul.cu (2-d maps of the packed weights and the scales) and
+// decode_megakernel.cu (2-d maps of the packed weights, 1-d bulk copies).
 //
 // Layout conventions (PTX ISA, "Matrix Descriptor" and "Shared Memory
 // Matrix Layout"), for bf16 tiles that TMA writes with the 128-byte swizzle:
@@ -95,8 +97,20 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const void* map,
       : "memory");
 }
 
-// Bring a tensor map (a __grid_constant__ kernel parameter) into the
-// descriptor cache ahead of its first load.
+// `bytes` contiguous bytes of device memory into shared memory (both
+// addresses and the size multiples of 16); completion counted on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)),
+         "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Bring a tensor map (a __grid_constant__ kernel parameter, or one in
+// device memory) into the descriptor cache ahead of its first load.
 __device__ __forceinline__ void prefetch_map(const void* map) {
   asm volatile("prefetch.tensormap [%0];\n"
                :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");

@@ -140,19 +140,22 @@ def prefill_stages(k: int) -> list:
     return out
 
 
-_counters = {}   # device -> int32 arrival counters, one per column tile
+# (device, stream) -> int32 arrival counters, one per column tile
+_counters = {}
 
 
 def _tile_counters(device, col_tiles: int) -> torch.Tensor:
-    """The split-K arrival counters of ``device``: zeroed once, and left at
-    zero by every launch (its last CTA of each column tile resets its
-    own), so calls in stream order, and a CUDA graph replaying them, share
-    one buffer."""
-    buf = _counters.get(device)
+    """The split-K arrival counters of the current stream of ``device``:
+    zeroed once, and left at zero by every launch (its last CTA of each
+    column tile resets its own), so calls in stream order, and a CUDA graph
+    replaying them, share one buffer; calls on two streams, which may
+    overlap, never do."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    buf = _counters.get(key)
     if buf is None or buf.numel() < col_tiles:
         buf = torch.zeros(max(col_tiles, 256), dtype=torch.int32,
                           device=device)
-        _counters[device] = buf
+        _counters[key] = buf
     return buf
 
 

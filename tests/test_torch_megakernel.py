@@ -23,7 +23,25 @@ Tolerances, measured on this config and stated with their reason:
 * against the per-layer decode (bf16 per-layer residual, XLA's fp32
   dequant matmuls on the CPU): the JAX test's bounds, max 0.15, mean 0.02
   (measured at most 0.040 and 0.0069).
+
+The card kernel's host-side work plan (``megakernel_plan``) is held at
+the Vicuna-7B widths and at this file's tiny ones, for 132, 114 and 78 SMs:
+exact coverage, equal bytes per CTA to within one box, no box across a
+scale block, gate and up tiles paired.  Its ring schedule, described here
+(``_producer_stages``, ``_group_events``), is held for properties that
+could fail: every stage taken by the consumers that expect it, every cache
+row each item reads streamed once, no group ahead of what it knows the
+producer to have filled by a ring's length (``_lag_faults``), and the
+producer and both consumer groups run as concurrent agents on the ring's
+mbarriers (``_run_ring``) without a stale read, an overwrite or a stall;
+without the meeting between attention pairs both checks see the stale
+read.  The plan's arithmetic emulated on the host in f32 (split K, folds,
+splits added in order) against the plain matmul: rtol and atol 1e-5 (the
+same sums in another order).
 """
+
+import itertools
+import random
 
 import jax
 import jax.numpy as jnp
@@ -346,3 +364,467 @@ def test_replaced_buffer_after_stacking_raises(setup):
             mk.fused_decode_step(tsp, x, tkv, mb, cb, cs, cs, PRE)
         mk.fused_decode_step(mk.stack_decode_params(tqp),
                              x, mk.stack_kv_cache(tkv), mb, cb, cs, cs, PRE)
+
+
+# ----------------------------------------------- the card kernel's work plan
+
+PLAN_SHAPES = {'7B': (4096, 11008, 32), 'tiny': (256, 512, 2),
+               'tiny straddling': (256, 768, 2)}
+
+
+@pytest.mark.parametrize('sms', [132, 114, 78])
+@pytest.mark.parametrize('shape', list(PLAN_SHAPES))
+def test_megakernel_plan_covers_every_box_once(shape, sms):
+    """Every (column tile, 64-row box) of each matrix in exactly one
+    segment; every CTA within one box of the others in every phase; no box
+    across a scale block of either nibble half (down_proj's block 21
+    straddles K/2 = 5504 at 7B); a tile's splits numbered in order, in
+    consecutive slots; gate tile j and up tile F/128 + j one unit."""
+    d, f, _ = PLAN_SHAPES[shape]
+    plan = mk.megakernel_plan(d, f, sms)
+    assert len(plan) == 4 and all(len(per_cta) == sms for per_cta in plan)
+    for (k, n, paired), per_cta in zip(mk.megakernel_matrices(d, f), plan):
+        kh = k // 2
+        boxes = kh // mk.BOX_ROWS
+        tiles = n // mk.TILE_COLS // (2 if paired else 1)
+        if paired:
+            assert tiles == f // mk.TILE_COLS
+        seen = np.zeros((tiles, boxes), dtype=int)
+        units = [sum(b1 - b0 for _, b0, b1, *_ in mine) for mine in per_cta]
+        assert max(units) - min(units) <= 1
+        flat = [seg for mine in per_cta for seg in mine]
+        for slot, (t, b0, b1, split, splits, sl) in enumerate(flat):
+            assert sl == slot and 0 <= b0 < b1 <= boxes
+            seen[t, b0:b1] += 1
+            mine = [seg for seg in flat if seg[0] == t]
+            assert len(mine) == splits and mine[split] == flat[slot]
+            assert [seg[5] for seg in mine] == list(
+                range(mine[0][5], mine[0][5] + splits))
+            for r in range(b0 * mk.BOX_ROWS, b1 * mk.BOX_ROWS, mk.BOX_ROWS):
+                end = r + mk.BOX_ROWS - 1
+                assert r // mk.INT4_BLOCK == end // mk.INT4_BLOCK
+                assert (kh + r) // mk.INT4_BLOCK == (kh + end) // mk.INT4_BLOCK
+        assert (seen == 1).all()
+
+
+# The kernel's schedule (csrc/decode_megakernel.cu), described here for the
+# tests: its ring depth, the cache rows of an attention stage and the boxes
+# of x that the consumers stage at once.
+RING_STAGES = 15
+CACHE_ROWS = 64
+
+
+def _fold(row, kh, half, end):
+    """Whether the box at packed row ``row`` ends a scale block of the low
+    (0) or high (1) half, or ends its segment."""
+    return end or (row + mk.BOX_ROWS + half * kh) % mk.INT4_BLOCK == 0
+
+
+def _item_stages(layer, item, n):
+    """An attention item's ring stages: its k stages (k rows with their k
+    and v scales and mask entries), then its v stages, CACHE_ROWS rows
+    each, over its ``n`` cache rows."""
+    return [(kind, layer, item, j0, min(CACHE_ROWS, n - j0))
+            for kind in 'kv' for j0 in range(0, n, CACHE_ROWS)]
+
+
+def _pairs(c, ctas, items):
+    """CTA ``c``'s attention items, two at a time: (i0, i0 + ctas), the
+    second one beyond ``items`` where the CTA has an odd count."""
+    return [(i0, i0 + ctas) for i0 in range(c, items, 2 * ctas)]
+
+
+def _pair_stages(layer, pair, items, heads, rows):
+    return [_item_stages(layer, i, rows[i // heads]) if i < items else []
+            for i in pair]
+
+
+def _weight_stages(plan, c, layer, m, d, f):
+    k, _, paired = mk.megakernel_matrices(d, f)[m]
+    out = []
+    for tile, box0, box1, *_ in plan[m][c]:
+        for sub in range(2 if paired else 1):
+            col = sub * f + tile * mk.TILE_COLS
+            for bx in range(box0, box1):
+                end = bx + 1 == box1
+                out.append(('w', layer, m, col, bx,
+                            _fold(bx * mk.BOX_ROWS, k // 2, 0, end),
+                            _fold(bx * mk.BOX_ROWS, k // 2, 1, end)))
+    return out
+
+
+def _producer_stages(plan, c, n_layers, d, f, heads, rows):
+    """The stages that CTA ``c``'s producer (``produce``) loads into the
+    ring, in its order: ('w', layer, matrix, column, box, fold_lo, fold_hi),
+    a weight box and the scale rows it folds; ('k', layer, item, row,
+    count), cache rows of item b H + h; ('v', ...), v rows.  A pair's
+    stages interleaved one by one, the longer item's rest last
+    (``pair_stage``: ring offset k -> (group, stage)).  ``rows[b]``: the
+    cache rows that batch row b reads."""
+    ctas, out, items = len(plan[0]), [], len(rows) * heads
+    for layer in range(n_layers):
+        for ph in range(len(mk.PHASES)):
+            if ph != 1:
+                out += _weight_stages(plan, c, layer, max(ph - 1, 0), d, f)
+                continue
+            for pair in _pairs(c, ctas, items):
+                stages = _pair_stages(layer, pair, items, heads, rows)
+                lens = [len(st) for st in stages]
+                mn = min(lens)
+                for k in range(sum(lens)):
+                    if k < 2 * mn:
+                        g, j = k % 2, k // 2
+                    else:
+                        g, j = int(lens[1] > lens[0]), mn + k - 2 * mn
+                    out.append(stages[g][j])
+    return out
+
+
+def _group_events(plan, c, n_layers, d, f, heads, rows, meet=True):
+    """Each consumer group's ring events in the kernel's order, for groups
+    0 and 1 (warps 0-3 and 4-7): ('take', X, stage), ('release', X,
+    arrivals) and ('meet', tag), where both groups pass together (a grid
+    barrier, ('barrier', layer, phase), or the meeting between two
+    attention pairs, ('pair', layer, i0)).  In a matmul phase both groups
+    take every stage and each of their four warps arrives once; in
+    attention a group takes only its own item's stages, stage j at ring
+    offset 2 j + g while both items have stages and the longer one's rest
+    after (``take_own``), and its warps arrive twice each.  The matmul
+    phases' meetings inside a phase are left out: fewer meetings allow
+    more interleavings.  ``meet=False`` leaves out the meeting between
+    pairs (the fault it repairs)."""
+    ctas, items = len(plan[0]), len(rows) * heads
+    ev, it = ([], []), 0
+    for layer in range(n_layers):
+        for ph in range(len(mk.PHASES)):
+            if ph != 1:
+                for st in _weight_stages(plan, c, layer, max(ph - 1, 0), d,
+                                         f):
+                    for g in (0, 1):
+                        ev[g].extend([('take', it, st), ('release', it, 4)])
+                    it += 1
+            else:
+                pairs = _pairs(c, ctas, items)
+                for n, pair in enumerate(pairs):
+                    stages = _pair_stages(layer, pair, items, heads, rows)
+                    mn = min(map(len, stages))
+                    for g, mine in enumerate(stages):
+                        for j, st in enumerate(mine):
+                            x = it + (2 * j + g if j < mn else mn + j)
+                            ev[g].extend([('take', x, st),
+                                          ('release', x, 8)])
+                    it += sum(map(len, stages))
+                    if meet and n + 1 < len(pairs):
+                        for g in (0, 1):
+                            ev[g].append(('meet', ('pair', layer, pair[0])))
+            if (layer, ph) != (n_layers - 1, len(mk.PHASES) - 1):
+                for g in (0, 1):
+                    ev[g].append(('meet', ('barrier', layer, ph)))
+    return ev
+
+
+def _between_meetings(ev):
+    """A group's events cut at its meetings: (events, the meeting's tag)."""
+    out, part = [], []
+    for e in ev:
+        if e[0] == 'meet':
+            out.append((part, e[1]))
+            part = []
+        else:
+            part.append(e)
+    return out + [(part, None)]
+
+
+def _lag_faults(events):
+    """The takes at which a group could read a stale fill: a full barrier
+    is waited on by parity alone, so the wait for stage X returns on X's
+    fill only if the slot's fill of X - RING_STAGES has completed.  A group
+    knows that of every stage before one it has taken (the producer fills
+    in order) and, after a meeting, of every stage before one that either
+    group took.  Returns (group, X, the first stage it cannot vouch for)."""
+    faults, known = [], [0, 0]
+    for parts in zip(*map(_between_meetings, events)):
+        for g, (part, _) in enumerate(parts):
+            for e in part:
+                if e[0] == 'take':
+                    if e[1] - RING_STAGES >= known[g]:
+                        faults.append((g, e[1], known[g]))
+                    known[g] = max(known[g], e[1] + 1)
+        known = [max(known)] * 2
+    return faults
+
+
+def _run_ring(stages, events, pick):
+    """The producer and the two consumer groups as concurrent agents over
+    the ring's mbarriers, as the hardware keeps them: a full barrier
+    completes a phase at each fill and its wait for parity P returns while
+    the count of completed phases has the other parity; an empty barrier
+    completes a phase at every 8 warp arrivals, and the producer waits on
+    it for the fill before the last one of the slot.  ``pick`` chooses the
+    next agent ('p', 0 or 1) among those that can move.  Returns the
+    faults: a take that read another fill than its own, a fill over a
+    stage still held, an end with an agent stuck."""
+    n = RING_STAGES
+    full, data, empty, arrived = [0] * n, [None] * n, [0] * n, [0] * n
+    held, at, filled, faults = [set(), set()], [0, 0], 0, []
+
+    def ready(a):
+        if a == 'p':
+            return filled < len(stages) and \
+                (empty[filled % n] & 1) != ((filled // n) & 1) ^ 1
+        if at[a] == len(events[a]):
+            return False
+        e = events[a][at[a]]
+        if e[0] == 'take':
+            return (full[e[1] % n] & 1) != ((e[1] // n) & 1)
+        if e[0] == 'meet':
+            o = events[1 - a][at[1 - a]] if at[1 - a] < len(events[1 - a]) \
+                else None
+            return o is not None and o == e
+        return True
+
+    while True:
+        movable = [a for a in ('p', 0, 1) if ready(a)]
+        if not movable:
+            break
+        a = pick(movable)
+        if a == 'p':
+            s = filled % n
+            if any(x % n == s for h in held for x in h):
+                faults.append(('overwrite', filled))
+            data[s], full[s], filled = stages[filled], full[s] + 1, filled + 1
+            continue
+        e = events[a][at[a]]
+        if e[0] == 'take':
+            if data[e[1] % n] != e[2]:
+                faults.append(('stale', a, e[1]))
+            held[a].add(e[1])
+        elif e[0] == 'release':
+            held[a].discard(e[1])
+            arrived[e[1] % n] += e[2]
+            if arrived[e[1] % n] == 8:
+                arrived[e[1] % n] = 0
+                empty[e[1] % n] += 1
+        else:
+            at[1 - a] += 1
+        at[a] += 1
+    if filled < len(stages) or at != [len(events[0]), len(events[1])]:
+        faults.append(('stuck', filled, tuple(at)))
+    return faults
+
+
+def _rows(s, pos, masked):
+    """The cache rows each of B rows reads: all S for the fully masked row,
+    the positions before pos for the others."""
+    return [s if b == masked else pos for b in range(B)]
+
+
+# (S, pos, the fully masked row): the decode path's slot beside a fully
+# masked row (20 and 32 stages an item), and a short row beside one (2
+# and 32), the skew at which a group that does not wait for the other
+# runs a ring's length ahead of it
+RING_ROWS = {'pos580 row7': (1024, 580, 7), 'pos64 row3': (1024, 64, 3)}
+
+
+@pytest.mark.parametrize('rows', list(RING_ROWS))
+@pytest.mark.parametrize('sms', [132, 114, 78])
+@pytest.mark.parametrize('shape', list(PLAN_SHAPES))
+def test_megakernel_ring_order(shape, sms, rows):
+    """For 2 layers: every stage that a CTA's producer loads is taken by
+    the consumers that the kernel's order says (both groups in a matmul
+    phase, the item's group in attention), holding the stage it expects;
+    no group takes a stage whose slot's previous fill it cannot know to be
+    complete (``_lag_faults``), and none holds a stage at a meeting; 5 L -
+    1 grid barriers; the weight boxes fold at every scale block's end and
+    at each segment's end and nowhere else, each pair segment loads its
+    gate and its up boxes; the CTAs' k and v stages cover every cache row
+    that each (layer, b, head) reads exactly once."""
+    d, f, heads = PLAN_SHAPES[shape]
+    s, pos, masked = RING_ROWS[rows]
+    n_layers = 2
+    reads = _rows(s, pos, masked)
+    plan = mk.megakernel_plan(d, f, sms)
+    mats = mk.megakernel_matrices(d, f)
+    cover = {kind: np.zeros((n_layers, B * heads, s), dtype=int)
+             for kind in 'kv'}
+    for c in range(sms):
+        stages = _producer_stages(plan, c, n_layers, d, f, heads, reads)
+        events = _group_events(plan, c, n_layers, d, f, heads, reads)
+        takers = [[] for _ in stages]
+        for g, ev in enumerate(events):
+            for e in ev:
+                if e[0] == 'take':
+                    assert e[2] == stages[e[1]], (c, g, e)
+                    takers[e[1]].append(g)
+        assert all(t == ([0, 1] if st[0] == 'w' else [0]) or
+                   (st[0] != 'w' and t in ([0], [1]))
+                   for t, st in zip(takers, stages))
+        assert not _lag_faults(events), (c, _lag_faults(events)[:3])
+        for ev in events:
+            held = set()
+            for e in ev:
+                if e[0] == 'take':
+                    held.add(e[1])
+                elif e[0] == 'release':
+                    held.remove(e[1])
+                else:
+                    assert not held
+            assert not held
+        tags = [[e[1] for e in ev if e[0] == 'meet'] for ev in events]
+        assert tags[0] == tags[1]
+        assert [t[1:] for t in tags[0] if t[0] == 'barrier'] == [
+            (lyr, ph) for lyr in range(n_layers) for ph in range(5)][:-1]
+        for st in stages:
+            if st[0] in 'kv':
+                _, lyr, item, j0, cnt = st
+                cover[st[0]][lyr, item, j0:j0 + cnt] += 1
+                continue
+            _, lyr, m, col, bx, lo, hi = st
+            k, _, paired = mats[m]
+            kh, r = k // 2, bx * mk.BOX_ROWS
+            seg = [sg for sg in plan[m][c]
+                   if (col % f if paired else col) // mk.TILE_COLS == sg[0]
+                   and sg[1] <= bx < sg[2]]
+            assert len(seg) == 1
+            end = bx + 1 == seg[0][2]
+            assert lo == (end or (r + mk.BOX_ROWS) % mk.INT4_BLOCK == 0)
+            assert hi == (end or (kh + r + mk.BOX_ROWS) % mk.INT4_BLOCK
+                          == 0)
+        for m, (_, _, paired) in enumerate(mats):
+            if paired:
+                for tile, b0, b1, *_ in plan[m][c]:
+                    for layer in range(n_layers):
+                        got = [st[3] for st in stages if st[0] == 'w'
+                               and st[1:3] == (layer, m)
+                               and st[3] % f // mk.TILE_COLS == tile]
+                        want = [sub * f + tile * mk.TILE_COLS
+                                for sub in (0, 1) for _ in range(b0, b1)]
+                        assert sorted(got) == sorted(want)
+    for kind in 'kv':
+        for item in range(B * heads):
+            n = reads[item // heads]
+            assert (cover[kind][:, item, :n] == 1).all()
+            assert (cover[kind][:, item, n:] == 0).all()
+
+
+def _schedules():
+    """Agent choices for ``_run_ring``: each fixed priority of the three
+    agents, and two seeded random ones."""
+    orders = [lambda m, o=o: next(a for a in o if a in m)
+              for o in itertools.permutations(('p', 0, 1))]
+    rngs = [random.Random(seed) for seed in (0, 1)]
+    return orders + [lambda m, r=r: r.choice(m) for r in rngs]
+
+
+# (shape, CTAs): two attention pairs a CTA (7B at 114 and 78 SMs; the tiny
+# config's 16 items on 3 CTAs), and one (7B at 132)
+RUN_CASES = {'7B 114': ('7B', 114), '7B 78': ('7B', 78),
+             '7B 132': ('7B', 132), 'tiny 3': ('tiny', 3)}
+
+
+@pytest.mark.parametrize('rows', list(RING_ROWS))
+@pytest.mark.parametrize('case', list(RUN_CASES))
+def test_megakernel_ring_runs_concurrently(case, rows):
+    """One layer of every CTA's schedule run as three concurrent agents
+    (``_run_ring``: the producer and the two consumer groups on the ring's
+    mbarriers) under every fixed priority and two random choices: every
+    take reads its own fill, no fill lands on a held stage, nothing is
+    stuck.  Without the meeting between attention pairs, the short row
+    beside a fully masked one lets a group read a stale fill, which both
+    ``_run_ring`` and ``_lag_faults`` see."""
+    shape, sms = RUN_CASES[case]
+    d, f, heads = PLAN_SHAPES[shape]
+    s, pos, masked = RING_ROWS[rows]
+    reads = _rows(s, pos, masked)
+    plan = mk.megakernel_plan(d, f, sms)
+    stale = 0
+    for c in range(sms):
+        stages = _producer_stages(plan, c, 1, d, f, heads, reads)
+        events = _group_events(plan, c, 1, d, f, heads, reads)
+        for pick in _schedules():
+            assert not _run_ring(stages, events, pick), c
+        unmet = _group_events(plan, c, 1, d, f, heads, reads, meet=False)
+        for pick in _schedules():
+            faults = _run_ring(stages, unmet, pick)
+            # the first fault is the stale read; the rest follow from it
+            assert not faults or (faults[0][0] == 'stale'
+                                  and _lag_faults(unmet)), (c, faults[:2])
+            stale += bool(faults)
+    two_pairs = sms * 2 < B * heads
+    assert bool(stale) == (two_pairs and rows == 'pos64 row3'), stale
+
+
+@pytest.mark.parametrize('d,f,m', [(256, 512, 0), (256, 512, 1),
+                                   (256, 512, 2), (256, 768, 3)],
+                         ids=['qkv', 'o', 'gate_up', 'down straddling'])
+def test_megakernel_schedule_computes_the_matmul(d, f, m):
+    """The kernel's matmul arithmetic in the plan's order on the host, on 7
+    CTAs: each segment's boxes (as the producer's stages give them), the
+    low and the high nibble half each into its own f32 partial dot on the
+    exact integer weights, folded with the block's scale where the stage
+    says; a split tile's partials added in split order (a pair's gate and
+    up apart).  Equal to the plain ``_int4_chunk_dot`` within 1e-5 (the
+    same sums in another order)."""
+    from groma_tpu_torch.ops.quant4 import quantize_weight_int4
+    k, n, paired = mk.megakernel_matrices(d, f)[m]
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((B, k)).astype(
+        np.float32)).to(torch.bfloat16)
+    qd = quantize_weight_int4(torch.from_numpy(
+        (rng.standard_normal((k, n)) / np.sqrt(k)).astype(np.float32)),
+        block=mk.INT4_BLOCK)
+    packed, scale = qd['q'], qd['scale']
+    kh, rows, cols = k // 2, mk.BOX_ROWS, mk.TILE_COLS
+    q = torch.cat([(packed.int() & 0xF) - 8, (packed.int() >> 4) - 8],
+                  0).float()
+    xf = x.float()
+    plan = mk.megakernel_plan(d, f, 7)
+    partials = {}
+    for c in range(7):
+        stages = [st for st in _producer_stages(plan, c, 1, d, f, 1,
+                                                [0] * B)
+                  if st[0] == 'w' and st[2] == m]
+        for tile, b0, b1, split, _, _ in plan[m][c]:
+            for sub in range(2 if paired else 1):
+                col = sub * f + tile * cols
+                cs = slice(col, col + cols)
+                acc = torch.zeros((B, cols))
+                part = [torch.zeros((B, cols)), torch.zeros((B, cols))]
+                mine = [st for st in stages if st[3] == col
+                        and b0 <= st[4] < b1]
+                assert [st[4] for st in mine] == list(range(b0, b1))
+                for _, _, _, _, bx, lo, hi in mine:
+                    r = slice(bx * rows, (bx + 1) * rows)
+                    part[0] += xf[:, r] @ q[r, cs]
+                    part[1] += xf[:, kh + bx * rows:kh + (bx + 1) * rows] \
+                        @ q[kh + bx * rows:kh + (bx + 1) * rows, cs]
+                    for half, fold in ((0, lo), (1, hi)):
+                        if fold:
+                            blk = (half * kh + bx * rows) // mk.INT4_BLOCK
+                            acc += part[half] * scale[blk, cs]
+                            part[half] = torch.zeros((B, cols))
+                assert not part[0].any() and not part[1].any()
+                partials[(col, split)] = acc
+    out = torch.zeros((B, n))
+    for (col, _), p in sorted(partials.items()):
+        out[:, col:col + cols] += p
+    want = mk._int4_chunk_dot(x, packed, scale)
+    np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_phase_split_adds_up():
+    """``phase_split`` of made-up stamps: work, tails and barriers per phase
+    over the blocks, and their sum the mean block's time."""
+    n_layers, blocks = 2, 3
+    rng = np.random.default_rng(0)
+    t = np.cumsum(rng.integers(1, 1000, (blocks, 2 + 10 * n_layers)), 1)
+    t[:, 1] = t[:, -1] + 5                 # the end after the last release
+    stamps = torch.from_numpy(t)
+    split = mk.phase_split(stamps, n_layers)
+    parts = sum(v for key, v in split.items() if key != 'total')
+    assert split['total'] == pytest.approx(parts, rel=1e-12)
+    arrive = t[:, 2::2].reshape(blocks, n_layers, 5)
+    release = t[:, 3::2].reshape(blocks, n_layers, 5)
+    assert split['down barrier'] == pytest.approx(
+        (release[..., 4].mean(0) - arrive[..., 4].max(0)).sum() / 1e6)
