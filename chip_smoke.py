@@ -17,8 +17,17 @@ Phases, each printed before the last line:
     operations over the peak rate of their type) and the time of one
     PyTorch call that computes the same function where there is one
     (torch._weight_int8pack_mm / _weight_int4pack_mm, the SDPA forward and
-    backward, torch._int_mm, the backend named): the int8 decode
-    matmul and decode attention (served path), the packed-int4 matmul (each
+    backward, torch._int_mm, the backend named): the int8 matmul (served
+    path; its decode tile at M = 1, 4, 8 and 100 against the scale-after
+    plain version, its wgmma prefill tile at M = 256, 300 and 2048 against
+    the dequantize-first one, each at the four layer shapes and the padded
+    head, the ragged head and an odd K at M = 1 and 300, every case called
+    twice, bitwise equal, and nearer its own route than the other; ptxas's
+    registers and spills and any wgmma serialization warning of
+    int8_matmul.cu, each a failure; beside torch._weight_int8pack_mm at
+    M = 1, 8 and 2048 and a bf16 torch.matmul on dequantized copies at
+    M = 2048), the decode attention (served path), the packed-int4 matmul
+    (each
     of the int4 tree's five shapes at M=1 and M=8, the engine's decode,
     through the decode tile, and at M=9, 200 and 2048, a prefill, through
     the wgmma prefill tile; at M=1, 8 and 2048 beside
@@ -73,7 +82,10 @@ Phases, each printed before the last line:
     cache, max_len = max_seq_len + 64) with random weights from --seed: the
     port's ModelWorker answers 3 requests in-process, each checked, and
     both int8 kernels' launch counters must grow by exactly the count the
-    path implies;
+    path implies (the int8 matmul 4L + 1 a forward, of them the prefill
+    tile 4L a prefill); then one warm prefill alone and the same request
+    with 9 new tokens under torch.profiler: the prefill's device time by
+    kernel, and the device time a decode token;
  6. the production server at full width (--engine --engine-slots 8
     --quant_type int4 --kv-bits 8 --paged-kv, max_len 2432): the port's
     ModelWorker answers ENGINE_REQUESTS requests sent from as many threads
@@ -110,8 +122,8 @@ Phases, each printed before the last line:
     variant was held against its plain version in phase 2): each probe's
     entry point as `python -m groma_tpu_torch.benchmarks.<name>` runs it,
     printing the probe's table.
-Then one JSON line with the eighteen kernels, the int4 matmul's two tiles
-apart (launches: the training
+Then one JSON line with the nineteen kernels, the int8 and the int4
+matmuls' two tiles apart (launches: the training
 path's for the forward flash kernels and the causal backward, the DINOv2-L
 phase's for the bidirectional backward, the served path's for the int8
 ones, the engine's for the int4 and paged ones, the decode path's for the
@@ -145,6 +157,9 @@ INT8_MATMUL_SHAPES = {          # (K, N) of every decode matmul at 7B width
     'lm_head (ragged N)': (4096, 32114),
 }
 LAYER_MATMULS = ('qkv_proj', 'o_proj', 'gate_up_proj', 'down_proj')
+INT8_DECODE_ROWS = (1, 4, 8, 100)       # #1's decode tile (M < 256)
+INT8_PREFILL_ROWS = (256, 300, 2048)    # #1's prefill tile
+INT8_PREFILL_M = 2048     # M of a served prefill: one stream of max_seq_len
 INT4_MATMUL_SHAPES = {          # (K, N) of the int4 tree's matmuls
     'qkv_proj': (4096, 12288),
     'o_proj': (4096, 4096),
@@ -283,58 +298,155 @@ def kernel_names(torch, fn, top: int = 3) -> str:
                                                key=lambda kv: -kv[1])[:top])
 
 
+def _spills(summary: str) -> bool:
+    """Whether a ptxas summary reports any bytes of spill stores or loads."""
+    import re
+    return any(int(n) for n in re.findall(r'(\d+) bytes spill', summary))
+
+
 def check_int8_matmul(torch, gen, timer, card):
-    """#1 against its plain version.  Returns (max_abs_err, (kernel ms,
-    plain ms), (bound ms, bound by), library ms), the sums over the four
-    layer matmuls at M=1."""
-    from groma_tpu_torch.ops.quant import int8_matmul, int8_matmul_reference
+    """#1's two tiles against their plain versions: the decode tile
+    (int8_matmul_reference, the scale after the dot) at M = 1, 4, 8 and
+    100, the prefill tile (int8_matmul_dense_reference, the weights
+    dequantized to bf16 first) at M = 256, 300 and 2048, each at the four
+    layer shapes and the padded head; the ragged head (N = 32114, padded per
+    call) and an odd K (4100, padded per call) at M = 1 and 300; every case
+    called twice, bitwise equal, and nearer its own route's plain version
+    than the other route's.  ptxas's
+    registers and spills of both tiles and any wgmma serialization warning
+    of int8_matmul.cu (each a failure).  Beside the four layer matmuls at
+    M = 1, 8 and 2048: torch._weight_int8pack_mm (bf16 scales) and, at
+    M = 2048, a bf16 torch.matmul on dequantized copies.  Returns the
+    decode tile's tuples at M = 1 and M = 8 and the prefill tile's at M =
+    2048: (max_abs_err over the tile's cases, (kernel ms, plain ms), (bound
+    ms, bound by), library ms), the sums over the four layer matmuls."""
+    from groma_tpu_torch.ops import cuda_lib
+    from groma_tpu_torch.ops.quant import (DENSE_MIN_ROWS, decode_plan,
+                                           dequantize_weight, int8_matmul,
+                                           int8_matmul_dense_reference,
+                                           int8_matmul_reference,
+                                           prefill_plan)
     dev = 'cuda'
-    worst = 0.0
-    layer_ms = {1: [0.0, 0.0]}
-    layer_bound, bound_by, library = 0.0, '', 0.0
-    for m in (1, 4):
-        for name, (k, n) in INT8_MATMUL_SHAPES.items():
-            x = torch.randn((m, k), generator=gen, device=dev).to(
-                torch.bfloat16)
-            w = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
-                              dtype=torch.int8)
-            scale = torch.rand((n,), generator=gen, device=dev) * 1e-3 + 1e-4
-            got = int8_matmul(x, w, scale).float()
-            want = int8_matmul_reference(x, w, scale).float()
-            err = (got - want).abs()
-            # fp32 sums in another order, then one bf16 rounding each: at
-            # most one bf16 step (2^-7 relative) apart, plus f32 noise
-            tol = 2.0 ** -7 * want.abs() + 1e-4 * want.abs().max()
-            ok = bool((err <= tol).all()) and bool(torch.isfinite(got).all())
-            max_err = err.max().item()
-            worst = max(worst, max_err)
-            ms = timer(lambda: int8_matmul(x, w, scale))
-            plain_ms = timer(lambda: int8_matmul_reference(x, w, scale))
-            if m == 1 and name in LAYER_MATMULS:
-                layer_ms[1][0] += ms
-                layer_ms[1][1] += plain_ms
-                b_ms, bound_by = bound(k * n + 4 * n + 2 * m * (k + n),
-                                       2 * m * k * n)
-                layer_bound += b_ms
-                if library is not None:
-                    # bf16 scales (the plain version's are f32)
-                    w_t = w.T.contiguous()
-                    t = library_time(
-                        torch, timer, f'torch._weight_int8pack_mm {name}',
-                        lambda: torch._weight_int8pack_mm(
-                            x, w_t, scale.to(torch.bfloat16)), want, card)
-                    library = None if t is None else library + t
-            ref_max = want.abs().max().item()
-            print(f'int8_matmul M={m} {name} K={k} N={n}: max_abs_err '
-                  f'{max_err:.3e}, rel {max_err / ref_max:.3e} of max|plain| '
-                  f'{ref_max:.3e} (tol 2^-7*|plain| + 1e-4*max|plain|) '
-                  f'{"ok" if ok else "FAIL"}; kernel {ms:.4f} ms, plain '
-                  f'{plain_ms:.4f} ms, '
-                  f'{k * n / ms / 1e6:.1f} GB/s weights [{card}]')
-            if not ok:
-                fail(f'int8_matmul disagrees with its plain version at '
-                     f'M={m} {name}')
-    return worst, layer_ms[1], (layer_bound, bound_by), library
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log = cuda_lib.build_info.get('log', '')
+    for tile, kernel in (('decode', 'int8_decode_kernel'),
+                         ('prefill', 'int8_prefill_kernel')):
+        summary = _ptxas_summary(log, kernel)
+        print(f'int8_matmul {tile} tile, ptxas: {summary} [{card}]')
+        if _spills(summary):
+            fail(f'ptxas spilled registers of {kernel}')
+    serialized = _ptxas_wgmma_warnings(log, 'int8_matmul.cu')
+    print(f'int8_matmul prefill tile, ptxas wgmma serialization warnings: '
+          f'{"; ".join(serialized) or "none"} [{card}]')
+    if serialized:
+        fail('ptxas serialized the wgmma products of int8_prefill_kernel')
+    shapes = [(name, k, n) for name, (k, n) in INT8_MATMUL_SHAPES.items()
+              if 'ragged' not in name]
+    ragged = INT8_MATMUL_SHAPES['lm_head (ragged N)']
+    cases = [(m, *shape) for m in INT8_DECODE_ROWS + INT8_PREFILL_ROWS
+             for shape in shapes]
+    cases += [(m, 'lm_head (ragged N)', *ragged) for m in (1, 300)]
+    # K not a multiple of 8: x's rows are not 16-byte pitched for TMA, so
+    # the wrapper pads K (and x) per call
+    cases += [(m, 'odd K', 4100, 4096) for m in (1, 300)]
+    worst = {False: 0.0, True: 0.0}      # by tile: M >= 256
+    # M -> [kernel, plain, bound, library, bound by, bf16 matmul] ms over
+    # the four layer matmuls
+    sums = {}
+    for m, name, k, n in cases:
+        dense = m >= DENSE_MIN_ROWS
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        w = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
+                          dtype=torch.int8)
+        scale = torch.rand((n,), generator=gen, device=dev) * 1e-3 + 1e-4
+        plain, other = (int8_matmul_dense_reference, int8_matmul_reference)
+        if not dense:
+            plain, other = other, plain
+        got = int8_matmul(x, w, scale)
+        again = int8_matmul(x, w, scale)
+        stable = bool(torch.equal(got, again))
+        got = got.float()
+        want = plain(x, w, scale).float()
+        err = (got - want).abs()
+        # f32 sums in another order, then one bf16 rounding each: at most
+        # one bf16 step (2^-7 relative) apart, plus f32 noise
+        tol = 2.0 ** -7 * want.abs() + 1e-4 * want.abs().max()
+        # the two routes round differently (bf16 weights, or the scale
+        # after the dot): the tile must follow its own
+        mean_own = err.mean().item()
+        mean_other = (got - other(x, w, scale).float()).abs().mean().item()
+        ok = bool((err <= tol).all()) and bool(torch.isfinite(got).all()) \
+            and stable and mean_own < mean_other
+        max_err = err.max().item()
+        worst[dense] = max(worst[dense], max_err)
+        ms = timer(lambda: int8_matmul(x, w, scale))
+        plain_ms = timer(lambda: plain(x, w, scale))
+        b_ms, bound_by = bound(k * n + 4 * n + 2 * m * (k + n),
+                               2 * m * k * n)
+        lib = None
+        if name in LAYER_MATMULS and m in (1, 8, INT8_PREFILL_M):
+            # bf16 scales (the plain versions' are f32)
+            w_t = w.T.contiguous()
+            lib = library_time(
+                torch, timer, f'torch._weight_int8pack_mm M={m} {name}',
+                lambda: torch._weight_int8pack_mm(
+                    x, w_t, scale.to(torch.bfloat16)), want, card)
+            del w_t
+        # a dense bf16 product of the same size on a dequantized copy of
+        # the weights (the route this tile replaces, without its copy)
+        dense_ms = 0.0
+        if m == INT8_PREFILL_M and name in LAYER_MATMULS:
+            wd = dequantize_weight(w, scale)
+            dense_ms = timer(lambda: torch.matmul(x, wd))
+            print(f'  torch.matmul bf16 on a dequantized copy M={m} {name}: '
+                  f'{dense_ms:.4f} ms ({2 * m * k * n / dense_ms / 1e9:.1f} '
+                  f'TFLOP/s) [{card}]')
+            del wd
+        if name in LAYER_MATMULS:
+            acc = sums.setdefault(m, [0.0, 0.0, 0.0, 0.0, bound_by, 0.0])
+            acc[0] += ms
+            acc[1] += plain_ms
+            acc[2] += b_ms
+            acc[3] = None if lib is None or acc[3] is None else acc[3] + lib
+            acc[5] += dense_ms
+        ref_max = want.abs().max().item()
+        if dense:
+            rate = (f'{2 * m * k * n / ms / 1e9:.1f} TFLOP/s, '
+                    f'{100 * b_ms / ms:.1f} % of the bound {b_ms:.4f} ms '
+                    f'({bound_by}); plan {prefill_plan(m, n, sms)} (ctas, '
+                    f'token tiles, column tiles)')
+        else:
+            rate = (f'{k * n / ms / 1e6:.1f} GB/s weights, '
+                    f'{100 * b_ms / ms:.1f} % of the bound {b_ms:.4f} ms '
+                    f'({bound_by}); plan {decode_plan(m, k, n, sms)} (split '
+                    f'rows, splits)')
+        print(f'int8_matmul {"prefill" if dense else "decode"} tile M={m} '
+              f'{name} K={k} N={n}: max_abs_err {max_err:.3e}, rel '
+              f'{max_err / ref_max:.3e} of max|plain| {ref_max:.3e} (tol '
+              f'2^-7*|plain| + 1e-4*max|plain|), mean |err| {mean_own:.3e} '
+              f'(against the other route\'s plain version {mean_other:.3e}) '
+              f'{"ok" if ok else "FAIL"}, two calls '
+              f'{"bitwise equal" if stable else "DIFFER"}; kernel {ms:.4f} '
+              f'ms, plain {plain_ms:.4f} ms, {rate} [{card}]')
+        if not ok:
+            fail(f'int8_matmul disagrees with its plain version at M={m} '
+                 f'{name} K={k} N={n}, follows the other route, or two '
+                 f'calls differ')
+        del x, w, scale, got, want, err, again
+    for m, (ms, plain_ms, b_ms, lib, by, dense_ms) in sums.items():
+        lib_txt = 'none' if lib is None else f'{lib:.4f} ms'
+        ratio = '' if lib is None else f', {ms / lib:.3f} x the library'
+        dense = (f', torch.matmul bf16 on dequantized copies {dense_ms:.4f} '
+                 f'ms ({ms / dense_ms:.3f} x)' if dense_ms else '')
+        print(f'int8_matmul M={m}, the four layer matmuls: kernel {ms:.4f} '
+              f'ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by}), '
+              f'{100 * b_ms / ms:.1f} % of the bound, '
+              f'torch._weight_int8pack_mm {lib_txt}{ratio}{dense} [{card}]')
+
+    def result(m):
+        ms, plain_ms, b_ms, lib, by = sums[m][:5]
+        return worst[m >= DENSE_MIN_ROWS], [ms, plain_ms], (b_ms, by), lib
+    return result(1), result(8), result(INT8_PREFILL_M)
 
 
 def check_decode_attention(torch, gen, timer, card):
@@ -750,7 +862,7 @@ def check_llm_path(torch, seed: int, card: str):
         llm = LlamaForCausalLM(cfg, device='cuda')
         qp = quantize_llama_params(llm.state_dict(), cfg)
         del llm
-    b, s, steps = 2, 200, 4     # prefill M = 400 rows: dequant + matmul
+    b, s, steps = 2, 200, 4     # prefill M = 400 rows: the prefill tile
     gen = torch.Generator().manual_seed(seed)
     emb = torch.randn((b, s, cfg.hidden_size), generator=gen)
     valid = torch.ones((b, s), dtype=torch.bool)
@@ -2204,8 +2316,28 @@ def probes_main_path(card: str):
     return n
 
 
+def served_device_profile(torch, worker, image, prompt: str, new: int):
+    """One request of ``new`` tokens under torch.profiler -> (its stats,
+    device ms, {kernel: device ms})."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        frames = list(worker.generate_stream(
+            {'image': image, 'prompt': prompt, 'max_new_tokens': new}))
+        torch.cuda.synchronize()
+    if any(f['error_code'] != 0 for f in frames):
+        fail(f'profiled request: error frame {frames[-1]}')
+    by_name = {}
+    for e in prof.events():
+        if e.device_type.name == 'CUDA' and e.device_time > 0:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
+    return dict(worker.generator.last_stats), sum(by_name.values()), by_name
+
+
 def serve_full_width(torch, np, seed: int, card: str):
-    """Three requests through the port's ModelWorker at full width."""
+    """Three requests through the port's ModelWorker at full width, then
+    one warm prefill and one short request under torch.profiler."""
     from groma_tpu_torch.ops.decode_attention import int8_decode_attention
     from groma_tpu_torch.ops.quant import int8_matmul
     from groma_tpu_torch.serve.worker import ModelWorker
@@ -2224,28 +2356,38 @@ def serve_full_width(torch, np, seed: int, card: str):
                'What is in this picture? Give boxes for each object.',
                'Find the red car.')
     int8_matmul.launches = 0
+    int8_matmul.prefill_launches = 0
     int8_decode_attention.launches = 0
+
+    def counts():
+        return (int8_matmul.launches, int8_matmul.prefill_launches,
+                int8_decode_attention.launches)
     for i, prompt in enumerate(prompts):
         image = random_image(np, seed + 1 + i, cfg.perceiver.image_size)
         request = {'image': image, 'prompt': prompt,
                    'max_new_tokens': MAX_NEW_TOKENS}
-        before = int8_matmul.launches, int8_decode_attention.launches
+        before = counts()
         frames = list(worker.generate_stream(request))
         torch.cuda.synchronize()
-        mm = int8_matmul.launches - before[0]
-        att = int8_decode_attention.launches - before[1]
+        mm, pre, att = (a - b for a, b in zip(counts(), before))
         final = frames[-1]
         if any(f['error_code'] != 0 for f in frames):
             fail(f'request {i}: error frame {final}')
         stats = worker.generator.last_stats
         f_fwd = stats['decode_forwards']
-        want_mm = 1 + f_fwd * (4 * n_layers + 1)
+        # the prefill's 4L layer matmuls (M = 2048) on the prefill tile,
+        # its head (M = 1) and every decode forward's 4L + 1 on the decode
+        # tile
+        want_pre = 4 * n_layers
+        want_mm = (4 * n_layers + 1) * (1 + f_fwd)
         want_att = f_fwd * n_layers
         toks = stats['tokens']
         problems = []
-        if mm != want_mm or att != want_att:
+        if (mm, pre, att) != (want_mm, want_pre, want_att):
             problems.append(f'launches int8_matmul {mm} (want {want_mm}), '
-                            f'decode attention {att} (want {want_att})')
+                            f'of them the prefill tile {pre} (want '
+                            f'{want_pre}), decode attention {att} (want '
+                            f'{want_att})')
         if not ((toks >= 0) & (toks < vocab)).all():
             problems.append('token out of vocabulary range')
         if not stats['logits_finite']:
@@ -2267,9 +2409,31 @@ def serve_full_width(torch, np, seed: int, card: str):
               f'{int(mask.sum())} regions kept; prefill '
               f'{stats["prefill_ms"]:.1f} ms, decode '
               f'{stats["decode_ms_per_token"]:.2f} ms/token over '
-              f'{f_fwd} forwards; launches int8_matmul {mm}, decode '
-              f'attention {att} [{card}]')
-    return int8_matmul.launches, int8_decode_attention.launches
+              f'{f_fwd} forwards; launches int8_matmul {mm} (prefill tile '
+              f'{pre}), decode attention {att} [{card}]')
+    launched = counts()
+    # warm: the same image and prompt, a prefill alone (one new token)
+    # and a prefill with decode forwards, each under torch.profiler; the
+    # difference is the decode's device time
+    image = random_image(np, seed + 1, cfg.perceiver.image_size)
+    pre_stats, pre_ms, by_name = served_device_profile(
+        torch, worker, image, prompts[0], 1)
+    dec_stats, dec_ms, _ = served_device_profile(
+        torch, worker, image, prompts[0], 9)
+    top = ', '.join(f'{k[:56]} {v:.2f}' for k, v in sorted(
+        by_name.items(), key=lambda kv: -kv[1])[:8])
+    tiles = sum(v for k, v in by_name.items() if 'int8_prefill_kernel' in k)
+    fwd = dec_stats['decode_forwards']
+    per_token = (f'{(dec_ms - pre_ms) / fwd:.3f} ms of device time a '
+                 f'decode token ({fwd} forwards)' if fwd else
+                 'no decode forward ran (an early end of sequence)')
+    print(f'served path, warm prefill under torch.profiler: host '
+          f'{pre_stats["prefill_ms"]:.1f} ms, {pre_ms:.2f} ms of device '
+          f'time, of it the int8 prefill tile {tiles:.2f} ms; the longest '
+          f'kernels, ms: {top} [{card}]')
+    print(f'served path, the same request with 9 new tokens: '
+          f'{per_token} [{card}]')
+    return launched
 
 
 def serve_engine_full_width(torch, np, seed: int, card: str):
@@ -2509,8 +2673,8 @@ def main():
     gen = torch.Generator(device='cuda')
     gen.manual_seed(args.seed)
     timer = Timer('cuda')
-    mm_err, mm_ms, mm_bound, mm_lib = check_int8_matmul(torch, gen, timer,
-                                                         card)
+    int8_decode, _, int8_prefill = check_int8_matmul(torch, gen, timer,
+                                                     card)
     att_err, att_ms, att_bound = check_decode_attention(torch, gen, timer,
                                                         card)
     int4_decode, int4_prefill = check_int4_matmul(torch, gen, timer, card)
@@ -2537,8 +2701,8 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
-    mm_n, att_n = serve_full_width(torch, np, args.seed, card)
-    if not (mm_n and att_n):
+    mm_n, mm_pre_n, att_n = serve_full_width(torch, np, args.seed, card)
+    if not (mm_n - mm_pre_n and mm_pre_n and att_n):
         fail('a kernel of the served path was never launched')
     gc.collect()
     torch.cuda.empty_cache()
@@ -2573,8 +2737,12 @@ def main():
                      library)
 
     print(json.dumps({'kernels': [
-        entry('int8_matmul', 'int8_matmul.cu', 'groma_tpu/ops/quant.py:52',
-              mm_n, mm_err, *mm_ms, mm_bound, mm_lib),
+        entry('int8_matmul (decode tile, M < 256)', 'int8_matmul.cu',
+              'groma_tpu/ops/quant.py:52', mm_n - mm_pre_n, int8_decode[0],
+              *int8_decode[1], *int8_decode[2:]),
+        entry('int8_matmul (prefill tile, M >= 256)', 'int8_matmul.cu',
+              'groma_tpu/ops/quant.py:52', mm_pre_n, int8_prefill[0],
+              *int8_prefill[1], *int8_prefill[2:]),
         entry('int8_decode_attention', 'decode_attention.cu',
               'groma_tpu/ops/decode_attention.py:32', att_n, att_err,
               *att_ms, att_bound, None),
