@@ -26,7 +26,12 @@ Phases, each printed before the last line:
     registers and spills and any wgmma serialization warning of
     int8_matmul.cu, each a failure; beside torch._weight_int8pack_mm at
     M = 1, 8 and 2048 and a bf16 torch.matmul on dequantized copies at
-    M = 2048), the decode attention (served path), the packed-int4 matmul
+    M = 2048), the decode attention (served path: B = 1 and 4 at S = 1024
+    and 2112, B = 2 at a ragged S = 1001, the served stream's own mask, an
+    all-masked and a last-slot-only row, the per-layer path's B=8 at
+    S=1024; every case called twice, bitwise equal; the cluster size, CTAs
+    and rows read, and ptxas's registers and spills, a spill a failure;
+    timed with the L2 flushed and not), the packed-int4 matmul
     (each
     of the int4 tree's five shapes at M=1 and M=8, the engine's decode,
     through the decode tile, and at M=9, 200 and 2048, a prefill, through
@@ -39,7 +44,9 @@ Phases, each printed before the last line:
     down_proj the bound is also shown to flag a wrong scale on the block
     that straddles K/2) and the paged decode
     attention (8 slots, ragged lengths up to 2432, shuffled
-    pages, a frozen row), the flash-attention forward (bidirectional at the
+    pages, a frozen row, and the engine's own lengths of 400 to 600; each
+    called twice, bitwise equal; ptxas's registers and spills), the
+    flash-attention forward (bidirectional at the
     ViT's (2, 16, 1025, 64), also with a fully masked row and at Sq != Skv;
     causal at the LLM's (2, 32, 2048, 128) under a grounded key mask and at
     S=1500; each head dim in each mode; each called twice, out and lse
@@ -83,7 +90,8 @@ Phases, each printed before the last line:
     port's ModelWorker answers 3 requests in-process, each checked, and
     both int8 kernels' launch counters must grow by exactly the count the
     path implies (the int8 matmul 4L + 1 a forward, of them the prefill
-    tile 4L a prefill); then one warm prefill alone and the same request
+    tile 4L a prefill), and the slots the last decode forward's attention
+    read; then one warm prefill alone and the same request
     with 9 new tokens under torch.profiler: the prefill's device time by
     kernel, and the device time a decode token;
  6. the production server at full width (--engine --engine-slots 8
@@ -95,7 +103,8 @@ Phases, each printed before the last line:
     them the prefill tile 4L per prefill), with TTFT per request, each
     prefill's time, aggregate tok/s and ms per decode step; then one
     more request per slot, ENGINE_PROFILED_BURSTS of whose bursts with
-    every slot live run under torch.profiler (device time a step);
+    every slot live run under torch.profiler (device time a step, the
+    slots' kv lengths);
  7. the decode benchmark's path (bench_decode_quant.measure_megakernel) at
     full depth: the random full-width Vicuna-7B int4 tree from --seed,
     B=8, a 512-token random prompt prefilled per layer into a 1024-slot
@@ -172,6 +181,14 @@ INT4_PREFILL_ROWS = 2048        # M of a prefill: one stream of max_seq_len
 # 160-page pool, ragged lengths up to max_len = 2432 (19 pages), one frozen
 PAGED_LENGTHS = (2432, 2301, 1900, 1500, 1024, 700, 129, 0)
 PAGED_POOL_PAGES = 160
+# the engine's own lengths: positions are stored compactly, so a slot holds
+# its prompt's valid tokens (about 520 here) plus what it decoded; tables
+# are max_len's 19 pages wide
+ENGINE_PAGED_LENGTHS = (400, 430, 460, 490, 520, 550, 580, 600)
+ENGINE_TABLE_PAGES = 19
+SERVED_PROMPTS = ('Locate the dog on the left in the image.',
+                  'What is in this picture? Give boxes for each object.',
+                  'Find the red car.')
 ENGINE_REQUESTS = 12       # through 8 slots: 4 wait and join mid-decode
 ENGINE_MAX_NEW = 32
 ENGINE_PROFILED_BURSTS = 2  # of 8 steps each, every slot live
@@ -449,61 +466,134 @@ def check_int8_matmul(torch, gen, timer, card):
     return result(1), result(8), result(INT8_PREFILL_M)
 
 
+def _served_valid(torch, s: int, decoded: int):
+    """The served stream's kept slots at a decode step: expand_template of
+    SERVED_PROMPTS[0] in the worker's conversation template (the stub
+    tokenizer at GromaConfig widths), padded to max_seq_len, then
+    ``decoded`` tokens from slot max_seq_len on."""
+    from groma_tpu_torch.config import GromaConfig
+    from groma_tpu_torch.data.datasets.base import VLDataSpec
+    from groma_tpu_torch.data.tokenizer import StubTokenizer
+    from groma_tpu_torch.serve.worker import expand_request
+    cfg = GromaConfig()
+    spec = VLDataSpec(num_image_tokens=cfg.num_image_tokens,
+                      max_region_num=cfg.max_region_num,
+                      max_seq_len=cfg.max_seq_len,
+                      image_size=cfg.perceiver.image_size)
+    t = expand_request(StubTokenizer(cfg.llm.vocab_size, cfg.max_seq_len),
+                       spec, {'prompt': SERVED_PROMPTS[0]})
+    valid = torch.zeros(s, dtype=torch.bool)
+    valid[:cfg.max_seq_len] = torch.from_numpy(t['valid'])
+    valid[cfg.max_seq_len:cfg.max_seq_len + decoded] = True
+    return valid
+
+
+def _read_rows(bias):
+    """Per row of a (B, 1, 1, S) bias, the slots the decode-attention kernel
+    reads: those kept (bias above -1e29), or all S where none is."""
+    kept = (bias[:, 0, 0] > -1e29).sum(-1)
+    return [int(k) if k else bias.shape[-1] for k in kept.tolist()]
+
+
+def _kernel_ptxas(card, kernel: str):
+    """Print ptxas's registers and spills of ``kernel``; a spill fails."""
+    from groma_tpu_torch.ops import cuda_lib
+    summary = _ptxas_summary(cuda_lib.build_info['log'], kernel)
+    print(f'{kernel}: ptxas {summary} [{card}]')
+    if _spills(summary):
+        fail(f'{kernel} spills registers: {summary}')
+
+
 def check_decode_attention(torch, gen, timer, card):
-    """#2 against its plain version.  Returns (max_abs_err, (kernel ms,
-    plain ms), (bound ms, bound by)) at the served shape, B=1 and S=2112
-    (no PyTorch call computes int8-KV attention with p requantized)."""
+    """#2 against its plain version: the chip_smoke shapes with a valid
+    prefix per row (B = 1, 4; S = 1024, 2112; B = 2 at S = 1001, not a
+    multiple of 4), the served stream's own mask
+    at B=1, S=2112 (expand_template of a chip_smoke prompt plus the decoded
+    tail), a row with every slot masked and one whose only kept slot is its
+    last, and the per-layer batched path's B=8, S=1024.  Every case is
+    called twice, bitwise equal.  Returns (max_abs_err, (kernel ms, plain
+    ms), (bound ms, bound by)) at the served mask (no PyTorch call computes
+    int8-KV attention with p requantized)."""
     from groma_tpu_torch.models.llama_quant import _quantize_tokens
     from groma_tpu_torch.ops.decode_attention import (
-        int8_decode_attention, int8_decode_attention_reference, p8_step)
+        decode_attention_plan, int8_decode_attention,
+        int8_decode_attention_reference, p8_step)
     dev = 'cuda'
-    worst = 0.0
-    served = None
-    for b in (1, 4):
-        for s in (1024, 2112):
-            h, d = 32, 128
-            q = torch.randn((b, h, 1, d), generator=gen, device=dev).to(
-                torch.bfloat16)
-            k8, ks = _quantize_tokens(
-                torch.randn((b, h, s, d), generator=gen, device=dev))
-            v8, vs = _quantize_tokens(
-                torch.randn((b, h, s, d), generator=gen, device=dev))
-            # a valid prefix per row, the tail masked as unwritten slots
-            valid = torch.arange(s, device=dev)[None] < torch.tensor(
-                [s - 64 - 17 * i for i in range(b)], device=dev)[:, None]
-            bias = torch.where(valid, 0.0, -1e30)[:, None, None, :]
-            args = (q, k8, ks, v8, vs, bias.contiguous())
-            got = int8_decode_attention(*args)
-            want = int8_decode_attention_reference(*args)
-            err = (got - want).abs()
-            max_err = err.max().item()
-            # the kernel's f32 exp and sums may differ from torch's in the
-            # last bit, so a requantized p on a .5 tie may round the other
-            # way: allow two such units per row, plus f32 noise
-            step = p8_step(q, k8, ks, vs, args[-1])
-            tol = 2 * step + 1e-5 * want.abs().max()
-            ok = bool((err <= tol).all()) and bool(torch.isfinite(got).all())
-            units = (err / step).max().item()
-            worst = max(worst, max_err)
-            ms = timer(lambda: int8_decode_attention(*args))
-            plain_ms = timer(lambda: int8_decode_attention_reference(*args))
-            kv_bytes = 2 * b * h * s * d
-            if b == 1 and s == 2112:
-                served = ((ms, plain_ms), bound(
-                    kv_bytes + 2 * b * h * s * 4 + b * h * d * (2 + 4)
-                    + b * s * 4, 4 * b * h * s * d, H100_INT8_OPS))
-            ref_max = want.abs().max().item()
-            print(f'int8_decode_attention B={b} H={h} S={s} D={d}: '
-                  f'max_abs_err {max_err:.3e}, rel {max_err / ref_max:.3e} '
-                  f'of max|plain| {ref_max:.3e}, {units:.3f} p8 units (tol '
-                  f'2 units + 1e-5*max|plain|) '
-                  f'{"ok" if ok else "FAIL"}; kernel {ms:.4f} ms,'
-                  f' plain {plain_ms:.4f} ms, '
-                  f'{kv_bytes / ms / 1e6:.1f} GB/s KV [{card}]')
-            if not ok:
-                fail(f'int8_decode_attention disagrees with its plain '
-                     f'version at B={b} S={s}')
-    return (worst, *served)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    _kernel_ptxas(card, 'int8_decode_attention_kernel')
+
+    def prefix(b, s):
+        # a valid prefix per row, the tail masked as unwritten slots
+        return torch.arange(s)[None] < torch.tensor(
+            [s - 64 - 17 * i for i in range(b)])[:, None]
+    served = _served_valid(torch, 2112, MAX_NEW_TOKENS)
+    odd = served[None].repeat(3, 1)
+    odd[1] = False                   # every slot masked: uniform p
+    odd[2] = False
+    odd[2, -1] = True                # only the last slot kept
+    cases = [('valid prefix', prefix(b, s)) for b in (1, 4)
+             for s in (1024, 2112)]
+    cases += [('ragged S, its scales and bias by plain loads',
+               prefix(2, 1001)),
+              ('served mask', served[None]),
+              ('served, all-masked and last-slot rows', odd),
+              ('per-layer path', torch.arange(1024)[None] < torch.tensor(
+                  [DECODE_PROMPT + 8 * i
+                   for i in range(DECODE_BATCH)])[:, None])]
+    worst, result = 0.0, None
+    for label, valid in cases:
+        b, s = valid.shape
+        h, d = 32, 128
+        q = torch.randn((b, h, 1, d), generator=gen, device=dev).to(
+            torch.bfloat16)
+        k8, ks = _quantize_tokens(
+            torch.randn((b, h, s, d), generator=gen, device=dev))
+        v8, vs = _quantize_tokens(
+            torch.randn((b, h, s, d), generator=gen, device=dev))
+        bias = torch.where(valid, 0.0, -1e30)[:, None, None, :].to(dev)
+        args = (q, k8, ks, v8, vs, bias.contiguous())
+        got = int8_decode_attention(*args)
+        again = int8_decode_attention(*args)
+        torch.cuda.synchronize()
+        want = int8_decode_attention_reference(*args)
+        err = (got - want).abs()
+        max_err = err.max().item()
+        # the kernel's f32 exp and sums may differ from torch's in the
+        # last bit, so a requantized p on a .5 tie may round the other
+        # way: allow two such units per row, plus f32 noise
+        step = p8_step(q, k8, ks, vs, args[-1])
+        tol = 2 * step + 1e-5 * want.abs().max()
+        ok = bool((err <= tol).all()) and bool(torch.isfinite(got).all())
+        bitwise = torch.equal(got, again)
+        units = (err / step).max().item()
+        worst = max(worst, max_err)
+        ms = timer(lambda: int8_decode_attention(*args))
+        warm_ms = timer(lambda: int8_decode_attention(*args), flush=False)
+        plain_ms = timer(lambda: int8_decode_attention_reference(*args))
+        rows = _read_rows(bias)
+        c, stages = decode_attention_plan(b, h, s, sms)
+        # the bound: the rows read (k8, v8 and their scales), the bias, q
+        # (bf16) and out
+        read = sum(rows) * h
+        bnd = bound(2 * read * (d + 4) + b * s * 4 + b * h * d * (2 + 4),
+                    4 * read * d, H100_INT8_OPS)
+        if label == 'served mask':
+            result = ((ms, plain_ms), bnd)
+        ref_max = want.abs().max().item()
+        print(f'int8_decode_attention B={b} H={h} S={s} D={d}, {label}: '
+              f'rows read {rows}, C={c}, {b * h * c} CTAs, ring of '
+              f'{stages}; max_abs_err {max_err:.3e}, rel '
+              f'{max_err / ref_max:.3e} of max|plain| {ref_max:.3e}, '
+              f'{units:.3f} p8 units (tol 2 units + 1e-5*max|plain|), two '
+              f'calls bitwise equal {bitwise} '
+              f'{"ok" if ok and bitwise else "FAIL"}; kernel {ms:.4f} ms '
+              f'(L2 flushed), {warm_ms:.4f} ms (not flushed), plain '
+              f'{plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), '
+              f'{100 * bnd[0] / ms:.1f} % of the bound [{card}]')
+        if not (ok and bitwise):
+            fail(f'int8_decode_attention disagrees with its plain version '
+                 f'or with itself, {label} at B={b} S={s}')
+    return (worst, *result)
 
 
 def _flash_tol(want, rel: float):
@@ -1120,14 +1210,13 @@ def _tinygemm(torch, x, packed, scale, zero: float = 0.0):
     return lambda: torch._weight_int4pack_mm(x, w, 256, sz)
 
 
-def _paged_case(torch, gen, dev):
+def _paged_case(torch, gen, dev, lengths, np_: int):
     """The engine's paged shapes: shuffled pages, repeat-last table tails,
-    a frozen row (length 0) on the trash page."""
+    a frozen row (length 0) on the trash page, ``np_``-page table rows."""
     from groma_tpu_torch.models.llama_quant import _quantize_tokens
     from groma_tpu_torch.ops.paged_attention import PAGE
     h, d = 32, 128
-    b = len(PAGED_LENGTHS)
-    np_ = -(-max(PAGED_LENGTHS) // PAGE)
+    b = len(lengths)
     k8, ks = _quantize_tokens(torch.randn(
         (PAGED_POOL_PAGES, h, PAGE, d), generator=gen, device=dev))
     v8, vs = _quantize_tokens(torch.randn(
@@ -1135,56 +1224,80 @@ def _paged_case(torch, gen, dev):
     ids = (torch.randperm(PAGED_POOL_PAGES - 1, generator=gen, device=dev)
            + 1).tolist()
     table = torch.zeros((b, np_), dtype=torch.int32)
-    for row, n in enumerate(PAGED_LENGTHS):
+    for row, n in enumerate(lengths):
         used = -(-n // PAGE)
         if used:
             table[row, :used] = torch.tensor(ids[:used])
             table[row, used:] = ids[used - 1]
             ids = ids[used:]
     q = torch.randn((b, h, 1, d), generator=gen, device=dev)
-    lengths = torch.tensor(PAGED_LENGTHS, dtype=torch.int32, device=dev)
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
     return (q, k8, ks, v8, vs, table.to(dev), lengths)
 
 
 def check_paged_attention(torch, gen, timer, card):
-    """#8 against its plain version at the engine's shapes.  Returns
-    (max_abs_err, kernel ms, plain ms, (bound ms, bound by)); no PyTorch
-    call computes it."""
+    """#8 against its plain version at chip_smoke's engine shapes
+    (PAGED_LENGTHS, with a frozen row) and at the engine's own lengths
+    (ENGINE_PAGED_LENGTHS over 19-page tables), each called twice, bitwise
+    equal.  Returns (max_abs_err, kernel ms, plain ms, (bound ms, bound
+    by)) at PAGED_LENGTHS; no PyTorch call computes it."""
     from groma_tpu_torch.ops.paged_attention import (
-        PAGE, paged_int8_decode_attention, paged_int8_decode_attention_plain)
-    args = _paged_case(torch, gen, 'cuda')
-    got = paged_int8_decode_attention(*args)
-    want, step = paged_int8_decode_attention_plain(*args, with_step=True)
-    err = (got - want).abs()
-    # the kernel's f32 exp and sums may differ from torch's in the last
-    # bit, so a requantized p on a .5 tie may round the other way: allow
-    # two such units of any page, plus f32 noise
-    tol = 2 * step + 1e-5 * want.abs().max()
-    ok = bool((err <= tol).all()) and bool(torch.isfinite(got).all())
-    frozen = len(PAGED_LENGTHS) - 1
-    ok &= bool(got[frozen].abs().max() > 0)    # uniform p, not 0
-    max_err = err.max().item()
-    units = (err / step).max().item()
-    ms = timer(lambda: paged_int8_decode_attention(*args))
-    plain_ms = timer(lambda: paged_int8_decode_attention_plain(*args))
-    h, d = args[0].shape[1], args[0].shape[3]
-    pages = sum(-(-n // PAGE) if n else args[5].shape[1]
-                for n in PAGED_LENGTHS)
-    kv_bytes = pages * h * 2 * PAGE * (d + 4)
-    ref_max = want.abs().max().item()
-    print(f'paged_int8_decode_attention B={len(PAGED_LENGTHS)} H={h} D={d} '
-          f'lengths {PAGED_LENGTHS} over a {PAGED_POOL_PAGES}-page pool: '
-          f'max_abs_err {max_err:.3e}, rel {max_err / ref_max:.3e} of '
-          f'max|plain| {ref_max:.3e}, {units:.3f} p8 units (tol 2 units + '
-          f'1e-5*max|plain|), frozen row finite and uniform '
-          f'{"ok" if ok else "FAIL"}; kernel {ms:.4f} ms, plain '
-          f'{plain_ms:.4f} ms, {kv_bytes / ms / 1e6:.1f} GB/s KV [{card}]')
-    if not ok:
-        fail('paged_int8_decode_attention disagrees with its plain version')
-    b = len(PAGED_LENGTHS)
-    return max_err, ms, plain_ms, bound(
-        kv_bytes + 2 * b * h * d * 4 + args[5].numel() * 4 + b * 4,
-        4 * sum(PAGED_LENGTHS) * h * d, H100_INT8_OPS)
+        PAGE, paged_int8_decode_attention, paged_int8_decode_attention_plain,
+        paged_plan)
+    _kernel_ptxas(card, 'paged_attention_kernel')
+    worst, result = 0.0, None
+    for label, lengths, np_ in (
+            ('chip_smoke', PAGED_LENGTHS, -(-max(PAGED_LENGTHS) // PAGE)),
+            ("the engine's", ENGINE_PAGED_LENGTHS, ENGINE_TABLE_PAGES)):
+        args = _paged_case(torch, gen, 'cuda', lengths, np_)
+        got = paged_int8_decode_attention(*args)
+        again = paged_int8_decode_attention(*args)
+        torch.cuda.synchronize()
+        want, step = paged_int8_decode_attention_plain(*args,
+                                                       with_step=True)
+        err = (got - want).abs()
+        # the kernel's f32 exp and sums may differ from torch's in the
+        # last bit, so a requantized p on a .5 tie may round the other
+        # way: allow two such units of any page, plus f32 noise
+        tol = 2 * step + 1e-5 * want.abs().max()
+        ok = bool((err <= tol).all()) and bool(torch.isfinite(got).all())
+        if 0 in lengths:                        # uniform p, not 0
+            ok &= bool(got[lengths.index(0)].abs().max() > 0)
+        bitwise = torch.equal(got, again)
+        max_err = err.max().item()
+        worst = max(worst, max_err)
+        units = (err / step).max().item()
+        ms = timer(lambda: paged_int8_decode_attention(*args))
+        warm_ms = timer(lambda: paged_int8_decode_attention(*args),
+                        flush=False)
+        plain_ms = timer(lambda: paged_int8_decode_attention_plain(*args))
+        b, h, d = len(lengths), args[0].shape[1], args[0].shape[3]
+        pages = [-(-n // PAGE) if n else np_ for n in lengths]
+        c = paged_plan(b, h, np_, torch.cuda.get_device_properties(0)
+                       .multi_processor_count)
+        kv_bytes = sum(pages) * h * 2 * PAGE * (d + 4)
+        bnd = bound(kv_bytes + 2 * b * h * d * 4 + args[5].numel() * 4
+                    + b * 4, 4 * sum(lengths) * h * d, H100_INT8_OPS)
+        if label == 'chip_smoke':
+            result = (ms, plain_ms, bnd)
+        ref_max = want.abs().max().item()
+        print(f'paged_int8_decode_attention B={b} H={h} D={d}, {label} '
+              f'lengths {lengths} over {np_}-page tables and a '
+              f'{PAGED_POOL_PAGES}-page pool: pages read {pages}, C={c}, '
+              f'{b * h * c} CTAs; max_abs_err {max_err:.3e}, rel '
+              f'{max_err / ref_max:.3e} of max|plain| {ref_max:.3e}, '
+              f'{units:.3f} p8 units (tol 2 units + 1e-5*max|plain|), '
+              f'{"frozen row finite and uniform, " if 0 in lengths else ""}'
+              f'two calls bitwise equal {bitwise} '
+              f'{"ok" if ok and bitwise else "FAIL"}; kernel '
+              f'{ms:.4f} ms (L2 flushed), {warm_ms:.4f} ms (not flushed), '
+              f'plain {plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), '
+              f'{100 * bnd[0] / ms:.1f} % of the bound, '
+              f'{kv_bytes / ms / 1e6:.1f} GB/s KV [{card}]')
+        if not (ok and bitwise):
+            fail(f'paged_int8_decode_attention disagrees with its plain '
+                 f'version or with itself at {label} lengths')
+    return (worst, *result)
 
 
 def check_int4_paged_path(torch, seed: int, card: str):
@@ -2352,9 +2465,7 @@ def serve_full_width(torch, np, seed: int, card: str):
           f'{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated')
     n_layers = cfg.llm.num_layers
     vocab = cfg.vocab_size
-    prompts = ('Locate the dog on the left in the image.',
-               'What is in this picture? Give boxes for each object.',
-               'Find the red car.')
+    prompts = SERVED_PROMPTS
     int8_matmul.launches = 0
     int8_matmul.prefill_launches = 0
     int8_decode_attention.launches = 0
@@ -2362,6 +2473,16 @@ def serve_full_width(torch, np, seed: int, card: str):
     def counts():
         return (int8_matmul.launches, int8_matmul.prefill_launches,
                 int8_decode_attention.launches)
+    # the decode attention's mask bias of the last decode forward (the
+    # slots its kernel reads), kept by reference: no copy, no sync
+    import groma_tpu_torch.models.llama_quant as llama_quant
+    last_bias = []
+
+    def recording(q, k8, ks, v8, vs, mask_bias):
+        if not last_bias or last_bias[-1] is not mask_bias:
+            last_bias[:] = [mask_bias]
+        return int8_decode_attention(q, k8, ks, v8, vs, mask_bias)
+    llama_quant.int8_decode_attention = recording
     for i, prompt in enumerate(prompts):
         image = random_image(np, seed + 1 + i, cfg.perceiver.image_size)
         request = {'image': image, 'prompt': prompt,
@@ -2404,13 +2525,19 @@ def serve_full_width(torch, np, seed: int, card: str):
             problems.append('malformed boxes in the answer')
         if problems:
             fail(f'request {i}: ' + '; '.join(problems))
+        kept = (_read_rows(last_bias[0]) if last_bias and f_fwd
+                else 'no decode forward')
+        last_bias.clear()
         print(f'request {i}: error_code 0, {toks.shape[1]} tokens, '
               f'{len(final["boxes"])} boxes in the answer, '
               f'{int(mask.sum())} regions kept; prefill '
               f'{stats["prefill_ms"]:.1f} ms, decode '
               f'{stats["decode_ms_per_token"]:.2f} ms/token over '
               f'{f_fwd} forwards; launches int8_matmul {mm} (prefill tile '
-              f'{pre}), decode attention {att} [{card}]')
+              f'{pre}), decode attention {att}; slots the last decode '
+              f'forward\'s attention read: {kept} of '
+              f'{worker.generator.max_len} [{card}]')
+    llama_quant.int8_decode_attention = int8_decode_attention
     launched = counts()
     # warm: the same image and prompt, a prefill alone (one new token)
     # and a prefill with decode forwards, each under torch.profiler; the
@@ -2592,11 +2719,15 @@ def engine_device_per_step(torch, np, worker, card: str):
     engine, cfg = worker.engine, worker.cfg
     burst = engine._decode_burst
     profiled = []                   # (steps, {kernel: device ms})
+    lengths = []                    # each profiled burst's first lengths
 
     def profiled_burst():
         if len(profiled) >= ENGINE_PROFILED_BURSTS or not engine._active.all():
             return burst()
         steps0 = engine._n_steps
+        live = torch.as_tensor(engine._active, device=engine._pos.device) \
+            & ~engine._done
+        lengths.append(torch.where(live, engine._pos + 1, 0).tolist())
         torch.cuda.synchronize()
         with tprofile(activities=[ProfilerActivity.CPU,
                                   ProfilerActivity.CUDA]) as prof:
@@ -2637,7 +2768,8 @@ def engine_device_per_step(torch, np, worker, card: str):
     print(f'engine, {len(profiled)} bursts ({n} decode steps) with all '
           f'{engine.max_slots} slots live under torch.profiler: '
           f'{sum(by_name.values()) / n:.3f} ms of device time a step; the '
-          f'longest kernels, ms a step: {top} [{card}]')
+          f'longest kernels, ms a step: {top}; the slots\' kv lengths at '
+          f'each burst\'s first step: {lengths} [{card}]')
 
 
 def main():

@@ -52,12 +52,13 @@ __device__ __forceinline__ int sbyte(uint32_t w, int i) {
   return (int)(int8_t)(uint8_t)(w >> (8 * i));
 }
 
-// One warp quantizes a 128-dim q row: lane l packs dims 4l..4l+3 of
-// rint(q / qs) into one word of q8s; returns qs = max|q| / 127 (1 for a
-// zero row) to every lane.  IEEE division, rintf rounds half to even.
-__device__ __forceinline__ float quantize_q_row(const float* q, uint32_t* q8s) {
+// One warp quantizes a 128-dim q row whose dims 4l..4l+3 lane l holds in
+// `qv`: lane l packs dims 4l..4l+3 of rint(q / qs) into one word of q8s;
+// returns qs = max|q| / 127 (1 for a zero row) to every lane.  IEEE
+// division, rintf rounds half to even.
+__device__ __forceinline__ float quantize_q_vec(const float4 qv,
+                                                uint32_t* q8s) {
   const int lane = threadIdx.x & 31;
-  const float4 qv = reinterpret_cast<const float4*>(q)[lane];
   const float a = warp_max(fmaxf(fmaxf(fabsf(qv.x), fabsf(qv.y)),
                                  fmaxf(fabsf(qv.z), fabsf(qv.w))));
   const float qs = a > 0.0f ? a / 127.0f : 1.0f;
@@ -67,6 +68,12 @@ __device__ __forceinline__ float quantize_q_row(const float* q, uint32_t* q8s) {
   const uint32_t b3 = (uint32_t)((int)rintf(qv.w / qs) & 0xff);
   q8s[lane] = b0 | (b1 << 8) | (b2 << 16) | (b3 << 24);
   return qs;
+}
+
+// quantize_q_vec of the row at q (one warp).
+__device__ __forceinline__ float quantize_q_row(const float* q, uint32_t* q8s) {
+  return quantize_q_vec(reinterpret_cast<const float4*>(q)[threadIdx.x & 31],
+                        q8s);
 }
 
 // dp4a of one 16-byte int8 key slice against the matching q8 slice.

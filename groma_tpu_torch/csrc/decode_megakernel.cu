@@ -428,8 +428,10 @@ __device__ __forceinline__ const uint8_t* take(Ring& r) {
   return r.buf + s * kStageBytes;
 }
 
-// This warp is done with stage r.it.
+// This warp is done with stage r.it: its reads are ordered before the
+// stage's bulk-copy refill, then lane 0 arrives.
 __device__ __forceinline__ void release(Ring& r) {
+  sm90::fence_proxy_async();
   __syncwarp();
   if ((threadIdx.x & 31) == 0) sm90::mbar_arrive(&r.empty[r.it % kStages]);
   ++r.it;
@@ -810,6 +812,7 @@ __device__ __forceinline__ const uint8_t* take_own(const Pair& pr, int g,
 }
 
 __device__ __forceinline__ void release_own(Ring& r) {
+  sm90::fence_proxy_async();
   __syncwarp();
   if ((threadIdx.x & 31) == 0)
     asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0], %1;"

@@ -250,6 +250,8 @@ int4_decode_kernel(const __grid_constant__ CUtensorMap tm_w,
       int4mma::fold(acc, part_hi,
                     *reinterpret_cast<const float4*>(sc + kTileCols),
                     *reinterpret_cast<const float4*>(sc + kTileCols + 32));
+    // the stage's reads before its TMA refill
+    sm90::fence_proxy_async();
     __syncwarp();
     if (lane == 0) sm90::mbar_arrive(&empty[s]);
   }
@@ -480,6 +482,8 @@ int4_prefill_kernel(const __grid_constant__ CUtensorMap tm_w,
         for (int i = 0; i < 64; ++i)
           acc[i] = fmaf(part[i], (i & 2) ? sc.y : sc.x, acc[i]);
       }
+      // the ldmatrix and scale reads before the stage's TMA refill
+      sm90::fence_proxy_async();
       __syncwarp();
       if (lane == 0) sm90::mbar_arrive(&empty[s]);
     }

@@ -2,12 +2,15 @@
 // or mma.sync from TMA through mbarrier rings: shared-memory barriers, 2-d
 // and 3-d TMA tile loads and 1-d bulk copies, wgmma shared-memory
 // descriptors and products, warpgroup register rebalancing, named
-// barriers, and the f32 reduce-add into device memory;
-// on the host, the tensor maps that the TMA loads read.  Users:
+// barriers, thread-block clusters (rank, barrier, stores into another
+// CTA's shared memory counted on its mbarrier), and the f32 reduce-add
+// into device memory; on the host, the tensor maps that the TMA loads read
+// and the cluster launch.  Users:
 // flash_attention_fwd.cu, flash_attention_bwd.cu (3-d bf16 maps),
 // int4_matmul.cu (2-d maps of the packed weights and the scales),
-// int8_matmul.cu (2-d maps of the int8 weights, 3-d maps of x) and
-// decode_megakernel.cu (2-d maps of the packed weights, 1-d bulk copies).
+// int8_matmul.cu (2-d maps of the int8 weights, 3-d maps of x),
+// decode_megakernel.cu (2-d maps of the packed weights, 1-d bulk copies),
+// decode_attention.cu and paged_attention.cu (1-d bulk copies, clusters).
 //
 // Layout conventions (PTX ISA, "Matrix Descriptor" and "Shared Memory
 // Matrix Layout"), for bf16 tiles that TMA writes with the 128-byte swizzle:
@@ -25,6 +28,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
 
 namespace sm90 {
 
@@ -144,6 +149,53 @@ __device__ __forceinline__ void prefetch_map(const void* map) {
 // releases the stage (without the fence a refill can overtake the reads).
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// -------------------------------------------------------------- clusters
+// This CTA's rank in its thread-block cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The two halves of a cluster barrier: arrive (after this CTA's
+// barriers are initialized), wait before the first access to another
+// CTA's shared memory, so that every CTA of the cluster is known to run
+// with its barriers ready.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The shared::cluster address of `p` (this CTA's shared memory) in the
+// CTA of rank `rank` (distributed shared memory).
+__device__ __forceinline__ uint32_t map_rank(const void* p, uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a) : "r"(smem_u32(p)), "r"(rank));
+  return a;
+}
+
+// A 4-byte store into another CTA's shared memory (addresses from
+// map_rank) that counts its bytes on that CTA's mbarrier `bar`: the owner
+// waits on `bar`, whose expected bytes it set itself (before or after the
+// stores arrive), and then reads the value.
+__device__ __forceinline__ void st_async_f32(uint32_t addr, float v,
+                                             uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 "
+               "[%0], %1, [%2];\n" :: "r"(addr), "f"(v), "r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_async_s32(uint32_t addr, int v,
+                                             uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.s32 "
+               "[%0], %1, [%2];\n" :: "r"(addr), "r"(v), "r"(bar)
+               : "memory");
 }
 
 // ---------------------------------------------------------------- wgmma
@@ -412,6 +464,64 @@ __device__ __forceinline__ float ex2(float x) {
 }
 
 // ------------------------------------------------------------------ host
+// Launch `kernel` as `grid` CTAs of `threads` threads in clusters of
+// `cluster` (grid a multiple of it) with `smem` bytes of dynamic shared
+// memory, at most `max_smem`, the most any launch of the kernel asks.  The
+// first launch of each (device, kernel, cluster, smem) raises the kernel's
+// shared-memory limit to `max_smem` and asks the occupancy calculator
+// whether one such cluster fits an SM group at all: if not, an error is
+// returned rather than a launch that would never start.  Returns
+// cudaGetLastError() after the launch (0 = launched).
+template <typename... Exp, typename... Act>
+inline int launch_cluster(void (*kernel)(Exp...), int grid, int threads,
+                          size_t smem, size_t max_smem, int cluster,
+                          cudaStream_t stream, Act... args) {
+  if (cluster < 1 || cluster > 8 || grid % cluster != 0 || smem > max_smem)
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  struct Checked { const void* fn; int dev, cluster; size_t smem; };
+  static Checked checked[64];
+  static int n_checked = 0;
+  static std::mutex mu;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  bool known = false;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    for (int i = 0; i < n_checked && !known; ++i)
+      known = checked[i].fn == fn && checked[i].dev == dev
+              && checked[i].cluster == cluster && checked[i].smem == smem;
+  }
+  if (!known) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)max_smem);
+    if (e != cudaSuccess) return (int)e;
+    int clusters = 0;
+    e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (e != cudaSuccess) return (int)e;
+    if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+    std::lock_guard<std::mutex> lock(mu);
+    if (n_checked < 64) checked[n_checked++] = {fn, dev, cluster, smem};
+  }
+  e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
                                 const cuuint32_t*, const cuuint32_t*,

@@ -77,7 +77,7 @@ def _declare(lib):
     lib.groma_int8_matmul.argtypes = [p] * 6 + [i] * 5 + [p]
     lib.groma_int8_matmul.restype = i
     lib.groma_int8_decode_attention.argtypes = [p, p, p, p, p, p, p,
-                                                i, i, i, i, p]
+                                                i, i, i, i, i, i, p]
     lib.groma_int8_decode_attention.restype = i
     lib.groma_flash_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, i, p]
     lib.groma_flash_fwd.restype = i
@@ -87,7 +87,7 @@ def _declare(lib):
     lib.groma_int4_matmul.argtypes = [p] * 6 + [i] * 5 + [p]
     lib.groma_int4_matmul.restype = i
     lib.groma_paged_attention.argtypes = [p, p, p, p, p, p, p, p,
-                                          i, i, i, i, p]
+                                          i, i, i, i, i, p]
     lib.groma_paged_attention.restype = i
     lib.groma_decode_megakernel.argtypes = [p] * 18 + [i] * 7 + [f, p, p]
     lib.groma_decode_megakernel.restype = i

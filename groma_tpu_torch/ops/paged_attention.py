@@ -6,7 +6,9 @@ per layer, (P, H, PAGE, D) int8 with (P, H, PAGE) f32 scales, and a table
 row of page ids whose unused tail repeats the last used id.  Page 0 is the
 trash page: the allocator never hands it out, and frozen rows write there.
 ``paged_int8_decode_attention`` replaces the TPU kernel ``_kernel`` with the
-hand-written CUDA kernel in ``csrc/paged_attention.cu``.
+hand-written CUDA kernel in ``csrc/paged_attention.cu``: one (slot, head)
+split over a thread-block cluster, each CTA an online softmax over a run of
+the row's pages, the runs merged in rank order.
 
 * ``paged_int8_decode_attention_plain`` is the plain PyTorch version, on any
   device, in the TPU kernel's order: q quantized per (b, h), then page by
@@ -16,6 +18,8 @@ hand-written CUDA kernel in ``csrc/paged_attention.cu``.
   -1e30, so each page adds uniform p (the TPU kernel's result, not 0).
 * ``paged_attention_reference`` is the JAX package's oracle: gather each
   slot's pages into a contiguous cache, then the whole-row int8 chain.
+* ``paged_plan`` (the cluster's size) and ``page_runs`` (each CTA's pages)
+  are the kernel's host-side schedule, in plain Python for the tests.
 * ``paged_int8_decode_attention`` takes the plain version only for CPU
   tensors; on CUDA tensors it launches the kernel or raises.
   ``paged_int8_decode_attention.launches`` counts kernel launches.
@@ -30,10 +34,31 @@ from groma_tpu_torch.ops.quant import true_div
 PAGE = 128
 HEAD_DIM = 128
 NEG = -1e30
+MAX_CLUSTER = 8         # the portable cluster size: the kernel's limit
+PLAN_CLUSTER = 4        # the plan's: larger clusters are placed worse
+PAGED_CTAS_PER_SM = 2   # the kernel's ring of 3 pages: 101 KB a CTA
 
 
-def _walk_pages(q, kpool, ks, vpool, vs, table, lengths):
-    """The TPU kernel's page loop -> (out (B, H, 1, D), p8 step (B, H, 1, 1))."""
+def paged_plan(b: int, h: int, np_: int, sms: int) -> int:
+    """The CTAs of one (slot, head)'s cluster on a card with ``sms`` SMs:
+    as many as fill about one wave of ``PAGED_CTAS_PER_SM`` a SM, at least
+    1 and at most ``PLAN_CLUSTER`` or the table's NP pages."""
+    return max(1, min(PLAN_CLUSTER, np_,
+                      PAGED_CTAS_PER_SM * sms // (b * h)))
+
+
+def page_runs(n: int, c: int) -> list:
+    """Each rank's [start, end) of a row's ``n`` pages in a cluster of
+    ``c``: contiguous runs, in the kernel's split (a rank may get none)."""
+    return [(r * n // c, (r + 1) * n // c) for r in range(c)]
+
+
+def _page_loop(q, kpool, ks, vpool, vs, table, lengths):
+    """The TPU kernel's page loop over every column of ``table`` -> (m, l,
+    acc, units): the running max (B, H, 1), denominator (B, H, 1) and
+    accumulator (B, H, D) after the last page, and per page its r and the
+    running max after it.  Positions are 128 p + offset against
+    ``lengths``."""
     b, h, _, d = q.shape
     qf = q[:, :, 0].to(torch.float32)                            # (B, H, D)
     amax = qf.abs().amax(-1, keepdim=True)
@@ -65,6 +90,12 @@ def _walk_pages(q, kpool, ks, vpool, vs, table, lengths):
                          vpool[pid].double()).float()
         acc = acc * corr + o * r
         units.append((r, m_new))
+    return m, l, acc, units
+
+
+def _walk_pages(q, kpool, ks, vpool, vs, table, lengths):
+    """The TPU kernel's page loop -> (out (B, H, 1, D), p8 step (B, H, 1, 1))."""
+    m, l, acc, units = _page_loop(q, kpool, ks, vpool, vs, table, lengths)
     denom = torch.clamp(l, min=1e-30)
     # a p8 unit of page p moves the output by at most 127 r_p, carried to
     # the end by exp(m_p - m_final), over the final denominator
@@ -104,10 +135,13 @@ def paged_attention_reference(q, kpool, ks, vpool, vs, table, lengths):
                                  gather(vs), bias)
 
 
-def paged_int8_decode_attention(q, kpool, ks, vpool, vs, table, lengths):
+def paged_int8_decode_attention(q, kpool, ks, vpool, vs, table, lengths,
+                                cluster=None):
     """Same contract as the plain version.  CUDA tensors: q f32 or bf16
     (cast to f32 as the TPU kernel does), D = 128, table and lengths int32,
-    all contiguous; table ids must lie in [0, P)."""
+    all contiguous, pools and scales 16-byte aligned; table ids must lie in
+    [0, P).  ``cluster``: the CTAs of a (slot, head), 1..8 (default
+    ``paged_plan``'s)."""
     if q.device.type == 'cpu':
         return paged_int8_decode_attention_plain(q, kpool, ks, vpool, vs,
                                                  table, lengths)
@@ -140,13 +174,22 @@ def paged_int8_decode_attention(q, kpool, ks, vpool, vs, table, lengths):
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError('paged_int8_decode_attention: the kernel takes '
                          'contiguous tensors')
+    if any(t.data_ptr() % 16 for t in (kpool, ks, vpool, vs)):
+        raise ValueError('paged_int8_decode_attention: pools and scales '
+                         'must be 16-byte aligned (bulk copies)')
     from groma_tpu_torch.ops.cuda_lib import check, library, stream_ptr
+    c = cluster or paged_plan(
+        b, h, np_, torch.cuda.get_device_properties(q.device)
+        .multi_processor_count)
+    if not 1 <= c <= MAX_CLUSTER:
+        raise ValueError(f'paged_int8_decode_attention: cluster {c} not in '
+                         f'1..{MAX_CLUSTER}')
     qf = q.to(torch.float32).contiguous()
     out = torch.empty((b, h, 1, d), dtype=torch.float32, device=q.device)
     status = library().groma_paged_attention(
         qf.data_ptr(), kpool.data_ptr(), ks.data_ptr(), vpool.data_ptr(),
         vs.data_ptr(), table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        b, h, np_, d, stream_ptr(q))
+        b, h, np_, d, c, stream_ptr(q))
     check(status, 'paged_int8_decode_attention')
     paged_int8_decode_attention.launches += 1
     return out

@@ -43,6 +43,26 @@ DEFAULT_MAX_NEW_TOKENS = 64
 ENGINE_MAX_NEW_TOKENS = 256
 
 
+def expand_request(tokenizer, spec, request: dict) -> dict:
+    """A request's prompt (and ``history``) in its conversation template,
+    tokenized and expanded to the model's fixed stream layout
+    (``expand_template``): input_ids, labels, region_slot, valid."""
+    from groma_tpu_torch.data.conversation import conv_templates
+    from groma_tpu_torch.data.datasets.base import intro_conversation
+    from groma_tpu_torch.data.tokenization import expand_template
+
+    conv = conv_templates.get(request.get('conv_temp', 'llava'))
+    messages = intro_conversation(conv)
+    for turn in request.get('history', []):
+        messages.append((conv.roles[0], turn[0]))
+        messages.append((conv.roles[1], turn[1]))
+    messages.append((conv.roles[0], request['prompt']))
+    messages.append((conv.roles[1], None))
+    ids = tokenizer.encode(conv.get_prompt(messages))
+    return expand_template(ids, None, tokenizer.sp, spec.num_image_tokens,
+                           spec.max_region_num, spec.max_seq_len)
+
+
 class ModelWorker:
     def __init__(self, model_dir: str, tokenizer_path=None,
                  worker_name: str = 'groma-worker',
@@ -147,27 +167,13 @@ class ModelWorker:
         truncated`` when the engine's page pool ran dry).  Decoding is
         greedy, or sampled per request through the engine
         (``temperature``)."""
-        from groma_tpu_torch.data.conversation import conv_templates
-        from groma_tpu_torch.data.datasets.base import intro_conversation
-        from groma_tpu_torch.data.tokenization import expand_template
         from groma_tpu_torch.eval.generate_quant import parse_region_tokens
 
         with self.semaphore:
             self._queued(1)
             try:
                 image = np.asarray(request['image'], np.float32)
-                conv = conv_templates.get(request.get('conv_temp', 'llava'))
-                messages = intro_conversation(conv)
-                for turn in request.get('history', []):
-                    messages.append((conv.roles[0], turn[0]))
-                    messages.append((conv.roles[1], turn[1]))
-                messages.append((conv.roles[0], request['prompt']))
-                messages.append((conv.roles[1], None))
-                ids = self.tokenizer.encode(conv.get_prompt(messages))
-                t = expand_template(ids, None, self.tokenizer.sp,
-                                    self.spec.num_image_tokens,
-                                    self.spec.max_region_num,
-                                    self.spec.max_seq_len)
+                t = expand_request(self.tokenizer, self.spec, request)
                 max_new = int(request.get('max_new_tokens',
                                           DEFAULT_MAX_NEW_TOKENS))
                 chunk = int(request.get('stream_chunk', 16))

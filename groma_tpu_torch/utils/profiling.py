@@ -41,13 +41,15 @@ class Timer:
         self.flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8,
                                  device=device)
 
-    def __call__(self, fn, iters: int = 10) -> float:
-        """Median milliseconds per call of ``fn`` (warmed up once first)."""
+    def __call__(self, fn, iters: int = 10, flush: bool = True) -> float:
+        """Median milliseconds per call of ``fn`` (warmed up once first);
+        ``flush=False`` leaves in the L2 cache what the last call left."""
         fn()
         torch.cuda.synchronize()
         times = []
         for _ in range(iters):
-            self.flush.zero_()
+            if flush:
+                self.flush.zero_()
             torch.cuda._sleep(2_000_000)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)

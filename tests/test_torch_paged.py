@@ -9,6 +9,12 @@ Tolerances:
   round the other way);
 * against the JAX oracle (gather + whole-row requantization): 2e-2, as
   ``tests/test_paged_attention.py`` holds the kernel;
+* the card kernel's cluster split emulated (each CTA an online softmax
+  over a contiguous run of pages, the runs merged by their maxima in rank
+  order): against the plain version and against the TPU kernel body in
+  the Pallas interpreter, two requantized-p units of any page plus 1e-5 x
+  max|out| (a page's p8 is the same under a uniform rescale of its p, up
+  to f32 rounding);
 * pool bytes and scales after insertion: equal; after a decode write:
   scales 1e-5 and int8 values one unit (k and v come out of f32 products
   summed in another order, which can move a value across a rounding tie);
@@ -37,8 +43,9 @@ from groma_tpu_torch.models.llama_quant import (make_quant_kv_cache,
                                                 quant_llama_forward,
                                                 quantize_llama_params)
 from groma_tpu_torch.ops.paged_attention import (
-    PAGE, insert_prefill_pages, make_kv_page_pool, paged_attention_reference,
-    paged_int8_decode_attention, paged_int8_decode_attention_plain)
+    PAGE, PLAN_CLUSTER, _page_loop, insert_prefill_pages, make_kv_page_pool,
+    page_runs, paged_attention_reference, paged_int8_decode_attention,
+    paged_int8_decode_attention_plain, paged_plan)
 
 torch.set_num_threads(2)
 
@@ -253,3 +260,64 @@ def test_paged_decode_matches_jax(rng, monkeypatch):
     np.testing.assert_allclose(th.numpy(), np.asarray(jh), atol=1e-4,
                                rtol=1e-4)
     _assert_written_kv_close(tp, jp, ('k', 'v', 'k_scale', 'v_scale'))
+
+
+def _cluster_runs(q, kp, ks, vp, vs, table, lengths, c):
+    """The card kernel's split: for each row, the CTA of rank r runs the
+    page loop over its run [r n / c, (r + 1) n / c) of the row's n pages
+    (all NP for a frozen row), a CTA without pages contributes m = -1e30,
+    l = 0, acc = 0, and the runs merge in rank order by their maxima."""
+    b, h, _, d = q.shape
+    out = torch.zeros((b, h, 1, d))
+    for bi in range(b):
+        length = int(lengths[bi])
+        n = min(table.shape[1], -(-length // PAGE)) if length else \
+            table.shape[1]
+        runs = []
+        for lo, hi in page_runs(n, c):
+            if lo == hi:
+                runs.append((torch.full((h, 1), -1e30), torch.zeros((h, 1)),
+                             torch.zeros((h, d))))
+                continue
+            # positions of the run count from its first page
+            sub_len = torch.tensor([max(length - lo * PAGE, 0)])
+            m, l, acc, _ = _page_loop(q[bi:bi + 1], kp, ks, vp, vs,
+                                      table[bi:bi + 1, lo:hi], sub_len)
+            runs.append((m[0], l[0], acc[0]))
+        m_star = torch.stack([m for m, _, _ in runs]).amax(0)
+        acc = sum(a * torch.exp(m - m_star) for m, _, a in runs)
+        l = sum(l_ * torch.exp(m - m_star) for m, l_, _ in runs)
+        out[bi, :, 0] = acc / torch.clamp(l, min=1e-30)
+    return out
+
+
+@pytest.mark.parametrize('c', [1, 2, 3, 4])
+def test_paged_cluster_runs_match_plain_and_tpu_kernel(rng, c):
+    """Rows over 3, 2 and 1 pages and a frozen row (length 0, uniform p
+    over all NP pages): at c = 2..4 some rows have fewer pages than CTAs."""
+    args = _paged_inputs(rng)
+    targs = [_t(a) for a in args]
+    want, step = paged_int8_decode_attention_plain(*targs, with_step=True)
+    got = _cluster_runs(*targs, c)
+    assert torch.isfinite(got).all() and got[3].abs().max() > 0
+    tol = 2 * step + 1e-5 * want.abs().max()
+    assert ((got - want).abs() <= tol).all(), \
+        f'max error {((got - want).abs() / step).max():.2f} p8 units'
+    tpu = _t(_interpreted_paged(*[jnp.asarray(a) for a in args]))
+    assert ((got - tpu).abs() <= 2 * step + 1e-5 * tpu.abs().max()).all()
+
+
+@pytest.mark.parametrize('sms', [132, 114, 78])
+@pytest.mark.parametrize('b,np_', [(8, 19), (8, 20), (1, 19), (4, 5),
+                                   (8, 1)])
+def test_paged_plan_covers_each_page_once(b, np_, sms):
+    """At the 7B shapes (H = 32, 128-token pages, the engine's 8 slots and
+    19-page tables): a cluster of 1..PLAN_CLUSTER CTAs and at most NP, and
+    for every row length the runs cover its pages once, in order."""
+    c = paged_plan(b, 32, np_, sms)
+    assert 1 <= c <= min(PLAN_CLUSTER, np_)
+    for n in range(np_ + 1):
+        runs = page_runs(n, c)
+        assert len(runs) == c
+        assert [p for lo, hi in runs for p in range(lo, hi)] == \
+            list(range(n))
