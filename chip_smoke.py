@@ -94,7 +94,23 @@ Phases, each printed before the last line:
     read; then one warm prefill alone and the same request
     with 9 new tokens under torch.profiler: the prefill's device time by
     kernel, and the device time a decode token;
- 6. the production server at full width (--engine --engine-slots 8
+ 6. the unquantized path, the default of every JAX entry point
+    (--quant_type none): first the LLaMA forward at full width and two
+    layers, bf16 weights and cache, on the card against the CPU (a prefill,
+    scalar-index and per-row decode steps); then at full Groma-7B width
+    with random weights from --seed (the LLM trunk stored in bf16, a bf16
+    KV cache of max_seq_len + 64 slots) the port's default ModelWorker
+    answers 3 requests through Generator, the third sampled at
+    UNQUANT_TEMPERATURE, each checked, none launching a kernel of the port
+    (as JAX's default launches no Pallas kernel); Generator(use_flash=True)
+    on the same weights runs one prefill with exactly one bidirectional
+    flash launch per ViT layer and one causal one per LLM layer, its first
+    logits against the dense prefill's; the prefill's device time by kernel
+    (dense and flash) and the device time a decode token under
+    torch.profiler; then, the model freed, the --engine worker (qp=None,
+    UNQUANT_ENGINE_SLOTS slots) answers as many concurrent requests:
+    every one finished, aggregate tok/s, TTFT, ms per decode step;
+ 7. the production server at full width (--engine --engine-slots 8
     --quant_type int4 --kv-bits 8 --paged-kv, max_len 2432): the port's
     ModelWorker answers ENGINE_REQUESTS requests sent from as many threads
     at once, each checked; then every request finished, none truncated,
@@ -105,7 +121,7 @@ Phases, each printed before the last line:
     more request per slot, ENGINE_PROFILED_BURSTS of whose bursts with
     every slot live run under torch.profiler (device time a step, the
     slots' kv lengths);
- 7. the decode benchmark's path (bench_decode_quant.measure_megakernel) at
+ 8. the decode benchmark's path (bench_decode_quant.measure_megakernel) at
     full depth: the random full-width Vicuna-7B int4 tree from --seed,
     B=8, a 512-token random prompt prefilled per layer into a 1024-slot
     int8 cache (timed; its 4L layer matmuls at M=4096 through the prefill
@@ -121,13 +137,13 @@ Phases, each printed before the last line:
     fails), and one launch with %globaltimer stamps: how its time splits
     among the phases' work, the idle tails of uneven rounds and the grid
     barriers, and the count of grid barriers a step.
- 8. DINOv2-L at full width (24 layers, 448², B=2, bf16 on f32 master
+ 9. DINOv2-L at full width (24 layers, 448², B=2, bf16 on f32 master
     weights) forward and backward through the port's Dinov2Model with
     use_flash=True, the path of the bidirectional backward (#6): exactly
     24 launches of its forward and of its backward, and the parameter
     gradient of a fixed scalar against the same model with use_flash=False
     on the card;
- 9. the H100 probes #10-#12 (groma_tpu_torch/benchmarks; each kernel
+ 10. the H100 probes #10-#12 (groma_tpu_torch/benchmarks; each kernel
     variant was held against its plain version in phase 2): each probe's
     entry point as `python -m groma_tpu_torch.benchmarks.<name>` runs it,
     printing the probe's table.
@@ -193,6 +209,20 @@ ENGINE_REQUESTS = 12       # through 8 slots: 4 wait and join mid-decode
 ENGINE_MAX_NEW = 32
 ENGINE_PROFILED_BURSTS = 2  # of 8 steps each, every slot live
 MAX_NEW_TOKENS = 32        # the 2112-slot cache leaves 64 after prefill
+# the unquantized path (--quant_type none): the third request is sampled.
+# Generator(use_flash=True) against the dense Generator: the dense ViT
+# rounds its scores to bf16 where the flash kernel keeps f32, and the
+# region pool is ordered by scores that move with that, so the two streams
+# differ (measured on an H100: first logits 4.2e-2 and 4.3e-2 apart, 96 %
+# of the pool's slots reordered).  The LLM alone, flash against dense on
+# the flash path's own stream: p is rounded to bf16 before its sum in the
+# kernel and after it in the dense path, and 32 layers of random weights
+# carry that (measured 2.9e-2).  Both are drift limits over 32 layers, as
+# MEGAKERNEL_PATH_TOL is; #4 itself is held tightly in phase 2.
+UNQUANT_TEMPERATURE = 0.7
+UNQUANT_FLASH_TOL = 0.1       # first logits, relative to max|logits|
+UNQUANT_LLM_FLASH_TOL = 0.1   # LLM hidden, relative to max|hidden|
+UNQUANT_ENGINE_SLOTS = 4
 TRAIN_BATCH = 2            # vl_pretrain.sh's 16 does not fit one card
 TRAIN_STEPS = 4            # >= 2: the warmup-cosine schedule's lr is 0 first
 # stage 3, card (bf16 activations, the kernels) against CPU (f32, plain):
@@ -2503,26 +2533,13 @@ def serve_full_width(torch, np, seed: int, card: str):
         want_mm = (4 * n_layers + 1) * (1 + f_fwd)
         want_att = f_fwd * n_layers
         toks = stats['tokens']
-        problems = []
+        mask = stats['selected_mask'][0]
+        problems = _answer_problems(np, frames, stats, vocab)
         if (mm, pre, att) != (want_mm, want_pre, want_att):
             problems.append(f'launches int8_matmul {mm} (want {want_mm}), '
                             f'of them the prefill tile {pre} (want '
                             f'{want_pre}), decode attention {att} (want '
                             f'{want_att})')
-        if not ((toks >= 0) & (toks < vocab)).all():
-            problems.append('token out of vocabulary range')
-        if not stats['logits_finite']:
-            problems.append('non-finite logits')
-        boxes = stats['selected_boxes'][0]
-        mask = stats['selected_mask'][0]
-        kept = boxes[mask]
-        if not mask.any() or not np.isfinite(boxes).all() or not (
-                (kept[:, 2:] > 0).all() and (kept >= 0).all()
-                and (kept <= 1).all()):
-            problems.append('malformed selected boxes')
-        if any(not (np.isfinite(b).all() and len(b) == 4)
-               for b in final['boxes']):
-            problems.append('malformed boxes in the answer')
         if problems:
             fail(f'request {i}: ' + '; '.join(problems))
         kept = (_read_rows(last_bias[0]) if last_bias and f_fwd
@@ -2561,6 +2578,289 @@ def serve_full_width(torch, np, seed: int, card: str):
     print(f'served path, the same request with 9 new tokens: '
           f'{per_token} [{card}]')
     return launched
+
+
+def check_bf16_llm_path(torch, seed: int, card: str):
+    """The unquantized LLaMA path at full width and two layers, bf16
+    weights and KV cache, on the card against the same weights and inputs
+    on the CPU: a prefill, then scalar-index decode steps, then
+    vector-index steps at per-row indices (the engine's)."""
+    import copy
+    from groma_tpu_torch.models.llama import (LlamaConfig, LlamaModel,
+                                              make_kv_cache)
+    cfg = LlamaConfig(num_layers=2)           # Vicuna-7B width, bf16
+    torch.manual_seed(seed)
+    with torch.no_grad():
+        llm = LlamaModel(cfg, device='cuda', linear_dtype=torch.bfloat16)
+    b, s, steps, max_len = 2, 128, 4, 144
+    gen = torch.Generator().manual_seed(seed)
+    emb = torch.randn((b, s, cfg.hidden_size), generator=gen)
+    valid = torch.ones((b, s), dtype=torch.bool)
+    valid[0, 60:90] = False                   # a pad gap: index != position
+    valid[1, 100:] = False
+    pos = (torch.cumsum(valid.long(), -1) - 1).clamp(min=0)
+    nxt = pos[:, -1:] + 1
+    steps_in = [torch.randn((b, 1, cfg.hidden_size), generator=gen)
+                for _ in range(2 * steps)]
+
+    def run(model, device):
+        cache = make_kv_cache(cfg, b, max_len, device=device)
+        ones = torch.ones((b, 1), dtype=torch.bool, device=device)
+        h, cache = model(emb.to(device), valid.to(device), pos.to(device),
+                         cache)
+        outs = [h.float().cpu()]
+        for i, x in enumerate(steps_in):
+            if i == steps:       # per-row slots, row 1 two further on
+                cache['index'] = torch.tensor([s + steps, s + steps + 2],
+                                              device=device)
+            h, cache = model(x.to(device), ones, (nxt + i).to(device),
+                             cache)
+            outs.append(h.float().cpu())
+        return outs
+
+    with torch.no_grad():
+        got = run(llm, 'cuda')
+        want = run(copy.deepcopy(llm).to('cpu'), 'cpu')
+    del llm
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        err = (g - w).abs().max().item() / w.abs().max().item()
+        worst = max(worst, err)
+        if not (err <= 3e-2 and torch.isfinite(g).all()):
+            fail(f'bf16 LLaMA path: call {i} (0 the prefill) differs from '
+                 f'the CPU plain path by {err:.3e}')
+    print(f'bf16 LLaMA path, full width, 2 layers, B={b}: prefill {s} '
+          f'tokens + {steps} scalar-index and {steps} per-row decode steps '
+          f'on the card match the CPU plain path within {worst:.3e} x '
+          f'max|hidden| (tol 3e-2) [{card}]')
+
+
+def _answer_problems(np, frames, stats, vocab) -> list:
+    """A request's frames and its generator's ``last_stats`` -> what is
+    wrong with them."""
+    problems = []
+    final = frames[-1]
+    if any(f['error_code'] != 0 for f in frames):
+        problems.append(f'error frame {final}')
+    toks = stats['tokens']
+    if not ((toks >= 0) & (toks < vocab)).all():
+        problems.append('token out of vocabulary range')
+    if not stats['logits_finite']:
+        problems.append('non-finite logits')
+    boxes = stats['selected_boxes'][0]
+    mask = stats['selected_mask'][0]
+    kept = boxes[mask]
+    if not mask.any() or not np.isfinite(boxes).all() or not (
+            (kept[:, 2:] > 0).all() and (kept >= 0).all()
+            and (kept <= 1).all()):
+        problems.append('malformed selected boxes')
+    if any(not (np.isfinite(b).all() and len(b) == 4)
+           for b in final.get('boxes', [])):
+        problems.append('malformed boxes in the answer')
+    return problems
+
+
+def _llm_flash_against_dense(torch, model, args):
+    """The LLM prefill on one grounded stream (vision with the flash
+    kernels), through #4 and through the dense attention -> their largest
+    hidden difference over max|hidden| (the dense one's)."""
+    from groma_tpu_torch.models.groma import _ordinal
+    from groma_tpu_torch.models.llama import make_kv_cache
+    dev = model.llm.model.embed_tokens.weight.device
+    with torch.inference_mode():
+        images, ids, rslot, valid = (torch.as_tensor(a, device=dev)
+                                     for a in args)
+        emb, _, valid, _ = model.prepare_stream(images.float(), ids.long(),
+                                                rslot.long(), valid,
+                                                use_flash=True)
+        pos = _ordinal(valid).clamp(min=0)
+        hidden = [model.llm.model(emb, valid, pos, make_kv_cache(
+            model.cfg.llm, 1, emb.shape[1], device=dev), use_flash)[0]
+            [valid].float() for use_flash in (True, False)]
+    return ((hidden[0] - hidden[1]).abs().max()
+            / hidden[1].abs().max()).item()
+
+
+def serve_unquantized_full_width(torch, np, seed: int, card: str):
+    """The default of every JAX entry point, ``--quant_type none``, at full
+    width: the port's ModelWorker answers 3 requests through the bf16
+    Generator (one sampled), none launching a kernel of the port; one
+    prefill through ``Generator(use_flash=True)`` on the same weights
+    (exactly 24 launches of #3 and 32 of #4) against the dense prefill; the
+    prefill's device time by kernel and a decode token's; then, the model
+    freed, the ``--engine`` worker with 4 slots and 4 concurrent requests.
+    Returns the flash prefill's (#3, #4) launches."""
+    from groma_tpu_torch.eval.generate import Generator
+    from groma_tpu_torch.ops.flash_attention import flash_fwd
+    from groma_tpu_torch.ops.quant import int8_matmul
+    from groma_tpu_torch.serve.worker import ModelWorker, expand_request
+
+    t0 = time.perf_counter()
+    worker = ModelWorker('random', seed=seed, device='cuda')
+    cfg = worker.cfg
+    gen = worker.generator
+    torch.cuda.synchronize()
+    up = gen.model.llm.model.layers[0].mlp.up_proj.weight
+    if worker.quant_type != 'none' or type(gen) is not Generator \
+            or up.dtype != torch.bfloat16:
+        fail(f'unquantized path: the default worker serves {worker.quant_type}'
+             f' through {type(gen).__name__}, LLM weights in {up.dtype}')
+    print(f'unquantized path: random full-width Groma-7B (LLM trunk in '
+          f'bf16) built in {time.perf_counter() - t0:.1f} s; device memory '
+          f'{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated')
+    vocab = cfg.vocab_size
+    flash_fwd.launches.update(bidirectional=0, causal=0)
+    int8_matmul.launches = 0
+    for i, prompt in enumerate(SERVED_PROMPTS):
+        temperature = UNQUANT_TEMPERATURE if i == 2 else 0.0
+        image = random_image(np, seed + 1 + i, cfg.perceiver.image_size)
+        frames = list(worker.generate_stream({
+            'image': image, 'prompt': prompt, 'temperature': temperature,
+            'max_new_tokens': MAX_NEW_TOKENS}))
+        torch.cuda.synchronize()
+        if any(f['error_code'] != 0 for f in frames):
+            fail(f'unquantized request {i}: error frame {frames[-1]}')
+        stats = gen.last_stats
+        problems = _answer_problems(np, frames, stats, vocab)
+        if problems:
+            fail(f'unquantized request {i}: ' + '; '.join(problems))
+        print(f'unquantized request {i} (temperature {temperature}): '
+              f'error_code 0, {stats["tokens"].shape[1]} tokens, '
+              f'{len(frames[-1]["boxes"])} boxes in the answer, '
+              f'{int(stats["selected_mask"].sum())} regions kept; prefill '
+              f'(TTFT) {stats["prefill_ms"]:.1f} ms, decode '
+              f'{stats["decode_ms_per_token"]:.2f} ms/token over '
+              f'{stats["decode_forwards"]} forwards [{card}]')
+    if any(flash_fwd.launches.values()) or int8_matmul.launches:
+        fail(f'unquantized path launched a kernel: flash {flash_fwd.launches}'
+             f', int8_matmul {int8_matmul.launches}')
+
+    # the same weights, one prefill through the flash kernels
+    t = expand_request(worker.tokenizer, worker.spec,
+                       {'prompt': SERVED_PROMPTS[0]})
+    image = random_image(np, seed + 1, cfg.perceiver.image_size)
+    args = (image[None], t['input_ids'][None], t['region_slot'][None],
+            t['valid'][None])
+    gen.generate(*args, max_new_tokens=1)
+    dense = dict(gen.last_stats)
+    flash_gen = Generator(gen.model, max_len=gen.max_len, use_flash=True)
+    flash_fwd.launches.update(bidirectional=0, causal=0)
+    flash_gen.generate(*args, max_new_tokens=1)
+    torch.cuda.synchronize()
+    flash_n = (flash_fwd.launches['bidirectional'],
+               flash_fwd.launches['causal'])
+    want_n = (cfg.perceiver.vit.num_layers, cfg.llm.num_layers)
+    fl = flash_gen.last_stats
+    err = np.abs(fl['first_logits'] - dense['first_logits']).max() \
+        / np.abs(dense['first_logits']).max()
+    kept = (int(fl['selected_mask'].sum()), int(dense['selected_mask'].sum()))
+    in_place = float(np.mean(np.abs(fl['selected_boxes']
+                                    - dense['selected_boxes']).max(-1)
+                             < 1e-2))
+    llm_err = _llm_flash_against_dense(torch, gen.model, args)
+    if flash_n != want_n or not (err <= UNQUANT_FLASH_TOL
+                                 and kept[0] == kept[1]
+                                 and llm_err <= UNQUANT_LLM_FLASH_TOL):
+        fail(f'Generator(use_flash=True) prefill: flash launches {flash_n} '
+             f'(want {want_n}), first logits {err:.3e} x max|logits| from '
+             f'the dense prefill (tol {UNQUANT_FLASH_TOL}), regions kept '
+             f'{kept}, the LLM alone {llm_err:.3e} x max|hidden| (tol '
+             f'{UNQUANT_LLM_FLASH_TOL})')
+    print(f'Generator(use_flash=True) prefill: {flash_n[0]} launches of '
+          f'flash_fwd (bidirectional, the ViT) and {flash_n[1]} (causal, the '
+          f'LLM at S = {cfg.max_seq_len}); its first logits within '
+          f'{err:.3e} x max|logits| of the dense prefill (tol '
+          f'{UNQUANT_FLASH_TOL}; {kept[0]} regions kept by both, '
+          f'{in_place:.0%} of the pool\'s slots holding the same box); the '
+          f'LLM alone on the flash stream, flash against dense, within '
+          f'{llm_err:.3e} x max|hidden| (tol {UNQUANT_LLM_FLASH_TOL}); host '
+          f'{fl["prefill_ms"]:.1f} ms against {dense["prefill_ms"]:.1f} '
+          f'[{card}]')
+
+    # device time: a prefill alone, dense and flash, then the dense
+    # request with 9 tokens; the difference is the decode's
+    pre = {}
+    for name, g in (('use_flash', flash_gen), ('dense', gen)):
+        worker.generator = g
+        pre[name] = served_device_profile(torch, worker, image,
+                                          SERVED_PROMPTS[0], 1)
+        stats, ms, by_name = pre[name]
+        top = ', '.join(f'{k[:56]} {v:.2f}' for k, v in sorted(
+            by_name.items(), key=lambda kv: -kv[1])[:8])
+        print(f'unquantized path ({name}), warm prefill under '
+              f'torch.profiler: host {stats["prefill_ms"]:.1f} ms, '
+              f'{ms:.2f} ms of device time; the longest kernels, ms: {top} '
+              f'[{card}]')
+    dec_stats, dec_ms, dec_names = served_device_profile(
+        torch, worker, image, SERVED_PROMPTS[0], 9)
+    _, pre_ms, pre_names = pre['dense']
+    fwd = dec_stats['decode_forwards']
+    if fwd:
+        diff = {k: (v - pre_names.get(k, 0.0)) / fwd
+                for k, v in dec_names.items()}
+        top = ', '.join(f'{k[:48]} {v:.3f}' for k, v in sorted(
+            diff.items(), key=lambda kv: -kv[1])[:5])
+        print(f'unquantized path, the same request with 9 new tokens: '
+              f'{(dec_ms - pre_ms) / fwd:.3f} ms of device time a decode '
+              f'token ({fwd} forwards; host '
+              f'{dec_stats["decode_ms_per_token"]:.2f} ms/token); the '
+              f'longest kernels, ms a token: {top} [{card}]')
+    else:
+        print(f'unquantized path: no decode forward ran (an early end of '
+              f'sequence), device time a token not measured [{card}]')
+    # free the model (every name that holds it) before the engine builds
+    # its own
+    del worker, gen, flash_gen, g
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the --engine worker with qp=None: 4 requests at once over 4 slots
+    t0 = time.perf_counter()
+    worker = ModelWorker('random', seed=seed, device='cuda', use_engine=True,
+                         engine_slots=UNQUANT_ENGINE_SLOTS)
+    engine = worker.engine
+    if engine.qp is not None:
+        fail('unquantized engine: the worker built a quantized tree')
+    print(f'unquantized engine: {UNQUANT_ENGINE_SLOTS} slots, max_len '
+          f'{engine.max_len}, built in {time.perf_counter() - t0:.1f} s; '
+          f'device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB '
+          f'[{card}]')
+    results = [None] * UNQUANT_ENGINE_SLOTS
+
+    def client(i):
+        frames = list(worker.generate_stream({
+            'image': random_image(np, seed + 20 + i,
+                                  cfg.perceiver.image_size),
+            'prompt': SERVED_PROMPTS[i % len(SERVED_PROMPTS)],
+            'max_new_tokens': ENGINE_MAX_NEW, 'stream_chunk': 1}))
+        results[i] = frames
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(UNQUANT_ENGINE_SLOTS)]
+    t_start = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    st = engine.stats()
+    engine.close()
+    bad = [i for i, r in enumerate(results)
+           if r is None or any(f['error_code'] != 0 for f in r)
+           or 'boxes' not in r[-1]]
+    if bad or st['finished'] != UNQUANT_ENGINE_SLOTS \
+            or st['nonfinite_logits']:
+        fail(f'unquantized engine: requests {bad} failed; finished '
+             f'{st["finished"]} of {UNQUANT_ENGINE_SLOTS}, '
+             f'{st["nonfinite_logits"]} with non-finite logits')
+    tokens = st['tokens_emitted']
+    print(f'unquantized engine: {UNQUANT_ENGINE_SLOTS} concurrent requests '
+          f'finished in {wall:.2f} s: {tokens} tokens, {tokens / wall:.1f} '
+          f'tok/s aggregate, mean TTFT {st["mean_ttft_sec"] * 1e3:.1f} ms '
+          f'(engine clock), {st["decode_steps"]} decode steps at '
+          f'{st["decode_ms_per_step"]:.2f} ms/step [{card}]')
+    del worker, engine
+    return flash_n
 
 
 def serve_engine_full_width(torch, np, seed: int, card: str):
@@ -2836,6 +3136,13 @@ def main():
     mm_n, mm_pre_n, att_n = serve_full_width(torch, np, args.seed, card)
     if not (mm_n - mm_pre_n and mm_pre_n and att_n):
         fail('a kernel of the served path was never launched')
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_bf16_llm_path(torch, args.seed, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(serve_unquantized_full_width(torch, np, args.seed, card)):
+        fail('a flash kernel of the unquantized prefill was never launched')
     gc.collect()
     torch.cuda.empty_cache()
     int4_n, paged_n, int4_prefill_n = serve_engine_full_width(

@@ -16,6 +16,10 @@ time so its full-precision copy never exists at once; ``random_groma_full``
 keeps every weight in f32, for training.  ``full_precision=True`` loads a
 model for training: f32 master weights everywhere (the JAX package's
 params), the ViT and region encoder still computing in their config dtype.
+``load_unquantized`` (and ``random_groma_unquantized``) loads the model of
+the unquantized inference path (``--quant_type none``): the LLM trunk's
+linears stored once in ``cfg.llm.dtype``, the embeddings, norms and heads
+in f32, as the JAX package's params are.
 
 Entry points run on the card: ``device=None`` means ``cuda``, and without a
 CUDA device ``resolve_device`` raises (pass ``device='cpu'`` to run on the
@@ -31,10 +35,12 @@ from groma_tpu_torch.config import (DDETRConfig, GromaConfig, LlamaConfig,
                                     PerceiverConfig, ViTConfig,
                                     tiny_groma_config)
 from groma_tpu_torch.models.groma import GromaModel
+from groma_tpu_torch.models.llama import LlamaDecoderLayer, torch_dtype
 from groma_tpu_torch.models.llama_quant import (quantize_head,
                                                 quantize_llama_layer)
 
 QUANT_BITS = {'bf16': 16, 'int8': 8, 'int4': 4}   # --quant_type -> bits
+QUANT_TYPES = ('none', 'bf16', 'int8', 'int4')    # 'none': unquantized LLM
 _SMALL_INIT = ('cls_token', 'position_embeddings',
                'query_position_embeddings.weight', 'embed_tokens.weight',
                'new_input_embs.weight')
@@ -120,10 +126,13 @@ def hf_groma_config(d: dict) -> GromaConfig:
 
 
 def from_state_dict(sd: dict, cfg: GromaConfig, device=None,
-                    full_precision: bool = False) -> GromaModel:
+                    full_precision: bool = False,
+                    llm_linear_dtype=None) -> GromaModel:
     """Reference-format Groma state dict (name -> numpy array) -> the
-    port's GromaModel, each tensor in its module's dtype."""
-    model = GromaModel(cfg, device='meta', full_precision=full_precision)
+    port's GromaModel, each tensor in its module's dtype
+    (``llm_linear_dtype``: see ``GromaModel``)."""
+    model = GromaModel(cfg, device='meta', full_precision=full_precision,
+                       llm_linear_dtype=llm_linear_dtype)
     want = model.state_dict()
     tensors = {k: torch.from_numpy(np.array(v)).to(
                    device=device, dtype=want[k].dtype)
@@ -140,11 +149,13 @@ def from_jax_params(params: dict, cfg: GromaConfig, device=None,
                            full_precision)
 
 
-def load_groma(path: str, device=None, full_precision: bool = False):
+def load_groma(path: str, device=None, full_precision: bool = False,
+               llm_in_compute_dtype: bool = False):
     """A reference-format checkpoint directory (config.json with
     llm_cfg/perceiver_cfg + safetensors or .bin) -> (GromaModel, cfg), the
     state dict loaded as it is but for the ViT position table, resized to
-    the deploy grid."""
+    the deploy grid.  ``llm_in_compute_dtype`` stores the LLM trunk's
+    linears in ``cfg.llm.dtype`` (the unquantized inference path)."""
     from groma_tpu_torch.checkpoint.hf_import import (load_config_json,
                                                       load_state_dict,
                                                       resize_vit_pos_embed)
@@ -159,7 +170,10 @@ def load_groma(path: str, device=None, full_precision: bool = False):
         load_state_dict(path),
         'perceiver.vis_encoder.embeddings.position_embeddings',
         pc.image_size // pc.vit.patch_size)
-    return from_state_dict(sd, cfg, device, full_precision), cfg
+    linear_dtype = torch_dtype(cfg.llm.dtype) if llm_in_compute_dtype \
+        else None
+    return from_state_dict(sd, cfg, device, full_precision,
+                           linear_dtype), cfg
 
 
 @torch.no_grad()
@@ -177,6 +191,19 @@ def _fill(module: torch.nn.Module, gen: torch.Generator, prefix: str = ''):
             p.normal_(0.0, std, generator=gen)
 
 
+def _fill_all_but_the_llm(model: GromaModel, gen: torch.Generator, device):
+    """Random init on ``device`` of every part of a meta-device model but
+    the LLM, then of the LLM's embedding table: the first draws of the
+    random models."""
+    for name, child in model.named_children():
+        if name != 'llm':
+            child.to_empty(device=device)
+            _fill(child, gen, prefix=name)
+    table = model.llm.model.embed_tokens
+    table.to_empty(device=device)
+    _fill(table, gen, prefix='embed_tokens')
+
+
 @torch.no_grad()
 def random_groma(cfg: GromaConfig, seed: int = 0, device='cpu',
                  bits: int = 8):
@@ -187,13 +214,8 @@ def random_groma(cfg: GromaConfig, seed: int = 0, device='cpu',
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     model = GromaModel(cfg, device='meta')
-    for name, child in model.named_children():
-        if name != 'llm':
-            child.to_empty(device=device)
-            _fill(child, gen, prefix=name)
+    _fill_all_but_the_llm(model, gen, device)
     llm = model.llm
-    llm.model.embed_tokens.to_empty(device=device)
-    _fill(llm.model.embed_tokens, gen, prefix='embed_tokens')
     qp = {'layers': []}
     for layer in llm.model.layers:
         layer.to_empty(device=device)
@@ -223,6 +245,42 @@ def random_groma_full(cfg: GromaConfig, seed: int = 0, device='cpu'):
     model.to_empty(device=device)
     _fill(model, gen)
     return model
+
+
+@torch.no_grad()
+def random_groma_unquantized(cfg: GromaConfig, seed: int = 0, device='cpu'):
+    """Random weights from ``seed`` for any config, made on ``device``,
+    the LLM trunk's linears stored in ``cfg.llm.dtype``.  The weights are
+    drawn in f32, in ``random_groma``'s order, so that one seed gives both
+    the same full-precision weights."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    model = GromaModel(cfg, device='meta',
+                       llm_linear_dtype=torch_dtype(cfg.llm.dtype))
+    _fill_all_but_the_llm(model, gen, device)
+    llm = model.llm
+    for layer in llm.model.layers:
+        drawn = LlamaDecoderLayer(cfg.llm, device)
+        _fill(drawn, gen)
+        layer.to_empty(device=device)
+        layer.load_state_dict(drawn.state_dict())
+        del drawn
+    llm.model.norm.to_empty(device=device)
+    _fill(llm.model.norm, gen)
+    llm.lm_head.to_empty(device=device)
+    _fill(llm.lm_head, gen)
+    return model.eval()
+
+
+def load_unquantized(model_dir: str, device=None, seed: int = 0):
+    """'tiny', 'random' or a checkpoint directory (as ``load_quantized``)
+    -> (GromaModel, cfg) for the unquantized path, the LLM trunk's
+    linears in ``cfg.llm.dtype``, on ``device`` (None: the card)."""
+    device = resolve_device(device)
+    if model_dir in ('tiny', 'random'):
+        cfg = tiny_groma_config() if model_dir == 'tiny' else GromaConfig()
+        return random_groma_unquantized(cfg, seed=seed, device=device), cfg
+    return load_groma(model_dir, device, llm_in_compute_dtype=True)
 
 
 def load_quantized(model_dir: str, device=None, seed: int = 0,

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from groma_tpu_torch.config import GromaConfig
+from groma_tpu_torch.eval.generate import parse_region_tokens  # noqa: F401
 from groma_tpu_torch.models.groma import GromaModel
 from groma_tpu_torch.models.llama import make_kv_cache
 from groma_tpu_torch.models.llama_quant import (make_quant_kv_cache,
@@ -54,14 +55,6 @@ def quant_embed(qp: dict, ids, base_vocab: int) -> torch.Tensor:
     e = qp['embed_tokens'][torch.where(is_new, 0, ids)]
     n = qp['new_input_embs'][torch.where(is_new, ids - base_vocab, 0)]
     return torch.where(is_new[..., None], n, e)
-
-
-def parse_region_tokens(tokens: np.ndarray, box_idx_start: int,
-                        num_region_tokens: int = 100):
-    """Extract the <rK> indices from generated tokens."""
-    return [[int(t - box_idx_start) for t in row
-             if box_idx_start <= t < box_idx_start + num_region_tokens]
-            for row in tokens]
 
 
 class QuantGenerator:

@@ -4,12 +4,16 @@ with its ``<rK>`` tokens resolved to boxes, the boxes drawn on a copy of
 the image.
 
     python -m groma_tpu_torch.eval.run_groma --tiny --image-file img.png \\
-        --query 'Locate the dog.' --quant_type int8 --kv-bits 8
+        --query 'Locate the dog.' --device cpu
 
-The LLM is weight-only int8 (``--quant_type int8``), packed int4
-(``int4``) or the unquantized bf16 tree (``bf16``); the KV cache is int8
-(``--kv-bits 8``, the served configuration) or bf16 (16).  It runs on the
-card; ``--device cpu`` runs it on the CPU.
+The LLM is, as in JAX by default, unquantized (``--quant_type none``: the
+model's own LLM in ``cfg.llm.dtype`` through ``Generator``, a bf16 KV
+cache), or weight-only int8 (``int8``), packed int4 (``int4``) or the
+unquantized fused bf16 tree (``bf16``) through ``QuantGenerator``, whose
+KV cache is int8 (``--kv-bits 8``, the served configuration) or bf16 (16,
+the default).  It runs on the card; ``--device cpu`` runs it on the CPU.
+``--max-new-tokens`` defaults to 64, which the cache of max_seq_len + 64
+slots always holds (JAX's 1024 would overflow it).
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ import argparse
 
 import numpy as np
 
-from groma_tpu_torch.checkpoint.loader import QUANT_BITS
+from groma_tpu_torch.checkpoint.loader import QUANT_BITS, QUANT_TYPES
 
 
 def draw_boxes(image: np.ndarray, boxes_cxcywh, path: str):
@@ -44,9 +48,9 @@ def main(argv=None):
     ap.add_argument('--query', required=True)
     ap.add_argument('--tokenizer', default=None,
                     help='HF tokenizer path (defaults to the model dir)')
-    ap.add_argument('--quant_type', default='int8',
-                    choices=sorted(QUANT_BITS))
-    ap.add_argument('--kv-bits', type=int, default=8, choices=[16, 8])
+    ap.add_argument('--quant_type', default='none', choices=QUANT_TYPES)
+    ap.add_argument('--kv-bits', type=int, default=16, choices=[16, 8],
+                    help='8 = int8 KV cache (quantized paths only)')
     ap.add_argument('--max-new-tokens', type=int, default=64)
     ap.add_argument('--device', default='cuda',
                     help="torch device (default cuda; 'cpu' to run on the "
@@ -55,6 +59,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     from groma_tpu_torch.checkpoint.loader import (load_quantized,
+                                                   load_unquantized,
                                                    resolve_device)
     from groma_tpu_torch.data.conversation import conv_templates
     from groma_tpu_torch.data.datasets.base import (VLDataSpec,
@@ -63,15 +68,18 @@ def main(argv=None):
                                                      resize)
     from groma_tpu_torch.data.tokenization import expand_template
     from groma_tpu_torch.data.tokenizer import StubTokenizer, load_tokenizer
-    from groma_tpu_torch.eval.generate_quant import (QuantGenerator,
-                                                     parse_region_tokens)
+    from groma_tpu_torch.eval.generate import Generator, parse_region_tokens
+    from groma_tpu_torch.eval.generate_quant import QuantGenerator
 
     model_dir = 'tiny' if args.tiny else args.model_dir
     if not model_dir:
         ap.error('--model-dir or --tiny is required')
     device = resolve_device(args.device)
-    model, qp, cfg = load_quantized(model_dir, device=device,
-                                    bits=QUANT_BITS[args.quant_type])
+    if args.quant_type == 'none':
+        model, cfg = load_unquantized(model_dir, device=device)
+    else:
+        model, qp, cfg = load_quantized(model_dir, device=device,
+                                        bits=QUANT_BITS[args.quant_type])
     if model_dir == 'tiny':
         tokenizer = StubTokenizer(cfg.llm.vocab_size, cfg.max_seq_len)
     else:
@@ -94,8 +102,11 @@ def main(argv=None):
     t = expand_template(ids, None, tokenizer.sp, spec.num_image_tokens,
                         spec.max_region_num, spec.max_seq_len)
 
-    gen = QuantGenerator(model, qp, max_len=cfg.max_seq_len + 64,
-                         kv_bits=args.kv_bits)
+    if args.quant_type == 'none':
+        gen = Generator(model, max_len=cfg.max_seq_len + 64)
+    else:
+        gen = QuantGenerator(model, qp, max_len=cfg.max_seq_len + 64,
+                             kv_bits=args.kv_bits)
     tokens, vis = gen.generate(
         img[None], t['input_ids'][None], t['region_slot'][None],
         t['valid'][None], max_new_tokens=args.max_new_tokens,

@@ -21,10 +21,18 @@ reference are kept too:
 Dtypes follow the JAX model: the ViT and the region encoder's convs and
 linears run in ``cfg.perceiver.vit.dtype``, DDETR and the image-text
 bridge in f32 (flax promotes the bf16 features against f32 params), the
-LLM in ``cfg.llm.dtype``.  ``full_precision=True`` keeps every parameter in
-f32 (a trainer's master weights, as the JAX package's params are); the
-default stores the ViT and the region encoder in their compute dtype, as
-the served path loads them.
+LLM in ``cfg.llm.dtype``; the two heads are f32 (flax promotes a bf16
+hidden against their f32 kernels, so the logits are f32).
+``full_precision=True`` keeps every parameter in f32 (a trainer's master
+weights, as the JAX package's params are); the default stores the ViT and
+the region encoder in their compute dtype, as the served path loads them.
+``llm_linear_dtype`` stores the LLM trunk's linears in that dtype (the
+unquantized inference path keeps them in ``cfg.llm.dtype``: its products
+are bit for bit those of a cast at use), the embeddings, norms and heads
+staying f32.
+
+Generation: ``prefill`` (vision, surgery and the first LLM pass into a
+fresh KV cache) and ``decode_step``, as the JAX model's.
 """
 
 from __future__ import annotations
@@ -36,7 +44,8 @@ from torch import nn
 from groma_tpu_torch.config import GromaConfig
 from groma_tpu_torch.constants import IGNORE_INDEX
 from groma_tpu_torch.data.tokenization import SpecialIds
-from groma_tpu_torch.models.llama import LlamaForCausalLM, torch_dtype
+from groma_tpu_torch.models.llama import (LlamaForCausalLM, make_kv_cache,
+                                          torch_dtype)
 from groma_tpu_torch.models.perceiver import Perceiver
 from groma_tpu_torch.models.region_encoder import RegionEncoder
 from groma_tpu_torch.ops.bbox import box_iou, cxcywh_to_xyxy
@@ -57,7 +66,7 @@ def _gather_rows(table, idx):
 
 class GromaModel(nn.Module):
     def __init__(self, cfg: GromaConfig, device=None,
-                 full_precision: bool = False):
+                 full_precision: bool = False, llm_linear_dtype=None):
         super().__init__()
         if cfg.vision_int8:
             raise ValueError('vision_int8 (the W8A8 fuse and pconv convs) is '
@@ -76,7 +85,8 @@ class GromaModel(nn.Module):
         self.img_txt_bridge = nn.Sequential(
             nn.Linear(4 * vit_d, llm_d, device=device), nn.GELU(),
             nn.Linear(llm_d, llm_d, device=device))
-        self.llm = LlamaForCausalLM(cfg.llm, device=device)
+        self.llm = LlamaForCausalLM(cfg.llm, device=device,
+                                    linear_dtype=llm_linear_dtype)
         self.new_input_embs = nn.Embedding(cfg.num_new_token, llm_d,
                                            device=device)
         self.extra_lm_head = nn.Linear(llm_d, cfg.num_new_token, bias=False,
@@ -95,9 +105,14 @@ class GromaModel(nn.Module):
         return torch.where(is_new[..., None], e_new.to(e_base.dtype), e_base)
 
     def logits(self, hidden):
-        """Dual-head vocabulary projection (lm_head + extra_lm_head)."""
-        return torch.cat([self.llm.lm_head(hidden),
-                          self.extra_lm_head(hidden)], dim=-1)
+        """Dual-head vocabulary projection (lm_head + extra_lm_head), in
+        the promoted dtype of the hidden and the heads (f32 heads: f32
+        logits of a bf16 hidden, as flax computes them)."""
+        w = self.llm.lm_head.weight
+        hidden = hidden.to(torch.promote_types(hidden.dtype, w.dtype))
+        return torch.cat([F.linear(hidden, w.to(hidden.dtype)),
+                          F.linear(hidden, self.extra_lm_head.weight
+                                   .to(hidden.dtype))], dim=-1)
 
     # ------------------------------------------------------------- vision
 
@@ -240,14 +255,51 @@ class GromaModel(nn.Module):
         return emb, input_ids, labels, valid
 
     def prepare_stream(self, images, input_ids, region_slot, base_valid,
-                       refer_boxes=None, refer_valid=None):
+                       refer_boxes=None, refer_valid=None,
+                       ground_boxes=None, ground_valid=None,
+                       use_flash: bool = False):
         """Vision + surgery: (inputs_embeds, input_ids, valid, vis), for
         the quantized decoder to consume."""
-        vis = self.vision(images, refer_boxes, refer_valid)
+        vis = self.vision(images, refer_boxes, refer_valid, ground_boxes,
+                          ground_valid, use_flash=use_flash)
         emb, ids, _, valid = self.build_stream(input_ids, None, region_slot,
                                                base_valid, vis, refer_boxes,
-                                               refer_valid)
+                                               refer_valid, ground_boxes,
+                                               ground_valid)
         return emb, ids, valid, vis
+
+    # --------------------------------------------------------- generation
+
+    def prefill(self, images, input_ids, region_slot, base_valid,
+                max_len: int, refer_boxes=None, refer_valid=None,
+                ground_boxes=None, ground_valid=None,
+                use_flash: bool = False):
+        """Vision + surgery + the first LLM pass, filling a fresh
+        ``max_len``-slot KV cache.  Returns (the logits at each row's last
+        valid position (B, V), the cache, vis, next_pos (B, 1): the
+        position id of the first decode step).  The cache's index counts
+        every slot of the stream, pads included; the positions count
+        valid tokens only."""
+        emb, _, valid, vis = self.prepare_stream(
+            images, input_ids, region_slot, base_valid, refer_boxes,
+            refer_valid, ground_boxes, ground_valid, use_flash)
+        position_ids = _ordinal(valid).clamp(min=0)
+        cache = make_kv_cache(self.cfg.llm, images.shape[0], max_len,
+                              device=emb.device)
+        hidden, cache = self.llm.model(emb, valid, position_ids, cache,
+                                       use_flash)
+        last = torch.argmax(position_ids, dim=-1)
+        rows = torch.arange(hidden.shape[0], device=hidden.device)
+        next_pos = position_ids[rows, last][:, None] + 1
+        return self.logits(hidden[rows, last]), cache, vis, next_pos
+
+    def decode_step(self, token_ids, cache, position_ids):
+        """One decode step: (B, 1) ids at (B, 1) positions -> the (B, V)
+        logits; the cache is updated in place and returned."""
+        valid = torch.ones_like(token_ids, dtype=torch.bool)
+        hidden, cache = self.llm.model(self.embed(token_ids), valid,
+                                       position_ids, cache)
+        return self.logits(hidden[:, -1]), cache
 
     # ------------------------------------------------------------ forward
 
@@ -267,12 +319,12 @@ class GromaModel(nn.Module):
             input_ids, labels, region_slot, base_valid, vis, refer_boxes,
             refer_valid, ground_boxes, ground_valid)
         position_ids = _ordinal(valid).clamp(min=0)
-        hidden = self.llm.model(emb, valid, position_ids, use_flash)
+        hidden, _ = self.llm.model(emb, valid, position_ids,
+                                   use_flash=use_flash)
         out = {'vis': vis, 'valid': valid, 'final_input_ids': input_ids,
                'loss': None}
         if not fused_ce:
-            # the JAX heads are f32 Dense layers: bf16 hidden promotes
-            out['logits'] = self.logits(hidden.float())
+            out['logits'] = self.logits(hidden)
         if labels is None:
             return out
         # in the fixed-capacity stream, the token after a gap of masked

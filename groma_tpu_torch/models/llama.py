@@ -3,16 +3,28 @@
 Ported here: ``rms_norm``, ``rope_tables``, ``apply_rope``,
 ``make_kv_cache``, the LLaMA weight modules under their HF state-dict names
 (``model.layers.N.self_attn.q_proj.weight`` ...), which the weight bridge
-loads and ``llama_quant.quantize_llama_params`` reads, and the training
-forward of ``LlamaModel`` without a cache: f32 master weights cast to
-``cfg.dtype`` at use, RMSNorm and RoPE in f32 islands, and causal attention
-under the stream's key mask, through the flash-attention kernels from
-``FLASH_MIN_SEQ`` tokens on (``use_flash``) and the dense path below.  The
-cached prefill/decode forward belongs to the bf16 ``Generator`` and is not
-ported; the served path runs ``llama_quant.quant_llama_forward``.
+loads and ``llama_quant.quantize_llama_params`` reads, and the forward of
+``LlamaModel``: weights cast to ``cfg.dtype`` at use (a no-op where they are
+stored in it), RMSNorm and RoPE in f32 islands, causal attention under the
+stream's key mask, through the flash-attention kernels from
+``FLASH_MIN_SEQ`` tokens on (``use_flash``) and the dense path below.
+
+With a cache (``make_kv_cache``) the forward has JAX's three modes, and
+writes the cache in place:
+  * prefill (more than one token): k/v written at the cache's index (0),
+    attention over this call's own keys;
+  * decode at a scalar index: k/v written at it, attention over the whole
+    buffer under its mask, query i seeing slots <= index + i;
+  * decode at a (B,) index tensor (the continuous-batching engine): each
+    row's k/v written at its own index, row r seeing slots <= index[r].
+Grouped-query configs repeat k/v over the query heads after the cache.
+Unlike JAX, whose ``dynamic_update_slice`` clamps, a write past the cache
+end raises.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -86,22 +98,28 @@ class RMSNorm(nn.Module):
         return rms_norm(x, self.weight, self.eps)
 
 
-def _linear(i, o, device):
-    return nn.Linear(i, o, bias=False, device=device)
+def _linear(i, o, device, dtype=None):
+    return nn.Linear(i, o, bias=False, device=device, dtype=dtype)
 
 
 class LlamaAttention(nn.Module):
-    def __init__(self, c: LlamaConfig, device=None):
+    def __init__(self, c: LlamaConfig, device=None, dtype=None):
         super().__init__()
         hd = c.hidden_size // c.num_heads
         self.cfg = c
-        self.q_proj = _linear(c.hidden_size, c.num_heads * hd, device)
-        self.k_proj = _linear(c.hidden_size, c.num_kv_heads * hd, device)
-        self.v_proj = _linear(c.hidden_size, c.num_kv_heads * hd, device)
-        self.o_proj = _linear(c.num_heads * hd, c.hidden_size, device)
+        self.q_proj = _linear(c.hidden_size, c.num_heads * hd, device, dtype)
+        self.k_proj = _linear(c.hidden_size, c.num_kv_heads * hd, device,
+                              dtype)
+        self.v_proj = _linear(c.hidden_size, c.num_kv_heads * hd, device,
+                              dtype)
+        self.o_proj = _linear(c.num_heads * hd, c.hidden_size, device, dtype)
 
-    def forward(self, x, cos, sin, kv_mask, use_flash: bool = False):
-        """Causal self-attention of a whole stream, no cache."""
+    def forward(self, x, cos, sin, kv_mask, use_flash: bool = False,
+                cache_kv=None, cache_index=None):
+        """Causal self-attention.  Without ``cache_kv`` over the whole
+        stream under ``kv_mask`` (B, S); with this layer's (k, v) buffers,
+        written in place, in the mode the module docstring names, under
+        the cache's mask."""
         c = self.cfg
         b, s, _ = x.shape
         hd = c.hidden_size // c.num_heads
@@ -113,31 +131,62 @@ class LlamaAttention(nn.Module):
         q = apply_rope(heads(self.q_proj, c.num_heads), cos, sin)
         k = apply_rope(heads(self.k_proj, c.num_kv_heads), cos, sin)
         v = heads(self.v_proj, c.num_kv_heads)
+        prefill = cache_kv is not None and s > 1
+        vector = cache_kv is not None and torch.is_tensor(cache_index)
+        if vector:
+            ck, cv = cache_kv
+            rows = torch.arange(b, device=x.device)
+            ck[rows, :, cache_index] = k[:, :, 0].to(ck.dtype)
+            cv[rows, :, cache_index] = v[:, :, 0].to(cv.dtype)
+            k, v = ck, cv
+        elif cache_kv is not None:
+            ck, cv = cache_kv
+            ck[:, :, cache_index:cache_index + s] = k.to(ck.dtype)
+            cv[:, :, cache_index:cache_index + s] = v.to(cv.dtype)
+            if not prefill:
+                k, v = ck, cv
         rep = c.num_heads // c.num_kv_heads
         if rep > 1:
             k = k.repeat_interleave(rep, dim=1)
             v = v.repeat_interleave(rep, dim=1)
-        if use_flash and s >= FLASH_MIN_SEQ:
-            out = flash_attention(q, k, v, kv_mask=kv_mask, causal=True)
+
+        # a prefill attends over this call's keys only: it always starts
+        # at slot 0, so the cache's first s mask entries are its own
+        whole = cache_kv is None or prefill
+        amask = kv_mask[:, :s] if whole else kv_mask
+        if use_flash and whole and s >= FLASH_MIN_SEQ:
+            out = flash_attention(q, k, v, kv_mask=amask, causal=True)
         else:
             sc = torch.matmul(q.float(), k.float().transpose(-1, -2)) \
                 * hd ** -0.5
-            sc = torch.where(kv_mask[:, None, None, :], sc, -1e30)
-            causal = torch.ones((s, s), dtype=torch.bool,
-                                device=x.device).tril()
-            sc = torch.where(causal, sc, -1e30)
-            p = torch.softmax(sc, dim=-1)
+            skv = k.shape[2]
+            sc = torch.where(amask[:, None, None, :], sc, -1e30)
+            qi = torch.arange(s, device=x.device)[:, None]
+            kj = torch.arange(skv, device=x.device)[None, :]
+            if whole:
+                causal = (kj <= qi + (skv - s))[None, None]
+            elif vector:
+                # rows see only the slots their own stream has written
+                causal = (kj[None] <= cache_index[:, None, None])[:, None]
+            else:
+                # slots are written in order: query (index + i) sees the
+                # slots up to its own
+                causal = (kj <= qi + cache_index)[None, None]
+            p = torch.softmax(torch.where(causal, sc, -1e30), dim=-1)
             out = torch.matmul(p.to(v.dtype).float(), v.float()).to(x.dtype)
         out = out.transpose(1, 2).reshape(b, s, c.num_heads * hd)
         return cast_linear(out, self.o_proj.weight)
 
 
 class LlamaMLP(nn.Module):
-    def __init__(self, c: LlamaConfig, device=None):
+    def __init__(self, c: LlamaConfig, device=None, dtype=None):
         super().__init__()
-        self.gate_proj = _linear(c.hidden_size, c.intermediate_size, device)
-        self.up_proj = _linear(c.hidden_size, c.intermediate_size, device)
-        self.down_proj = _linear(c.intermediate_size, c.hidden_size, device)
+        self.gate_proj = _linear(c.hidden_size, c.intermediate_size, device,
+                                 dtype)
+        self.up_proj = _linear(c.hidden_size, c.intermediate_size, device,
+                               dtype)
+        self.down_proj = _linear(c.intermediate_size, c.hidden_size, device,
+                                 dtype)
 
     def forward(self, h):
         gate = cast_linear(h, self.gate_proj.weight)
@@ -146,50 +195,84 @@ class LlamaMLP(nn.Module):
 
 
 class LlamaDecoderLayer(nn.Module):
-    def __init__(self, c: LlamaConfig, device=None):
+    def __init__(self, c: LlamaConfig, device=None, dtype=None):
         super().__init__()
-        self.self_attn = LlamaAttention(c, device)
-        self.mlp = LlamaMLP(c, device)
+        self.self_attn = LlamaAttention(c, device, dtype)
+        self.mlp = LlamaMLP(c, device, dtype)
         self.input_layernorm = RMSNorm(c.hidden_size, device, c.rms_norm_eps)
         self.post_attention_layernorm = RMSNorm(c.hidden_size, device,
                                                 c.rms_norm_eps)
 
-    def forward(self, x, cos, sin, kv_mask, use_flash: bool = False):
+    def forward(self, x, cos, sin, kv_mask, use_flash: bool = False,
+                cache_kv=None, cache_index=None):
         x = x + self.self_attn(self.input_layernorm(x), cos, sin, kv_mask,
-                               use_flash)
+                               use_flash, cache_kv, cache_index)
         return x + self.mlp(self.post_attention_layernorm(x))
 
 
 class LlamaModel(nn.Module):
-    def __init__(self, c: LlamaConfig, device=None):
+    """``linear_dtype`` stores the layers' linears in that dtype (None:
+    f32, a trainer's master weights); the embedding and the norms stay
+    f32."""
+
+    def __init__(self, c: LlamaConfig, device=None, linear_dtype=None):
         super().__init__()
         self.cfg = c
         self.embed_tokens = nn.Embedding(c.vocab_size, c.hidden_size,
                                          device=device)
-        self.layers = nn.ModuleList(LlamaDecoderLayer(c, device)
+        self.layers = nn.ModuleList(LlamaDecoderLayer(c, device, linear_dtype)
                                     for _ in range(c.num_layers))
         self.norm = RMSNorm(c.hidden_size, device, c.rms_norm_eps)
 
     def forward(self, inputs_embeds, attn_mask, position_ids,
-                use_flash: bool = False):
-        """(B, S, H) embeddings, (B, S) key validity and rope positions ->
-        the final-normed (B, S, H) hidden states in ``cfg.dtype``.  The
-        embedding lookup is the caller's (Groma splices vision tokens into
-        the stream first)."""
+                cache: Optional[dict] = None, use_flash: bool = False):
+        """(B, S, H) embeddings, (B, S) validity of these tokens and their
+        rope positions -> (the final-normed (B, S, H) hidden states in
+        ``cfg.dtype``, the cache).  The embedding lookup is the caller's
+        (Groma splices vision tokens into the stream first).  With a
+        cache the layers see its whole mask, updated here: a slice at a
+        scalar index, one slot a row at a (B,) index; the index then
+        advances by S (every row's, as in JAX)."""
         c = self.cfg
         cos, sin = rope_tables(position_ids, c.hidden_size // c.num_heads,
                                c.rope_theta)
         x = inputs_embeds.to(torch_dtype(c.dtype))
-        for layer in self.layers:
-            x = layer(x, cos, sin, attn_mask, use_flash)
-        return self.norm(x)
+        s = x.shape[1]
+        kv_mask, index = attn_mask, None
+        if cache is not None:
+            index = cache['index']
+            if torch.is_tensor(index):
+                if s != 1:
+                    raise ValueError('per-row cache indices take one token '
+                                     'a row')
+                rows = torch.arange(x.shape[0], device=x.device)
+                cache['mask'][rows, index] = attn_mask[:, 0]
+            else:
+                max_len = cache['mask'].shape[1]
+                if s > 1 and index != 0:
+                    raise ValueError('a multi-token call fills a fresh '
+                                     'cache (index 0)')
+                if index + s > max_len:
+                    raise ValueError(f'KV cache overflow: {s} tokens at '
+                                     f'slot {index} of a {max_len}-slot '
+                                     f'cache')
+                cache['mask'][:, index:index + s] = attn_mask[:, :s]
+            kv_mask = cache['mask']
+        for i, layer in enumerate(self.layers):
+            layer_kv = None if cache is None \
+                else (cache['k'][i], cache['v'][i])
+            x = layer(x, cos, sin, kv_mask, use_flash, layer_kv, index)
+        x = self.norm(x)
+        if cache is not None:
+            cache['index'] = index + s
+        return x, cache
 
 
 class LlamaForCausalLM(nn.Module):
     """LLaMA weights under their HF names; ``model`` holds the trunk's
-    forward."""
+    forward.  The head stays f32 whatever ``linear_dtype``."""
 
-    def __init__(self, c: LlamaConfig, device=None):
+    def __init__(self, c: LlamaConfig, device=None, linear_dtype=None):
         super().__init__()
-        self.model = LlamaModel(c, device)
+        self.model = LlamaModel(c, device, linear_dtype)
         self.lm_head = _linear(c.hidden_size, c.vocab_size, device)

@@ -7,7 +7,10 @@ into any free slot while the other slots keep decoding; each decode burst
 runs ``chunk`` single-token steps over all slots, with per-row positions,
 done flags and cache indices, and emits the tokens to the requests'
 sessions.  The LLM side is a quantized tree (``quantize_groma_llm``: int8,
-int4 or the bf16 ``bits=16`` tree).
+int4 or the bf16 ``bits=16`` tree), or, with ``qp=None``, the model's own
+unquantized LLM: ``GromaModel.prefill`` at b=1 into a cache in
+``cfg.llm.dtype``, then ``decode_step`` over the per-row cache indices.
+Without ``qp`` the cache is ``kv_bits=16`` and contiguous, as in JAX.
 
 KV storage: a contiguous per-slot cache (``kv_bits`` 16 or 8), or with
 ``paged_kv`` a shared pool of 128-token int8 pages (``ops.paged_attention``)
@@ -91,7 +94,8 @@ class Session:
 
 
 class BatchEngine:
-    def __init__(self, model: GromaModel, qp: dict, max_slots: int = 4,
+    def __init__(self, model: GromaModel, qp: Optional[dict] = None,
+                 max_slots: int = 4,
                  max_len: Optional[int] = None, eos_id: int = 2,
                  chunk: int = 8, max_new_tokens: int = 256,
                  kv_bits: int = 16,
@@ -100,13 +104,14 @@ class BatchEngine:
                  paged_kv: bool = False,
                  kv_pool_tokens: Optional[int] = None,
                  sample_seed: int = 0, spec_lookahead: int = 0):
-        """``max_len`` (rounded up to a multiple of 128; default
-        max_seq_len + max_new_tokens + 8) is each slot's cache length, or
-        with ``paged_kv`` the per-request cap.  ``paged_kv`` (int8 KV and
-        MHA) shares a pool of ``kv_pool_tokens`` tokens (default
-        max_slots x max_len); a request whose decode outruns the pool is
-        truncated (``session.truncated``), and admission waits while fewer
-        pages are free than one request could need."""
+        """``qp``: a ``quantize_groma_llm`` tree, or None for the model's
+        own unquantized LLM.  ``max_len`` (rounded up to a multiple of 128;
+        default max_seq_len + max_new_tokens + 8) is each slot's cache
+        length, or with ``paged_kv`` the per-request cap.  ``paged_kv``
+        (int8 KV and MHA) shares a pool of ``kv_pool_tokens`` tokens
+        (default max_slots x max_len); a request whose decode outruns the
+        pool is truncated (``session.truncated``), and admission waits
+        while fewer pages are free than one request could need."""
         if prefill_chunk_tokens:
             raise NotImplementedError('chunked prefill is not ported')
         if spec_lookahead > 0:
@@ -115,11 +120,14 @@ class BatchEngine:
             raise NotImplementedError('w8a8_prefill is not ported')
         if kv_bits not in (8, 16):
             raise ValueError('kv_bits must be 8 or 16')
+        if qp is None and (kv_bits != 16 or paged_kv):
+            raise ValueError('the unquantized engine (qp=None) keeps a '
+                             'contiguous kv_bits=16 cache')
         cfg = model.cfg
         self.model = model
         self.qp = qp
         self.cfg = cfg
-        self.device = qp['norm'].device
+        self.device = model.llm.model.embed_tokens.weight.device
         self.eos_id = eos_id
         self.chunk = chunk
         self.max_new_tokens = max_new_tokens
@@ -262,6 +270,12 @@ class BatchEngine:
         ids = self._tensor([r[2] for r in reqs], torch.int64)
         rslot = self._tensor([r[3] for r in reqs], torch.int64)
         valid = self._tensor([r[4] for r in reqs], torch.bool)
+        if self.qp is None:
+            logits, cache, vis, next_pos = self.model.prefill(
+                images, ids, rslot, valid, max_len=ids.shape[1])
+            next_pos = next_pos[:, 0].cpu().numpy()
+            self._n_nonfinite += int(not torch.isfinite(logits).all())
+            return logits, cache, vis, next_pos
         emb, _, valid, vis = self.model.prepare_stream(images, ids, rslot,
                                                        valid)
         pos = (torch.cumsum(valid.to(torch.int64), -1) - 1).clamp(min=0)
@@ -443,21 +457,27 @@ class BatchEngine:
         out = []
         for _ in range(self.chunk):
             live = active & ~done
-            emb = quant_embed(self.qp, tok[:, None], llm.vocab_size)
             if self.paged:
+                emb = quant_embed(self.qp, tok[:, None], llm.vocab_size)
                 lengths = torch.where(live, pos + 1, 0).to(torch.int32)
                 hidden, _ = quant_llama_decode_paged(
                     self.qp, llm, emb, pos[:, None], self._pools, table,
                     lengths)
+                logits = quant_logits(self.qp, hidden)[:, -1]
             else:
                 index = self._cache['index']
-                hidden, _ = quant_llama_forward(self.qp, llm, emb, ones,
-                                                pos[:, None], self._cache)
+                if self.qp is None:
+                    logits, _ = self.model.decode_step(
+                        tok[:, None], self._cache, pos[:, None])
+                else:
+                    emb = quant_embed(self.qp, tok[:, None], llm.vocab_size)
+                    hidden, _ = quant_llama_forward(
+                        self.qp, llm, emb, ones, pos[:, None], self._cache)
+                    logits = quant_logits(self.qp, hidden)[:, -1]
                 # frozen rows keep their index, so their writes stay inside
                 # the cache however long they idle
                 self._cache['index'] = torch.where(
                     live, self._cache['index'], index)
-            logits = quant_logits(self.qp, hidden)[:, -1]
             finite &= torch.isfinite(logits).all()
             tok = torch.where(live, self._pick(logits, temps, sample),
                               self.eos_id)

@@ -6,12 +6,17 @@ engine serves) and the controller heartbeat are copies of the JAX
 package's; model loading and generation are the port's own.  Requests
 go to the continuous-batching ``BatchEngine`` (``--engine``; the
 production server is ``--engine --quant_type int4 --kv-bits 8
---paged-kv``), or one at a time to ``QuantGenerator``.  A request that
+--paged-kv``), or one at a time to a generator: by default, as in JAX,
+``--quant_type none``, the unquantized LLM in ``cfg.llm.dtype`` through
+``Generator`` (a bf16 KV cache; a request's ``temperature`` samples), or
+with ``int8`` / ``int4`` / ``bf16`` the quantized tree through the greedy
+``QuantGenerator``.  A request that
 fails, for instance one asking the generator for more new tokens than its
 KV cache has free slots, gets a final frame with ``error_code`` 1 and the
 error's type and message; the traceback goes to the log.  The worker keeps
 serving other requests.
 
+    python -m groma_tpu_torch.serve.worker --tiny --device cpu  # tiny, CPU
     python -m groma_tpu_torch.serve.worker --tiny --device cpu --engine \
         --quant_type int4 --kv-bits 8 --paged-kv      # tiny, on the CPU
     python -m groma_tpu_torch.serve.worker --model-dir <dir> --engine \
@@ -32,7 +37,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
-from groma_tpu_torch.checkpoint.loader import QUANT_BITS
+from groma_tpu_torch.checkpoint.loader import QUANT_BITS, QUANT_TYPES
 from groma_tpu_torch.constants import WORKER_HEART_BEAT_INTERVAL
 
 logger = logging.getLogger('groma_tpu_torch.serve.worker')
@@ -67,26 +72,35 @@ class ModelWorker:
     def __init__(self, model_dir: str, tokenizer_path=None,
                  worker_name: str = 'groma-worker',
                  model_name: str = 'groma', limit: int = 2,
-                 controller_addr: str = '', quant_type: str = 'int8',
-                 kv_bits: int = 8, device=None, seed: int = 0,
+                 controller_addr: str = '', quant_type: str = 'none',
+                 kv_bits: int = 16, device=None, seed: int = 0,
                  use_engine: bool = False, engine_slots: int = 8,
                  paged_kv: bool = False, kv_pool_tokens: int = 0):
         """``model_dir``: a checkpoint directory, 'tiny' or 'random'
         (random weights from ``seed`` at the tiny or the full config).
-        ``quant_type``: 'int8', 'int4' or 'bf16' (the unquantized fused
-        tree).  ``device``: None is the card (``cuda``); 'cpu' runs on the
-        CPU."""
+        ``quant_type``: 'none' (the unquantized LLM; the KV cache is then
+        bf16 whatever ``kv_bits``, as in JAX), 'int8', 'int4' or 'bf16'
+        (the unquantized fused tree).  ``device``: None is the card
+        (``cuda``); 'cpu' runs on the CPU."""
         from groma_tpu_torch.data.datasets.base import VLDataSpec
         from groma_tpu_torch.data.tokenizer import (StubTokenizer,
                                                     load_tokenizer)
-        from groma_tpu_torch.checkpoint.loader import load_quantized
+        from groma_tpu_torch.checkpoint.loader import (load_quantized,
+                                                       load_unquantized)
+        from groma_tpu_torch.eval.generate import Generator
         from groma_tpu_torch.eval.generate_quant import QuantGenerator
 
-        if quant_type not in QUANT_BITS:
-            raise ValueError(f'quant_type must be one of {sorted(QUANT_BITS)}')
-        model, qp, self.cfg = load_quantized(model_dir, device=device,
-                                             seed=seed,
-                                             bits=QUANT_BITS[quant_type])
+        if quant_type not in QUANT_TYPES:
+            raise ValueError(f'quant_type must be one of {QUANT_TYPES}')
+        self.quant_type = quant_type
+        if quant_type == 'none':
+            model, self.cfg = load_unquantized(model_dir, device=device,
+                                               seed=seed)
+            qp, kv_bits = None, 16
+        else:
+            model, qp, self.cfg = load_quantized(model_dir, device=device,
+                                                 seed=seed,
+                                                 bits=QUANT_BITS[quant_type])
         if model_dir in ('tiny', 'random'):
             self.tokenizer = StubTokenizer(self.cfg.llm.vocab_size,
                                            self.cfg.max_seq_len)
@@ -108,6 +122,9 @@ class ModelWorker:
                 max_new_tokens=ENGINE_MAX_NEW_TOKENS, kv_bits=kv_bits,
                 paged_kv=paged_kv, kv_pool_tokens=kv_pool_tokens or None)
             limit = max(limit, engine_slots)
+        elif qp is None:
+            self.generator = Generator(model,
+                                       max_len=self.cfg.max_seq_len + 64)
         else:
             self.generator = QuantGenerator(
                 model, qp, max_len=self.cfg.max_seq_len + 64, kv_bits=kv_bits)
@@ -165,9 +182,9 @@ class ModelWorker:
         """Yield {'text': partial, 'error_code': 0} frames, then a final
         frame that adds the answer's boxes (and ``finish_reason:
         truncated`` when the engine's page pool ran dry).  Decoding is
-        greedy, or sampled per request through the engine
-        (``temperature``)."""
-        from groma_tpu_torch.eval.generate_quant import parse_region_tokens
+        greedy, or sampled per request (``temperature``) through the engine
+        and the unquantized ``Generator``."""
+        from groma_tpu_torch.eval.generate import parse_region_tokens
 
         with self.semaphore:
             self._queued(1)
@@ -210,10 +227,15 @@ class ModelWorker:
                     vis = {k: v[None] for k, v in sess.vis.items()}
                     truncated = sess.truncated
                 else:
+                    kw = {}
+                    temp = float(request.get('temperature', 0.0))
+                    if temp > 0 and self.quant_type == 'none':
+                        # the quantized generator is greedy, as in JAX
+                        kw['temperature'] = temp
                     tokens, vis = self.generator.generate(
                         image[None], t['input_ids'][None],
                         t['region_slot'][None], t['valid'][None],
-                        max_new_tokens=max_new, eos_id=eos)
+                        max_new_tokens=max_new, eos_id=eos, **kw)
                     row = [int(x) for x in tokens[0]]
                     for i in range(0, len(row), chunk):
                         text, hit = cut_stop(self.tokenizer.decode(
@@ -280,10 +302,11 @@ def main():
     ap.add_argument('--engine', action='store_true',
                     help='continuous-batching engine (serve/engine.py)')
     ap.add_argument('--engine-slots', type=int, default=8)
-    ap.add_argument('--quant_type', default='int8',
-                    choices=sorted(QUANT_BITS),
-                    help='weight-only int8 or int4 LLM, or the bf16 tree')
-    ap.add_argument('--kv-bits', type=int, default=8, choices=[16, 8])
+    ap.add_argument('--quant_type', default='none', choices=QUANT_TYPES,
+                    help='none: the unquantized LLM (Generator); '
+                         'weight-only int8 or int4 LLM, or the bf16 tree')
+    ap.add_argument('--kv-bits', type=int, default=16, choices=[16, 8],
+                    help='8 = int8 KV cache (quantized paths only)')
     ap.add_argument('--paged-kv', action='store_true',
                     help='shared 128-token int8 KV page pool (engine, '
                          '--kv-bits 8)')

@@ -117,7 +117,7 @@ def test_run_groma_cli_tiny(tmp_path, capsys):
 
 def test_worker_generate_stream():
     from groma_tpu_torch.serve.worker import ModelWorker
-    worker = ModelWorker('tiny', device='cpu')
+    worker = ModelWorker('tiny', device='cpu', quant_type='int8', kv_bits=8)
     rng = np.random.default_rng(0)
     for prompt in ('Locate the dog in the image.', 'What is this?'):
         frames = list(worker.generate_stream({

@@ -206,6 +206,20 @@ def test_run_groma_refuses_the_cpu_by_default(no_card, tmp_path):
                         '--query', 'Locate the dog.'])
 
 
+def test_cli_and_eval_rec_refuse_the_cpu_by_default(no_card, tmp_path):
+    from groma_tpu_torch.eval import eval_rec
+    from groma_tpu_torch.serve import cli
+    with pytest.raises(RuntimeError, match='--device cpu'):
+        cli.main(['--model-dir', 'tiny', '--image-file',
+                  str(tmp_path / 'x.png')])
+    with pytest.raises(RuntimeError, match='--device cpu'):
+        eval_rec.main(['--model-dir', 'tiny', '--tokenizer', 'stub',
+                       '--img-prefix', str(tmp_path), '--ann-file',
+                       str(tmp_path / 'refs.json')])
+    with pytest.raises(RuntimeError, match='--device cpu'):
+        t_loader.load_unquantized('tiny')
+
+
 def test_train_vl_refuses_the_cpu_by_default(no_card, tmp_path):
     from groma_tpu_torch.train import train_vl
     assert train_vl.parse_args(['--dataset_config', 'x', '--output_dir',
