@@ -88,10 +88,16 @@ Phases, each printed before the last line:
     300 queries, 100 region slots, Vicuna-7B width, int8 LLM, int8 KV
     cache, max_len = max_seq_len + 64) with random weights from --seed: the
     port's ModelWorker answers 3 requests in-process, each checked, and
-    both int8 kernels' launch counters must grow by exactly the count the
-    path implies (the int8 matmul 4L + 1 a forward, of them the prefill
-    tile 4L a prefill), and the slots the last decode forward's attention
-    read; then one warm prefill alone and the same request
+    both int8 kernels' launches on the device must be exactly the count
+    the path implies (the int8 matmul 4L + 1 a forward, of them the
+    prefill tile 4L a prefill: the wrappers' counts, less those made while
+    a step was captured, plus every replay's), and the slots the last
+    decode forward's attention read.  Each decode runs as one captured
+    step replayed (utils/graphs.StepGraph); on request 0 the same step
+    also runs eagerly on a copy of the state (GraphTwin): tokens bitwise
+    equal, ms a token, device time and busy share of both, and the
+    kernels of a profiled replay against the launches the capture
+    counted.  Then one warm prefill alone and the same request
     with 9 new tokens under torch.profiler: the prefill's device time by
     kernel, and the device time a decode token;
  6. the unquantized path, the default of every JAX entry point
@@ -102,14 +108,16 @@ Phases, each printed before the last line:
     KV cache of max_seq_len + 64 slots) the port's default ModelWorker
     answers 3 requests through Generator, the third sampled at
     UNQUANT_TEMPERATURE, each checked, none launching a kernel of the port
-    (as JAX's default launches no Pallas kernel); Generator(use_flash=True)
+    (as JAX's default launches no Pallas kernel), the first against the
+    eager step (GraphTwin, as in phase 5); Generator(use_flash=True)
     on the same weights runs one prefill with exactly one bidirectional
     flash launch per ViT layer and one causal one per LLM layer, its first
     logits against the dense prefill's; the prefill's device time by kernel
     (dense and flash) and the device time a decode token under
     torch.profiler; then, the model freed, the --engine worker (qp=None,
     UNQUANT_ENGINE_SLOTS slots) answers as many concurrent requests:
-    every one finished, aggregate tok/s, TTFT, ms per decode step;
+    every one finished, aggregate tok/s, TTFT, ms per decode step; then
+    one more request, its first burst against the eager step;
  7. the production server at full width (--engine --engine-slots 8
     --quant_type int4 --kv-bits 8 --paged-kv, max_len 2432): the port's
     ModelWorker answers ENGINE_REQUESTS requests sent from as many threads
@@ -117,16 +125,19 @@ Phases, each printed before the last line:
     every page back in the pool, and exact launch counts (paged attention
     L per decode step, int4 matmul 4L + 1 per prefill and per step, of
     them the prefill tile 4L per prefill), with TTFT per request, each
-    prefill's time, aggregate tok/s and ms per decode step; then one
-    more request per slot, ENGINE_PROFILED_BURSTS of whose bursts with
-    every slot live run under torch.profiler (device time a step, the
-    slots' kv lengths);
+    prefill's time, aggregate tok/s and ms per decode step (launches
+    counted on the device, as in phase 5); then one more request per
+    slot, ENGINE_PROFILED_BURSTS of whose bursts with every slot live run
+    under torch.profiler (device time a step, the slots' kv lengths); then
+    one more request, its first burst against the eager step;
  8. the decode benchmark's path (bench_decode_quant.measure_megakernel) at
     full depth: the random full-width Vicuna-7B int4 tree from --seed,
     B=8, a 512-token random prompt prefilled per layer into a 1024-slot
     int8 cache (timed; its 4L layer matmuls at M=4096 through the prefill
     tile, counted), MEGAKERNEL_STEPS greedy steps through
-    quant_llama_decode_megakernel (exactly one megakernel launch each),
+    quant_llama_decode_megakernel (exactly one megakernel launch each) as
+    one captured step replayed, the cache slot a device word, checked
+    against the eager step on a copy of the state (GraphTwin),
     then the same tokens teacher-forced through the per-layer
     quant_llama_forward on a copy of the cache (int4 matmul 4L and decode
     attention L launches a step); hidden states agree every step; ms/step
@@ -1425,6 +1436,7 @@ def _megakernel_traffic(cfg, n_layers: int, b: int, s: int, reads):
 def _stacked_clone(torch, mk, st):
     """A copy of a (stacked) cache on buffers of its own, stacked."""
     return mk.stack_kv_cache({k: ([t.clone() for t in v] if isinstance(v, list)
+                                  else v.clone() if torch.is_tensor(v)
                                   else v) for k, v in st.items()})
 
 
@@ -1675,6 +1687,189 @@ def device_per_step(torch, step, n: int = PROFILED_STEPS):
             wall * 1e3 / n)
 
 
+# the kernels a decode step launches, by wrapper counter: the symbols a
+# profiled replay shows for them
+COUNTER_KERNELS = {
+    'int8_matmul': ('int8_decode_kernel', 'int8_prefill_kernel'),
+    'int8_matmul.prefill': ('int8_prefill_kernel',),
+    'int4_matmul': ('int4_decode_kernel', 'int4_prefill_kernel'),
+    'int4_matmul.prefill': ('int4_prefill_kernel',),
+    'int8_decode_attention': ('int8_decode_attention_kernel',),
+    'paged_int8_decode_attention': ('paged_attention_kernel',),
+    'decode_megakernel': ('decode_megakernel',),
+}
+TWIN_PROFILED = 2          # steps of each mode under torch.profiler
+
+
+def _set_counts(counts: dict):
+    """Put every decode-path wrapper's counter back to ``counts``."""
+    from groma_tpu_torch.ops.decode_attention import int8_decode_attention
+    from groma_tpu_torch.ops.decode_megakernel import fused_decode_step
+    from groma_tpu_torch.ops.paged_attention import \
+        paged_int8_decode_attention
+    from groma_tpu_torch.ops.quant import int8_matmul
+    from groma_tpu_torch.ops.quant4 import int4_matmul
+    int8_matmul.launches = counts['int8_matmul']
+    int8_matmul.prefill_launches = counts['int8_matmul.prefill']
+    int4_matmul.launches = counts['int4_matmul']
+    int4_matmul.prefill_launches = counts['int4_matmul.prefill']
+    int8_decode_attention.launches = counts['int8_decode_attention']
+    paged_int8_decode_attention.launches = \
+        counts['paged_int8_decode_attention']
+    fused_decode_step.launches = counts['decode_megakernel']
+
+
+def zero_counts():
+    """Every decode-path counter and the graphs' tallies to 0."""
+    from groma_tpu_torch.utils.graphs import StepGraph, launch_counts
+    _set_counts(dict.fromkeys(launch_counts(), 0))
+    StepGraph.reset_tally()
+
+
+def device_launches() -> dict:
+    """Launches that ran on the device since ``zero_counts``: the
+    wrappers' counts, without the calls made while a step was captured
+    and with every replay's."""
+    from groma_tpu_torch.utils.graphs import StepGraph, launch_counts
+    return StepGraph.device_launches(launch_counts())
+
+
+def _clone_tree(torch, tree):
+    if torch.is_tensor(tree):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: _clone_tree(torch, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_clone_tree(torch, v) for v in tree)
+    return tree
+
+
+def _profiled(torch, fn, steps: int):
+    """``fn()`` (``steps`` decode steps) under torch.profiler -> (device ms
+    a step, {kernel name: launches a step})."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type.name == 'CUDA' and e.device_time > 0]
+    names = {}
+    for e in events:
+        names[e.name] = names.get(e.name, 0) + 1
+    return (sum(e.device_time for e in events) / 1e3 / steps,
+            {k: v / steps for k, v in names.items()})
+
+
+def _timed(torch, fn, steps: int) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / max(steps, 1)
+
+
+class GraphTwin:
+    """While armed, the next StepGraph.run of at least ``min_steps`` steps
+    on the card is checked against the eager step: the step runs eagerly
+    on a copy of the state (``clone``; the launch counters are put back
+    after it: these are comparison launches), then the graph's own run
+    goes in parts, its warm-up step and capture apart from its replays,
+    TWIN_PROFILED of each mode under torch.profiler.  ``result``: ms a
+    step, device ms a step and busy share of each mode, the eager and
+    replayed tokens (state key ``tokens``) bitwise equal, the per-replay
+    launch counts (the capture's counter moves) and the launches of each
+    kernel that the profiled replays show a replay."""
+
+    def __init__(self, torch):
+        from groma_tpu_torch.utils import graphs
+        self.torch, self.graphs = torch, graphs
+        self.orig = graphs.StepGraph.run
+        self.armed = None
+        self.result = None
+
+    def arm(self, tokens: str, clone=None, min_steps: int = 6):
+        self.armed = (tokens, clone, min_steps)
+        self.result = None
+        twin = self
+
+        def run(graph, n):
+            if twin.armed is None or n < twin.armed[2] \
+                    or graph.device.type != 'cuda':
+                return twin.orig(graph, n)
+            key, clone_fn, _ = twin.armed
+            twin.armed = None
+            twin.result = twin._check(graph, n, key, clone_fn)
+        self.graphs.StepGraph.run = run
+
+    def disarm(self):
+        self.graphs.StepGraph.run = self.orig
+        self.armed = None
+
+    def _check(self, graph, n, key, clone_fn):
+        torch, orig = self.torch, self.orig
+        counts = self.graphs.launch_counts()
+        copy = (clone_fn or (lambda st: _clone_tree(torch, st)))(graph.state)
+
+        def eager(k):
+            def go():
+                for _ in range(k):
+                    graph.step(copy)
+            return go
+        p = TWIN_PROFILED
+        eager_dev, _ = _profiled(torch, eager(p), p)
+        eager_ms = _timed(torch, eager(n - p), n - p)
+        _set_counts(counts)
+        done, capture_ms = 0, None
+        if graph.graph is None:
+            orig(graph, 1)                 # the warm-up step
+            t0 = time.perf_counter()
+            orig(graph, 1)                 # the capture, one replay
+            torch.cuda.synchronize()
+            capture_ms = (time.perf_counter() - t0) * 1e3
+            done = 2
+        graph_dev, names = _profiled(torch, lambda: orig(graph, p), p)
+        rest = n - done - p
+        graph_ms = _timed(torch, lambda: orig(graph, rest), rest)
+        equal = torch.equal(copy[key], graph.state[key])
+        seen = {c: sum(v for k, v in names.items()
+                       if any(sym in k for sym in COUNTER_KERNELS[c]))
+                for c in graph.delta}
+        return {'steps': n, 'eager_ms': eager_ms, 'graph_ms': graph_ms,
+                'eager_dev': eager_dev, 'graph_dev': graph_dev,
+                'capture_ms': capture_ms, 'equal': equal,
+                'delta': dict(graph.delta), 'seen': seen}
+
+    def line(self, name: str, card: str) -> str:
+        """The result as a printed line; fails the phase if the run never
+        came, the tokens differ or a replay's kernels disagree with its
+        launch counts."""
+        r = self.result
+        if r is None:
+            fail(f'{name}: no decode loop of at least the checked length ran '
+                 f'through a StepGraph on the card')
+        if not r['equal']:
+            fail(f'{name}: the replayed tokens differ from the eager step\'s '
+                 f'on a copy of the same state')
+        if any(abs(r['seen'][c] - d) > 1e-9 for c, d in r['delta'].items()):
+            fail(f'{name}: a profiled replay launched {r["seen"]} (by the '
+                 f'kernels\' names), the capture counted {r["delta"]}')
+        return (f'{name}, {r["steps"]} steps of one run, graph against eager '
+                f'(the same step on a copy of the state): tokens bitwise '
+                f'equal; {r["graph_ms"]:.3f} against {r["eager_ms"]:.3f} ms '
+                f'a step (host clock, synchronized), device time '
+                f'{r["graph_dev"]:.3f} against {r["eager_dev"]:.3f} ms a step '
+                f'(torch.profiler, {TWIN_PROFILED} steps each), device busy '
+                f'{100 * r["graph_dev"] / r["graph_ms"]:.1f} % against '
+                f'{100 * r["eager_dev"] / r["eager_ms"]:.1f} %; '
+                + (f'after the warm-up step, capture and first replay '
+                   f'{r["capture_ms"]:.1f} ms; ' if r['capture_ms'] else
+                   'the graph captured earlier; ')
+                + f'a replay launches {r["delta"]} (its profiled kernels '
+                f'agree) [{card}]')
+
+
 def decode_megakernel_path(torch, timer, seed: int, card: str):
     """(b) the decode benchmark's path through the port at full depth: the
     random full-width Vicuna-7B int4 tree from ``seed``, B=8, a 512-token
@@ -1691,9 +1886,10 @@ def decode_megakernel_path(torch, timer, seed: int, card: str):
         make_quant_kv_cache, megakernel_step_inputs,
         quant_llama_decode_megakernel, quant_llama_forward,
         quant_llama_logits)
+    from groma_tpu_torch.models.llama import torch_dtype
     from groma_tpu_torch.ops import decode_megakernel as mk
-    from groma_tpu_torch.ops.decode_attention import int8_decode_attention
     from groma_tpu_torch.ops.quant4 import int4_matmul
+    from groma_tpu_torch.utils import graphs
     gcfg = GromaConfig()
     cfg = gcfg.llm
     b, pre, slots, steps = (DECODE_BATCH, DECODE_PROMPT, DECODE_SLOTS,
@@ -1743,36 +1939,55 @@ def decode_megakernel_path(torch, timer, seed: int, card: str):
               f'{torch.cuda.memory_allocated() / 2**30:.2f} GiB [{card}]')
 
         def counts():
-            return (mk.fused_decode_step.launches, int4_matmul.launches,
-                    int8_decode_attention.launches)
+            n = device_launches()
+            return (n['decode_megakernel'], n['int4_matmul'],
+                    n['int8_decode_attention'])
 
-        def zero():
-            mk.fused_decode_step.launches = 0
-            int4_matmul.launches = 0
-            int8_decode_attention.launches = 0
+        # the megakernel path, greedy, as one captured step replayed (the
+        # main path's counts): the token fed at step i and its hidden
+        # state written at the device step counter; the cache slot is
+        # stack_kv_cache's device word, checked here once for the run
+        if pre + steps > slots:
+            fail(f'decode path: {steps} steps after {pre} tokens overflow '
+                 f'the {slots}-slot cache')
+        state = {'kv': st, 'tok': tok.clone(),
+                 'toks': torch.zeros((steps, b), dtype=torch.int64,
+                                     device=dev),
+                 'hidden': torch.zeros((steps, b, cfg.hidden_size),
+                                       dtype=torch_dtype(cfg.dtype),
+                                       device=dev),
+                 'step': torch.zeros((), dtype=torch.int64, device=dev)}
 
-        # the megakernel path, greedy; the main path's counts
-        toks, hidden, wall, device_ms, per_step = [], [], [], [], set()
-        zero()
-        for _ in range(steps):
-            toks.append(tok)
-            before = mk.fused_decode_step.launches
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            t0 = time.perf_counter()
-            e0.record()
-            hm, st = quant_llama_decode_megakernel(
-                qp, sp, cfg, qp['embed_tokens'][tok][:, None], one, st)
-            e1.record()
-            per_step.add(mk.fused_decode_step.launches - before)
-            tok = quant_llama_logits(qp, hm)[:, -1].argmax(-1)
-            torch.cuda.synchronize()
-            wall.append(time.perf_counter() - t0)
-            device_ms.append(e0.elapsed_time(e1))
-            hidden.append(hm[:, 0])
+        def mk_step(s):
+            at = s['step'].view(1)
+            s['toks'].index_copy_(0, at, s['tok'][None])
+            hm, _ = quant_llama_decode_megakernel(
+                qp, sp, cfg, qp['embed_tokens'][s['tok']][:, None], one,
+                s['kv'])
+            s['hidden'].index_copy_(0, at, hm[:, 0][None])
+            s['tok'].copy_(quant_llama_logits(qp, hm)[:, -1].argmax(-1))
+            s['step'].add_(1)
+
+        def mk_clone(s):
+            return {**_clone_tree(torch, {k: v for k, v in s.items()
+                                          if k != 'kv'}),
+                    'kv': _stacked_clone(torch, mk, s['kv'])}
+        zero_counts()
+        twin = GraphTwin(torch)
+        twin.arm('toks', clone=mk_clone, min_steps=steps)
+        try:
+            graphs.StepGraph(mk_step, state).run(steps)
+        finally:
+            twin.disarm()
         mk_counts = counts()
+        twin_line = twin.line('decode path, megakernel', card)
+        r = twin.result
+        per_step = r['delta']
+        toks = list(state['toks'])
+        hidden = list(state['hidden'])
+        tok = state['tok']
         # the per-layer path on the same tokens
-        zero()
+        zero_counts()
         worst, worst_mean, pl_wall = 0.0, 0.0, []
         for i in range(steps):
             t0 = time.perf_counter()
@@ -1790,29 +2005,31 @@ def decode_megakernel_path(torch, timer, seed: int, card: str):
 
         want_mk = (steps, steps, 0)                 # + the lm head a step
         want_pl = (0, 4 * n_layers * steps, n_layers * steps)
+        want_step = {'decode_megakernel': 1, 'int4_matmul': 1}
         finite = all(bool(torch.isfinite(x).all()) for x in hidden)
         in_vocab = all(bool(((t >= 0) & (t < cfg.vocab_size)).all())
                        for t in toks)
-        ok = (mk_counts == want_mk and per_step == {1}
+        ok = (mk_counts == want_mk and per_step == want_step
               and pl_counts == want_pl and finite
               and in_vocab and worst <= MEGAKERNEL_PATH_TOL
-              and st['index'] == per_layer['index'] == pre + steps)
-        warm = sorted(wall[1:])
+              and int(st['index']) == per_layer['index'] == pre + steps)
         pl_warm = sorted(pl_wall[1:])
-        mk_ms = warm[len(warm) // 2] * 1e3
+        mk_ms = r['graph_ms']
         pl_ms = pl_warm[len(pl_warm) // 2] * 1e3
-        dev_ms = sorted(device_ms[1:])[len(device_ms) // 2]
         avg_reads = pre + (steps - 1) / 2
         avg_bound = bound(*_megakernel_traffic(cfg, n_layers, b, slots,
                                                [avg_reads] * b))
-        print(f'decode path, megakernel: {steps} greedy steps at B={b}, '
-              f'{mk_ms:.2f} ms/step median ({b / mk_ms * 1e3:.1f} tok/s), '
-              f'device time of the decode call {dev_ms:.3f} ms/step median '
-              f'(CUDA events), bound {avg_bound[0]:.3f} ms/step at the mean '
-              f'slot ({avg_bound[1]}); launches megakernel {mk_counts[0]}, '
-              f'int4_matmul {mk_counts[1]} (the lm head), decode attention '
-              f'{mk_counts[2]} (want {want_mk}), megakernel launches in a '
-              f'step {sorted(per_step)} (want [1]) [{card}]')
+        print(f'decode path, megakernel: {steps} greedy steps at B={b} '
+              f'through one captured step: {mk_ms:.2f} ms/step over the '
+              f'{steps - 2 - TWIN_PROFILED} timed replays '
+              f'({b / mk_ms * 1e3:.1f} '
+              f'tok/s), device time {r["graph_dev"]:.3f} ms/step '
+              f'(torch.profiler), bound {avg_bound[0]:.3f} ms/step at the '
+              f'mean slot ({avg_bound[1]}); launches megakernel '
+              f'{mk_counts[0]}, int4_matmul {mk_counts[1]} (the lm head), '
+              f'decode attention {mk_counts[2]} (want {want_mk}), a replay '
+              f'{per_step} (want {want_step}) [{card}]')
+        print(twin_line)
         print(f'decode path, per-layer (teacher-forced on the same tokens): '
               f'{pl_ms:.2f} ms/step median ({b / pl_ms * 1e3:.1f} tok/s); '
               f'launches megakernel {pl_counts[0]}, int4_matmul (#7) '
@@ -1824,33 +2041,27 @@ def decode_megakernel_path(torch, timer, seed: int, card: str):
         if not ok:
             fail('the megakernel decode path failed its checks')
 
-        # device time and operations a step of each path, after the counts
-        def mk_step():
-            nonlocal tok, st
-            hm, st = quant_llama_decode_megakernel(
-                qp, sp, cfg, qp['embed_tokens'][tok][:, None], one, st)
-            tok = quant_llama_logits(qp, hm)[:, -1].argmax(-1)
-
+        # device time and operations a step of the per-layer path (the
+        # megakernel path's are the captured step's, above)
         def pl_step():
             nonlocal per_layer
             _, per_layer = quant_llama_forward(
                 qp, cfg, qp['embed_tokens'][tok][:, None], one,
                 torch.full((b, 1), per_layer['index'], device=dev),
                 per_layer)
-        device = {}
-        for name, step in (('megakernel', mk_step), ('per-layer', pl_step)):
-            ms_dev, ops, wall_ms = device_per_step(torch, step)
-            device[name] = ms_dev
-            print(f'decode path, {name}, {PROFILED_STEPS} steps under '
-                  f'torch.profiler: {ms_dev:.3f} ms of device time and '
-                  f'{ops:.0f} device operations a step, {wall_ms:.2f} ms '
-                  f'wall a step (profiler cost included): device busy '
-                  f'{100 * ms_dev / wall_ms:.1f} % [{card}]')
+        device = {'megakernel': r['graph_dev']}
+        ms_dev, ops, wall_ms = device_per_step(torch, pl_step)
+        device['per-layer'] = ms_dev
+        print(f'decode path, per-layer, {PROFILED_STEPS} steps under '
+              f'torch.profiler: {ms_dev:.3f} ms of device time and '
+              f'{ops:.0f} device operations a step, {wall_ms:.2f} ms '
+              f'wall a step (profiler cost included): device busy '
+              f'{100 * ms_dev / wall_ms:.1f} % [{card}]')
 
         # the kernel alone at the path's last slot against its plain
         # version, on copies of the path's cache: the path's 32-layer
         # launch, then each layer alone on the plain version's input to it
-        index = st['index']
+        index = int(st['index'])
         x = qp['embed_tokens'][tok].float()
         inputs = megakernel_step_inputs(cfg, st, one)
         eps = cfg.rms_norm_eps
@@ -1925,7 +2136,7 @@ def decode_megakernel_path(torch, timer, seed: int, card: str):
             fail(f'decode_megakernel disagrees with its plain version at '
                  f'{n_layers} layers, two calls differ, or it is not faster '
                  f'than the per-layer path')
-    del qp, sp, st, cache, per_layer, hidden, mine, theirs
+    del qp, sp, st, cache, per_layer, hidden, mine, theirs, state
     return mk_counts[0], (cmp['err'], ms, plain_ms, bound_ms, bound_by)
 
 
@@ -2482,7 +2693,6 @@ def serve_full_width(torch, np, seed: int, card: str):
     """Three requests through the port's ModelWorker at full width, then
     one warm prefill and one short request under torch.profiler."""
     from groma_tpu_torch.ops.decode_attention import int8_decode_attention
-    from groma_tpu_torch.ops.quant import int8_matmul
     from groma_tpu_torch.serve.worker import ModelWorker
 
     t0 = time.perf_counter()
@@ -2496,13 +2706,15 @@ def serve_full_width(torch, np, seed: int, card: str):
     n_layers = cfg.llm.num_layers
     vocab = cfg.vocab_size
     prompts = SERVED_PROMPTS
-    int8_matmul.launches = 0
-    int8_matmul.prefill_launches = 0
-    int8_decode_attention.launches = 0
+    zero_counts()
 
     def counts():
-        return (int8_matmul.launches, int8_matmul.prefill_launches,
-                int8_decode_attention.launches)
+        n = device_launches()
+        return (n['int8_matmul'], n['int8_matmul.prefill'],
+                n['int8_decode_attention'])
+    twin = GraphTwin(torch)
+    want_step = {'int8_matmul': 4 * n_layers + 1,
+                 'int8_decode_attention': n_layers}
     # the decode attention's mask bias of the last decode forward (the
     # slots its kernel reads), kept by reference: no copy, no sync
     import groma_tpu_torch.models.llama_quant as llama_quant
@@ -2518,7 +2730,12 @@ def serve_full_width(torch, np, seed: int, card: str):
         request = {'image': image, 'prompt': prompt,
                    'max_new_tokens': MAX_NEW_TOKENS}
         before = counts()
-        frames = list(worker.generate_stream(request))
+        if i == 0:
+            twin.arm('toks')
+        try:
+            frames = list(worker.generate_stream(request))
+        finally:
+            twin.disarm()
         torch.cuda.synchronize()
         mm, pre, att = (a - b for a, b in zip(counts(), before))
         final = frames[-1]
@@ -2542,18 +2759,26 @@ def serve_full_width(torch, np, seed: int, card: str):
                             f'{want_att})')
         if problems:
             fail(f'request {i}: ' + '; '.join(problems))
+        # the bias the captured step's attention reads, which every replay
+        # (this request's and later ones') rewrites in place
         kept = (_read_rows(last_bias[0]) if last_bias and f_fwd
                 else 'no decode forward')
-        last_bias.clear()
         print(f'request {i}: error_code 0, {toks.shape[1]} tokens, '
               f'{len(final["boxes"])} boxes in the answer, '
               f'{int(mask.sum())} regions kept; prefill '
               f'{stats["prefill_ms"]:.1f} ms, decode '
               f'{stats["decode_ms_per_token"]:.2f} ms/token over '
-              f'{f_fwd} forwards; launches int8_matmul {mm} (prefill tile '
-              f'{pre}), decode attention {att}; slots the last decode '
+              f'{f_fwd} forwards (host clock; a new graph\'s warm-up step '
+              f'and capture included); launches int8_matmul {mm} (prefill '
+              f'tile {pre}), decode attention {att}; slots the last decode '
               f'forward\'s attention read: {kept} of '
               f'{worker.generator.max_len} [{card}]')
+        if i == 0:
+            print(twin.line('served path (QuantGenerator, int8 + kv8)',
+                            card))
+            if twin.result['delta'] != want_step:
+                fail(f'served path: a replay launches '
+                     f'{twin.result["delta"]}, want {want_step}')
     llama_quant.int8_decode_attention = int8_decode_attention
     launched = counts()
     # warm: the same image and prompt, a prefill alone (one new token)
@@ -2711,12 +2936,18 @@ def serve_unquantized_full_width(torch, np, seed: int, card: str):
     vocab = cfg.vocab_size
     flash_fwd.launches.update(bidirectional=0, causal=0)
     int8_matmul.launches = 0
+    twin = GraphTwin(torch)
     for i, prompt in enumerate(SERVED_PROMPTS):
         temperature = UNQUANT_TEMPERATURE if i == 2 else 0.0
         image = random_image(np, seed + 1 + i, cfg.perceiver.image_size)
-        frames = list(worker.generate_stream({
-            'image': image, 'prompt': prompt, 'temperature': temperature,
-            'max_new_tokens': MAX_NEW_TOKENS}))
+        if i == 0:
+            twin.arm('toks')
+        try:
+            frames = list(worker.generate_stream({
+                'image': image, 'prompt': prompt, 'temperature': temperature,
+                'max_new_tokens': MAX_NEW_TOKENS}))
+        finally:
+            twin.disarm()
         torch.cuda.synchronize()
         if any(f['error_code'] != 0 for f in frames):
             fail(f'unquantized request {i}: error frame {frames[-1]}')
@@ -2730,7 +2961,11 @@ def serve_unquantized_full_width(torch, np, seed: int, card: str):
               f'{int(stats["selected_mask"].sum())} regions kept; prefill '
               f'(TTFT) {stats["prefill_ms"]:.1f} ms, decode '
               f'{stats["decode_ms_per_token"]:.2f} ms/token over '
-              f'{stats["decode_forwards"]} forwards [{card}]')
+              f'{stats["decode_forwards"]} forwards (host clock; a new '
+              f'graph\'s warm-up step and capture included) [{card}]')
+        if i == 0:
+            print(twin.line('unquantized path (Generator, use_scan=True)',
+                            card))
     if any(flash_fwd.launches.values()) or int8_matmul.launches:
         fail(f'unquantized path launched a kernel: flash {flash_fwd.launches}'
              f', int8_matmul {int8_matmul.launches}')
@@ -2844,7 +3079,6 @@ def serve_unquantized_full_width(torch, np, seed: int, card: str):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_start
     st = engine.stats()
-    engine.close()
     bad = [i for i, r in enumerate(results)
            if r is None or any(f['error_code'] != 0 for f in r)
            or 'boxes' not in r[-1]]
@@ -2859,8 +3093,28 @@ def serve_unquantized_full_width(torch, np, seed: int, card: str):
           f'tok/s aggregate, mean TTFT {st["mean_ttft_sec"] * 1e3:.1f} ms '
           f'(engine clock), {st["decode_steps"]} decode steps at '
           f'{st["decode_ms_per_step"]:.2f} ms/step [{card}]')
+    engine_twin(torch, np, worker, seed + 30, 'unquantized engine (qp=None)',
+                card)
+    engine.close()
     del worker, engine
     return flash_n
+
+
+def engine_twin(torch, np, worker, seed: int, name: str, card: str):
+    """One more request through a warm engine, its first burst checked
+    against the eager step (GraphTwin) after the timed run."""
+    twin = GraphTwin(torch)
+    twin.arm('out')
+    try:
+        frames = list(worker.generate_stream({
+            'image': random_image(np, seed, worker.cfg.perceiver.image_size),
+            'prompt': SERVED_PROMPTS[0], 'max_new_tokens': ENGINE_MAX_NEW,
+            'stream_chunk': 1}))
+    finally:
+        twin.disarm()
+    if any(f['error_code'] != 0 for f in frames):
+        fail(f'{name}: error frame {frames[-1]}')
+    print(twin.line(f'{name}, one burst', card))
 
 
 def serve_engine_full_width(torch, np, seed: int, card: str):
@@ -2869,8 +3123,6 @@ def serve_engine_full_width(torch, np, seed: int, card: str):
     as many threads at once through the port's ModelWorker.  Returns the
     int4 and paged kernels' launches."""
     import threading
-    from groma_tpu_torch.ops.paged_attention import paged_int8_decode_attention
-    from groma_tpu_torch.ops.quant4 import int4_matmul
     from groma_tpu_torch.serve.worker import ModelWorker
 
     t0 = time.perf_counter()
@@ -2920,9 +3172,7 @@ def serve_engine_full_width(torch, np, seed: int, card: str):
             frames.append(f)
         results[i] = (frames, t_first - t_start, time.perf_counter())
 
-    int4_matmul.launches = 0
-    int4_matmul.prefill_launches = 0
-    paged_int8_decode_attention.launches = 0
+    zero_counts()
     threads = [threading.Thread(target=client, args=(i,), name=f'client{i}')
                for i in range(ENGINE_REQUESTS)]
     t_start = time.perf_counter()
@@ -2932,8 +3182,9 @@ def serve_engine_full_width(torch, np, seed: int, card: str):
         th.join(timeout=600)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_start
-    mm, att = int4_matmul.launches, paged_int8_decode_attention.launches
-    mm_prefill = int4_matmul.prefill_launches
+    ran = device_launches()
+    mm, att = ran['int4_matmul'], ran['paged_int8_decode_attention']
+    mm_prefill = ran['int4_matmul.prefill']
     engine._prefill = prefill
     st = engine.stats()
     if any(r is None for r in results) or len(sessions) != ENGINE_REQUESTS:
@@ -3004,6 +3255,8 @@ def serve_engine_full_width(torch, np, seed: int, card: str):
           f'{prefill_ms[0]:.1f}, median of the rest {pm[len(pm) // 2]:.1f}, '
           f'min {pm[0]:.1f}, max {pm[-1]:.1f} [{card}]')
     engine_device_per_step(torch, np, worker, card)
+    engine_twin(torch, np, worker, seed + 40,
+                'engine (int4 + paged kv8, 8 slots)', card)
     engine.close()
     del worker, engine
     return mm, att, mm_prefill

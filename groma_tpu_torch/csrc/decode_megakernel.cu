@@ -168,7 +168,10 @@ struct Params {
   float* part;                     // split-K partials
   unsigned* sync;                  // the barrier word; tile counters
   unsigned long long* stamps;      // null, or (grid, 2 + 10 L) timestamps
-  int L, B, H, S, F, pos, xbytes;
+  const int* pos;                  // the cache slot of this token, read
+                                   // when the launch runs (a graph replays
+                                   // the launch at the slot it then holds)
+  int L, B, H, S, F, xbytes;
   float eps, scale;
 };
 
@@ -222,10 +225,13 @@ __host__ __device__ __forceinline__ int attn_scratch(int S) {
   return (9 * S + 15) & ~15;
 }
 
+// The slot this step writes: written before the launch, never during it.
+__device__ __forceinline__ int slot(const Params& p) { return __ldg(p.pos); }
+
 // Cache rows that item row b reads: all S when its token and old positions
 // are masked (p = 1 everywhere), else those before pos.
 __device__ __forceinline__ int cache_rows(const Params& p, int b) {
-  return __ldg(p.cur + b) > 0.5f * kNeg ? p.pos : p.S;
+  return __ldg(p.cur + b) > 0.5f * kNeg ? slot(p) : p.S;
 }
 
 __device__ __forceinline__ unsigned long long globaltimer() {
@@ -826,7 +832,7 @@ __device__ void attend(const Params& p, int l, int b, int h, int g,
                        const Pair& pr, Ring& r, Smem& sh) {
   const int tid = threadIdx.x % kGroupThreads, lane = tid & 31;
   const int warp = tid >> 5;
-  const int D = p.H * kHD, S = p.S, pos = p.pos;
+  const int D = p.H * kHD, S = p.S, pos = slot(p);
   const unsigned long long* ct = p.ctab + 4 * l;
   int8_t* k8 = reinterpret_cast<int8_t*>(ct[0]);
   float* ks = reinterpret_cast<float*>(ct[1]);
@@ -1102,9 +1108,10 @@ extern "C" int groma_decode_megakernel_maps(void* out,
 // attn (B, D) bf16, act (B, F) bf16 scratch; work, the f32 split-K
 // workspace; sync, 2 + (the most tiles of a matrix) uint32 words, zero
 // before the first call and left so by every call; stamps null or
-// (ctas, 2 + 10 L) uint64.  All contiguous; B <= 8, D = 128 H and F
-// multiples of 256, 0 <= pos < S.  Returns the launch's CUDA status (0 =
-// launched): a grid that cannot be co-resident, or shared memory that
+// (ctas, 2 + 10 L) uint64; pos, one int32 on the device, the slot of this
+// token, 0 <= *pos < S (the caller's to keep: the host never reads it).
+// All contiguous; B <= 8, D = 128 H and F multiples of 256.  Returns the
+// launch's CUDA status (0 = launched): a grid that cannot be co-resident, or shared memory that
 // cannot be had, is refused.  info[0] receives the grid, info[1] the grid
 // barriers a step, info[2] the dynamic shared memory in bytes.
 extern "C" int groma_decode_megakernel(
@@ -1112,10 +1119,10 @@ extern "C" int groma_decode_megakernel(
     const void* mask, const void* cur, const void* ln1, const void* ln2,
     const void* wtab, const void* maps, const void* ctab, const void* plan,
     void* qkv, void* attn, void* act, void* work, void* sync, void* stamps,
-    int L, int B, int H, int S, int F, int pos, int ctas, float eps,
+    const void* pos, int L, int B, int H, int S, int F, int ctas, float eps,
     int* info, void* stream) {
   const int D = H * kHD;
-  if (L < 1 || B < 1 || B > kMT || H < 1 || S < 1 || pos < 0 || pos >= S ||
+  if (L < 1 || B < 1 || B > kMT || H < 1 || S < 1 || pos == nullptr ||
       D % kScaleBlock || F < kScaleBlock || F % kScaleBlock || ctas < 1)
     return (int)cudaErrorInvalidValue;
   Params p;
@@ -1143,7 +1150,7 @@ extern "C" int groma_decode_megakernel(
   p.H = H;
   p.S = S;
   p.F = F;
-  p.pos = pos;
+  p.pos = static_cast<const int*>(pos);
   p.eps = eps;
   p.scale = (float)(1.0 / sqrt((double)kHD));
   const size_t smem = dynamic_smem(S, &p.xbytes);
@@ -1163,10 +1170,19 @@ extern "C" int groma_decode_megakernel(
   info[0] = ctas;
   info[1] = kPhases * L - 1;
   info[2] = (int)smem;
-  void* args[] = {&p};
-  e = cudaLaunchCooperativeKernel((const void*)decode_megakernel, dim3(ctas),
-                                  dim3(kThreads), args, smem,
-                                  static_cast<cudaStream_t>(stream));
+  // cudaLaunchKernelEx with the cooperative attribute: the launch a CUDA
+  // graph captures as a cooperative kernel node
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ctas);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, decode_megakernel, p);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

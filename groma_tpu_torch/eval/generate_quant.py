@@ -5,21 +5,31 @@ speculative decoding).
 
 ``generate`` has the JAX generator's signature and return values: greedy
 tokens as a numpy (B, W) array, each row cut after its first EOS and
-padded with EOS, plus the selected boxes and mask as numpy arrays.  Decode
-stops once every row has emitted EOS, and never runs a forward whose
-logits would go unused, so it runs ``decode_forwards`` <= max_new_tokens - 1
-forwards; the tokens are those of the JAX scan.  A request whose decode
-would not fit the cache raises ValueError (the JAX cache write clamps).
+padded with EOS, plus the selected boxes and mask as numpy arrays.  The
+decode is JAX's ``decode_scan`` body (greedy token, done mask, the token
+written at a device step counter, one forward at a device cache index) as
+a ``utils.graphs.StepGraph`` over a ``generate.DecodeScan``'s static
+state, kept across calls of one batch size and EOS id: on the card the
+first call runs one warm-up step and one capture, every further step is a
+replay; on the CPU the same step runs eagerly.  JAX runs every step and
+trims after EOS; here the host reads the done mask once every
+``DONE_CHECK_STEPS`` steps and stops there once every row has emitted EOS,
+so it runs ``decode_forwards`` <= max_new_tokens - 1 forwards, never one
+whose logits would go unused at the end; the tokens are those of the JAX
+scan.  A request whose decode would not fit the cache raises ValueError
+(the JAX cache write clamps).
 """
 
 from __future__ import annotations
 
 import time
+from typing import Optional
 
 import numpy as np
 import torch
 
 from groma_tpu_torch.config import GromaConfig
+from groma_tpu_torch.eval.generate import DecodeScan, scan_token
 from groma_tpu_torch.eval.generate import parse_region_tokens  # noqa: F401
 from groma_tpu_torch.models.groma import GromaModel
 from groma_tpu_torch.models.llama import make_kv_cache
@@ -27,6 +37,10 @@ from groma_tpu_torch.models.llama_quant import (make_quant_kv_cache,
                                                 quant_llama_forward,
                                                 quant_llama_logits,
                                                 quantize_llama_params)
+
+# decode steps between two reads of the done mask: the engine's default
+# burst (BatchEngine's chunk)
+DONE_CHECK_STEPS = 8
 
 
 def quantize_groma_llm(model: GromaModel, cfg: GromaConfig,
@@ -77,6 +91,7 @@ class QuantGenerator:
         self.kv_bits = kv_bits
         self.device = qp['norm'].device
         self.last_stats = None
+        self._decode: Optional[DecodeScan] = None
 
     def _sync(self):
         if self.device.type == 'cuda':
@@ -85,6 +100,30 @@ class QuantGenerator:
     def _tensor(self, x, dtype=None):
         return torch.as_tensor(np.array(x) if not torch.is_tensor(x)
                                else x, dtype=dtype, device=self.device)
+
+    def _scan(self, b: int, eos_id: int) -> DecodeScan:
+        """The DecodeScan of this call's batch size and EOS id, made anew
+        when either changes."""
+        key = (b, eos_id)
+        if self._decode is None or self._decode.key != key:
+            self._decode = None        # free the old graph and cache first
+            cfg, dev = self.cfg.llm, self.device
+
+            def step(st):
+                tok = scan_token(st, eos_id)
+                hidden, _ = quant_llama_forward(
+                    self.qp, cfg, quant_embed(self.qp, tok[:, None],
+                                              cfg.vocab_size),
+                    torch.ones((b, 1), dtype=torch.bool, device=dev),
+                    st['next_pos'] + st['step'], st['cache'])
+                logits = quant_logits(self.qp, hidden)[:, -1]
+                st['logits'].copy_(logits)
+                st['finite'].logical_and_(torch.isfinite(logits).all())
+                st['step'].add_(1)
+            make = make_quant_kv_cache if self.kv_bits == 8 else make_kv_cache
+            self._decode = DecodeScan(
+                key, make(cfg, b, self.max_len, device=dev), step)
+        return self._decode
 
     @torch.no_grad()
     def generate(self, images, input_ids, region_slot, base_valid,
@@ -105,20 +144,15 @@ class QuantGenerator:
             refer_boxes = self._tensor(refer_boxes, torch.float32)
             refer_valid = self._tensor(refer_valid, torch.bool)
 
+        scan = self._scan(b, eos_id)
         self._sync()
         t0 = time.perf_counter()
         emb, _, valid, vis = self.model.prepare_stream(
             images, input_ids, region_slot, base_valid,
             refer_boxes=refer_boxes, refer_valid=refer_valid)
         pos = (torch.cumsum(valid.to(torch.int64), -1) - 1).clamp(min=0)
-        if self.kv_bits == 8:
-            cache = make_quant_kv_cache(cfg.llm, b, self.max_len,
-                                        device=self.device)
-        else:
-            cache = make_kv_cache(cfg.llm, b, self.max_len,
-                                  device=self.device)
-        hidden, cache = quant_llama_forward(self.qp, cfg.llm, emb, valid,
-                                            pos, cache)
+        hidden, _ = quant_llama_forward(self.qp, cfg.llm, emb, valid, pos,
+                                        scan.cache())
         rows = torch.arange(b, device=self.device)
         last = torch.argmax(pos, dim=-1)
         logits = quant_logits(self.qp, hidden[rows, last][:, None])[:, 0]
@@ -126,25 +160,20 @@ class QuantGenerator:
         self._sync()
         t1 = time.perf_counter()
 
-        finite = torch.isfinite(logits).all()
-        done = torch.zeros(b, dtype=torch.bool, device=self.device)
-        ones = torch.ones((b, 1), dtype=torch.bool, device=self.device)
-        toks = []
+        state = scan.begin(logits, next_pos)
         forwards = 0
-        for i in range(max_new_tokens):
-            tok = torch.where(done, eos_id, torch.argmax(logits, dim=-1))
-            done = done | (tok == eos_id)
-            toks.append(tok)
-            if i == max_new_tokens - 1 or bool(done.all()):
+        while forwards < max_new_tokens - 1:
+            burst = min(DONE_CHECK_STEPS, max_new_tokens - 1 - forwards)
+            scan.graph.run(burst)
+            forwards += burst
+            if bool(state['done'].all()):
                 break
-            hidden, cache = quant_llama_forward(
-                self.qp, cfg.llm,
-                quant_embed(self.qp, tok[:, None], cfg.llm.vocab_size),
-                ones, next_pos + i, cache)
-            logits = quant_logits(self.qp, hidden)[:, -1]
-            finite = finite & torch.isfinite(logits).all()
-            forwards += 1
-        toks = torch.stack(toks, dim=1).cpu().numpy().astype(np.int32)
+        scan_token(state, eos_id)
+        # the one read-back of the tokens, with the finite flag
+        back = torch.cat([state['toks'][:, :forwards + 1].flatten(),
+                          state['finite'].view(1).long()]).cpu().numpy()
+        toks = back[:-1].reshape(b, forwards + 1).astype(np.int32)
+        finite = bool(back[-1])
         self._sync()
         t2 = time.perf_counter()
 

@@ -37,6 +37,8 @@ fresh KV cache) and ``decode_step``, as the JAX model's.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -273,19 +275,21 @@ class GromaModel(nn.Module):
     def prefill(self, images, input_ids, region_slot, base_valid,
                 max_len: int, refer_boxes=None, refer_valid=None,
                 ground_boxes=None, ground_valid=None,
-                use_flash: bool = False):
+                use_flash: bool = False, cache: Optional[dict] = None):
         """Vision + surgery + the first LLM pass, filling a fresh
-        ``max_len``-slot KV cache.  Returns (the logits at each row's last
-        valid position (B, V), the cache, vis, next_pos (B, 1): the
-        position id of the first decode step).  The cache's index counts
-        every slot of the stream, pads included; the positions count
-        valid tokens only."""
+        ``max_len``-slot KV cache (or ``cache``, one of ``make_kv_cache``
+        at index 0 with its mask cleared, which a generator keeps across
+        calls).  Returns (the logits at each row's last valid position
+        (B, V), the cache, vis, next_pos (B, 1): the position id of the
+        first decode step).  The cache's index counts every slot of the
+        stream, pads included; the positions count valid tokens only."""
         emb, _, valid, vis = self.prepare_stream(
             images, input_ids, region_slot, base_valid, refer_boxes,
             refer_valid, ground_boxes, ground_valid, use_flash)
         position_ids = _ordinal(valid).clamp(min=0)
-        cache = make_kv_cache(self.cfg.llm, images.shape[0], max_len,
-                              device=emb.device)
+        if cache is None:
+            cache = make_kv_cache(self.cfg.llm, images.shape[0], max_len,
+                                  device=emb.device)
         hidden, cache = self.llm.model(emb, valid, position_ids, cache,
                                        use_flash)
         last = torch.argmax(position_ids, dim=-1)
@@ -295,7 +299,10 @@ class GromaModel(nn.Module):
 
     def decode_step(self, token_ids, cache, position_ids):
         """One decode step: (B, 1) ids at (B, 1) positions -> the (B, V)
-        logits; the cache is updated in place and returned."""
+        logits; the cache is updated in place and returned.  Its index may
+        be a host int, a (B,) tensor or a 0-d device tensor, advanced in
+        place (``LlamaModel.forward``); with a tensor index the step reads
+        nothing back, so a CUDA graph can capture it."""
         valid = torch.ones_like(token_ids, dtype=torch.bool)
         hidden, cache = self.llm.model(self.embed(token_ids), valid,
                                        position_ids, cache)

@@ -14,12 +14,17 @@ writes the cache in place:
   * prefill (more than one token): k/v written at the cache's index (0),
     attention over this call's own keys;
   * decode at a scalar index: k/v written at it, attention over the whole
-    buffer under its mask, query i seeing slots <= index + i;
+    buffer under its mask, query i seeing slots <= index + i.  The index
+    is a host int, or a 0-d int64 tensor on the cache's device (one token
+    a row), which a captured CUDA graph can hold: the forward then writes
+    at the slot the tensor holds when it runs, and reads nothing back;
   * decode at a (B,) index tensor (the continuous-batching engine): each
     row's k/v written at its own index, row r seeing slots <= index[r].
-Grouped-query configs repeat k/v over the query heads after the cache.
-Unlike JAX, whose ``dynamic_update_slice`` clamps, a write past the cache
-end raises.
+A host index is rebound to index + S; an index tensor advances by S in
+place.  Grouped-query configs repeat k/v over the query heads after the
+cache.  Unlike JAX, whose ``dynamic_update_slice`` clamps, a write past the
+cache end at a host index raises; at an index tensor the caller keeps the
+decode inside the cache (a check would read the index back).
 """
 
 from __future__ import annotations
@@ -132,12 +137,19 @@ class LlamaAttention(nn.Module):
         k = apply_rope(heads(self.k_proj, c.num_kv_heads), cos, sin)
         v = heads(self.v_proj, c.num_kv_heads)
         prefill = cache_kv is not None and s > 1
-        vector = cache_kv is not None and torch.is_tensor(cache_index)
+        device_index = cache_kv is not None and torch.is_tensor(cache_index)
+        vector = device_index and cache_index.dim() == 1
         if vector:
             ck, cv = cache_kv
             rows = torch.arange(b, device=x.device)
             ck[rows, :, cache_index] = k[:, :, 0].to(ck.dtype)
             cv[rows, :, cache_index] = v[:, :, 0].to(cv.dtype)
+            k, v = ck, cv
+        elif device_index:
+            ck, cv = cache_kv
+            at = cache_index.view(1)
+            ck.index_copy_(2, at, k.to(ck.dtype))
+            cv.index_copy_(2, at, v.to(cv.dtype))
             k, v = ck, cv
         elif cache_kv is not None:
             ck, cv = cache_kv
@@ -232,7 +244,8 @@ class LlamaModel(nn.Module):
         (Groma splices vision tokens into the stream first).  With a
         cache the layers see its whole mask, updated here: a slice at a
         scalar index, one slot a row at a (B,) index; the index then
-        advances by S (every row's, as in JAX)."""
+        advances by S (every row's, as in JAX), in place when it is a
+        tensor."""
         c = self.cfg
         cos, sin = rope_tables(position_ids, c.hidden_size // c.num_heads,
                                c.rope_theta)
@@ -243,10 +256,14 @@ class LlamaModel(nn.Module):
             index = cache['index']
             if torch.is_tensor(index):
                 if s != 1:
-                    raise ValueError('per-row cache indices take one token '
+                    raise ValueError('cache index tensors take one token '
                                      'a row')
-                rows = torch.arange(x.shape[0], device=x.device)
-                cache['mask'][rows, index] = attn_mask[:, 0]
+                if index.dim() == 0:
+                    cache['mask'].index_copy_(1, index.view(1),
+                                              attn_mask[:, :1])
+                else:
+                    rows = torch.arange(x.shape[0], device=x.device)
+                    cache['mask'][rows, index] = attn_mask[:, 0]
             else:
                 max_len = cache['mask'].shape[1]
                 if s > 1 and index != 0:
@@ -263,7 +280,9 @@ class LlamaModel(nn.Module):
                 else (cache['k'][i], cache['v'][i])
             x = layer(x, cos, sin, kv_mask, use_flash, layer_kv, index)
         x = self.norm(x)
-        if cache is not None:
+        if torch.is_tensor(index):
+            index.add_(s)
+        elif cache is not None:
             cache['index'] = index + s
         return x, cache
 

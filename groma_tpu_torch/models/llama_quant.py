@@ -16,10 +16,13 @@ continuous-batching engine, per-row positions), ``quant_llama_decode_paged``
 and ``quant_llama_decode_megakernel`` (the whole int4 + int8-KV decode step
 in one launch of ``ops.decode_megakernel``).  The vector-index multi-token
 append and ``chunked=True`` (speculative verify, chunked prefill) are not
-ported and raise.  Unlike JAX, whose ``dynamic_update_slice`` clamps a
-write past the cache end, a scalar-index write that does not fit raises; a
-per-row index must stay inside the cache (the engine does not advance idle
-rows).
+ported and raise.  The scalar index is a host int or a 0-d int64 tensor
+on the cache's device (decode only): a CUDA graph can capture a decode at
+a tensor index, which advances in place, as a per-row index does.  Unlike
+JAX, whose ``dynamic_update_slice`` clamps a write past the cache end, a
+host-index write that does not fit raises; an index tensor must stay
+inside the cache (the caller checks once per run, and the engine does not
+advance idle rows).
 """
 
 from __future__ import annotations
@@ -199,6 +202,18 @@ def _finish_layer(x, attn, lp, cfg: LlamaConfig):
     return x + _qmm((F.silu(gate) * up).to(dtype), lp['down_proj']).to(dtype)
 
 
+def _write(buf, at, t):
+    """Write this call's (B, H, S[, D]) rows ``t`` into a cache buffer at
+    ``at``: a host slice, a (1,) device slot (index_copy_) or the per-row
+    (rows, slice, index) tuple."""
+    if torch.is_tensor(at):
+        buf.index_copy_(2, at, t)
+    elif isinstance(at, tuple):
+        buf[at] = t[:, :, 0]
+    else:
+        buf[:, :, at] = t
+
+
 def quant_llama_forward(qp: dict, cfg: LlamaConfig, inputs_embeds,
                         attn_mask, position_ids,
                         cache: Optional[dict] = None):
@@ -212,7 +227,8 @@ def quant_llama_forward(qp: dict, cfg: LlamaConfig, inputs_embeds,
     continuous-batching engine), every row seeing the slots up to its
     index.  With an int8 cache the attention is the int8 decode kernel over
     the whole buffer and its mask.  The cache is updated in place and
-    returned; every row's index advances by S, as in JAX.  Multi-head
+    returned; every row's index advances by S, as in JAX (a tensor index
+    in place).  Multi-head
     attention only (Vicuna-7B): grouped-query configs raise."""
     dtype = torch_dtype(cfg.dtype)
     hd = cfg.hidden_size // cfg.num_heads
@@ -227,14 +243,18 @@ def quant_llama_forward(qp: dict, cfg: LlamaConfig, inputs_embeds,
     idx = 0
     kv_mask = attn_mask
     quant_kv = False
-    vector = cache is not None and torch.is_tensor(cache['index'])
+    device_index = cache is not None and torch.is_tensor(cache['index'])
+    vector = device_index and cache['index'].dim() == 1
     rows = torch.arange(b, device=dev)
-    if vector:
+    if device_index:
         idx = cache['index']
         if s != 1:
-            raise ValueError('per-row cache indices take one token a row '
+            raise ValueError('cache index tensors take one token a row '
                              '(multi-token appends are not ported)')
-        cache['mask'][rows, idx] = attn_mask[:, 0]
+        if vector:
+            cache['mask'][rows, idx] = attn_mask[:, 0]
+        else:
+            cache['mask'].index_copy_(1, idx.view(1), attn_mask[:, :1])
     elif cache is not None:
         idx = cache['index']
         if prefill and idx != 0:
@@ -265,22 +285,21 @@ def quant_llama_forward(qp: dict, cfg: LlamaConfig, inputs_embeds,
     mask_bias = torch.where(causal_ok & amask[:, None, None, :],
                             0.0, NEG_INF).to(torch.float32)
 
+    at = (rows, slice(None), idx) if vector else idx.view(1) if device_index \
+        else slice(idx, idx + s)
     for i, lp in enumerate(qp['layers']):
         q, k, v = _project_qkv(x, lp, cfg, cos, sin)
         if cache is not None:
-            at = (rows, slice(None), idx) if vector \
-                else (slice(None), slice(None), slice(idx, idx + s))
-            one = (lambda t: t[:, :, 0]) if vector else (lambda t: t)
             if quant_kv:
                 kq8, ksc = _quantize_tokens(k)
                 vq8, vsc = _quantize_tokens(v)
-                cache['k'][i][at] = one(kq8)
-                cache['v'][i][at] = one(vq8)
-                cache['k_scale'][i][at] = one(ksc)
-                cache['v_scale'][i][at] = one(vsc)
+                _write(cache['k'][i], at, kq8)
+                _write(cache['v'][i], at, vq8)
+                _write(cache['k_scale'][i], at, ksc)
+                _write(cache['v_scale'][i], at, vsc)
             else:
-                cache['k'][i][at] = one(k)
-                cache['v'][i][at] = one(v)
+                _write(cache['k'][i], at, k.to(cache['k'][i].dtype))
+                _write(cache['v'][i], at, v.to(cache['v'][i].dtype))
                 if not prefill:
                     k, v = cache['k'][i], cache['v'][i]
 
@@ -302,17 +321,20 @@ def quant_llama_forward(qp: dict, cfg: LlamaConfig, inputs_embeds,
         x = _finish_layer(x, attn, lp, cfg)
 
     x = rms_norm(x, qp['norm'], cfg.rms_norm_eps)
-    if cache is not None:
+    if device_index:
+        idx.add_(s)
+    elif cache is not None:
         cache['index'] = idx + s
     return x, cache
 
 
 def megakernel_step_inputs(cfg: LlamaConfig, cache: dict, attn_mask):
     """The per-step inputs of ``fused_decode_step`` at the cache's scalar
-    index: the (B, S) f32 bias over the OLD positions only (kj < index; the
-    kernel folds the current token into the softmax itself), the (B, 1) f32
-    bias of this token from ``attn_mask[:, :1]``, and the (B, 128) f32 RoPE
-    rows at the index.  Returns (mask_bias, cur_bias, cos, sin)."""
+    index (a host int or a 0-d device tensor, read on the device): the
+    (B, S) f32 bias over the OLD positions only (kj < index; the kernel
+    folds the current token into the softmax itself), the (B, 1) f32 bias
+    of this token from ``attn_mask[:, :1]``, and the (B, 128) f32 RoPE rows
+    at the index.  Returns (mask_bias, cur_bias, cos, sin)."""
     index = cache['index']
     b, skv = cache['mask'].shape
     dev = cache['mask'].device
@@ -320,7 +342,7 @@ def megakernel_step_inputs(cfg: LlamaConfig, cache: dict, attn_mask):
     mask_bias = torch.where((kj < index)[None, :] & cache['mask'], 0.0,
                             NEG_INF).to(torch.float32)
     cur_bias = torch.where(attn_mask[:, :1], 0.0, NEG_INF).to(torch.float32)
-    position_ids = torch.full((b, 1), index, dtype=torch.int32, device=dev)
+    position_ids = torch.zeros((b, 1), dtype=torch.int32, device=dev) + index
     cos, sin = rope_tables(position_ids, cfg.hidden_size // cfg.num_heads,
                            cfg.rope_theta)
     return (mask_bias, cur_bias.contiguous(), cos[:, 0].contiguous(),
@@ -334,18 +356,21 @@ def quant_llama_decode_megakernel(qp: dict, sp: dict, cfg: LlamaConfig,
     whole L-layer stack, the cache updated in place.
 
     ``sp`` = ``stack_decode_params(qp)``; ``cache`` = ``stack_kv_cache`` of
-    an int8 cache, with a scalar index.  The token's position is the cache
-    index (the decode benchmark's contract; the engine's per-row positions
-    keep the per-layer path).  The semantics are those of
+    an int8 cache, with a scalar index: ``stack_kv_cache``'s 0-d int32
+    device word, which the kernel reads and this step advances in place (a
+    CUDA graph can capture the step), or a host int.  The token's position
+    is the cache index (the decode benchmark's contract; the engine's
+    per-row positions keep the per-layer path).  The semantics are those of
     ``quant_llama_forward``'s cached decode; a write past the cache's end
-    raises.  Returns (hidden (B, 1, D), cache)."""
+    at a host index raises, and a caller of the device word checks its run
+    once.  Returns (hidden (B, 1, D), cache)."""
     from groma_tpu_torch.ops.decode_megakernel import fused_decode_step
     dtype = torch_dtype(cfg.dtype)
     if inputs_embeds.shape[1] != 1:
         raise ValueError('megakernel decode takes one token a row')
     index = cache['index']
     skv = cache['mask'].shape[1]
-    if index >= skv:
+    if not torch.is_tensor(index) and index >= skv:
         raise ValueError(f'KV cache overflow: a token at slot {index} of a '
                          f'{skv}-slot cache')
     x = fused_decode_step(
@@ -353,8 +378,12 @@ def quant_llama_decode_megakernel(qp: dict, sp: dict, cfg: LlamaConfig,
         *megakernel_step_inputs(cfg, cache, attn_mask), index,
         eps=cfg.rms_norm_eps)
     x = rms_norm(x.to(dtype)[:, None, :], qp['norm'], cfg.rms_norm_eps)
-    cache['mask'][:, index] = attn_mask[:, 0]
-    cache['index'] = index + 1
+    if torch.is_tensor(index):
+        cache['mask'].index_copy_(1, index.long().view(1), attn_mask[:, :1])
+        index.add_(1)
+    else:
+        cache['mask'][:, index] = attn_mask[:, 0]
+        cache['index'] = index + 1
     return x, cache
 
 

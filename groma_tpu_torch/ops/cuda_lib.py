@@ -89,7 +89,7 @@ def _declare(lib):
     lib.groma_paged_attention.argtypes = [p, p, p, p, p, p, p, p,
                                           i, i, i, i, i, p]
     lib.groma_paged_attention.restype = i
-    lib.groma_decode_megakernel.argtypes = [p] * 18 + [i] * 7 + [f, p, p]
+    lib.groma_decode_megakernel.argtypes = [p] * 19 + [i] * 6 + [f, p, p]
     lib.groma_decode_megakernel.restype = i
     lib.groma_decode_megakernel_maps.argtypes = [p, p, i, i, i]
     lib.groma_decode_megakernel_maps.restype = i

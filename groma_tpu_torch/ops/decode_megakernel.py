@@ -7,7 +7,9 @@ replaces the TPU kernel ``_make_kernel`` (one ``pallas_call`` with
 int8 cache write, attention over the int8 cache, o-projection, rms-norm,
 gate/up, SiLU and down-projection, with the f32 residual carried across the
 layers, in a single launch.  The cache is updated in place at the scalar
-position ``pos``.
+position ``pos``, which the kernel reads from a 0-d int32 device word when
+it runs, so a CUDA graph that captures the launch writes at the slot the
+word holds at each replay.
 
 The stacked forms are the port's own.  The kernel takes a device table of
 per-layer addresses, so neither the weights nor the cache are copied:
@@ -20,8 +22,9 @@ per-layer addresses, so neither the weights nor the cache are copied:
   once), and ``plan``: the kernel's work plan for the card's SMs
   (``megakernel_plan`` over ``ctas`` CTAs, with the workspace it needs).
 * ``stack_kv_cache(cache)`` shares the per-layer (B, H, S, 128) int8 and
-  (B, H, S) f32 buffers of ``llama_quant.make_quant_kv_cache`` and adds, on
-  CUDA, ``table``: (L, 4) int64 addresses.  ``unstack_kv_cache`` is its
+  (B, H, S) f32 buffers of ``llama_quant.make_quant_kv_cache``, keeps the
+  index as a 0-d int32 tensor on the cache's device, and adds, on CUDA,
+  ``table``: (L, 4) int64 addresses.  ``unstack_kv_cache`` is its
   inverse.
 * Both keep ``ptrs``, the host-side tuple of the addresses they were
   stacked from; ``fused_decode_step`` raises if a list entry has since been
@@ -52,9 +55,10 @@ column is written.
 
 * ``fused_decode_step_plain`` is the plain PyTorch version, on any device.
 * ``fused_decode_step`` takes the plain version only for CPU tensors.  On
-  CUDA tensors it launches the kernel or raises.  ``pos >= S`` raises on
-  both (JAX clamps the write).  ``fused_decode_step.launches`` counts
-  launches; a launch leaves its grid, its grid barriers a step and its
+  CUDA tensors it launches the kernel or raises.  A host ``pos`` outside
+  the cache raises on both (JAX clamps the write); a device word is the
+  caller's to keep inside, checked once per run.
+  ``fused_decode_step.launches`` counts launches; a launch leaves its grid, its grid barriers a step and its
   dynamic shared memory in ``.blocks``, ``.barriers`` and ``.smem``.
 * ``phase_stamps`` launches once with per-block ``%globaltimer`` stamps at
   every phase and barrier; ``phase_split`` turns them into ms of work, idle
@@ -221,8 +225,10 @@ def stack_kv_cache(cache: dict) -> dict:
     form: the same buffers (no copy; the kernel writes them in place), and
     on CUDA an (L, 4) table of their addresses (k, k_scale, v, v_scale)."""
     st = {k: cache[k] for k in ('k', 'k_scale', 'v', 'v_scale', 'mask')}
-    st['index'] = int(cache['index'])
     dev = st['k'][0].device
+    index = cache['index']
+    st['index'] = index.to(torch.int32) if torch.is_tensor(index) \
+        else torch.full((), index, dtype=torch.int32, device=dev)
     st['table'] = _address_table(
         [[st[k][i] for k in _CACHE_KEYS] for i in range(len(st['k']))],
         dev) if dev.type == 'cuda' else None
@@ -325,10 +331,19 @@ def _attend(q, k, v, k8, ks, v8, vs, mask_bias, cur_bias, scale):
     return attn, k8c, ksc, v8c, vsc
 
 
+def _slot(pos, device) -> torch.Tensor:
+    """A host int or 0-d device word -> the (1,) int64 index of its slot."""
+    if torch.is_tensor(pos):
+        return pos.long().view(1)
+    return torch.full((1,), pos, dtype=torch.int64, device=device)
+
+
 def fused_decode_step_plain(sp: dict, x, kv: dict, mask_bias, cur_bias,
-                            cos, sin, pos: int, eps: float = 1e-5):
+                            cos, sin, pos, eps: float = 1e-5):
     """The plain PyTorch version of ``fused_decode_step``, on any device;
-    ``kv``'s buffers are updated in place at ``pos``."""
+    ``kv``'s buffers are updated in place at ``pos`` (a host int or a 0-d
+    device word)."""
+    at = _slot(pos, x.device)
     b, d = x.shape
     h = d // HEAD_DIM
     scale = HEAD_DIM ** -0.5
@@ -344,10 +359,10 @@ def fused_decode_step_plain(sp: dict, x, kv: dict, mask_bias, cur_bias,
             _rope(q, cos, sin), _rope(k, cos, sin), v, kv['k'][i],
             kv['k_scale'][i], kv['v'][i], kv['v_scale'][i], mask_bias,
             cur_bias, scale)
-        kv['k'][i][:, :, pos] = k8c.to(torch.int8)
-        kv['v'][i][:, :, pos] = v8c.to(torch.int8)
-        kv['k_scale'][i][:, :, pos] = ksc[..., 0]
-        kv['v_scale'][i][:, :, pos] = vsc[..., 0]
+        kv['k'][i].index_copy_(2, at, k8c.to(torch.int8)[:, :, None])
+        kv['v'][i].index_copy_(2, at, v8c.to(torch.int8)[:, :, None])
+        kv['k_scale'][i].index_copy_(2, at, ksc)
+        kv['v_scale'][i].index_copy_(2, at, vsc)
         x = x + _int4_chunk_dot(attn.reshape(b, d).to(torch.bfloat16),
                                 sp['wo'][i], sp['so'][i])
         h2 = _rms(x, sp['ln2'][i], eps)
@@ -401,8 +416,8 @@ def _launch(sp, x, kv, mask_bias, cur_bias, cos, sin, pos, eps,
         sp['ln2'].data_ptr(), sp['table'].data_ptr(), sp['maps'].data_ptr(),
         kv['table'].data_ptr(), sp['plan'].data_ptr(), qkv.data_ptr(),
         attn.data_ptr(), act.data_ptr(), work.data_ptr(), sync.data_ptr(),
-        None if stamps is None else stamps.data_ptr(),
-        n_layers, b, h, s, f, pos, sp['ctas'], eps, info, stream_ptr(x))
+        None if stamps is None else stamps.data_ptr(), pos.data_ptr(),
+        n_layers, b, h, s, f, sp['ctas'], eps, info, stream_ptr(x))
     check(status, 'decode_megakernel')
     fused_decode_step.launches += 1
     fused_decode_step.blocks = info[0]
@@ -411,10 +426,17 @@ def _launch(sp, x, kv, mask_bias, cur_bias, cos, sin, pos, eps,
     return out
 
 
-def _check_cuda(sp, x, kv, mask_bias, cur_bias, cos, sin):
-    """Raise unless the kernel takes these tensors."""
+def _check_cuda(sp, x, kv, mask_bias, cur_bias, cos, sin, pos):
+    """Raise unless the kernel takes these tensors; -> the device word of
+    ``pos`` (a host int filled into one)."""
     if x.device.type != 'cuda':
         raise ValueError(f'fused_decode_step: unsupported device {x.device}')
+    if not torch.is_tensor(pos):
+        pos = torch.full((), pos, dtype=torch.int32, device=x.device)
+    if pos.dtype != torch.int32 or pos.numel() != 1 \
+            or pos.device != x.device:
+        raise ValueError('fused_decode_step: pos is a host int or one int32 '
+                         'word on the device of x')
     b, d = x.shape
     f = sp['wdn'][0].shape[0] * 2
     s = kv['k'][0].shape[2]
@@ -445,10 +467,11 @@ def _check_cuda(sp, x, kv, mask_bias, cur_bias, cos, sin):
         raise ValueError('fused_decode_step: x, mask_bias, the weights and '
                          'the cache buffers must start at 16-byte aligned '
                          'addresses')
+    return pos
 
 
 def fused_decode_step(sp: dict, x, kv: dict, mask_bias, cur_bias, cos, sin,
-                      pos: int, eps: float = 1e-5):
+                      pos, eps: float = 1e-5):
     """One decode step over all L layers.
 
     sp: ``stack_decode_params``; x (B, D) f32, the hidden state after the
@@ -456,8 +479,9 @@ def fused_decode_step(sp: dict, x, kv: dict, mask_bias, cur_bias, cos, sin,
     mask_bias (B, S) f32 (0 / -1e30) over the OLD positions, -1e30 at
     ``pos`` and beyond; cur_bias (B, 1) f32, this token's validity bias;
     cos/sin (B, 128) f32 RoPE rows at this token's position; pos, the
-    scalar cache slot, 0 <= pos < S.  Returns the (B, D) f32 hidden state
-    before the final norm.
+    scalar cache slot, 0 <= pos < S: a host int (checked) or a 0-d int32
+    tensor on the device of x, which the kernel reads when it runs.
+    Returns the (B, D) f32 hidden state before the final norm.
 
     CPU tensors: the plain version.  CUDA tensors: the kernel, for B <= 8,
     128-wide MHA heads, D and F multiples of 256; x, the biases and the
@@ -466,7 +490,7 @@ def fused_decode_step(sp: dict, x, kv: dict, mask_bias, cur_bias, cos, sin,
     that cannot be co-resident, or shared memory that cannot be had, is
     refused with an error."""
     s = kv['k'][0].shape[2]
-    if not 0 <= pos < s:
+    if not torch.is_tensor(pos) and not 0 <= pos < s:
         raise ValueError(f'decode position {pos} outside the {s}-slot '
                          f'cache')
     if (sp.get('ptrs') != _addresses(sp, _PARAM_KEYS)
@@ -476,7 +500,7 @@ def fused_decode_step(sp: dict, x, kv: dict, mask_bias, cur_bias, cos, sin,
     if x.device.type == 'cpu':
         return fused_decode_step_plain(sp, x, kv, mask_bias, cur_bias, cos,
                                        sin, pos, eps)
-    _check_cuda(sp, x, kv, mask_bias, cur_bias, cos, sin)
+    pos = _check_cuda(sp, x, kv, mask_bias, cur_bias, cos, sin, pos)
     return _launch(sp, x, kv, mask_bias, cur_bias, cos, sin, pos, eps)
 
 
@@ -486,14 +510,14 @@ fused_decode_step.barriers = 0
 fused_decode_step.smem = 0
 
 
-def phase_stamps(sp, x, kv, mask_bias, cur_bias, cos, sin, pos: int,
+def phase_stamps(sp, x, kv, mask_bias, cur_bias, cos, sin, pos,
                  eps: float = 1e-5):
     """One launch of the kernel on CUDA tensors, as ``fused_decode_step``,
     that also records each block's ``%globaltimer`` (ns): at its start, at
     its end, and for each layer and phase (``PHASES``) when its last thread
     is done with the phase and when it leaves the wait that follows.
     Returns (out, stamps (blocks, 2 + 10 L) int64)."""
-    _check_cuda(sp, x, kv, mask_bias, cur_bias, cos, sin)
+    pos = _check_cuda(sp, x, kv, mask_bias, cur_bias, cos, sin, pos)
     stamps = torch.zeros((sp['ctas'], 2 + 2 * len(PHASES) * len(sp['wqkv'])),
                          dtype=torch.int64, device=x.device)
     out = _launch(sp, x, kv, mask_bias, cur_bias, cos, sin, pos, eps,

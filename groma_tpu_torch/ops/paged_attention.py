@@ -64,8 +64,8 @@ def _page_loop(q, kpool, ks, vpool, vs, table, lengths):
     amax = qf.abs().amax(-1, keepdim=True)
     qs = torch.where(amax > 0, true_div(amax, 127.0), torch.ones_like(amax))
     q8 = torch.round(qf / qs).double()
-    qscale = qs * torch.tensor(d ** -0.5, dtype=torch.float32,
-                               device=q.device)
+    qscale = qs * torch.full((), d ** -0.5, dtype=torch.float32,
+                             device=q.device)
     pos = torch.arange(PAGE, device=q.device)
     m = torch.full((b, h, 1), NEG, device=q.device)
     l = torch.zeros((b, h, 1), device=q.device)

@@ -35,8 +35,10 @@ DENSE_MIN_ROWS = 256      # from this many rows on, the prefill tile
 def true_div(x: torch.Tensor, d: float) -> torch.Tensor:
     """x / d rounded as an IEEE division on every device.  PyTorch's CUDA
     kernel multiplies by the reciprocal when the divisor is a Python
-    scalar, which can move a quantized value across a rounding tie."""
-    return x / torch.tensor(d, dtype=x.dtype, device=x.device)
+    scalar, which can move a quantized value across a rounding tie.  The
+    divisor is filled on x's device, not copied from the host, so a
+    captured CUDA graph may hold the division."""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
 
 
 def quantize_weight(w: torch.Tensor, pad_to: int = 0):

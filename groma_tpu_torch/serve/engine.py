@@ -28,8 +28,20 @@ the scheduler loop ends every live and queued stream by re-raising it.
 Unlike JAX, an inactive or finished row does not advance its cache index
 (JAX adds 1 to every row each step and drops the writes that fall past the
 cache; here such a write would be out of range), and the prefill cache is
-as long as the stream, not ``max_len``.  Decode bursts are a Python loop
-of ``chunk`` steps enqueued on the device, read back once a burst.
+as long as the stream, not ``max_len``.
+
+A decode burst is JAX's jitted scan of ``chunk`` steps: one step over
+static device buffers (tokens, positions, done flags, the active mask,
+temperatures, the cache index or the page table, the burst's token
+columns and step counter, the finite flag), captured once as a
+``utils.graphs.StepGraph`` and replayed ``chunk`` times, one graph for
+greedy bursts and one for bursts with a sampled row (which draws from the
+engine's generator, registered with the graph).  The host writes the
+active mask, temperatures and page table into their buffers with one copy
+each from pinned memory before a burst, and reads the tokens, positions,
+done flags and finite flag back in one copy after it.  On the CPU the same
+step runs eagerly.
+
 Chunked prefill, speculative decoding and ``w8a8_prefill`` are not ported
 and raise ``NotImplementedError``.
 """
@@ -54,6 +66,7 @@ from groma_tpu_torch.models.llama_quant import (make_quant_kv_cache,
                                                 quant_llama_forward)
 from groma_tpu_torch.ops.paged_attention import (PAGE, insert_prefill_pages,
                                                  make_kv_page_pool)
+from groma_tpu_torch.utils.graphs import StepGraph
 
 
 class Session:
@@ -149,19 +162,43 @@ class BatchEngine:
             self._num_pages = pool_tokens // PAGE + 1
             self._free_pages = list(range(self._num_pages - 1, 0, -1))
             self._slot_pages = [[] for _ in range(max_slots)]
-            self._table_np = np.zeros((max_slots, self._np_max), np.int32)
             self._pools = make_kv_page_pool(cfg.llm, self._num_pages, dev)
             self._cache = None
         else:
             self._cache = self._fresh_cache(max_slots, self.max_len)
             self._cache['index'] = torch.zeros((max_slots,), dtype=torch.int64,
                                                device=dev)
+        # the host's active mask, temperatures and page table: numpy views
+        # of pinned buffers, copied into the step's before each burst
+        pinned = dev.type == 'cuda'
+        self._host = {
+            'active': torch.zeros(max_slots, dtype=torch.bool,
+                                  pin_memory=pinned),
+            'temps': torch.zeros(max_slots, pin_memory=pinned),
+            'table': torch.zeros((max_slots, self._np_max if paged_kv
+                                  else 0), dtype=torch.int32,
+                                 pin_memory=pinned)}
+        self._active = self._host['active'].numpy()
+        self._temps = self._host['temps'].numpy()
+        self._table_np = self._host['table'].numpy()
         self._tok = torch.full((max_slots,), eos_id, dtype=torch.int64,
                                device=dev)
         self._pos = torch.zeros((max_slots,), dtype=torch.int64, device=dev)
         self._done = torch.ones((max_slots,), dtype=torch.bool, device=dev)
-        self._active = np.zeros((max_slots,), bool)
-        self._temps = np.zeros((max_slots,), np.float32)
+        self._pos_np = np.zeros((max_slots,), np.int64)   # as of the last
+        self._done_np = np.ones((max_slots,), bool)       # read-back
+        self._state = {
+            'tok': self._tok, 'pos': self._pos, 'done': self._done,
+            **{k: v.to(dev) for k, v in self._host.items()},
+            'out': torch.zeros((max_slots, chunk), dtype=torch.int64,
+                               device=dev),
+            'step': torch.zeros((), dtype=torch.int64, device=dev),
+            'finite': torch.ones((), dtype=torch.bool, device=dev)}
+        if paged_kv:
+            self._state['pools'] = self._pools
+        else:
+            self._state['cache'] = self._cache
+        self._graphs: dict = {}    # sampled -> the burst step's StepGraph
         self._gen = torch.Generator(device=dev)
         self._gen.manual_seed(sample_seed)
         self._host_rng = np.random.default_rng(sample_seed)
@@ -371,6 +408,8 @@ class BatchEngine:
         self._tok[slot] = tok0
         self._pos[slot] = next_pos
         self._done[slot] = tok0 == self.eos_id
+        self._pos_np[slot] = next_pos
+        self._done_np[slot] = tok0 == self.eos_id
         self._active[slot] = True
         self._emitted[slot] = 1
         self._sessions[slot] = sess
@@ -408,12 +447,10 @@ class BatchEngine:
         """Give every live slot the pages for ``chunk`` more tokens; a slot
         the pool or the per-request cap cannot cover is truncated before
         the burst."""
-        pos_np = self._pos.cpu().numpy()
-        done_np = self._done.cpu().numpy()
         for slot in range(self.max_slots):
-            if not self._active[slot] or done_np[slot]:
+            if not self._active[slot] or self._done_np[slot]:
                 continue
-            end = int(pos_np[slot]) + self.chunk + 1
+            end = int(self._pos_np[slot]) + self.chunk + 1
             if end > self._np_max * self._page:
                 self._finish(slot, truncated=True)
                 continue
@@ -433,8 +470,53 @@ class BatchEngine:
             return greedy
         probs = torch.softmax(logits.float() / temps.clamp(min=1e-6)[:, None],
                               dim=-1)
-        sampled = torch.multinomial(probs, 1, generator=self._gen)[:, 0]
+        # torch.multinomial(probs, 1)'s draw (the exponential race), written
+        # out: multinomial checks its input on the host, which no captured
+        # step may do
+        race = torch.empty_like(probs).exponential_(1, generator=self._gen)
+        sampled = torch.argmax(probs / race, dim=-1)
         return torch.where(temps > 0, sampled, greedy)
+
+    def _step(self, st, sample: bool):
+        """One decode step over every slot, on the burst's static state;
+        the token goes into column ``step`` of ``out``."""
+        llm = self.cfg.llm
+        tok, pos, done, active = st['tok'], st['pos'], st['done'], \
+            st['active']
+        live = active & ~done
+        if self.paged:
+            emb = quant_embed(self.qp, tok[:, None], llm.vocab_size)
+            lengths = torch.where(live, pos + 1, 0).to(torch.int32)
+            hidden, _ = quant_llama_decode_paged(
+                self.qp, llm, emb, pos[:, None], st['pools'], st['table'],
+                lengths)
+            logits = quant_logits(self.qp, hidden)[:, -1]
+        else:
+            cache = st['cache']
+            if self.qp is None:
+                # frozen rows carry eos_id, which may be -1 ("never stop"):
+                # the embedding table takes no negative id
+                logits, _ = self.model.decode_step(tok.clamp(min=0)[:, None],
+                                                   cache, pos[:, None])
+            else:
+                emb = quant_embed(self.qp, tok[:, None], llm.vocab_size)
+                hidden, _ = quant_llama_forward(
+                    self.qp, llm, emb, torch.ones_like(live[:, None]),
+                    pos[:, None], cache)
+                logits = quant_logits(self.qp, hidden)[:, -1]
+            # the forward advanced every row's index; frozen rows step
+            # back, so their writes stay inside the cache however long
+            # they idle
+            cache['index'].sub_((~live).long())
+        st['finite'].logical_and_(torch.isfinite(logits).all())
+        new = torch.where(live, self._pick(logits, st['temps'], sample),
+                          self.eos_id)
+        now_done = done | (new == self.eos_id) | ~active
+        pos.add_((active & ~now_done).long())
+        done.copy_(now_done)
+        tok.copy_(new)
+        st['out'].index_copy_(1, st['step'].view(1), new[:, None])
+        st['step'].add_(1)
 
     def _decode_burst(self):
         """``chunk`` decode steps over all slots, then the emitted tokens go
@@ -444,55 +526,35 @@ class BatchEngine:
         if not self._active.any():
             return
         t0 = time.perf_counter()
-        dev = self.device
-        llm = self.cfg.llm
-        finite = torch.ones((), dtype=torch.bool, device=dev)
-        active = torch.as_tensor(self._active, device=dev)
-        temps = torch.as_tensor(self._temps, device=dev)
+        st = self._state
+        for key, host in self._host.items():
+            # pinned -> device; the host writes these arrays again only
+            # after the burst's read-back, which waits for the copy
+            st[key].copy_(host, non_blocking=True)
+        st['step'].zero_()
+        st['finite'].fill_(True)
         sample = bool((self._temps > 0).any())
-        ones = torch.ones((self.max_slots, 1), dtype=torch.bool, device=dev)
-        if self.paged:
-            table = torch.as_tensor(self._table_np, device=dev)
-        tok, pos, done = self._tok, self._pos, self._done
-        out = []
-        for _ in range(self.chunk):
-            live = active & ~done
-            if self.paged:
-                emb = quant_embed(self.qp, tok[:, None], llm.vocab_size)
-                lengths = torch.where(live, pos + 1, 0).to(torch.int32)
-                hidden, _ = quant_llama_decode_paged(
-                    self.qp, llm, emb, pos[:, None], self._pools, table,
-                    lengths)
-                logits = quant_logits(self.qp, hidden)[:, -1]
-            else:
-                index = self._cache['index']
-                if self.qp is None:
-                    logits, _ = self.model.decode_step(
-                        tok[:, None], self._cache, pos[:, None])
-                else:
-                    emb = quant_embed(self.qp, tok[:, None], llm.vocab_size)
-                    hidden, _ = quant_llama_forward(
-                        self.qp, llm, emb, ones, pos[:, None], self._cache)
-                    logits = quant_logits(self.qp, hidden)[:, -1]
-                # frozen rows keep their index, so their writes stay inside
-                # the cache however long they idle
-                self._cache['index'] = torch.where(
-                    live, self._cache['index'], index)
-            finite &= torch.isfinite(logits).all()
-            tok = torch.where(live, self._pick(logits, temps, sample),
-                              self.eos_id)
-            done = done | (tok == self.eos_id) | ~active
-            pos = pos + (active & ~done)
-            out.append(tok)
-        self._tok, self._pos, self._done = tok, pos, done
-        out_np = torch.stack(out, dim=1).cpu().numpy()
-        self._n_nonfinite += int(not finite.item())
+        graph = self._graphs.get(sample)
+        if graph is None:
+            graph = self._graphs[sample] = StepGraph(
+                lambda state: self._step(state, sample), st,
+                generators=(self._gen,) if sample
+                and self.device.type == 'cuda' else ())
+        graph.run(self.chunk)
+        # the burst's one read-back: tokens, positions, done, finite
+        back = torch.cat([st['out'], st['pos'][:, None],
+                          st['done'][:, None].long(),
+                          st['finite'].long().expand(self.max_slots, 1)],
+                         dim=1).cpu().numpy()
+        self._pos_np[:] = back[:, self.chunk]
+        self._done_np[:] = back[:, self.chunk + 1] != 0
+        self._n_nonfinite += int(not back[0, self.chunk + 2])
         self._n_steps += self.chunk
         self._decode_sec += time.perf_counter() - t0
-        self._emit(out_np)
+        self._emit(back[:, :self.chunk])
 
     def _emit(self, out_np):
-        done_np = self._done.cpu().numpy()
+        done_np = self._done_np
         for slot in range(self.max_slots):
             if not self._active[slot]:
                 continue
