@@ -100,6 +100,30 @@ Phases, each printed before the last line:
     counted.  Then one warm prefill alone and the same request
     with 9 new tokens under torch.profiler: the prefill's device time by
     kernel, and the device time a decode token;
+ 5b. on the same weights, JAX's benchmarked configuration and
+    speculation (the W8A8 product and the int8 convs were held bitwise to
+    their plain versions in phase 2, and their quantization and rescale to
+    CPU copies: the four layer matmuls at M = 2048 and 576 on the K-major
+    copy and the stored layout, beside #1's prefill tile and the int8 and
+    bf16 bounds; the fuse convs' pieces at 128², 64² and 32² and the RoI
+    head's conv over 100 RoIs, beside cuDNN's bf16 conv): JAX's end-to-end
+    REC run (bench_e2e.py --w8a8 --int8vision, B=1: a 640-slot REC
+    stream, vision with #3 and the int8 convs, check_stream_capacity and
+    compact_stream to 576, the W8A8 prefill, 3 greedy decode steps; ms
+    per image, device time, exact launches); QuantGenerator(kv_bits=8,
+    use_flash=True, w8a8_prefill=True) under GromaConfig(vision_int8=True)
+    on the three requests (#3 24 and #4 32 launches a request, exact; the
+    first logits against the weight-only prefill's, a cosine of at least
+    W8A8_COSINE_MIN), and three warm prefills under torch.profiler (that
+    configuration, flash alone, the served one); QuantGenerator(kv_bits=8,
+    spec_lookahead=4) on the same requests (verify calls, accepted a call,
+    ms/token; the tokens equal to the sequential greedy ones, or first
+    different at a near-tie: the verify and decode forwards' logits there
+    at most SPEC_LOGIT_DIFF_MAX apart, both parted tokens among the top-2
+    values of each, the sequential top-2 gap below that difference), and
+    its verify step's replays
+    against the eager step on a copy of the state (bitwise, busy share,
+    launches a replay);
  6. the unquantized path, the default of every JAX entry point
     (--quant_type none): first the LLaMA forward at full width and two
     layers, bf16 weights and cache, on the card against the CPU (a prefill,
@@ -234,6 +258,37 @@ UNQUANT_TEMPERATURE = 0.7
 UNQUANT_FLASH_TOL = 0.1       # first logits, relative to max|logits|
 UNQUANT_LLM_FLASH_TOL = 0.1   # LLM hidden, relative to max|hidden|
 UNQUANT_ENGINE_SLOTS = 4
+# W8A8 and speculation (phase 5b): the W8A8 product at the served
+# prefill's M and the compacted REC stream's; the int8 vision convs'
+# shapes (name, B, C, H = W, calls an image: 5 fuse rounds, one RoI head);
+# JAX's end-to-end REC configuration (benchmarks/bench_e2e.py: a 640-slot
+# stream compacted to 576, 3 decode steps); the W8A8 generator's first
+# logits against the weight-only prefill's (a layout or scale fault gives
+# a cosine near 0); speculation's lookahead and the verify twin's steps
+W8A8_ROWS = (2048, 576)
+W8A8_CONV_CASES = [(f'fuse {hw}x{hw}, {piece}', 1, c, hw, 5)
+                   for hw in (128, 64, 32)
+                   for piece, c in (('kept channels', 512),
+                                    ('from the coarser level', 256),
+                                    ('from the finer level', 256))] + [
+    ('RoI head (pconv)', 100, 3072, 14, 1)]
+# the plain conv also runs on CPU copies (int32 products) for the cases of
+# at most this many input elements: the 32² fuse pieces
+W8A8_CONV_CPU_ELEMENTS = 32 * 32 * 512
+REC_SEQ_LEN, REC_PREFILL_LEN, REC_DECODE_STEPS = 640, 576, 3
+REC_RUNS = 3
+W8A8_COSINE_MIN = 0.9
+SPEC_LOOKAHEAD = 4
+SPEC_TWIN_STEPS = 4
+# the most |verify - decode| logit difference a sound verify forward shows
+# where speculative and sequential tokens part: the int8-cache verify
+# attends through the dequantized cache, the decode through #2.  On an
+# H100 at full width a sound verify showed 0.070 to 0.094 (this script,
+# where tokens parted) and 0.072 to 0.094 (benchmarks/spec_divergence.py,
+# also with the chunk written one slot early), one with its rope positions
+# one too far 0.138 to 0.171; the logits are bf16-valued: 4 of their steps
+# of 2^-5 at the served logits' magnitude
+SPEC_LOGIT_DIFF_MAX = 0.125
 TRAIN_BATCH = 2            # vl_pretrain.sh's 16 does not fit one card
 TRAIN_STEPS = 4            # >= 2: the warmup-cosine schedule's lr is 0 first
 # stage 3, card (bf16 activations, the kernels) against CPU (f32, plain):
@@ -2802,7 +2857,627 @@ def serve_full_width(torch, np, seed: int, card: str):
           f'kernels, ms: {top} [{card}]')
     print(f'served path, the same request with 9 new tokens: '
           f'{per_token} [{card}]')
-    return launched
+    return launched, worker
+
+
+# ----------------------------------------------- W8A8 and speculation
+
+def _cpu_equal(torch, pairs) -> bool:
+    """Each (card tensor, CPU tensor) pair equal bit for bit."""
+    return all(torch.equal(a.cpu(), b) for a, b in pairs)
+
+
+def check_w8a8_matmul(torch, gen, timer, card):
+    """The W8A8 product (ops/quant.w8a8_matmul: the activations quantized
+    per row, torch._int_mm, the rescale) at the four layer matmuls, M =
+    2048 (the served prefill) and 576 (the compacted REC stream), on the
+    K-major weight copy and on the stored layout, every case held three
+    ways: bitwise equal to the plain version on the card (the exact
+    product in f64: CUDA has no int32 matmul); its int8 activations and
+    row scales equal to quantize_act's on CPU copies; and its output equal
+    to the card's exact sums rescaled on the CPU with those scales.  At
+    M=576 o_proj also against the whole plain version on CPU copies (an
+    int32 matmul).  Its time beside the product alone, the per-call
+    transpose the copy saves, #1's prefill tile on the same inputs, and
+    the int8 and bf16 bounds.  Returns {M: (w8a8 ms, #1 ms, int8 bound
+    ms)} over the four matmuls."""
+    from groma_tpu_torch.ops.quant import (_rescale_rows, int8_matmul,
+                                           int_product, quantize_act,
+                                           quantize_weight, w8a8_matmul,
+                                           w8a8_matmul_reference,
+                                           w8a8_weight)
+    dev = gen.device
+    sums = {}
+    for m in W8A8_ROWS:
+        acc = sums.setdefault(m, [0.0] * 7)
+        for name in LAYER_MATMULS:
+            k, n = INT8_MATMUL_SHAPES[name]
+            x = torch.randn((m, k), generator=gen, device=dev).to(
+                torch.bfloat16)
+            wq, scale = quantize_weight(torch.randn((k, n), generator=gen,
+                                                    device=dev))
+            wk = w8a8_weight(wq)
+            want = w8a8_matmul_reference(x, wq, scale)
+            got = w8a8_matmul(x, wk, scale)
+            ok = all(torch.equal(g, want) for g in (
+                got, w8a8_matmul(x, wk, scale), w8a8_matmul(x, wq, scale)))
+            ok = ok and bool(torch.isfinite(got.float()).all())
+            # the quantization and the rescale against CPU copies
+            xq, xs = quantize_act(x)
+            xq_c, xs_c = quantize_act(x.cpu())
+            quant_ok = _cpu_equal(torch, ((xq, xq_c), (xs, xs_c)))
+            rescale_ok = _cpu_equal(torch, ((got, _rescale_rows(
+                int_product(xq, wq).cpu(), xs_c, scale.cpu(), x.dtype)),))
+            ok = ok and quant_ok and rescale_ok
+            cpu_note = ''
+            if m == W8A8_ROWS[-1] and name == 'o_proj':
+                # the whole plain version on CPU copies: an int32 matmul
+                same = torch.equal(w8a8_matmul_reference(
+                    x.cpu(), wq.cpu(), scale.cpu()), got.cpu())
+                ok = ok and same
+                cpu_note = (f'; {"equal" if same else "NOT equal"} to the '
+                            f'whole plain version on CPU copies (an int32 '
+                            f'matmul)')
+            ms = timer(lambda: w8a8_matmul(x, wk, scale))
+            stored_ms = timer(lambda: w8a8_matmul(x, wq, scale))
+            prod_ms = timer(lambda: torch._int_mm(xq, wk))
+            tr_ms = timer(lambda: wq.T.contiguous())
+            tile_ms = timer(lambda: int8_matmul(x, wq, scale))
+            plain_ms = timer(lambda: w8a8_matmul_reference(x, wq, scale))
+            nbytes = 2 * m * k + k * n + 4 * n + 2 * m * n
+            b8, by8 = bound(nbytes, 2 * m * k * n, H100_INT8_OPS)
+            b16, by16 = bound(nbytes, 2 * m * k * n)
+            for i, v in enumerate((ms, stored_ms, prod_ms, tr_ms, tile_ms,
+                                   plain_ms, b8)):
+                acc[i] += v
+            print(f'w8a8_matmul M={m} {name} K={k} N={n}: bitwise equal to '
+                  f'its plain version on the K-major copy and on the stored '
+                  f'layout {"ok" if ok else "FAIL"} (quantize_act on CPU '
+                  f'copies {"equal" if quant_ok else "NOT equal"}, the '
+                  f'exact sums rescaled on the CPU '
+                  f'{"equal" if rescale_ok else "NOT equal"}{cpu_note}); '
+                  f'{ms:.4f} ms '
+                  f'(K-major copy; the product alone {prod_ms:.4f}), '
+                  f'{stored_ms:.4f} ms on the stored (K, N) layout, the '
+                  f'per-call transpose {tr_ms:.4f} ms; #1\'s prefill tile '
+                  f'{tile_ms:.4f} ms; plain {plain_ms:.4f} ms; int8 bound '
+                  f'{b8:.4f} ms ({by8}), bf16 bound {b16:.4f} ms ({by16}) '
+                  f'[{card}]')
+            if not ok:
+                fail(f'w8a8_matmul differs from its plain version at M={m} '
+                     f'{name}')
+            del x, wq, wk, want, got, xq, xq_c
+    for m, a in sums.items():
+        print(f'w8a8_matmul M={m}, the four layer matmuls: {a[0]:.4f} ms '
+              f'(K-major copy; the products alone {a[2]:.4f}), {a[1]:.4f} '
+              f'ms on the stored layout, per-call transposes {a[3]:.4f} '
+              f'ms; #1\'s prefill tile {a[4]:.4f} ms ({a[0] / a[4]:.3f} x); '
+              f'plain {a[5]:.4f} ms; int8 bound {a[6]:.4f} ms, '
+              f'{100 * a[6] / a[0]:.1f} % of it [{card}]')
+    return {m: (a[0], a[4], a[6]) for m, a in sums.items()}
+
+
+def check_w8a8_conv(torch, gen, timer, card):
+    """The int8 vision convs (ops/quant.w8a8_conv): the three input pieces
+    of a fuse conv at each level (128², 64², 32²) and the RoI head's conv
+    over 100 RoIs of 14² and the levels' 3072 channels, 1024 outputs,
+    every case held three ways: bitwise equal to the plain version on the
+    card (F.unfold and the exact product in f64); its int8 activations,
+    kernel and scales equal to quantize_tensor's and quantize_conv_kernel's
+    on CPU copies; and its output equal to the card's exact sums rescaled
+    on the CPU with those scales.  The 32² pieces also against the whole
+    plain version on CPU copies (int32).  The conv's time, its products
+    over the im2col matrix, a bf16 F.conv2d (cuDNN) of the same shape and
+    the int8 bound.  Returns the ms of one image's int8 convs, their
+    products, cuDNN's and the bound."""
+    import torch.nn.functional as F
+    from groma_tpu_torch.ops.quant import (_im2col_products,
+                                           _rescale_channels,
+                                           conv_sums_reference,
+                                           quantize_conv_kernel,
+                                           quantize_tensor, w8a8_conv,
+                                           w8a8_conv_reference)
+    dev = gen.device
+    co = 1024
+    total = dict.fromkeys(('w8a8_conv', 'products', 'cudnn', 'bound'), 0.0)
+    for name, b, c, hw, per_image in W8A8_CONV_CASES:
+        x = torch.randn((b, c, hw, hw), generator=gen, device=dev).to(
+            torch.bfloat16)
+        wt = (torch.randn((co, c, 3, 3), generator=gen, device=dev)
+              * 0.02).to(torch.bfloat16)
+        want = w8a8_conv_reference(x, wt)
+        got = w8a8_conv(x, wt)
+        ok = torch.equal(got, want) and bool(torch.isfinite(want).all())
+        # the quantization and the rescale against CPU copies
+        xq, xs = quantize_tensor(x)
+        kq, ks = quantize_conv_kernel(wt)
+        xq_c, xs_c = quantize_tensor(x.cpu())
+        kq_c, ks_c = quantize_conv_kernel(wt.cpu())
+        quant_ok = _cpu_equal(torch, ((xq, xq_c), (xs, xs_c), (kq, kq_c),
+                                      (ks, ks_c)))
+        rescaled = _rescale_channels(conv_sums_reference(xq, kq).cpu(),
+                                     xs_c, ks_c)
+        rescale_ok = torch.equal(rescaled.reshape(b, hw, hw, co),
+                                 got.cpu().permute(0, 2, 3, 1))
+        ok = ok and quant_ok and rescale_ok
+        cpu_note = ''
+        if b * hw * hw * c <= W8A8_CONV_CPU_ELEMENTS:
+            # the whole plain version on CPU copies: unfold and int32
+            same = torch.equal(w8a8_conv_reference(x.cpu(), wt.cpu()),
+                               got.cpu())
+            ok = ok and same
+            cpu_note = (f'; the whole plain version on CPU copies (an int32 '
+                        f'product) {"equal" if same else "NOT equal"}')
+        ms = {'w8a8_conv': timer(lambda: w8a8_conv(x, wt)),
+              'products': timer(lambda: _im2col_products(xq, kq)),
+              'cudnn': timer(lambda: F.conv2d(x, wt, padding=1))}
+        plain_ms = timer(lambda: w8a8_conv_reference(x, wt), iters=3)
+        ops = 2 * b * hw * hw * 9 * c * co
+        b_ms, by = bound(2 * b * c * hw * hw + 2 * 9 * c * co
+                         + 4 * b * hw * hw * co, ops, H100_INT8_OPS)
+        for key in ms:
+            total[key] += per_image * ms[key]
+        total['bound'] += per_image * b_ms
+        print(f'w8a8_conv {name} (B={b}, C={c}, {hw}x{hw}, {co} out): '
+              f'bitwise equal to the plain version {"ok" if ok else "FAIL"} '
+              f'(quantization on CPU copies '
+              f'{"equal" if quant_ok else "NOT equal"}, the exact sums '
+              f'rescaled on the CPU {"equal" if rescale_ok else "NOT equal"}'
+              f'{cpu_note}); {ms["w8a8_conv"]:.4f} ms '
+              f'({ops / ms["w8a8_conv"] / 1e9:.1f} TOP/s), its products '
+              f'over the im2col matrix {ms["products"]:.4f} ms; bf16 '
+              f'F.conv2d (cuDNN) {ms["cudnn"]:.4f} ms; plain '
+              f'{plain_ms:.4f} ms; int8 bound {b_ms:.4f} ms ({by}) '
+              f'[{card}]')
+        if not ok:
+            fail(f'w8a8_conv differs from its plain version at {name}')
+        del x, wt, want, got, xq, kq, xq_c, kq_c, rescaled
+    print(f'w8a8_conv, one image\'s int8 vision convs (5 fuse rounds of 9 '
+          f'pieces and the RoI head): {total["w8a8_conv"]:.3f} ms (the '
+          f'products over the im2col matrix {total["products"]:.3f} ms), '
+          f'the same shapes in bf16 through cuDNN {total["cudnn"]:.3f} ms, '
+          f'int8 bound {total["bound"]:.3f} ms [{card}]')
+    return total
+
+
+def _sync(torch):
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def int8_vision_model(torch, model):
+    """``model``'s GromaModel rebuilt under ``GromaConfig(vision_int8=
+    True)``, every parameter shared (the int8 convs read the same float
+    weights)."""
+    from groma_tpu_torch.models.groma import GromaModel
+    m8 = GromaModel(model.cfg.replace(vision_int8=True), device='meta')
+    m8.load_state_dict(model.state_dict(), assign=True)
+    if not m8.region_encoder.quant:
+        fail('GromaModel(vision_int8=True) built float convs')
+    return m8.eval()
+
+
+def _counts_now():
+    """The launch counters this phase checks, by name."""
+    from groma_tpu_torch.ops.flash_attention import flash_fwd
+    from groma_tpu_torch.ops.quant import int8_matmul, w8a8_conv, w8a8_matmul
+    return {'flash bidirectional': flash_fwd.launches['bidirectional'],
+            'flash causal': flash_fwd.launches['causal'],
+            'w8a8_matmul': w8a8_matmul.launches,
+            'w8a8_conv': w8a8_conv.launches,
+            'int8_matmul': int8_matmul.launches,
+            'int8 prefill tile': int8_matmul.prefill_launches}
+
+
+def _moved(before: dict) -> dict:
+    return {k: v - before[k] for k, v in _counts_now().items()}
+
+
+def _device_ms(torch, fn):
+    """``fn()`` once under torch.profiler -> (its result, device ms, the
+    longest kernels as text)."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    _sync(torch)
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        _sync(torch)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type.name == 'CUDA' and e.device_time > 0:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
+    top = ', '.join(f'{k[:48]} {v:.2f}' for k, v in sorted(
+        by_name.items(), key=lambda kv: -kv[1])[:6])
+    return out, sum(by_name.values()), top
+
+
+def rec_e2e_full_width(torch, np, m8, qp, kmajor, seed: int, card: str):
+    """JAX's end-to-end REC configuration (benchmarks/bench_e2e.py --w8a8
+    --int8vision, B=1): build_rec_prompt into a 640-slot stream, vision
+    with the flash kernels and the int8 convs, check_stream_capacity, the
+    stream compacted to 576 slots, the W8A8 prefill (576 < FLASH_MIN_SEQ:
+    dense attention, as in JAX) into a bf16 cache of 584, then 3 greedy
+    decode steps.  ms per image on the host clock over synchronized runs,
+    device time under torch.profiler, exact launch counts.  ``kmajor``:
+    the W8A8 products' K-major weights (llama_quant.w8a8_weights)."""
+    from groma_tpu_torch.data.datasets.base import VLDataSpec
+    from groma_tpu_torch.data.tokenizer import StubTokenizer
+    from groma_tpu_torch.eval.generate_quant import quant_embed, quant_logits
+    from groma_tpu_torch.eval.rec import build_rec_prompt
+    from groma_tpu_torch.models.groma import (_gather_valid_first,
+                                              _ordinal,
+                                              check_stream_capacity)
+    from groma_tpu_torch.models.llama import make_kv_cache
+    from groma_tpu_torch.models.llama_quant import quant_llama_forward
+    cfg = m8.cfg
+    llm = cfg.llm
+    dev = qp['norm'].device
+    spec = VLDataSpec(num_image_tokens=cfg.num_image_tokens,
+                      max_region_num=cfg.max_region_num,
+                      max_seq_len=REC_SEQ_LEN,
+                      image_size=cfg.perceiver.image_size)
+    t = build_rec_prompt('the red object on the left',
+                         StubTokenizer(base_vocab=llm.vocab_size), spec)
+    image = torch.as_tensor(random_image(np, seed + 40,
+                                         cfg.perceiver.image_size)[None],
+                            device=dev)
+    ids, slot, valid0 = (torch.as_tensor(t[k][None], device=dev)
+                         for k in ('input_ids', 'region_slot', 'valid'))
+    ones = torch.ones((1, 1), dtype=torch.bool, device=dev)
+
+    def e2e():
+        emb, _, valid, vis = m8.prepare_stream(image, ids, slot, valid0,
+                                               use_flash=True)
+        # compact_stream's gather: the capacity was checked once, below
+        emb, valid = _gather_valid_first(emb, valid, REC_PREFILL_LEN)
+        pos = _ordinal(valid).clamp(min=0)
+        cache = make_kv_cache(llm, 1, REC_PREFILL_LEN + 8, device=dev)
+        hidden, cache = quant_llama_forward(qp, llm, emb, valid, pos, cache,
+                                            use_flash=True, w8a8=True,
+                                            kmajor=kmajor)
+        last = torch.argmax(pos, dim=-1)
+        logits = quant_logits(qp, hidden[:, last[0]][:, None])[:, 0]
+        pos0 = pos[:, last[0]][:, None] + 1
+        toks = []
+        for i in range(REC_DECODE_STEPS):
+            tok = torch.argmax(logits, dim=-1)
+            toks.append(tok)
+            hidden, cache = quant_llama_forward(
+                qp, llm, quant_embed(qp, tok[:, None], llm.vocab_size),
+                ones, pos0 + i, cache)
+            logits = quant_logits(qp, hidden)[:, -1]
+        return torch.stack(toks, 1), vis['selected_boxes'], logits
+
+    with torch.inference_mode():
+        _, _, valid, _ = m8.prepare_stream(image, ids, slot, valid0,
+                                           use_flash=True)
+        n_valid = int(valid.sum())
+        check_stream_capacity(valid, REC_PREFILL_LEN)
+        before = _counts_now()
+        toks, boxes, logits = e2e()                  # the warm-up run
+        _sync(torch)
+        moved = _moved(before)
+        n_layers = llm.num_layers
+        want = {'flash bidirectional': cfg.perceiver.vit.num_layers,
+                'flash causal': 0, 'w8a8_matmul': 4 * n_layers,
+                'w8a8_conv': cfg.region_num_fuse * 9 + 1,
+                'int8_matmul': 1 + REC_DECODE_STEPS * (4 * n_layers + 1),
+                'int8 prefill tile': 0}
+        _sync(torch)
+        t0 = time.perf_counter()
+        for _ in range(REC_RUNS):
+            toks, boxes, logits = e2e()
+            _sync(torch)
+        ms = (time.perf_counter() - t0) * 1e3 / REC_RUNS
+        (toks, boxes, logits), dev_ms, top = _device_ms(torch, e2e)
+    toks_np = toks.cpu().numpy()
+    boxes_np = boxes.float().cpu().numpy()
+    ok = (moved == want and np.isfinite(boxes_np).all()
+          and bool(torch.isfinite(logits).all())
+          and ((toks_np >= 0) & (toks_np < cfg.vocab_size)).all())
+    print(f'REC end to end (bench_e2e --w8a8 --int8vision, B=1): '
+          f'{n_valid} valid tokens of {REC_SEQ_LEN} compacted to '
+          f'{REC_PREFILL_LEN}; {ms:.1f} ms per image (host clock, '
+          f'{REC_RUNS} synchronized runs; {1e3 / ms:.2f} images/s), '
+          f'{dev_ms:.2f} ms of device time (torch.profiler, one run); the '
+          f'longest kernels, ms: {top}; launches {moved} '
+          f'({"exact" if moved == want else f"want {want}"}); tokens '
+          f'{toks_np[0].tolist()}, selected boxes '
+          f'{"finite" if np.isfinite(boxes_np).all() else "NOT finite"} '
+          f'[{card}]')
+    if not ok:
+        fail('REC end to end: launches, tokens or boxes wrong')
+    return ms, dev_ms
+
+
+def _cosine(np, a, b) -> float:
+    a, b = a.astype(np.float64).ravel(), b.astype(np.float64).ravel()
+    return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+
+
+def serve_w8a8_full_width(torch, np, worker, gen8, seed: int, card: str):
+    """``gen8``, QuantGenerator(kv_bits=8, use_flash=True,
+    w8a8_prefill=True) under GromaConfig(vision_int8=True) on the served
+    path's weights, on its three requests: launches exact (#3 24 an
+    image, #4 32 a prefill at S=2048, W8A8 4L, the int8 convs 46, #1's
+    prefill tile none), the first logits
+    against the weight-only prefill's (cosine >= W8A8_COSINE_MIN, argmax
+    agreement), every logit finite; prefill device time by kernel."""
+    from groma_tpu_torch.eval.generate_quant import QuantGenerator
+    from groma_tpu_torch.serve.worker import expand_request
+    base = worker.generator
+    cfg = gen8.cfg
+    n_layers = cfg.llm.num_layers
+    eos = worker.tokenizer.sp.eos
+    want = {'flash bidirectional': cfg.perceiver.vit.num_layers,
+            'flash causal': n_layers, 'w8a8_matmul': 4 * n_layers,
+            'w8a8_conv': cfg.region_num_fuse * 9 + 1,
+            'int8 prefill tile': 0}
+    requests = []
+    for i, prompt in enumerate(SERVED_PROMPTS):
+        t = expand_request(worker.tokenizer, worker.spec, {'prompt': prompt})
+        image = random_image(np, seed + 1 + i, cfg.perceiver.image_size)
+        args = (image[None], t['input_ids'][None], t['region_slot'][None],
+                t['valid'][None])
+        requests.append(args)
+        base.generate(*args, max_new_tokens=1, eos_id=eos)
+        ref = base.last_stats['first_logits']
+        before = _counts_now()
+        tokens, vis = gen8.generate(*args, max_new_tokens=MAX_NEW_TOKENS,
+                                    eos_id=eos)
+        _sync(torch)
+        moved = _moved(before)
+        st = gen8.last_stats
+        first = st['first_logits']
+        cos = _cosine(np, first, ref)
+        agree = float(np.mean(first.argmax(-1) == ref.argmax(-1)))
+        problems = []
+        got = {k: moved[k] for k in want}
+        if got != want:
+            problems.append(f'launches {got}, want {want}')
+        if not (st['logits_finite'] and np.isfinite(first).all()):
+            problems.append('non-finite logits')
+        if not cos >= W8A8_COSINE_MIN:
+            problems.append(f'first logits cosine {cos:.4f} against the '
+                            f'weight-only prefill\'s < {W8A8_COSINE_MIN}')
+        if not (((tokens >= 0) & (tokens < cfg.vocab_size)).all()
+                and vis['selected_mask'].any()
+                and np.isfinite(vis['selected_boxes']).all()):
+            problems.append('tokens or selected boxes malformed')
+        print(f'W8A8 request {i} (QuantGenerator kv8, use_flash, '
+              f'w8a8_prefill, vision_int8): {tokens.shape[1]} tokens; '
+              f'prefill {st["prefill_ms"]:.1f} ms, decode '
+              f'{st["decode_ms_per_token"]:.2f} ms/token over '
+              f'{st["decode_forwards"]} forwards (host clock); first logits '
+              f'against the weight-only prefill\'s: cosine {cos:.5f}, argmax '
+              f'{"agrees" if agree == 1.0 else "differs"}; launches {got} '
+              f'({"exact" if not problems or got == want else "WRONG"}), '
+              f'decode tile {moved["int8_matmul"]} [{card}]')
+        if problems:
+            fail(f'W8A8 request {i}: ' + '; '.join(problems))
+    # warm prefills under torch.profiler, the same request: W8A8 + flash +
+    # int8 vision, flash alone (weight-only, float vision), the served one
+    flash = QuantGenerator(base.model, base.qp, max_len=base.max_len,
+                           kv_bits=8, use_flash=True)
+    for name, g in (('w8a8_prefill + use_flash + vision_int8', gen8),
+                    ('use_flash (weight-only, float vision)', flash),
+                    ('weight-only, dense (the served path)', base)):
+        _, dev_ms, top = _device_ms(
+            torch, lambda: g.generate(*requests[0], max_new_tokens=1,
+                                      eos_id=eos))
+        print(f'prefill {name}, warm, under torch.profiler: host '
+              f'{g.last_stats["prefill_ms"]:.1f} ms, {dev_ms:.2f} ms of '
+              f'device time; the longest kernels, ms: {top} [{card}]')
+    del flash
+    return requests
+
+
+def _first_difference(a, b) -> int:
+    n = min(len(a), len(b))
+    for j in range(n):
+        if a[j] != b[j]:
+            return j
+    return n
+
+
+def _spec_divergence(torch, model, qp, max_len, args, toks, j: int, G: int,
+                     parted):
+    """At the first position j where speculative and sequential tokens
+    differ: the sequential decode's logits there (the forward of token j-1
+    on the cache of the prompt and tokens 0..j-2) and a verify forward's
+    (the chunked append of token j-1 and G drafts at the same slot, on a
+    copy of that cache) -> (top-2 gap of the sequential logits, max |verify
+    - sequential|, whether both ``parted`` tokens hold a top-2 value in the
+    sequential logits, and in the verify's: ties counted, as the bf16
+    logits often tie)."""
+    from groma_tpu_torch.eval.generate_quant import quant_embed, quant_logits
+    from groma_tpu_torch.models.groma import _ordinal
+    from groma_tpu_torch.models.llama_quant import (make_quant_kv_cache,
+                                                    quant_llama_forward)
+    llm = model.cfg.llm
+    dev = qp['norm'].device
+    vocab = llm.vocab_size
+    with torch.inference_mode():
+        images, ids, slot, valid0 = (torch.as_tensor(a, device=dev)
+                                     for a in args)
+        emb, _, valid, _ = model.prepare_stream(images.float(), ids.long(),
+                                                slot.long(), valid0)
+        pos = _ordinal(valid).clamp(min=0)
+        cache = make_quant_kv_cache(llm, 1, max_len, device=dev)
+        quant_llama_forward(qp, llm, emb, valid, pos, cache)
+        pos0 = int(pos.max()) + 1
+        one = torch.ones((1, 1), dtype=torch.bool, device=dev)
+
+        def token(i):
+            return torch.tensor([[int(toks[i])]], device=dev)
+        for i in range(j - 1):
+            quant_llama_forward(qp, llm, quant_embed(qp, token(i), vocab),
+                                one, torch.tensor([[pos0 + i]], device=dev),
+                                cache)
+        copy = _clone_tree(torch, cache)
+        h, _ = quant_llama_forward(qp, llm,
+                                   quant_embed(qp, token(j - 1), vocab), one,
+                                   torch.tensor([[pos0 + j - 1]],
+                                                device=dev), cache)
+        seq = quant_logits(qp, h)[0, -1].float()
+        chunk = token(j - 1).repeat(1, G + 1)
+        h, _ = quant_llama_forward(
+            qp, llm, quant_embed(qp, chunk, vocab),
+            torch.ones((1, G + 1), dtype=torch.bool, device=dev),
+            pos0 + j - 1 + torch.arange(G + 1, device=dev)[None], copy,
+            chunked=True)
+        ver = quant_logits(qp, h)[0, 0].float()
+        top2 = torch.topk(seq, 2).values
+        ids = torch.tensor(sorted(parted), device=dev)
+
+        def in_top2(logits):
+            return bool((logits[ids] >= torch.topk(logits, 2).values[1])
+                        .all())
+        return ((top2[0] - top2[1]).item(), (ver - seq).abs().max().item(),
+                in_top2(seq), in_top2(ver))
+
+
+def serve_speculative_full_width(torch, np, worker, requests, seed: int,
+                                 card: str):
+    """QuantGenerator(kv_bits=8, spec_lookahead=SPEC_LOOKAHEAD) on the
+    served path's weights and three requests: verify calls, accepted per
+    call, ms/token, the tokens against the sequential greedy ones: equal,
+    or differing first at a near-tie, where the verify and decode
+    forwards' logits there differ by at most SPEC_LOGIT_DIFF_MAX, the two
+    tokens that parted hold top-2 values in both, and the sequential
+    top-2 gap is below their difference; then the verify step's replays
+    against the eager step on a copy of its state."""
+    from groma_tpu_torch.eval.generate_quant import QuantGenerator
+    from groma_tpu_torch.eval.speculative import propose_prompt_lookup
+    from groma_tpu_torch.utils import graphs
+    base = worker.generator
+    G = SPEC_LOOKAHEAD
+    spec = QuantGenerator(base.model, base.qp, max_len=base.max_len,
+                          kv_bits=8, spec_lookahead=G)
+    eos = worker.tokenizer.sp.eos
+    for i, args in enumerate(requests):
+        seq_tokens, _ = base.generate(*args, max_new_tokens=MAX_NEW_TOKENS,
+                                      eos_id=eos)
+        seq_ms = base.last_stats['decode_ms_per_token']
+        tokens, _ = spec.generate(*args, max_new_tokens=MAX_NEW_TOKENS,
+                                  eos_id=eos)
+        st, stats = spec.spec_stats, spec.last_stats
+        acc = st['accepted']
+        line = (f'speculative request {i} (QuantGenerator kv8, '
+                f'spec_lookahead={G}): {tokens.shape[1]} tokens in '
+                f'{st["verify_calls"]} verify calls, accepted per call '
+                f'{np.mean(acc) if acc else 0:.2f} (max {max(acc, default=0)}'
+                f'), {st["tokens_per_call"]} tokens a call; '
+                f'{stats["decode_ms_per_token"]:.2f} ms/token (host clock) '
+                f'against {seq_ms:.2f} sequential')
+        a, b = tokens[0].tolist(), seq_tokens[0].tolist()
+        if a == b:
+            print(f'{line}; tokens equal to the sequential greedy tokens '
+                  f'[{card}]')
+            continue
+        j = _first_difference(a, b)
+        if not 1 <= j < min(len(a), len(b)):
+            fail(f'{line}; tokens differ from the sequential ones in '
+                 f'length only ({len(a)} against {len(b)})')
+        gap, diff, seq_top2, ver_top2 = _spec_divergence(
+            torch, base.model, base.qp, base.max_len, args, b, j, G,
+            {a[j], b[j]})
+        tie = (diff <= SPEC_LOGIT_DIFF_MAX and gap < diff and seq_top2
+               and ver_top2)
+        print(f'{line}; tokens first differ from the sequential ones at '
+              f'{j} ({a[j]} against {b[j]}): the sequential top-2 logit gap '
+              f'there {gap:.4e}, |verify - decode logits| {diff:.4e} (at '
+              f'most {SPEC_LOGIT_DIFF_MAX}); both tokens among the top-2 '
+              f'values of the sequential logits {seq_top2}, of the '
+              f'verify\'s {ver_top2} '
+              f'({"a near-tie" if tie else "NOT a near-tie"}) [{card}]')
+        if not tie:
+            fail(f'speculative request {i}: tokens differ from the '
+                 f'sequential ones where the logits are not near a tie')
+    # the verify step, replays against the eager step on a copy of the
+    # state, from a fresh prefill
+    args = requests[0]
+    spec.generate(*args, max_new_tokens=1, eos_id=eos)
+    verifier = spec.verifier()
+    graph = verifier.graph
+    if graph.graph is None and graph.device.type == 'cuda':
+        fail('speculative path: the verify step was never captured')
+    ctx = [int(t) for t, v in zip(args[1][0], args[3][0]) if v] + [
+        int(verifier.state['cur'][0])]
+    drafts = [propose_prompt_lookup(ctx, G)] + [
+        np.random.default_rng(seed + k).integers(
+            3, base.cfg.vocab_size, G).tolist()
+        for k in range(SPEC_TWIN_STEPS - 1)]
+    copy = _clone_tree(torch, verifier.state)
+
+    def eager(steps):
+        def go():
+            for d in steps:
+                copy['draft'].copy_(torch.as_tensor(d))
+                graph.step(copy)
+                out_eager.append(torch.cat([copy['emitted'],
+                                            copy['n_accept'].view(1)]))
+        return go
+
+    def replay(steps):
+        def go():
+            for d in steps:
+                verifier.state['draft'].copy_(torch.as_tensor(d))
+                graph.run(1)
+                out_graph.append(torch.cat([
+                    verifier.state['emitted'],
+                    verifier.state['n_accept'].view(1)]))
+        return go
+    out_eager, out_graph = [], []
+    half = SPEC_TWIN_STEPS // 2
+    eager_dev, _ = _profiled(torch, eager(drafts[:half]), half)
+    eager_ms = _timed(torch, eager(drafts[half:]), SPEC_TWIN_STEPS - half)
+    zero_counts()                  # the eager steps are comparison calls
+    graph_dev, _ = _profiled(torch, replay(drafts[:half]), half)
+    graph_ms = _timed(torch, replay(drafts[half:]), SPEC_TWIN_STEPS - half)
+    per_replay = {k: v / SPEC_TWIN_STEPS
+                  for k, v in device_launches().items() if v}
+    same = all(torch.equal(x, y) for x, y in zip(out_eager, out_graph)) \
+        and all(torch.equal(x, y) for x, y in zip(
+            graphs._tensors(copy), graphs._tensors(verifier.state)))
+    want = {k: float(v) for k, v in graph.delta.items()}
+    print(f'speculative verify step, {SPEC_TWIN_STEPS} verifies, graph '
+          f'against eager (the same step on a copy of the state): emitted '
+          f'tokens, n_accept and the whole state (cache included) '
+          f'{"bitwise equal" if same else "DIFFER"}; {graph_ms:.3f} against '
+          f'{eager_ms:.3f} ms a verify (host clock, synchronized), device '
+          f'time {graph_dev:.3f} against {eager_dev:.3f} ms (torch.profiler),'
+          f' device busy {100 * graph_dev / graph_ms:.1f} % against '
+          f'{100 * eager_dev / eager_ms:.1f} %; launches a replay '
+          f'{per_replay} (StepGraph.device_launches; the capture counted '
+          f'{graph.delta}) [{card}]')
+    if not same or per_replay != want:
+        fail('speculative verify step: the replays differ from the eager '
+             'step, or their launches from the capture\'s')
+    del spec
+
+
+def serve_w8a8_and_speculation(torch, np, worker, seed: int, card: str):
+    """Phase 5b on the served path's worker: JAX's REC end-to-end
+    configuration, the W8A8 + flash + int8-vision generator, and
+    speculative decoding."""
+    from groma_tpu_torch.eval.generate_quant import QuantGenerator
+    base = worker.generator
+    m8 = int8_vision_model(torch, base.model)
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    # the generator makes the K-major weight copies; the REC run reads them
+    gen8 = QuantGenerator(m8, base.qp, max_len=base.max_len, kv_bits=8,
+                          use_flash=True, w8a8_prefill=True)
+    rec_e2e_full_width(torch, np, m8, base.qp, gen8.kmajor, seed, card)
+    requests = serve_w8a8_full_width(torch, np, worker, gen8, seed, card)
+    del gen8
+    serve_speculative_full_width(torch, np, worker, requests, seed, card)
+    print(f'W8A8 and speculation phase: {time.perf_counter() - t0:.1f} s; '
+          f'device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} '
+          f'GiB peak [{card}]')
+    del m8
 
 
 def check_bf16_llm_path(torch, seed: int, card: str):
@@ -3360,6 +4035,8 @@ def main():
     timer = Timer('cuda')
     int8_decode, _, int8_prefill = check_int8_matmul(torch, gen, timer,
                                                      card)
+    check_w8a8_matmul(torch, gen, timer, card)
+    check_w8a8_conv(torch, gen, timer, card)
     att_err, att_ms, att_bound = check_decode_attention(torch, gen, timer,
                                                         card)
     int4_decode, int4_prefill = check_int4_matmul(torch, gen, timer, card)
@@ -3386,9 +4063,12 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
-    mm_n, mm_pre_n, att_n = serve_full_width(torch, np, args.seed, card)
+    (mm_n, mm_pre_n, att_n), worker = serve_full_width(torch, np, args.seed,
+                                                        card)
     if not (mm_n - mm_pre_n and mm_pre_n and att_n):
         fail('a kernel of the served path was never launched')
+    serve_w8a8_and_speculation(torch, np, worker, args.seed, card)
+    del worker
     gc.collect()
     torch.cuda.empty_cache()
     check_bf16_llm_path(torch, args.seed, card)

@@ -1,7 +1,14 @@
 """Quantized-LLM Groma generation: vision in the model's dtypes, weight-only
 int8 or int4 LLaMA (or the bf16 ``bits=16`` tree), optional int8 KV cache
-(counterpart of ``groma_tpu/eval/generate_quant.py``; greedy only, no
-speculative decoding).
+(counterpart of ``groma_tpu/eval/generate_quant.py``; greedy only).
+
+``use_flash`` takes the flash kernels in the vision tower (#3) and in the
+LLM prefill from ``FLASH_MIN_SEQ`` tokens on (#4); ``w8a8_prefill`` runs
+the prefill's layer matmuls as int8 x int8 products (int8 trees);
+``spec_lookahead=G`` > 0 decodes a batch of one by prompt-lookup
+speculative decoding (``eval/speculative.py``): one (1, G+1) verify
+forward, a captured ``Verifier`` step, per accepted run, with the tokens
+of sequential greedy decoding.
 
 ``generate`` has the JAX generator's signature and return values: greedy
 tokens as a numpy (B, W) array, each row cut after its first EOS and
@@ -17,7 +24,8 @@ trims after EOS; here the host reads the done mask once every
 so it runs ``decode_forwards`` <= max_new_tokens - 1 forwards, never one
 whose logits would go unused at the end; the tokens are those of the JAX
 scan.  A request whose decode would not fit the cache raises ValueError
-(the JAX cache write clamps).
+(the JAX cache write clamps), with speculation counting every slot a last
+verify could write.
 """
 
 from __future__ import annotations
@@ -31,12 +39,15 @@ import torch
 from groma_tpu_torch.config import GromaConfig
 from groma_tpu_torch.eval.generate import DecodeScan, scan_token
 from groma_tpu_torch.eval.generate import parse_region_tokens  # noqa: F401
+from groma_tpu_torch.eval.speculative import (Verifier,
+                                              speculative_greedy_decode)
 from groma_tpu_torch.models.groma import GromaModel
 from groma_tpu_torch.models.llama import make_kv_cache
 from groma_tpu_torch.models.llama_quant import (make_quant_kv_cache,
                                                 quant_llama_forward,
                                                 quant_llama_logits,
-                                                quantize_llama_params)
+                                                quantize_llama_params,
+                                                w8a8_weights)
 
 # decode steps between two reads of the done mask: the engine's default
 # burst (BatchEngine's chunk)
@@ -76,12 +87,18 @@ class QuantGenerator:
     KV cache in int8 with per-token scales (the served configuration).
 
     After each ``generate`` call, ``last_stats`` holds what a caller may
-    want to check or report: decode_forwards, prefill_ms,
-    decode_ms_per_token (host clock around synchronized device work),
-    logits_finite, and the tokens, selected_boxes and selected_mask."""
+    want to check or report: decode_forwards (the verify forwards, with
+    speculation), prefill_ms, decode_ms_per_token (host clock around
+    synchronized device work), logits_finite (the prefill's and the decode
+    scan's logits; with speculation the prefill's), first_logits (the
+    prefill's, numpy), and the tokens, selected_boxes and selected_mask;
+    ``spec_stats`` the last speculative generation's verify_calls,
+    accepted (per call) and tokens_per_call."""
 
     def __init__(self, model: GromaModel, qp: dict, max_len: int = 2048,
-                 kv_bits: int = 16):
+                 kv_bits: int = 16, use_flash: bool = False,
+                 w8a8_prefill: bool = False, spec_lookahead: int = 0,
+                 spec_ngram: int = 2):
         if kv_bits not in (8, 16):
             raise ValueError('kv_bits must be 8 or 16')
         self.model = model
@@ -89,9 +106,31 @@ class QuantGenerator:
         self.qp = qp
         self.max_len = max_len
         self.kv_bits = kv_bits
+        self.use_flash = use_flash
+        self.w8a8_prefill = w8a8_prefill
+        # the W8A8 products' K-major weights (6.5 GB at 7B), made once here
+        self.kmajor = w8a8_weights(qp) if w8a8_prefill else None
+        self.spec_lookahead = spec_lookahead
+        self.spec_ngram = spec_ngram
         self.device = qp['norm'].device
         self.last_stats = None
+        self.spec_stats = None
         self._decode: Optional[DecodeScan] = None
+        self._verifier: Optional[Verifier] = None
+
+    def _make_cache(self, b: int) -> dict:
+        make = make_quant_kv_cache if self.kv_bits == 8 else make_kv_cache
+        return make(self.cfg.llm, b, self.max_len, device=self.device)
+
+    def verifier(self) -> Verifier:
+        """The speculative verify step, made at the first call and kept."""
+        if self._verifier is None:
+            vocab = self.cfg.llm.vocab_size
+            self._verifier = Verifier(
+                self.qp, self.cfg.llm, self._make_cache(1),
+                self.spec_lookahead,
+                lambda qp, ids: quant_embed(qp, ids, vocab), quant_logits)
+        return self._verifier
 
     def _sync(self):
         if self.device.type == 'cuda':
@@ -120,9 +159,7 @@ class QuantGenerator:
                 st['logits'].copy_(logits)
                 st['finite'].logical_and_(torch.isfinite(logits).all())
                 st['step'].add_(1)
-            make = make_quant_kv_cache if self.kv_bits == 8 else make_kv_cache
-            self._decode = DecodeScan(
-                key, make(cfg, b, self.max_len, device=dev), step)
+            self._decode = DecodeScan(key, self._make_cache(b), step)
         return self._decode
 
     @torch.no_grad()
@@ -135,45 +172,71 @@ class QuantGenerator:
         region_slot = self._tensor(region_slot, torch.int64)
         base_valid = self._tensor(base_valid, torch.bool)
         b, s = input_ids.shape
-        if s + max_new_tokens - 1 > self.max_len:
+        spec = self.spec_lookahead > 0
+        if spec and b != 1:
+            raise ValueError('speculative decoding is single-stream (B=1)')
+        # the slots a decode writes: a last verify starts at most at slot
+        # s + max_new_tokens - 2 and writes spec_lookahead + 1
+        need = s + max_new_tokens - 1 + self.spec_lookahead
+        if need > self.max_len:
             raise ValueError(
                 f'max_new_tokens={max_new_tokens} does not fit the KV cache: '
                 f'the {s}-token stream leaves {self.max_len - s} of '
-                f'{self.max_len} slots for decode')
+                f'{self.max_len} slots for decode, and it may write '
+                f'{need - s}')
         if refer_boxes is not None:
             refer_boxes = self._tensor(refer_boxes, torch.float32)
             refer_valid = self._tensor(refer_valid, torch.bool)
 
-        scan = self._scan(b, eos_id)
+        if spec:
+            holder = self.verifier()
+        else:
+            holder = self._scan(b, eos_id)
         self._sync()
         t0 = time.perf_counter()
         emb, _, valid, vis = self.model.prepare_stream(
             images, input_ids, region_slot, base_valid,
-            refer_boxes=refer_boxes, refer_valid=refer_valid)
+            refer_boxes=refer_boxes, refer_valid=refer_valid,
+            use_flash=self.use_flash)
         pos = (torch.cumsum(valid.to(torch.int64), -1) - 1).clamp(min=0)
         hidden, _ = quant_llama_forward(self.qp, cfg.llm, emb, valid, pos,
-                                        scan.cache())
+                                        holder.cache(),
+                                        use_flash=self.use_flash,
+                                        w8a8=self.w8a8_prefill,
+                                        kmajor=self.kmajor)
         rows = torch.arange(b, device=self.device)
         last = torch.argmax(pos, dim=-1)
         logits = quant_logits(self.qp, hidden[rows, last][:, None])[:, 0]
         next_pos = pos[rows, last][:, None] + 1
-        self._sync()
+        first = logits.float().cpu().numpy()
         t1 = time.perf_counter()
 
-        state = scan.begin(logits, next_pos)
-        forwards = 0
-        while forwards < max_new_tokens - 1:
-            burst = min(DONE_CHECK_STEPS, max_new_tokens - 1 - forwards)
-            scan.graph.run(burst)
-            forwards += burst
-            if bool(state['done'].all()):
-                break
-        scan_token(state, eos_id)
-        # the one read-back of the tokens, with the finite flag
-        back = torch.cat([state['toks'][:, :forwards + 1].flatten(),
-                          state['finite'].view(1).long()]).cpu().numpy()
-        toks = back[:-1].reshape(b, forwards + 1).astype(np.int32)
-        finite = bool(back[-1])
+        if spec:
+            cur = int(first[0].argmax())
+            holder.begin(cur, int(next_pos[0, 0]))
+            ctx = [int(t) for t, v in zip(input_ids[0].tolist(),
+                                          base_valid[0].tolist()) if v]
+            row, self.spec_stats = speculative_greedy_decode(
+                holder, cur, ctx, max_new_tokens, eos_id,
+                self.spec_lookahead, self.spec_ngram)
+            toks = np.asarray([row], np.int32)
+            forwards = self.spec_stats['verify_calls']
+            finite = bool(np.isfinite(first).all())
+        else:
+            state = holder.begin(logits, next_pos)
+            forwards = 0
+            while forwards < max_new_tokens - 1:
+                burst = min(DONE_CHECK_STEPS, max_new_tokens - 1 - forwards)
+                holder.graph.run(burst)
+                forwards += burst
+                if bool(state['done'].all()):
+                    break
+            scan_token(state, eos_id)
+            # the one read-back of the tokens, with the finite flag
+            back = torch.cat([state['toks'][:, :forwards + 1].flatten(),
+                              state['finite'].view(1).long()]).cpu().numpy()
+            toks = back[:-1].reshape(b, forwards + 1).astype(np.int32)
+            finite = bool(back[-1])
         self._sync()
         t2 = time.perf_counter()
 
@@ -190,7 +253,9 @@ class QuantGenerator:
         self.last_stats = {
             'decode_forwards': forwards,
             'prefill_ms': (t1 - t0) * 1e3,
-            'decode_ms_per_token': (t2 - t1) * 1e3 / max(forwards, 1),
-            'logits_finite': bool(finite),
+            'decode_ms_per_token': (t2 - t1) * 1e3
+            / max(tokens.shape[1] - 1 if spec else forwards, 1),
+            'logits_finite': finite,
+            'first_logits': first,
             'tokens': tokens, **vis_np}
         return tokens, vis_np

@@ -97,11 +97,14 @@ class RECMetrics:
         return self
 
     def summary(self) -> dict:
+        """Python numbers (JSON-ready): once a box is predicted the IoU
+        sum is a numpy f32, which ``json.dumps`` refuses (JAX's summary
+        returns it as is)."""
         t = max(self.total, 1)
         return {
-            'acc@0.5': self.correct / t,
-            'miou': self.iou_sum / t,
-            'miss_rate': self.missed / t,
+            'acc@0.5': float(self.correct / t),
+            'miou': float(self.iou_sum / t),
+            'miss_rate': float(self.missed / t),
             'total': int(self.total),
         }
 

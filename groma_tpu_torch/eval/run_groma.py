@@ -11,7 +11,10 @@ model's own LLM in ``cfg.llm.dtype`` through ``Generator``, a bf16 KV
 cache), or weight-only int8 (``int8``), packed int4 (``int4``) or the
 unquantized fused bf16 tree (``bf16``) through ``QuantGenerator``, whose
 KV cache is int8 (``--kv-bits 8``, the served configuration) or bf16 (16,
-the default).  It runs on the card; ``--device cpu`` runs it on the CPU.
+the default).  ``--spec-lookahead G`` decodes the quantized types by
+prompt-lookup speculative decoding with G draft tokens a verify, with the
+tokens of greedy decoding (``--quant_type none`` ignores it, as in JAX).
+It runs on the card; ``--device cpu`` runs it on the CPU.
 ``--max-new-tokens`` defaults to 64, which the cache of max_seq_len + 64
 slots always holds (JAX's 1024 would overflow it).
 """
@@ -51,6 +54,11 @@ def main(argv=None):
     ap.add_argument('--quant_type', default='none', choices=QUANT_TYPES)
     ap.add_argument('--kv-bits', type=int, default=16, choices=[16, 8],
                     help='8 = int8 KV cache (quantized paths only)')
+    ap.add_argument('--spec-lookahead', type=int, default=0,
+                    help='>0: prompt-lookup speculative decoding with G '
+                         'draft tokens per verify (exact greedy; the '
+                         'quantized types, as in JAX: --quant_type none '
+                         'ignores it)')
     ap.add_argument('--max-new-tokens', type=int, default=64)
     ap.add_argument('--device', default='cuda',
                     help="torch device (default cuda; 'cpu' to run on the "
@@ -105,8 +113,10 @@ def main(argv=None):
     if args.quant_type == 'none':
         gen = Generator(model, max_len=cfg.max_seq_len + 64)
     else:
-        gen = QuantGenerator(model, qp, max_len=cfg.max_seq_len + 64,
-                             kv_bits=args.kv_bits)
+        # a speculative verify may write G slots past the last token
+        gen = QuantGenerator(model, qp, max_len=cfg.max_seq_len + 64
+                             + args.spec_lookahead, kv_bits=args.kv_bits,
+                             spec_lookahead=args.spec_lookahead)
     tokens, vis = gen.generate(
         img[None], t['input_ids'][None], t['region_slot'][None],
         t['valid'][None], max_new_tokens=args.max_new_tokens,

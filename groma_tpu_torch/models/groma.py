@@ -31,8 +31,13 @@ unquantized inference path keeps them in ``cfg.llm.dtype``: its products
 are bit for bit those of a cast at use), the embeddings, norms and heads
 staying f32.
 
+``cfg.vision_int8`` runs the region encoder's convs with both operands
+int8 (``RegionEncoder(quant=True)``), from the same float parameters.
+
 Generation: ``prefill`` (vision, surgery and the first LLM pass into a
-fresh KV cache) and ``decode_step``, as the JAX model's.
+fresh KV cache) and ``decode_step``, as the JAX model's;
+``compact_stream`` gathers a stream's valid tokens to the front of a
+shorter buffer, ``check_stream_capacity`` refuses a row that does not fit.
 """
 
 from __future__ import annotations
@@ -70,9 +75,6 @@ class GromaModel(nn.Module):
     def __init__(self, cfg: GromaConfig, device=None,
                  full_precision: bool = False, llm_linear_dtype=None):
         super().__init__()
-        if cfg.vision_int8:
-            raise ValueError('vision_int8 (the W8A8 fuse and pconv convs) is '
-                             'not ported: ROADMAP.md §1 item 4')
         self.cfg = cfg
         vit_d, llm_d = cfg.perceiver.vit.hidden_size, cfg.llm.hidden_size
         vdt = torch_dtype(cfg.perceiver.vit.dtype)
@@ -83,7 +85,8 @@ class GromaModel(nn.Module):
             embed_dims=vit_d, out_dims=llm_d,
             image_size=cfg.perceiver.image_size, roi_out=cfg.region_roi_out,
             num_fuse=cfg.region_num_fuse, gn_groups=cfg.region_gn_groups,
-            device=device, dtype=pdt, compute_dtype=vdt)
+            device=device, dtype=pdt, compute_dtype=vdt,
+            quant=cfg.vision_int8)
         self.img_txt_bridge = nn.Sequential(
             nn.Linear(4 * vit_d, llm_d, device=device), nn.GELU(),
             nn.Linear(llm_d, llm_d, device=device))
@@ -354,3 +357,38 @@ class GromaModel(nn.Module):
             out['loss'] = torch.where(ok, nll, 0.0).sum() \
                 / ok.sum().clamp(min=1)
         return out
+
+
+def check_stream_capacity(valid, out_len: int):
+    """Raise ValueError naming the row with the most valid tokens if any
+    row of ``valid`` (B, S) holds more than ``out_len`` (the tokens
+    ``compact_stream`` would drop).  Reads the mask on the host."""
+    counts = torch.as_tensor(valid).sum(dim=-1).cpu()
+    if counts.numel() and int(counts.max()) > out_len:
+        bad = int(counts.argmax())
+        raise ValueError(
+            f'compact_stream capacity exceeded: row {bad} has '
+            f'{int(counts[bad])} valid tokens > out_len={out_len}; prompt '
+            f'tokens would be dropped: grow out_len or shrink the template')
+
+
+def compact_stream(emb, valid, out_len: int, ids=None):
+    """Gather each row's valid positions, in order, to the front of an
+    ``out_len`` buffer: (emb (B, out_len, D), valid (B, out_len)[, ids]).
+    Exact for the LLM: causal order is kept and the rope positions are the
+    compacted running counts already.  A row with more than ``out_len``
+    valid tokens raises (``check_stream_capacity``, one host read)."""
+    check_stream_capacity(valid, out_len)
+    return _gather_valid_first(emb, valid, out_len, ids)
+
+
+def _gather_valid_first(emb, valid, out_len: int, ids=None):
+    """``compact_stream`` without its capacity check (no host read), for a
+    timed loop whose caller checked the mask once."""
+    order = torch.argsort((~valid).to(torch.int8), dim=-1, stable=True)
+    take = order[:, :out_len]
+    cemb = _gather_rows(emb, take)
+    cvalid = torch.gather(valid, 1, take)
+    if ids is not None:
+        return cemb, cvalid, torch.gather(ids, 1, take)
+    return cemb, cvalid

@@ -12,17 +12,23 @@ through ``ops.paged_attention.paged_int8_decode_attention``.
 
 Ported: the scalar-index prefill and decode branches of
 ``quant_llama_forward``, its vector-index single-token decode (the
-continuous-batching engine, per-row positions), ``quant_llama_decode_paged``
-and ``quant_llama_decode_megakernel`` (the whole int4 + int8-KV decode step
-in one launch of ``ops.decode_megakernel``).  The vector-index multi-token
-append and ``chunked=True`` (speculative verify, chunked prefill) are not
-ported and raise.  The scalar index is a host int or a 0-d int64 tensor
-on the cache's device (decode only): a CUDA graph can capture a decode at
-a tensor index, which advances in place, as a per-row index does.  Unlike
-JAX, whose ``dynamic_update_slice`` clamps a write past the cache end, a
-host-index write that does not fit raises; an index tensor must stay
-inside the cache (the caller checks once per run, and the engine does not
-advance idle rows).
+continuous-batching engine, per-row positions), the chunked append at a
+scalar index (``chunked=True``: a multi-token chunk written at the cache
+index, attending over the whole buffer through its mask; speculative
+verify), W8A8 prefill (``w8a8=True``: the four layer matmuls of a
+multi-token call through ``ops.quant.w8a8_matmul`` from 256 rows on,
+int8 weights only), the flash prefill (``use_flash=True``: #4 from
+``FLASH_MIN_SEQ`` tokens on), ``quant_llama_decode_paged`` and
+``quant_llama_decode_megakernel`` (the whole int4 + int8-KV decode step
+in one launch of ``ops.decode_megakernel``).  The vector-index
+multi-token append (the engine's chunked prefill and speculative verify)
+is not ported and raises.  The scalar index is a host int or a 0-d int64
+tensor on the cache's device: a CUDA graph can capture a decode or a
+chunked append at a tensor index, which advances in place, as a per-row
+index does.  Unlike JAX, whose ``dynamic_update_slice`` clamps a write
+past the cache end, a host-index write that does not fit raises; an index
+tensor must stay inside the cache (the caller checks once per run, and
+the engine does not advance idle rows).
 """
 
 from __future__ import annotations
@@ -33,12 +39,15 @@ import torch
 import torch.nn.functional as F
 
 from groma_tpu_torch.config import LlamaConfig
-from groma_tpu_torch.models.llama import (apply_rope, rms_norm, rope_tables,
-                                          torch_dtype)
+from groma_tpu_torch.models.llama import (FLASH_MIN_SEQ, apply_rope,
+                                          rms_norm, rope_tables, torch_dtype)
 from groma_tpu_torch.ops.decode_attention import int8_decode_attention
+from groma_tpu_torch.ops.flash_attention import flash_attention
 from groma_tpu_torch.ops.paged_attention import (PAGE,
                                                  paged_int8_decode_attention)
-from groma_tpu_torch.ops.quant import int8_matmul, quantize_weight, true_div
+from groma_tpu_torch.ops.quant import (DENSE_MIN_ROWS, int8_matmul,
+                                       quantize_weight, true_div,
+                                       w8a8_matmul, w8a8_weight)
 from groma_tpu_torch.ops.quant4 import (INT4_BLOCK, int4_matmul,
                                         quantize_weight_int4)
 
@@ -109,10 +118,29 @@ def quantize_llama_params(sd, cfg: LlamaConfig, bits: int = 8) -> dict:
     return out
 
 
-def _qmm(x, qw):
+W8A8_MATMULS = ('qkv_proj', 'o_proj', 'gate_up_proj', 'down_proj')
+
+
+def w8a8_weights(qp: dict) -> Optional[list]:
+    """The W8A8 prefill's copies of a tree's int8 layer weights, K-major
+    (``ops.quant.w8a8_weight``): per layer a dict of the four matmuls'
+    (K, N) views, or None for a tree with no int8 layer weight (int4 or
+    bf16, which ``w8a8`` leaves weight-only).  The weights' size again in
+    memory (6.5 GB at 7B): made once by the owner of a W8A8 prefill
+    (``QuantGenerator``, ``BatchEngine``) and passed as ``kmajor``; the
+    tree itself is not touched."""
+    out = [{name: w8a8_weight(lp[name]['q']) for name in W8A8_MATMULS
+            if lp[name]['q'].dtype == torch.int8} for lp in qp['layers']]
+    return out if any(out) else None
+
+
+def _qmm(x, qw, a8: bool = False, kmajor=None):
     """(..., K) @ quantized (K, N): uint8 storage is packed int4, int8
     per-column int8, bf16 the unquantized tree (a bf16 product with f32
-    sums, in x's dtype)."""
+    sums, in x's dtype).  ``a8``: int8 weights with at least 256 rows take
+    the W8A8 product (``w8a8_matmul``), on ``kmajor`` (the same weights
+    K-major, ``w8a8_weights``) where given, else on the stored ones; int4
+    and bf16 trees ignore it."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     q = qw['q']
@@ -122,6 +150,8 @@ def _qmm(x, qw):
             (x2.to(torch.bfloat16).float() @ q.float()).to(x2.dtype)
     elif q.dtype == torch.uint8:
         y = int4_matmul(x2, q, qw['scale'])
+    elif a8 and x2.shape[0] >= DENSE_MIN_ROWS:
+        y = w8a8_matmul(x2, q if kmajor is None else kmajor, qw['scale'])
     else:
         y = int8_matmul(x2, q, qw['scale'])
     return y.reshape(*lead, -1)
@@ -178,33 +208,40 @@ def _int8_cache_attention(q, k_q, k_s, v_q, v_s, mask_bias):
     return out.float() * r
 
 
-def _project_qkv(x, lp, cfg: LlamaConfig, cos, sin):
+def _project_qkv(x, lp, cfg: LlamaConfig, cos, sin, a8: bool = False,
+                 kmajor=None):
     """A layer's input norm and fused qkv -> roped q, k and v
-    (B, H, S, hd) in the model dtype."""
+    (B, H, S, hd) in the model dtype (``a8``, ``kmajor``: ``_qmm``'s, the
+    layer's dict of K-major copies)."""
     dtype = torch_dtype(cfg.dtype)
     b, s, _ = x.shape
     nh, hd = cfg.num_heads, cfg.hidden_size // cfg.num_heads
     h = rms_norm(x, lp['input_layernorm'], cfg.rms_norm_eps)
     q, k, v = (t.reshape(b, s, nh, hd).transpose(1, 2)
-               for t in _qmm(h, lp['qkv_proj']).chunk(3, dim=-1))
+               for t in _qmm(h, lp['qkv_proj'], a8,
+                              (kmajor or {}).get('qkv_proj')).chunk(3, -1))
     return (apply_rope(q.to(dtype), cos, sin),
             apply_rope(k.to(dtype), cos, sin), v.to(dtype))
 
 
-def _finish_layer(x, attn, lp, cfg: LlamaConfig):
+def _finish_layer(x, attn, lp, cfg: LlamaConfig, a8: bool = False,
+                  kmajor=None):
     """Attention output projection and the MLP, both residual."""
     dtype = torch_dtype(cfg.dtype)
     b, s, _ = x.shape
+    kmajor = kmajor or {}
     attn = attn.to(dtype).transpose(1, 2).reshape(b, s, -1)
-    x = x + _qmm(attn, lp['o_proj']).to(dtype)
+    x = x + _qmm(attn, lp['o_proj'], a8, kmajor.get('o_proj')).to(dtype)
     h = rms_norm(x, lp['post_attention_layernorm'], cfg.rms_norm_eps)
-    gate, up = _qmm(h, lp['gate_up_proj']).chunk(2, dim=-1)
-    return x + _qmm((F.silu(gate) * up).to(dtype), lp['down_proj']).to(dtype)
+    gate, up = _qmm(h, lp['gate_up_proj'], a8,
+                    kmajor.get('gate_up_proj')).chunk(2, dim=-1)
+    return x + _qmm((F.silu(gate) * up).to(dtype), lp['down_proj'], a8,
+                    kmajor.get('down_proj')).to(dtype)
 
 
 def _write(buf, at, t):
     """Write this call's (B, H, S[, D]) rows ``t`` into a cache buffer at
-    ``at``: a host slice, a (1,) device slot (index_copy_) or the per-row
+    ``at``: a host slice, device slots (S,) (index_copy_) or the per-row
     (rows, slice, index) tuple."""
     if torch.is_tensor(at):
         buf.index_copy_(2, at, t)
@@ -214,22 +251,39 @@ def _write(buf, at, t):
         buf[:, :, at] = t
 
 
+def _dequantize_cache(q8, scale, dtype):
+    """An int8 cache layer (B, H, S, D) and its (B, H, S) scales -> the
+    whole buffer in ``dtype``."""
+    return (q8.to(torch.float32) * scale[..., None]).to(dtype)
+
+
 def quant_llama_forward(qp: dict, cfg: LlamaConfig, inputs_embeds,
                         attn_mask, position_ids,
-                        cache: Optional[dict] = None):
+                        cache: Optional[dict] = None,
+                        use_flash: bool = False, chunked: bool = False,
+                        w8a8: bool = False,
+                        kmajor: Optional[list] = None):
     """The quantized LLaMA trunk: (B, S, D) embeddings -> final-normed
     hidden states, and the cache.
 
     A multi-token call with a cache is PREFILL into a fresh cache (index
-    0): attention runs over this call's own keys.  A single-token call with
-    a cache is DECODE: at the cache's scalar index, or, when
-    ``cache['index']`` is a (B,) tensor, at each row's own index (the
-    continuous-batching engine), every row seeing the slots up to its
-    index.  With an int8 cache the attention is the int8 decode kernel over
-    the whole buffer and its mask.  The cache is updated in place and
-    returned; every row's index advances by S, as in JAX (a tensor index
-    in place).  Multi-head
-    attention only (Vicuna-7B): grouped-query configs raise."""
+    0): attention runs over this call's own keys, through the flash kernel
+    (#4, causal, key mask) when ``use_flash`` and S >= FLASH_MIN_SEQ.  With
+    ``chunked=True`` a multi-token call APPENDS its chunk at the cache's
+    scalar index instead (a host int, or a 0-d device tensor, the chunk's
+    slots ``index + arange(S)``) and attends over the whole buffer through
+    its mask, an int8 cache dequantized to the model dtype per layer.  A
+    single-token call with a cache is DECODE: at the cache's scalar index,
+    or, when ``cache['index']`` is a (B,) tensor, at each row's own index
+    (the continuous-batching engine), every row seeing the slots up to its
+    index.  With an int8 cache the decode attention is the int8 decode
+    kernel over the whole buffer and its mask.  ``w8a8``: a multi-token
+    call's four layer matmuls take the W8A8 product (int8 weights, from
+    256 rows on), on ``kmajor`` (``w8a8_weights(qp)``, which the caller
+    builds once and keeps) where given; decode stays weight-only.  The
+    cache is updated in place and returned; every row's index advances by
+    S, as in JAX (a tensor index in place).  Multi-head attention only (Vicuna-7B): grouped-query
+    configs raise."""
     dtype = torch_dtype(cfg.dtype)
     hd = cfg.hidden_size // cfg.num_heads
     if cfg.num_kv_heads != cfg.num_heads:
@@ -238,7 +292,9 @@ def quant_llama_forward(qp: dict, cfg: LlamaConfig, inputs_embeds,
     x = inputs_embeds.to(dtype)
     b, s, _ = x.shape
     dev = x.device
-    prefill = s > 1
+    append = chunked and s > 1 and cache is not None
+    prefill = s > 1 and not append
+    a8 = w8a8 and s > 1
 
     idx = 0
     kv_mask = attn_mask
@@ -248,23 +304,28 @@ def quant_llama_forward(qp: dict, cfg: LlamaConfig, inputs_embeds,
     rows = torch.arange(b, device=dev)
     if device_index:
         idx = cache['index']
-        if s != 1:
-            raise ValueError('cache index tensors take one token a row '
-                             '(multi-token appends are not ported)')
+        if s != 1 and (vector or not append):
+            raise ValueError('a cache index tensor takes one token a row, '
+                             'or a chunked append at a scalar index (the '
+                             'vector-index multi-token append is not '
+                             'ported)')
         if vector:
             cache['mask'][rows, idx] = attn_mask[:, 0]
+            at = (rows, slice(None), idx)
         else:
-            cache['mask'].index_copy_(1, idx.view(1), attn_mask[:, :1])
+            at = idx.view(1) if s == 1 else idx + torch.arange(s, device=dev)
+            cache['mask'].index_copy_(1, at, attn_mask[:, :s])
     elif cache is not None:
         idx = cache['index']
         if prefill and idx != 0:
             raise ValueError('a multi-token call fills a fresh cache '
-                             '(chunked appends are not ported)')
+                             '(chunked=True appends)')
         max_len = cache['mask'].shape[1]
         if idx + s > max_len:
             raise ValueError(f'KV cache overflow: {s} tokens at slot {idx} '
                              f'of a {max_len}-slot cache')
         cache['mask'][:, idx:idx + s] = attn_mask[:, :s]
+        at = slice(idx, idx + s)
     if cache is not None:
         kv_mask = cache['mask']
         quant_kv = cache['k'][0].dtype == torch.int8
@@ -285,10 +346,9 @@ def quant_llama_forward(qp: dict, cfg: LlamaConfig, inputs_embeds,
     mask_bias = torch.where(causal_ok & amask[:, None, None, :],
                             0.0, NEG_INF).to(torch.float32)
 
-    at = (rows, slice(None), idx) if vector else idx.view(1) if device_index \
-        else slice(idx, idx + s)
     for i, lp in enumerate(qp['layers']):
-        q, k, v = _project_qkv(x, lp, cfg, cos, sin)
+        lk = kmajor[i] if kmajor is not None else None
+        q, k, v = _project_qkv(x, lp, cfg, cos, sin, a8, lk)
         if cache is not None:
             if quant_kv:
                 kq8, ksc = _quantize_tokens(k)
@@ -297,16 +357,23 @@ def quant_llama_forward(qp: dict, cfg: LlamaConfig, inputs_embeds,
                 _write(cache['v'][i], at, vq8)
                 _write(cache['k_scale'][i], at, ksc)
                 _write(cache['v_scale'][i], at, vsc)
+                if append:
+                    k = _dequantize_cache(cache['k'][i],
+                                          cache['k_scale'][i], dtype)
+                    v = _dequantize_cache(cache['v'][i],
+                                          cache['v_scale'][i], dtype)
             else:
                 _write(cache['k'][i], at, k.to(cache['k'][i].dtype))
                 _write(cache['v'][i], at, v.to(cache['v'][i].dtype))
                 if not prefill:
                     k, v = cache['k'][i], cache['v'][i]
 
-        if quant_kv and not prefill:
+        if quant_kv and not prefill and s == 1:
             attn = int8_decode_attention(
                 q, cache['k'][i], cache['k_scale'][i], cache['v'][i],
                 cache['v_scale'][i], mask_bias)
+        elif use_flash and prefill and s >= FLASH_MIN_SEQ:
+            attn = flash_attention(q, k, v, kv_mask=amask, causal=True)
         else:
             # bf16 score storage with f32 softmax arithmetic at bf16
             # prefill (the JAX package's torch-autocast semantics)
@@ -318,7 +385,7 @@ def quant_llama_forward(qp: dict, cfg: LlamaConfig, inputs_embeds,
             sc = sc + mask_bias.to(score_dtype)
             p = torch.softmax(sc.to(torch.float32), dim=-1)
             attn = torch.matmul(p.to(v.dtype), v)
-        x = _finish_layer(x, attn, lp, cfg)
+        x = _finish_layer(x, attn, lp, cfg, a8, lk)
 
     x = rms_norm(x, qp['norm'], cfg.rms_norm_eps)
     if device_index:

@@ -15,7 +15,17 @@ Kept from the JAX package, which keeps them from the reference:
   model.
 Parameters may be kept in f32 while the convs and linears compute in
 ``compute_dtype`` (a trainer's master weights).
-Left out: the sharding constraints and the int8 vision-conv option.
+``quant=True`` (``GromaConfig.vision_int8``) runs the fuse convs and the
+RoI head's conv with both operands int8 (``ops.quant.w8a8_conv``), from
+the same float parameters, with JAX's scales: each fuse conv quantizes its
+three input pieces (kept channels, from the coarser level, from the finer
+one) apart, each with its own activation scale and the per-output-channel
+scales of its kernel slice, and sums the f32 results; the RoI head
+quantizes the three pooled levels as one concatenation against the
+concatenated kernels, then adds the summed biases.  The float path
+concatenates the pieces and sums three per-level convs instead, which is
+the same function.
+Left out: the sharding constraints.
 Convolutions run channels-first (torch's layout); RoIAlign takes the JAX
 package's channels-last layout.
 """
@@ -27,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from groma_tpu_torch.models.layers import linear
+from groma_tpu_torch.ops.quant import w8a8_conv
 from groma_tpu_torch.ops.roi_align import roi_align_batched
 
 ROI_STRIDES = (14 / 8, 14 / 4, 14 / 2)
@@ -57,9 +68,21 @@ class ConvModuleGN(nn.Module):
         self.gn = nn.GroupNorm(groups, d, eps=1e-5, device=device,
                                dtype=dtype)
 
-    def forward(self, x):
-        dt = x.dtype
-        x = conv2d(self.conv, x)
+    def forward(self, x, quant: bool = False):
+        """x: a (B, C, H, W) map, or the list of its channel pieces, which
+        ``quant`` quantizes apart (each against its kernel slice)."""
+        if quant:
+            dt = x[0].dtype
+            acc, off = None, 0
+            for piece in x:
+                c = piece.shape[1]
+                y = w8a8_conv(piece, self.conv.weight[:, off:off + c])
+                acc = y if acc is None else acc + y
+                off += c
+            x = acc.to(dt)
+        else:
+            dt = x.dtype
+            x = conv2d(self.conv, x)
         x = F.group_norm(x.to(torch.float32), self.gn.num_groups,
                          self.gn.weight.to(torch.float32),
                          self.gn.bias.to(torch.float32), self.gn.eps)
@@ -78,9 +101,9 @@ class MLVLFuse(nn.Module):
             ConvModuleGN(d, gn_groups, device, dtype)
             for _ in range(num_fuse))
 
-    def forward(self, feats, dtype):
+    def forward(self, feats, dtype, quant: bool = False):
         """List of (B, C, H, W) maps, largest first -> fused maps in
-        ``dtype``."""
+        ``dtype``; ``quant``: the fuse convs in int8 (``ConvModuleGN``)."""
         withcoord = []
         for conv, f in zip(self.input_conv, feats):
             b, _, h, w = f.shape
@@ -106,8 +129,9 @@ class MLVLFuse(nn.Module):
                     feats[top][:, remain + shuffle:], hw).to(dtype)
                 from_down = resize_bilinear_align_corners(
                     feats[down][:, remain:remain + shuffle], hw).to(dtype)
-                fused.append(conv(torch.cat([tar[:, :remain], from_top,
-                                             from_down], dim=1)))
+                pieces = [tar[:, :remain], from_top, from_down]
+                fused.append(conv(pieces, True) if quant
+                             else conv(torch.cat(pieces, dim=1)))
             feats = fused
         return feats
 
@@ -136,9 +160,11 @@ class RegionEncoder(nn.Module):
     def __init__(self, embed_dims: int = 1024, out_dims: int = 4096,
                  num_levels: int = 3, image_size: int = 448,
                  roi_out: int = 14, num_fuse: int = 5, gn_groups: int = 64,
-                 device=None, dtype=None, compute_dtype=None):
+                 device=None, dtype=None, compute_dtype=None,
+                 quant: bool = False):
         super().__init__()
         self.compute_dtype = compute_dtype or dtype or torch.float32
+        self.quant = quant
         self.image_size = image_size
         self.roi_out = roi_out
         self.num_levels = num_levels
@@ -162,20 +188,33 @@ class RegionEncoder(nn.Module):
         to_shape = [(base * 2 ** lvl,) * 2 for lvl in range(nl)][::-1]
         feats2d = [resize_bilinear_align_corners(f, s, cdtype)
                    for f, s in zip(feats2d, to_shape)]
-        fused = self.mlvl_fuse(feats2d, cdtype)
+        fused = self.mlvl_fuse(feats2d, cdtype, self.quant)
 
         pos = ra.pos_embedd(boxes.to(torch.float32))            # (B, R, 1024)
         rois = (boxes * self.image_size).to(torch.float32)      # the quirk
-        acc = 0.0
+        pooled_all = []
         for lvl in range(nl):
             pooled = roi_align_batched(
                 fused[lvl].permute(0, 2, 3, 1), rois,
                 output_size=self.roi_out,
                 spatial_scale=1.0 / ROI_STRIDES[lvl], sampling_ratio=2,
                 aligned=True)
-            pooled = pooled.reshape(b * r, self.roi_out, self.roi_out, -1)
-            acc = acc + conv2d(ra.pconvs[lvl], pooled.permute(0, 3, 1, 2).to(
-                cdtype)).to(torch.float32)
+            pooled_all.append(pooled.reshape(
+                b * r, self.roi_out, self.roi_out, -1).permute(
+                    0, 3, 1, 2).to(cdtype))
+        if self.quant:
+            # one int8 conv over the levels' concatenation, then the
+            # biases' sum, as JAX computes the pconvs
+            acc = w8a8_conv(torch.cat(pooled_all, dim=1),
+                            torch.cat([c.weight for c in ra.pconvs], dim=1))
+            bias = ra.pconvs[0].bias
+            for c in ra.pconvs[1:]:
+                bias = bias + c.bias
+            acc = acc + bias[:, None, None]
+        else:
+            acc = 0.0
+            for conv, pooled in zip(ra.pconvs, pooled_all):
+                acc = acc + conv2d(conv, pooled).to(torch.float32)
         acc = torch.relu(acc.to(cdtype))                 # (B*R, C, out, out)
         tokens = linear(ra.flatten_linear, acc.reshape(b * r, -1))
         tokens = tokens.reshape(b, r, 1024) + pos.to(cdtype)

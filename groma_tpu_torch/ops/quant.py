@@ -23,11 +23,37 @@ rounds it, on a persistent grid that ``prefill_plan`` sizes (its tiles:
   CUDA tensor it launches a tile or raises.  ``int8_matmul.launches``
   counts launches, one per call, and ``int8_matmul.prefill_launches``
   those of the prefill tile.
+
+W8A8, the counterpart of JAX's ``quantize_act``, ``w8a8_matmul`` and
+``w8a8_conv``: JAX runs them as plain XLA integer dots, not in a TPU
+kernel, so on the card the int8 x int8 -> int32 product is one library
+call, ``torch._int_mm`` (cuBLASLt), and the quantize and rescale passes
+are plain PyTorch.  The products are exact (|acc| <= 11008 x 127^2 <
+2^31), so the card's result is bit for bit the plain version's:
+
+* ``int_product`` is the plain exact product, an int32 ``torch.matmul``
+  on the CPU; elsewhere (CUDA has no int32 matmul) a float64 one, exact
+  because every partial sum is an integer below 2^53;
+* ``w8a8_matmul_reference`` / ``w8a8_conv_reference`` are the plain
+  versions (the conv's im2col by ``F.unfold``);
+* ``w8a8_matmul`` / ``w8a8_conv`` take the plain version for CPU tensors
+  and ``torch._int_mm`` for CUDA tensors, raising where its shape rules
+  fail (M <= 16, K or N not a multiple of 8); they never fall back to the
+  weight-only route.  ``w8a8_conv`` gathers its 3x3 taps into one int8
+  im2col matrix (nine shifted products summed in int32 were slower on an
+  H100, PERF.md §6).
+  ``<wrapper>.launches`` counts their ``torch._int_mm`` calls.
+* ``_int_mm``'s fast int8 path on an H100 wants the second operand
+  K-major: on the stored row-major (K, N) weights it ran 6.6 x slower
+  (PERF.md §6), so the owner of a W8A8 prefill keeps a K-major copy of
+  each layer weight (``w8a8_weight``), and the conv's kernel, quantized
+  each call anyway, is made K-major.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 DENSE_MIN_ROWS = 256      # from this many rows on, the prefill tile
 
@@ -224,3 +250,193 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor,
 
 int8_matmul.launches = 0
 int8_matmul.prefill_launches = 0
+
+
+# ------------------------------------------------------------------ W8A8
+
+def _absmax_scale(a: torch.Tensor) -> torch.Tensor:
+    """Symmetric int8 scale of an absmax: a / 127 where a > 0, else 1."""
+    return torch.where(a > 0, true_div(a, 127.0), torch.ones_like(a))
+
+
+def _absmax(x: torch.Tensor, dim=None) -> torch.Tensor:
+    """max |x| in f32 (over ``dim``, or the whole tensor) in one read:
+    exact, from the min and the max."""
+    lo, hi = torch.aminmax(x) if dim is None else torch.aminmax(x, dim=dim)
+    return torch.maximum(-lo, hi).to(torch.float32)
+
+
+def _to_int8(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """clip(round(x / s), -127, 127) as int8, the division in f32 (x is
+    promoted inside the division, exactly)."""
+    return torch.round(x / s).clamp_(-127, 127).to(torch.int8)
+
+
+def quantize_act(x: torch.Tensor):
+    """(M, K) float -> (int8 (M, K), scale (M,) f32), symmetric per-row
+    absmax: the activation half of W8A8."""
+    s = _absmax_scale(_absmax(x, -1))
+    return _to_int8(x, s[:, None]), s
+
+
+def int_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The exact int32 product of two int8 (or int-valued) matrices: an
+    int32 ``torch.matmul`` on the CPU, a float64 one elsewhere (exact for
+    sums below 2^53)."""
+    if a.device.type == 'cpu':
+        return a.to(torch.int32) @ b.to(torch.int32)
+    return (a.to(torch.float64) @ b.to(torch.float64)).to(torch.int32)
+
+
+def _rescale_rows(acc, xs, scale, dtype):
+    """JAX's order, (acc * xs[:, None]) * scale[None, :] in f32, cast to
+    ``dtype``: the int32 sums promoted inside the first product, the cast
+    fused into the second."""
+    y = torch.mul(acc, xs[:, None])
+    if dtype == torch.float32:
+        return y.mul_(scale)
+    return torch.mul(y, scale, out=torch.empty(y.shape, dtype=dtype,
+                                               device=y.device))
+
+
+def w8a8_matmul_reference(x: torch.Tensor, w_q: torch.Tensor,
+                          scale: torch.Tensor) -> torch.Tensor:
+    """x (M, K) float @ int8 (K, N) with per-column scales: the rows of x
+    quantized to int8, the exact int32 product, rescaled in f32 and cast to
+    x's dtype."""
+    xq, xs = quantize_act(x)
+    return _rescale_rows(int_product(xq, w_q), xs, scale, x.dtype)
+
+
+def _int_mm_shapes(name, m, k, n):
+    if m <= 16 or k % 8 or n % 8:
+        raise ValueError(f'{name}: torch._int_mm takes M > 16 and K, N '
+                         f'multiples of 8, not M={m}, K={k}, N={n}')
+
+
+def w8a8_matmul(x: torch.Tensor, w_q: torch.Tensor,
+                scale: torch.Tensor) -> torch.Tensor:
+    """x (M, K) float @ int8 weights (K, N) with per-column scales, both
+    operands int8 (dynamic per-row activation quantization) -> (M, N) in
+    x's dtype.  CPU tensors: the plain version; CUDA tensors:
+    ``torch._int_mm``, which is fastest with K-major weights: pass the
+    transpose of an (N, K) copy (``w8a8_weight``) rather than the stored
+    row-major (K, N) tensor."""
+    if x.device.type == 'cpu':
+        return w8a8_matmul_reference(x, w_q, scale)
+    if x.device.type != 'cuda':
+        raise ValueError(f'w8a8_matmul: unsupported device {x.device}')
+    m, k = x.shape
+    if w_q.dtype != torch.int8 or w_q.shape[0] != k \
+            or scale.shape != (w_q.shape[1],):
+        raise ValueError(f'w8a8_matmul: x {tuple(x.shape)}, w '
+                         f'{tuple(w_q.shape)} {w_q.dtype}, scale '
+                         f'{tuple(scale.shape)}')
+    _int_mm_shapes('w8a8_matmul', m, k, w_q.shape[1])
+    xq, xs = quantize_act(x)
+    acc = torch._int_mm(xq, w_q)
+    w8a8_matmul.launches += 1
+    return _rescale_rows(acc, xs, scale, x.dtype)
+
+
+w8a8_matmul.launches = 0
+
+
+def w8a8_weight(w_q: torch.Tensor) -> torch.Tensor:
+    """int8 weights (K, N) -> the same weights as the (K, N) transpose of a
+    K-major (N, K) copy, the layout in which ``torch._int_mm`` runs its
+    fast int8 path (a new tensor of the weights' size)."""
+    return w_q.T.contiguous().T
+
+
+def quantize_conv_kernel(weight: torch.Tensor):
+    """(co, ci, kh, kw) float -> (int8 of the same shape, (co,) f32 scale),
+    symmetric per output channel, from the float storage (JAX quantizes
+    its (kh, kw, ci, co) kernel the same way, each call)."""
+    wf = weight.to(torch.float32)
+    ks = _absmax_scale(wf.abs().amax(dim=(1, 2, 3)))
+    return _to_int8(wf, ks[:, None, None, None]), ks
+
+
+def quantize_tensor(x: torch.Tensor):
+    """Any float tensor -> (int8, 0-d f32 scale), one symmetric absmax
+    scale over the whole tensor (the batch included, as in JAX)."""
+    xs = _absmax_scale(_absmax(x))
+    # divide in f32: a 0-d divisor takes no part in type promotion, so
+    # x / xs would run in x's dtype (bf16); a dimensioned one-element view
+    # promotes x inside the division, as JAX's x.astype(f32) / xs
+    return _to_int8(x, xs.reshape([1] * x.dim())), xs
+
+
+def _rescale_channels(acc, xs, ks):
+    """acc (..., co) int32 -> f32 acc * (xs * ks), JAX's order."""
+    return torch.mul(acc, xs * ks)
+
+
+def conv_sums_reference(xq: torch.Tensor, kq: torch.Tensor) -> torch.Tensor:
+    """The plain int32 sums of a 3x3 stride-1 'SAME' convolution: xq
+    (B, C, H, W) int8 by kq (co, C, 3, 3) int8 -> (B*H*W, co), ``F.unfold``
+    of the activations (exact in f64) and ``int_product`` with the
+    kernel's (co, C*9) rows."""
+    b, c, h, w = xq.shape
+    cols = F.unfold(xq.to(torch.float64), 3, padding=1)      # (B, C*9, HW)
+    cols = cols.transpose(1, 2).reshape(b * h * w, c * 9)
+    return int_product(cols.to(torch.int32) if cols.device.type == 'cpu'
+                       else cols, kq.reshape(kq.shape[0], -1).T)
+
+
+def w8a8_conv_reference(x: torch.Tensor, weight: torch.Tensor):
+    """3x3 stride-1 'SAME' convolution of x (B, C, H, W) float by the
+    torch-layout kernel (co, C, 3, 3), both operands quantized to int8 ->
+    (B, co, H, W) f32: ``conv_sums_reference`` rescaled."""
+    b, c, h, w = x.shape
+    xq, xs = quantize_tensor(x)
+    kq, ks = quantize_conv_kernel(weight)
+    out = _rescale_channels(conv_sums_reference(xq, kq), xs, ks)
+    return out.reshape(b, h, w, -1).permute(0, 3, 1, 2)
+
+
+def _im2col_int8(xq_nhwc: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) int8 -> (B*H*W, 9*C) int8: each pixel's 3x3 window with
+    zero padding, in (ky, kx, c) order."""
+    b, h, w, c = xq_nhwc.shape
+    xp = F.pad(xq_nhwc, (0, 0, 1, 1, 1, 1))
+    sb, sh, sw, sc = xp.stride()
+    win = xp.as_strided((b, h, w, 3, 3, c), (sb, sh, sw, sh, sw, sc))
+    return win.reshape(b * h * w, 9 * c)
+
+
+def _im2col_products(xq: torch.Tensor, kq: torch.Tensor) -> torch.Tensor:
+    """The card route's int32 sums of a 3x3 'SAME' convolution: xq
+    (B, C, H, W) int8 by kq (co, C, 3, 3) int8 -> (B*H*W, co) int32, one
+    ``torch._int_mm`` over the int8 im2col matrix, the kernel K-major."""
+    co, c = kq.shape[:2]
+    wk = kq.permute(0, 2, 3, 1).reshape(co, 9 * c)           # (ky, kx, c)
+    return torch._int_mm(_im2col_int8(xq.permute(0, 2, 3, 1)), wk.T)
+
+
+def w8a8_conv(x: torch.Tensor, weight: torch.Tensor):
+    """3x3 'SAME' convolution with both operands int8 (per-tensor
+    activation scale, per-output-channel kernel scale, from the float
+    kernel each call) -> (B, co, H, W) f32, JAX's ``w8a8_conv`` in NCHW.
+    CPU tensors: the plain version; CUDA tensors: ``torch._int_mm`` over an
+    int8 im2col matrix."""
+    if x.device.type == 'cpu':
+        return w8a8_conv_reference(x, weight)
+    if x.device.type != 'cuda':
+        raise ValueError(f'w8a8_conv: unsupported device {x.device}')
+    b, c, h, w = x.shape
+    co = weight.shape[0]
+    if tuple(weight.shape) != (co, c, 3, 3):
+        raise ValueError(f'w8a8_conv: x {tuple(x.shape)}, kernel '
+                         f'{tuple(weight.shape)}; a 3x3 kernel over C')
+    _int_mm_shapes('w8a8_conv', b * h * w, 9 * c, co)
+    xq, xs = quantize_tensor(x)
+    kq, ks = quantize_conv_kernel(weight)
+    acc = _im2col_products(xq, kq)
+    w8a8_conv.launches += 1
+    out = _rescale_channels(acc, xs, ks)
+    return out.reshape(b, h, w, co).permute(0, 3, 1, 2)
+
+
+w8a8_conv.launches = 0

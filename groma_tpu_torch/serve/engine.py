@@ -42,8 +42,14 @@ each from pinned memory before a burst, and reads the tokens, positions,
 done flags and finite flag back in one copy after it.  On the CPU the same
 step runs eagerly.
 
-Chunked prefill, speculative decoding and ``w8a8_prefill`` are not ported
-and raise ``NotImplementedError``.
+``w8a8_prefill`` (int8 trees) runs the one-shot and batched prefills'
+layer matmuls as int8 x int8 products, as JAX's does.  Chunked prefill
+and speculative decoding are not ported and raise ``NotImplementedError``.
+
+Unlike JAX, a request taken off the queue stays the engine's until it is
+seated: if its prefill or seating raises, every unseated request of that
+admission group ends with the error (its ``token_stream()`` re-raises)
+before the engine dies, where JAX's would wait forever.
 """
 
 from __future__ import annotations
@@ -63,7 +69,8 @@ from groma_tpu_torch.models.groma import GromaModel
 from groma_tpu_torch.models.llama import make_kv_cache
 from groma_tpu_torch.models.llama_quant import (make_quant_kv_cache,
                                                 quant_llama_decode_paged,
-                                                quant_llama_forward)
+                                                quant_llama_forward,
+                                                w8a8_weights)
 from groma_tpu_torch.ops.paged_attention import (PAGE, insert_prefill_pages,
                                                  make_kv_page_pool)
 from groma_tpu_torch.utils.graphs import StepGraph
@@ -129,8 +136,6 @@ class BatchEngine:
             raise NotImplementedError('chunked prefill is not ported')
         if spec_lookahead > 0:
             raise NotImplementedError('speculative decoding is not ported')
-        if w8a8_prefill:
-            raise NotImplementedError('w8a8_prefill is not ported')
         if kv_bits not in (8, 16):
             raise ValueError('kv_bits must be 8 or 16')
         if qp is None and (kv_bits != 16 or paged_kv):
@@ -140,6 +145,11 @@ class BatchEngine:
         self.model = model
         self.qp = qp
         self.cfg = cfg
+        self.w8a8_prefill = w8a8_prefill
+        # the W8A8 products' K-major weights, made here, before the pools
+        # are sized and outside any request
+        self.kmajor = (w8a8_weights(qp) if w8a8_prefill and qp is not None
+                       else None)
         self.device = model.llm.model.embed_tokens.weight.device
         self.eos_id = eos_id
         self.chunk = chunk
@@ -318,7 +328,9 @@ class BatchEngine:
         pos = (torch.cumsum(valid.to(torch.int64), -1) - 1).clamp(min=0)
         cache = self._fresh_cache(len(reqs), emb.shape[1])
         hidden, cache = quant_llama_forward(self.qp, self.cfg.llm, emb,
-                                            valid, pos, cache)
+                                            valid, pos, cache,
+                                            w8a8=self.w8a8_prefill,
+                                            kmajor=self.kmajor)
         rows = torch.arange(len(reqs), device=self.device)
         last = torch.argmax(pos, dim=-1)
         logits = quant_logits(self.qp, hidden[rows, last][:, None])[:, 0]
@@ -348,19 +360,30 @@ class BatchEngine:
                 group.append(req)
             if not group:
                 return
-            if len(group) >= 2 and self.admit_batch > 1:
-                # one padded b=K prefill: the last request is repeated, the
-                # pad rows are computed and never seated
-                padded = group + [group[-1]] * (self.admit_batch - len(group))
-                logits, one, vis, next_pos = self._prefill(padded)
-                for row, req in enumerate(group):
-                    self._seat(free[row], req[0], logits[row], one, row, vis,
-                               int(next_pos[row]))
-            else:
-                for slot, req in zip(free, group):
-                    logits, one, vis, next_pos = self._prefill([req])
-                    self._seat(slot, req[0], logits[0], one, 0, vis,
-                               int(next_pos[0]))
+            # taken off the queue, the group is the engine's until seated:
+            # a prefill or seat that raises ends each unseated stream
+            unseated = [req[0] for req in group]
+            try:
+                if len(group) >= 2 and self.admit_batch > 1:
+                    # one padded b=K prefill: the last request is
+                    # repeated, the pad rows are computed and never seated
+                    padded = group + [group[-1]] * (self.admit_batch
+                                                    - len(group))
+                    logits, one, vis, next_pos = self._prefill(padded)
+                    for row, req in enumerate(group):
+                        self._seat(free[row], req[0], logits[row], one, row,
+                                   vis, int(next_pos[row]))
+                        unseated.remove(req[0])
+                else:
+                    for slot, req in zip(free, group):
+                        logits, one, vis, next_pos = self._prefill([req])
+                        self._seat(slot, req[0], logits[0], one, 0, vis,
+                                   int(next_pos[0]))
+                        unseated.remove(req[0])
+            except BaseException as e:
+                for sess in unseated:
+                    self._end(sess, e)
+                raise
 
     def _seat(self, slot, sess, row_logits, one, row, vis, next_pos):
         """Install row ``row`` of a prefill into ``slot`` and emit its
@@ -593,24 +616,26 @@ class BatchEngine:
                     pass     # no submit() can now slip past the drain
                 self._drain_waiting(None)
 
+    @staticmethod
+    def _end(sess: Session, err: Optional[BaseException]):
+        """End a stream, with the engine's error attached if any."""
+        if err is not None:
+            sess.error = err
+        sess.done = True
+        sess._q.put(None)
+
     def _drain_waiting(self, err: Optional[BaseException]):
         while not self._queue.empty():
             try:
                 _, _, (sess, *_rest) = self._queue.get_nowait()
             except queue.Empty:
                 break
-            if err is not None:
-                sess.error = err
-            sess.done = True
-            sess._q.put(None)
+            self._end(sess, err)
 
     def _abort_all(self, err: BaseException):
         """End every live and queued stream with the error attached."""
         for slot in range(self.max_slots):
             if self._active[slot]:
-                sess = self._sessions[slot]
                 self._active[slot] = False
-                sess.error = err
-                sess.done = True
-                sess._q.put(None)
+                self._end(self._sessions[slot], err)
         self._drain_waiting(err)

@@ -325,10 +325,77 @@ def test_fatal_error_fails_fast(tiny):
 
 
 def test_unported_options_raise(tiny):
-    for kw in ({'prefill_chunk_tokens': 16}, {'spec_lookahead': 2},
-               {'w8a8_prefill': True}):
+    for kw in ({'prefill_chunk_tokens': 16}, {'spec_lookahead': 2}):
         with pytest.raises(NotImplementedError):
             _engine(tiny, **kw)
+
+
+def test_w8a8_prefill_matches_jax_engine(jax_params, monkeypatch):
+    """int8 weights, the one-shot and the padded b=2 prefill (256 rows, the
+    W8A8 route) with ``w8a8_prefill``: JAX's engine's greedy tokens."""
+    import groma_tpu_torch.models.llama_quant as llama_quant
+    monkeypatch.setattr(
+        j_decode_attention, 'int8_decode_attention',
+        lambda *a: j_decode_attention._call_kernel(*a, interpret=True))
+    calls = []
+    real = llama_quant.w8a8_matmul
+
+    def counting(*a):
+        calls.append((a[0].shape[0], a[1].stride()[0]))
+        return real(*a)
+    monkeypatch.setattr(llama_quant, 'w8a8_matmul', counting)
+    jmodel, params = jax_params
+    tok, reqs = _requests(CFG4, 3, seed=2)
+    kw = dict(max_slots=2, max_len=CFG4.max_seq_len + MAX_NEW + 8,
+              eos_id=tok.sp.eos, chunk=2, max_new_tokens=MAX_NEW, kv_bits=8,
+              admit_batch=2, w8a8_prefill=True)
+    want, _ = _serve(JEngine(jmodel, params, qp=j_quantize(params, CFG4),
+                             **kw), reqs)
+    tmodel = from_jax_params(params, CFG4)
+    engine = BatchEngine(tmodel, quantize_groma_llm(tmodel, CFG4), **kw)
+    # the K-major copies are made by the constructor, not by a request
+    assert len(engine.kmajor) == CFG4.llm.num_layers
+    got, _ = _serve(engine, reqs)
+    assert got == want
+    assert all(len(g) >= 2 for g in got)
+    assert calls and all(m >= 256 and stride == 1 for m, stride in calls)
+
+
+def test_a_prefill_that_raises_ends_the_streams_it_took(tiny):
+    """Requests taken off the queue for a prefill that raises are neither
+    seated nor queued: each stream must still end, with the error."""
+    engine = _engine(tiny, max_slots=2, admit_batch=2)
+    boom = RuntimeError('CUDA out of memory (simulated prefill)')
+
+    def die(reqs):
+        raise boom
+    engine._prefill = die
+    reqs = tiny[3]
+    ended = {}
+
+    def consume(i, sess):
+        try:
+            list(sess.token_stream())
+            ended[i] = None
+        except RuntimeError as e:
+            ended[i] = e
+    try:
+        sessions = [engine.submit(*r) for r in reqs[:3]]
+        threads = [threading.Thread(target=consume, args=(i, s), daemon=True)
+                   for i, s in enumerate(sessions)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+        assert not any(t.is_alive() for t in threads), 'a stream hung'
+        assert all(isinstance(ended[i], RuntimeError)
+                   and ended[i].__cause__ is boom for i in range(3))
+        assert all(s.done and s.error is boom for s in sessions)
+        assert 'simulated prefill' in engine.stats()['fatal']
+        with pytest.raises(RuntimeError):
+            engine.submit(*reqs[3])
+    finally:
+        engine.close()
 
 
 def test_worker_engine_branch_and_truncated_finish():

@@ -570,3 +570,19 @@ def test_rec_metrics_sum_over_a_process_group():
             'total': 6}
     assert [json.loads(o) for o in outs] == [want, want]
     assert RECMetrics(total=2).psum_across_hosts().summary()['total'] == 2
+
+
+def test_rec_summary_is_json_ready_once_a_box_is_predicted():
+    """A predicted box makes the IoU sum a numpy f32: the summary still
+    gives JAX's values, as Python numbers that ``eval_rec`` can print."""
+    from groma_tpu.eval.rec import RECMetrics as JRECMetrics
+    gt = np.asarray([0.5, 0.5, 0.4, 0.3], np.float32)
+    pred = np.asarray([0.52, 0.48, 0.35, 0.3], np.float32)
+    got, want = RECMetrics(), JRECMetrics()
+    for m in (got, want):
+        m.update(pred, gt)
+        m.update(None, gt)
+    summary = got.summary()
+    assert json.loads(json.dumps(summary)) == summary
+    assert summary == {k: float(v) if k != 'total' else v
+                       for k, v in want.summary().items()}
