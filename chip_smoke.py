@@ -18,14 +18,15 @@ Phases, each printed before the last line:
     PyTorch call that computes the same function where there is one
     (torch._weight_int8pack_mm / _weight_int4pack_mm, the SDPA forward and
     backward, torch._int_mm, the backend named): the int8 matmul (served
-    path; its decode tile at M = 1, 4, 8 and 100 against the scale-after
+    path; its decode tile at M = 1, 4, 8, 40 (the engine's verify), 100
+    and 192 (a prefill chunk) against the scale-after
     plain version, its wgmma prefill tile at M = 256, 300 and 2048 against
     the dequantize-first one, each at the four layer shapes and the padded
     head, the ragged head and an odd K at M = 1 and 300, every case called
     twice, bitwise equal, and nearer its own route than the other; ptxas's
     registers and spills and any wgmma serialization warning of
     int8_matmul.cu, each a failure; beside torch._weight_int8pack_mm at
-    M = 1, 8 and 2048 and a bf16 torch.matmul on dequantized copies at
+    M = 1, 8, 40, 192 and 2048 and a bf16 torch.matmul on dequantized copies at
     M = 2048), the decode attention (served path: B = 1 and 4 at S = 1024
     and 2112, B = 2 at a ragged S = 1001, the served stream's own mask, an
     all-masked and a last-slot-only row, the per-layer path's B=8 at
@@ -118,9 +119,11 @@ Phases, each printed before the last line:
     configuration, flash alone, the served one); QuantGenerator(kv_bits=8,
     spec_lookahead=4) on the same requests (verify calls, accepted a call,
     ms/token; the tokens equal to the sequential greedy ones, or first
-    different at a near-tie: the verify and decode forwards' logits there
-    at most SPEC_LOGIT_DIFF_MAX apart, both parted tokens among the top-2
-    values of each, the sequential top-2 gap below that difference), and
+    different at a near-tie: the logits the verify picked its token from,
+    as its captured step recorded them, and the sequential decode's,
+    recomputed, at most SPEC_LOGIT_DIFF_MAX apart, each token the maximum
+    of its own path's logits and within twice that difference of the
+    other's, the sequential top-2 gap below it), and
     its verify step's replays
     against the eager step on a copy of the state (bitwise, busy share,
     launches a replay);
@@ -154,6 +157,30 @@ Phases, each printed before the last line:
     slot, ENGINE_PROFILED_BURSTS of whose bursts with every slot live run
     under torch.profiler (device time a step, the slots' kv lengths); then
     one more request, its first burst against the eager step;
+ 7b. the serving stack on JAX's REC engine cell (bench_engine.py: 8 slots,
+    bursts of 24, prefill chunks of 192, 640-slot REC streams, 48 new
+    tokens, no EOS) at full width, int8 LLM and KV: the port's worker
+    started as `--engine --prefill-chunk 192 --spec-lookahead 4` (the
+    flags reach its engine; the engine then takes the cell's burst and
+    stream), the port's controller and web front on localhost, the worker
+    registered by heartbeat; STACK_REQUESTS requests from as many threads,
+    one through the web front (a PNG decoded without PIL), the rest
+    dispatched by the controller, each checked; then the same requests
+    in-process through the one-shot engine and the chunked one: exact
+    launch counts of #1 and #2 (#1 4L a chunk at M = 192, last_idx // 192
+    + 1 chunks a request), both engines' logits as their captured steps
+    recorded them, at every token up to the first that parts: each token
+    the maximum of its own logits, the first logits within
+    STACK_FIRST_REL_MAX of max|one-shot| (and a cosine), the later ones
+    within STACK_CHUNK_DIFF_MAX, a parted token at a near-tie; the longest
+    gap between two bursts a live stream sees, TTFT, tok/s and ms a
+    decode step of both (max_len 768); the chunk step's replays against
+    the eager step on a copy of its state (bitwise); the verify step on
+    copies of the live state of an engine with --spec-lookahead 4 (max_len
+    896; B = 8, G = 4, teacher-forced greedy drafts): acceptance, the
+    written slots against the sequential decode's, a wrong second draft on
+    every row that accepted its first, a finished row, replay against
+    eager (bitwise);
  8. the decode benchmark's path (bench_decode_quant.measure_megakernel) at
     full depth: the random full-width Vicuna-7B int4 tree from --seed,
     B=8, a 512-token random prompt prefilled per layer into a 1024-slot
@@ -197,6 +224,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import math
 import subprocess
 import sys
 import threading
@@ -217,7 +245,9 @@ INT8_MATMUL_SHAPES = {          # (K, N) of every decode matmul at 7B width
     'lm_head (ragged N)': (4096, 32114),
 }
 LAYER_MATMULS = ('qkv_proj', 'o_proj', 'gate_up_proj', 'down_proj')
-INT8_DECODE_ROWS = (1, 4, 8, 100)       # #1's decode tile (M < 256)
+# #1's decode tile (M < 256): 40 is the engine's verify (8 slots x 5
+# tokens), 192 a chunk of the chunked prefill
+INT8_DECODE_ROWS = (1, 4, 8, 40, 100, 192)
 INT8_PREFILL_ROWS = (256, 300, 2048)    # #1's prefill tile
 INT8_PREFILL_M = 2048     # M of a served prefill: one stream of max_seq_len
 INT4_MATMUL_SHAPES = {          # (K, N) of the int4 tree's matmuls
@@ -497,7 +527,7 @@ def check_int8_matmul(torch, gen, timer, card):
         b_ms, bound_by = bound(k * n + 4 * n + 2 * m * (k + n),
                                2 * m * k * n)
         lib = None
-        if name in LAYER_MATMULS and m in (1, 8, INT8_PREFILL_M):
+        if name in LAYER_MATMULS and m in (1, 8, 40, 192, INT8_PREFILL_M):
             # bf16 scales (the plain versions' are f32)
             w_t = w.T.contiguous()
             lib = library_time(
@@ -569,14 +599,15 @@ def _served_valid(torch, s: int, decoded: int):
     ``decoded`` tokens from slot max_seq_len on."""
     from groma_tpu_torch.config import GromaConfig
     from groma_tpu_torch.data.datasets.base import VLDataSpec
-    from groma_tpu_torch.data.tokenizer import StubTokenizer
+    from groma_tpu_torch.data.tokenizer import StableStubTokenizer
     from groma_tpu_torch.serve.worker import expand_request
     cfg = GromaConfig()
     spec = VLDataSpec(num_image_tokens=cfg.num_image_tokens,
                       max_region_num=cfg.max_region_num,
                       max_seq_len=cfg.max_seq_len,
                       image_size=cfg.perceiver.image_size)
-    t = expand_request(StubTokenizer(cfg.llm.vocab_size, cfg.max_seq_len),
+    t = expand_request(StableStubTokenizer(cfg.llm.vocab_size,
+                                           cfg.max_seq_len),
                        spec, {'prompt': SERVED_PROMPTS[0]})
     valid = torch.zeros(s, dtype=torch.bool)
     valid[:cfg.max_seq_len] = torch.from_numpy(t['valid'])
@@ -3101,7 +3132,7 @@ def rec_e2e_full_width(torch, np, m8, qp, kmajor, seed: int, card: str):
     device time under torch.profiler, exact launch counts.  ``kmajor``:
     the W8A8 products' K-major weights (llama_quant.w8a8_weights)."""
     from groma_tpu_torch.data.datasets.base import VLDataSpec
-    from groma_tpu_torch.data.tokenizer import StubTokenizer
+    from groma_tpu_torch.data.tokenizer import StableStubTokenizer
     from groma_tpu_torch.eval.generate_quant import quant_embed, quant_logits
     from groma_tpu_torch.eval.rec import build_rec_prompt
     from groma_tpu_torch.models.groma import (_gather_valid_first,
@@ -3117,7 +3148,7 @@ def rec_e2e_full_width(torch, np, m8, qp, kmajor, seed: int, card: str):
                       max_seq_len=REC_SEQ_LEN,
                       image_size=cfg.perceiver.image_size)
     t = build_rec_prompt('the red object on the left',
-                         StubTokenizer(base_vocab=llm.vocab_size), spec)
+                         StableStubTokenizer(base_vocab=llm.vocab_size), spec)
     image = torch.as_tensor(random_image(np, seed + 40,
                                          cfg.perceiver.image_size)[None],
                             device=dev)
@@ -3280,16 +3311,84 @@ def _first_difference(a, b) -> int:
     return n
 
 
-def _spec_divergence(torch, model, qp, max_len, args, toks, j: int, G: int,
-                     parted):
-    """At the first position j where speculative and sequential tokens
-    differ: the sequential decode's logits there (the forward of token j-1
-    on the cache of the prompt and tokens 0..j-2) and a verify forward's
-    (the chunked append of token j-1 and G drafts at the same slot, on a
-    copy of that cache) -> (top-2 gap of the sequential logits, max |verify
-    - sequential|, whether both ``parted`` tokens hold a top-2 value in the
-    sequential logits, and in the verify's: ties counted, as the bf16
-    logits often tie)."""
+class LogitRecorder:
+    """The logits of a captured step, kept: ``wrap(fn)`` is ``fn`` that
+    also copies its output into the next of ``cap`` rows of a device
+    buffer, the row counter a device word, so that every replay of a graph
+    captured over it records as an eager step does (the copy launches no
+    kernel of the port).  ``reset()`` starts the count again."""
+
+    def __init__(self, torch, cap: int):
+        self.torch, self.cap = torch, cap
+        self.buf = self.calls = None
+
+    def wrap(self, fn):
+        def recording(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            self.record(out)
+            return out
+        return recording
+
+    def record(self, logits):
+        torch = self.torch
+        if self.buf is None:        # the first call: an eager warm-up step
+            self.buf = torch.zeros((self.cap,) + tuple(logits.shape),
+                                   dtype=logits.dtype, device=logits.device)
+            self.calls = torch.zeros((), dtype=torch.int64,
+                                     device=logits.device)
+        self.buf.index_copy_(0, self.calls.remainder(self.cap).view(1),
+                             logits[None])
+        self.calls.add_(1)
+
+    def reset(self):
+        if self.calls is not None:
+            with self.torch.inference_mode():    # made in a step's
+                self.calls.zero_()
+
+    def row(self, i: int):
+        """The logits of call ``i`` since the last reset."""
+        n = 0 if self.calls is None else int(self.calls)
+        if not 0 <= i < n or n > self.cap:
+            fail(f'logit recorder: call {i} of {n} not kept (room for '
+                 f'{self.cap})')
+        return self.buf[i]
+
+
+def _is_max(logits, tok: int, slack: float = 0.0) -> bool:
+    """Whether ``logits[tok]`` is at most ``slack`` below their maximum
+    (ties counted)."""
+    return bool(logits[tok] >= logits.max() - slack)
+
+
+def _bf16_step(x: float) -> float:
+    """One step of bf16 at the magnitude of ``x``."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 2.0 ** -133
+
+
+def _parted_at_near_tie(ref, got, ref_tok: int, got_tok: int, diff_max: float,
+                        ref_slack: float = 0.0, got_slack: float = 0.0):
+    """Two paths' logits where their tokens first part (``ref`` picked
+    ``ref_tok``, ``got`` picked ``got_tok``) -> (top-2 gap of ``ref``,
+    max |got - ref|, whether it is a near-tie): each path's own pick a
+    maximum of its own logits (within its slack), the other's pick at most
+    twice the difference below that maximum, and the gap below the
+    difference, which is at most ``diff_max``."""
+    diff = (got - ref).abs().max().item()
+    top2 = ref.topk(2).values
+    gap = (top2[0] - top2[1]).item()
+    tie = (diff <= diff_max and gap < diff
+           and _is_max(ref, ref_tok, ref_slack)
+           and _is_max(got, got_tok, got_slack)
+           and _is_max(ref, got_tok, 2 * diff)
+           and _is_max(got, ref_tok, 2 * diff))
+    return gap, diff, tie
+
+
+def _sequential_logits(torch, model, qp, max_len, args, toks, j: int):
+    """The sequential greedy decode's logits at token j (the forward of
+    token j-1 on the cache of the prompt and tokens 0..j-2), recomputed as
+    QuantGenerator's decode step computes them, at b=1 on an int8 cache of
+    ``max_len`` slots."""
     from groma_tpu_torch.eval.generate_quant import quant_embed, quant_logits
     from groma_tpu_torch.models.groma import _ordinal
     from groma_tpu_torch.models.llama_quant import (make_quant_kv_cache,
@@ -3307,34 +3406,24 @@ def _spec_divergence(torch, model, qp, max_len, args, toks, j: int, G: int,
         quant_llama_forward(qp, llm, emb, valid, pos, cache)
         pos0 = int(pos.max()) + 1
         one = torch.ones((1, 1), dtype=torch.bool, device=dev)
+        for i in range(j):
+            h, _ = quant_llama_forward(
+                qp, llm, quant_embed(qp, torch.tensor([[int(toks[i])]],
+                                                      device=dev), vocab),
+                one, torch.tensor([[pos0 + i]], device=dev), cache)
+        return quant_logits(qp, h)[0, -1].float()
 
-        def token(i):
-            return torch.tensor([[int(toks[i])]], device=dev)
-        for i in range(j - 1):
-            quant_llama_forward(qp, llm, quant_embed(qp, token(i), vocab),
-                                one, torch.tensor([[pos0 + i]], device=dev),
-                                cache)
-        copy = _clone_tree(torch, cache)
-        h, _ = quant_llama_forward(qp, llm,
-                                   quant_embed(qp, token(j - 1), vocab), one,
-                                   torch.tensor([[pos0 + j - 1]],
-                                                device=dev), cache)
-        seq = quant_logits(qp, h)[0, -1].float()
-        chunk = token(j - 1).repeat(1, G + 1)
-        h, _ = quant_llama_forward(
-            qp, llm, quant_embed(qp, chunk, vocab),
-            torch.ones((1, G + 1), dtype=torch.bool, device=dev),
-            pos0 + j - 1 + torch.arange(G + 1, device=dev)[None], copy,
-            chunked=True)
-        ver = quant_logits(qp, h)[0, 0].float()
-        top2 = torch.topk(seq, 2).values
-        ids = torch.tensor(sorted(parted), device=dev)
 
-        def in_top2(logits):
-            return bool((logits[ids] >= torch.topk(logits, 2).values[1])
-                        .all())
-        return ((top2[0] - top2[1]).item(), (ver - seq).abs().max().item(),
-                in_top2(seq), in_top2(ver))
+def _verify_logits(rec: LogitRecorder, accepted, j: int):
+    """The logits a speculative generation picked its token j from: the
+    row of the verify call that emitted it, as the call recorded it (token
+    0 is the prefill's; call c emits accepted[c] + 1 tokens)."""
+    done = 1
+    for call, acc in enumerate(accepted):
+        if j <= done + acc:
+            return rec.row(call)[0, j - done].float()
+        done += acc + 1
+    fail(f'speculative path: no verify call emitted token {j}')
 
 
 def serve_speculative_full_width(torch, np, worker, requests, seed: int,
@@ -3342,11 +3431,13 @@ def serve_speculative_full_width(torch, np, worker, requests, seed: int,
     """QuantGenerator(kv_bits=8, spec_lookahead=SPEC_LOOKAHEAD) on the
     served path's weights and three requests: verify calls, accepted per
     call, ms/token, the tokens against the sequential greedy ones: equal,
-    or differing first at a near-tie, where the verify and decode
-    forwards' logits there differ by at most SPEC_LOGIT_DIFF_MAX, the two
-    tokens that parted hold top-2 values in both, and the sequential
-    top-2 gap is below their difference; then the verify step's replays
-    against the eager step on a copy of its state."""
+    or differing first at a near-tie (``_parted_at_near_tie``) between the
+    verify row's logits that picked the speculative token, as the captured
+    verify recorded them, and the sequential decode's, recomputed (their
+    own pick within one bf16 step of their maximum), at most
+    SPEC_LOGIT_DIFF_MAX apart; then the verify step's replays against the
+    eager step on a copy of its state."""
+    import groma_tpu_torch.eval.generate_quant as generate_quant
     from groma_tpu_torch.eval.generate_quant import QuantGenerator
     from groma_tpu_torch.eval.speculative import propose_prompt_lookup
     from groma_tpu_torch.utils import graphs
@@ -3354,11 +3445,21 @@ def serve_speculative_full_width(torch, np, worker, requests, seed: int,
     G = SPEC_LOOKAHEAD
     spec = QuantGenerator(base.model, base.qp, max_len=base.max_len,
                           kv_bits=8, spec_lookahead=G)
+    # the verify step made over a recording logits head: each call keeps
+    # its (G + 1)-row logits, a generation makes at most MAX_NEW_TOKENS
+    rec = LogitRecorder(torch, MAX_NEW_TOKENS)
+    logits_fn = generate_quant.quant_logits
+    generate_quant.quant_logits = rec.wrap(logits_fn)
+    try:
+        spec.verifier()
+    finally:
+        generate_quant.quant_logits = logits_fn
     eos = worker.tokenizer.sp.eos
     for i, args in enumerate(requests):
         seq_tokens, _ = base.generate(*args, max_new_tokens=MAX_NEW_TOKENS,
                                       eos_id=eos)
         seq_ms = base.last_stats['decode_ms_per_token']
+        rec.reset()
         tokens, _ = spec.generate(*args, max_new_tokens=MAX_NEW_TOKENS,
                                   eos_id=eos)
         st, stats = spec.spec_stats, spec.last_stats
@@ -3379,17 +3480,20 @@ def serve_speculative_full_width(torch, np, worker, requests, seed: int,
         if not 1 <= j < min(len(a), len(b)):
             fail(f'{line}; tokens differ from the sequential ones in '
                  f'length only ({len(a)} against {len(b)})')
-        gap, diff, seq_top2, ver_top2 = _spec_divergence(
-            torch, base.model, base.qp, base.max_len, args, b, j, G,
-            {a[j], b[j]})
-        tie = (diff <= SPEC_LOGIT_DIFF_MAX and gap < diff and seq_top2
-               and ver_top2)
+        seq = _sequential_logits(torch, base.model, base.qp, base.max_len,
+                                 args, b, j)
+        ver = _verify_logits(rec, acc, j)
+        gap, diff, tie = _parted_at_near_tie(
+            seq, ver, b[j], a[j], SPEC_LOGIT_DIFF_MAX,
+            ref_slack=_bf16_step(seq.max().item()))
         print(f'{line}; tokens first differ from the sequential ones at '
               f'{j} ({a[j]} against {b[j]}): the sequential top-2 logit gap '
               f'there {gap:.4e}, |verify - decode logits| {diff:.4e} (at '
-              f'most {SPEC_LOGIT_DIFF_MAX}); both tokens among the top-2 '
-              f'values of the sequential logits {seq_top2}, of the '
-              f'verify\'s {ver_top2} '
+              f'most {SPEC_LOGIT_DIFF_MAX}); logits of the two tokens in '
+              f'the sequential decode {seq[b[j]].item():.4f}, '
+              f'{seq[a[j]].item():.4f} (max {seq.max().item():.4f}), in the '
+              f'recorded verify {ver[b[j]].item():.4f}, '
+              f'{ver[a[j]].item():.4f} (max {ver.max().item():.4f}) '
               f'({"a near-tie" if tie else "NOT a near-tie"}) [{card}]')
         if not tie:
             fail(f'speculative request {i}: tokens differ from the '
@@ -3937,6 +4041,686 @@ def serve_engine_full_width(torch, np, seed: int, card: str):
     return mm, att, mm_prefill
 
 
+# the serving stack (phase 7b): JAX's REC engine cell (bench_engine.py)
+STACK_SLOTS, STACK_BURST, STACK_CHUNK = 8, 24, 192
+STACK_STREAM, STACK_MAX_NEW, STACK_REQUESTS = 640, 48, 16
+STACK_LOOKAHEAD = 4        # --spec-lookahead: the verify step's G
+STACK_COSINE_MIN = 0.99    # chunked first logits against the one-shot's
+# the chunked engine against the one-shot engine, on the logits each
+# picked its tokens from: the first logits' largest difference relative to
+# max|one-shot|, and a later token's (while the streams agree) absolute.
+# On an H100 at --seed 0 this phase read at most 0.0236 and 0.113 alone,
+# 0.0254 and 0.111 in the whole script (16 requests, about 300 later
+# tokens); benchmarks/chunk_divergence.py at b=1 (4 requests) sound 0.0231
+# and 0.109, with chunks 2-4 at rope positions one too far 0.0272 to
+# 0.0328 and 0.164 to 0.191, one slot late 0.0233 and 0.125, one slot
+# early 0.0256 and 0.117 (a single key moved or lost: with random weights
+# no bound tells that from sound)
+STACK_FIRST_REL_MAX = 0.03
+STACK_CHUNK_DIFF_MAX = 0.14
+STACK_LOGIT_STEPS = 1024   # decode steps a drive's recorder keeps
+# the verify's dequantized key and value writes past layer 0 against the
+# sequential decode's, relative to max|sequential| (their inputs went
+# through the dequantized-cache attention and the int8 decode kernel)
+STACK_VERIFY_KV_TOL = 0.25
+STACK_PROMPT = 'Locate the {} red object on the left of the image.'
+STACK_ORDINALS = ('first', 'second', 'third', 'fourth', 'fifth', 'sixth',
+                  'seventh', 'eighth', 'ninth', 'tenth', 'eleventh',
+                  'twelfth', 'thirteenth', 'fourteenth', 'fifteenth',
+                  'sixteenth')
+
+
+def _png_bytes(img) -> bytes:
+    """An RGB uint8 (H, W, 3) image as a PNG of unfiltered rows."""
+    import struct
+    import zlib
+    h, w, _ = img.shape
+    raw = b''.join(b'\x00' + img[y].tobytes() for y in range(h))
+
+    def chunk(kind, body):
+        return (struct.pack('>I', len(body)) + kind + body
+                + struct.pack('>I', zlib.crc32(kind + body)))
+    return (b'\x89PNG\r\n\x1a\n'
+            + chunk(b'IHDR', struct.pack('>IIBBBBB', w, h, 8, 2, 0, 0, 0))
+            + chunk(b'IDAT', zlib.compress(raw)) + chunk(b'IEND', b''))
+
+
+def _post(url: str, payload: dict, timeout: float = 600) -> bytes:
+    import urllib.request
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={'Content-Type': 'application/json'})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.read()
+
+
+def _http_server(handler):
+    """A local HTTP server on a free port, served from a daemon thread ->
+    (server, its URL)."""
+    from http.server import ThreadingHTTPServer
+    httpd = ThreadingHTTPServer(('127.0.0.1', 0), handler)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return httpd, f'http://127.0.0.1:{httpd.server_address[1]}'
+
+
+def _worst_stall(stamps) -> float:
+    """bench_engine.py's measure: the longest gap between two bursts that
+    a live stream sees (a burst's tokens arrive within 2 ms), its own first
+    token's wait left out; seconds."""
+    worst = 0.0
+    for v in stamps:
+        bursts = [t for a, t in zip(v[1:], v[2:]) if t - a > 2e-3]
+        for a, b in zip([v[1]] + bursts, bursts):
+            worst = max(worst, b - a)
+    return worst
+
+
+def _load_state(dst, src):
+    """Copy the tensors of ``src`` into those of ``dst`` under the same
+    keys (``dst`` may hold more)."""
+    for k, v in src.items():
+        if isinstance(v, dict):
+            _load_state(dst[k], v)
+        elif isinstance(v, list):
+            for d, s in zip(dst[k], v):
+                d.copy_(s)
+        elif hasattr(v, 'copy_'):
+            dst[k].copy_(v)
+
+
+def _record_steps(torch, engine) -> LogitRecorder:
+    """Keep the logits of every decode step of ``engine``: its step's
+    ``_pick`` wrapped before any burst is captured, STACK_LOGIT_STEPS
+    steps of (slots, vocabulary) logits."""
+    rec = LogitRecorder(torch, STACK_LOGIT_STEPS)
+    record, pick = rec.record, engine._pick
+
+    def recording_pick(logits, temps, sample):
+        record(logits)
+        return pick(logits, temps, sample)
+    engine._pick = recording_pick
+    return rec
+
+
+def _stack_drive(torch, np, engine, rec, requests, chunked: bool):
+    """``requests`` submitted at once in-process, each stream consumed on
+    its own thread (bench_engine.py's drive) -> the run's record: sessions,
+    token arrival times, wall seconds, device launches, decode steps and
+    their seconds, chunk steps, each request's first logits and seated
+    cache index, and the logits each of its tokens was picked from
+    (``logits(i, t)``: token 0 from the prefill's, token t from decode
+    step seat + t - 1 of its slot, as ``rec`` recorded it)."""
+    seat, first = engine._seat, {}
+    steps0, sec0 = engine._n_steps, engine._decode_sec
+
+    def recording_seat(slot, sess, row_logits, one, row, vis, next_pos):
+        # row_logits: the (vocabulary,) first logits
+        first[id(sess)] = (row_logits.float().cpu(), int(one['index']),
+                           slot, engine._n_steps - steps0)
+        return seat(slot, sess, row_logits, one, row, vis, next_pos)
+    engine._seat = recording_seat
+    chunks = []
+    graph = engine._chunk
+    if chunked:
+        run = graph.run
+
+        def counted_run(n):
+            chunks.append(n)
+            return run(n)
+        graph.run = counted_run
+    stamps = [[] for _ in requests]
+    torch.cuda.synchronize()
+    rec.reset()
+    zero_counts()
+    t0 = time.perf_counter()
+    sessions = [engine.submit(*r, max_new_tokens=STACK_MAX_NEW)
+                for r in requests]
+
+    def consume(i):
+        for _ in sessions[i].token_stream():
+            stamps[i].append(time.perf_counter())
+    threads = [threading.Thread(target=consume, args=(i,))
+               for i in range(len(requests))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ran = device_launches()
+    del engine._seat
+    if chunked:
+        del graph.run
+    if any(th.is_alive() for th in threads) \
+            or any(s.error for s in sessions):
+        fail(f'serving stack: a request of the '
+             f'{"chunked" if chunked else "one-shot"} engine did not finish')
+    seated = [first[id(s)] for s in sessions]
+
+    def logits(i, t):
+        lg, _, slot, step = seated[i]
+        return lg if t == 0 else rec.row(step + t - 1)[slot].float().cpu()
+    return {'sessions': sessions, 'stamps': stamps, 'wall': wall,
+            'ran': ran, 'steps': engine._n_steps - steps0,
+            'decode_sec': engine._decode_sec - sec0, 'chunks': sum(chunks),
+            'first': [(lg, index) for lg, index, _, _ in seated],
+            'logits': logits}
+
+
+def _chunked_against_one_shot(torch, np, chk, one, n: int, card: str):
+    """Each request's chunked stream against its one-shot stream, on the
+    logits each engine picked its tokens from: at every token up to the
+    first that parts, each engine's token a maximum of its own logits
+    (ties counted); the first logits within STACK_FIRST_REL_MAX of
+    max|one-shot| and a cosine of at least STACK_COSINE_MIN, every later
+    token's logits within STACK_CHUNK_DIFF_MAX; where the tokens part, a
+    near-tie (``_parted_at_near_tie``, at the position's bound)."""
+    cosines, rels, diffs, parted, problems = [], [], [], [], []
+    for i in range(n):
+        x, y = chk['sessions'][i].tokens, one['sessions'][i].tokens
+        j = _first_difference(x, y)
+        for t in range(min(j + 1, len(x), len(y))):
+            got, ref = chk['logits'](i, t), one['logits'](i, t)
+            if not (_is_max(got, x[t]) and _is_max(ref, y[t])):
+                problems.append(f'request {i} token {t}: a token is not the '
+                                f'maximum of its own recorded logits')
+            scale = 1.0
+            if t == 0:
+                cosines.append(_cosine(np, got.numpy(), ref.numpy()))
+                scale = ref.abs().max().item()
+                bound = STACK_FIRST_REL_MAX * scale
+            else:
+                bound = STACK_CHUNK_DIFF_MAX
+            d = (got - ref).abs().max().item()
+            (rels if t == 0 else diffs).append(d / scale)
+            if d > bound:
+                problems.append(f'request {i} token {t}: |chunked - '
+                                f'one-shot| {d / scale:.4e}'
+                                f'{" of max|one-shot|" if t == 0 else ""}')
+            if t == j:
+                gap, _, tie = _parted_at_near_tie(ref, got, y[t], x[t],
+                                                  bound)
+                kind = 'a near-tie' if tie else 'NOT a near-tie'
+                parted.append(f'request {i} at token {t} ({x[t]} against '
+                              f'{y[t]}: gap {gap:.4e}, |chunked - one-shot| '
+                              f'{d:.4e}, {kind})')
+                if not tie:
+                    problems.append(f'request {i} parts at token {t} where '
+                                    f'the logits are not near a tie')
+    diffs = sorted(diffs) or [0.0]
+    print(f'serving stack, chunked against one-shot, on the logits each '
+          f'engine picked its tokens from (recorded in its captured step): '
+          f'first logits cosine min {min(cosines):.6f} (at least '
+          f'{STACK_COSINE_MIN}), |chunked - one-shot| at most '
+          f'{max(rels):.4e} of max|one-shot| (median '
+          f'{sorted(rels)[n // 2]:.4e}; at most {STACK_FIRST_REL_MAX}); '
+          f'{len(diffs)} later tokens up to the first parted one: |chunked '
+          f'- one-shot| at most {diffs[-1]:.4e}, median '
+          f'{diffs[len(diffs) // 2]:.4e} (at most {STACK_CHUNK_DIFF_MAX}); '
+          f'tokens equal in {n - len(parted)} of {n} requests'
+          + (f', first different {"; ".join(parted)}' if parted else '')
+          + f' [{card}]')
+    if min(cosines) < STACK_COSINE_MIN:
+        problems.append('chunked first logits too far from the one-shot')
+    if problems:
+        fail('serving stack, chunked against one-shot: '
+             + '; '.join(problems))
+
+
+def chunk_step_twin(torch, engine, args, card: str):
+    """One request's chunked prefill, chunk by chunk, through the engine's
+    captured chunk step (replays) and eagerly on a copy of its state: the
+    hidden states and the chunk cache bitwise equal after every chunk;
+    host ms a chunk of each; the launches of a replay."""
+    from groma_tpu_torch.models.groma import _ordinal
+    from groma_tpu_torch.utils.graphs import launch_counts
+    graph = engine._chunk
+    on_card = graph.device.type == 'cuda'
+    if on_card and graph.graph is None:
+        fail('serving stack: the chunk step was never captured')
+    st, c = graph.state, engine.prefill_chunk_tokens
+    dev = engine.device
+    with torch.inference_mode():
+        image, ids, slot, valid0 = (torch.as_tensor(a[None], device=dev)
+                                    for a in args)
+        emb, _, valid, _ = engine.model.prepare_stream(
+            image.float(), ids.long(), slot.long(), valid0)
+        pos = _ordinal(valid).clamp(min=0)
+        n = int(valid[0].nonzero()[-1]) // c + 1
+        pad = max(n * c - emb.shape[1], 0)
+        emb = torch.nn.functional.pad(emb, (0, 0, 0, pad))
+        valid = torch.nn.functional.pad(valid, (0, pad))
+        pos = torch.nn.functional.pad(pos, (0, pad))
+        st['cache']['mask'].zero_()
+        st['cache']['index'].zero_()
+        copy = _clone_tree(torch, st)
+        same, eager_ms, replay_ms = True, 0.0, 0.0
+        for ci in range(n):
+            for state in (st, copy):
+                state['emb'].copy_(emb[:, ci * c:ci * c + c])
+                state['valid'].copy_(valid[:, ci * c:ci * c + c])
+                state['pos'].copy_(pos[:, ci * c:ci * c + c])
+            counts = launch_counts()
+            eager_ms += _timed(torch, lambda: graph.step(copy), 1)
+            _set_counts(counts)           # comparison launches
+            replay_ms += _timed(torch, lambda: graph.run(1), 1)
+            same = same and torch.equal(st['hidden'], copy['hidden'])
+        same = same and all(torch.equal(a, b) for a, b in zip(
+            _state_tensors(st['cache']), _state_tensors(copy['cache'])))
+    want = {'int8_matmul': 4 * engine.cfg.llm.num_layers}
+    print(f'serving stack, the chunk step ({n} chunks of {c} of one request, '
+          f'graph against eager on a copy of its state): hidden states and '
+          f'chunk cache {"bitwise equal" if same else "DIFFER"}; '
+          f'{replay_ms / n:.3f} against {eager_ms / n:.3f} ms a chunk (host '
+          f'clock, synchronized); a replay launches {graph.delta} (want '
+          f'{want}) [{card}]')
+    if not same or (on_card and graph.delta != want):
+        fail('serving stack: the chunk step\'s replays differ from the eager '
+             'step, or its launches from the decode tile\'s 4 L')
+
+
+def _state_tensors(tree):
+    from groma_tpu_torch.utils.graphs import _tensors
+    return list(_tensors(tree))
+
+
+def verify_on_live_state(torch, np, engine, snap, card: str):
+    """The engine's verify step (JAX's verify_chunk) on copies of its live
+    decode state ``snap`` (all slots live, taken after a burst): drafts =
+    each row's next G sequential greedy tokens (teacher-forced, from the
+    decode step on a copy).  Rows whose sequential logits have no near-tie
+    (every top-2 gap at least SPEC_LOGIT_DIFF_MAX) accept all G; a row
+    parts only where its gap is below that; the cache slots written up to
+    ``keep`` are within one int8 unit of the sequential decode's writes and
+    the mask is False past ``keep``; every row that accepted its first
+    draft, given a second draft its verify did not pick, keeps its first
+    draft only, and the others verify as before; a finished row changes
+    nothing; the captured verify's replay is bitwise the eager step."""
+    import groma_tpu_torch.serve.engine as engine_mod
+    from groma_tpu_torch.utils.graphs import launch_counts
+    G, nb = engine.spec_lookahead, engine.max_slots
+    n_layers = engine.cfg.llm.num_layers
+    with torch.inference_mode():
+        # the sequential decode on a copy: G + 1 tokens, their top-2 gaps
+        seq = _clone_tree(torch, snap)
+        seq['step'].zero_()
+        gaps, logits_fn = [], engine_mod.quant_logits
+
+        def recording(qp, hidden):
+            out = logits_fn(qp, hidden)
+            top2 = torch.topk(out[:, -1].float(), 2, dim=-1).values
+            gaps.append((top2[:, 0] - top2[:, 1]).cpu().numpy())
+            return out
+        engine_mod.quant_logits = recording
+        try:
+            counts0 = launch_counts()
+            for _ in range(G + 1):
+                engine._step(seq, False)
+            _set_counts(counts0)          # comparison launches
+        finally:
+            engine_mod.quant_logits = logits_fn
+        want = seq['out'][:, :G + 1].cpu().numpy()
+        gap = np.stack(gaps, 1)           # (B, G + 1)
+        drafts = want[:, :G].copy()
+        index0 = snap['cache']['index'].cpu().numpy()
+        state = _clone_tree(torch, snap)
+        verify = engine.verifier(state)
+
+        def run(src, d):
+            _load_state(state, src)
+            emitted, counts = verify(d)
+            return emitted, counts, _clone_tree(torch, state)
+        eager = run(snap, drafts)         # the warm-up step, eager
+        replay = run(snap, drafts)        # captured, then replayed
+        same = (np.array_equal(eager[0], replay[0])
+                and np.array_equal(eager[1], replay[1])
+                and all(torch.equal(a, b) for a, b in zip(
+                    _state_tensors(eager[2]), _state_tensors(replay[2]))))
+        emitted, counts, after = replay
+        problems = []
+        full = [r for r in range(nb) if gap[r].min() >= SPEC_LOGIT_DIFF_MAX]
+        kv_rel = 0.0
+        for r in range(nb):
+            k = int(counts[r])
+            if r in full and (k != G + 1 or list(emitted[r]) != list(want[r])):
+                problems.append(f'row {r} (no near-tie) accepted {k - 1}')
+            elif k < G + 1 and (
+                    list(emitted[r, :k - 1]) != list(want[r, :k - 1])
+                    or gap[r, k - 1] >= SPEC_LOGIT_DIFF_MAX):
+                problems.append(f'row {r} parted at {k - 1} without a '
+                                f'near-tie (gap {gap[r, k - 1]:.4f})')
+            keep = index0[r] + k
+            mask = after['cache']['mask'][r]
+            if bool(mask[keep:].any()):
+                problems.append(f'row {r}: mask set past keep')
+            w = slice(index0[r], keep)
+            for key in ('k', 'v'):
+                # layer 0 sees the same inputs: one int8 unit at most; a
+                # deeper layer's input went through the two attentions
+                d = (after['cache'][key][0][r, :, w].int()
+                     - seq['cache'][key][0][r, :, w].int())
+                if d.abs().max().item() > 1:
+                    problems.append(f'row {r}: layer 0 {key} more than one '
+                                    f'int8 unit from the sequential '
+                                    f'decode\'s')
+                for lay in range(1, n_layers):
+                    got = (after['cache'][key][lay][r, :, w].float()
+                           * after['cache'][key + '_scale'][lay][
+                               r, :, w, None])
+                    ref = (seq['cache'][key][lay][r, :, w].float()
+                           * seq['cache'][key + '_scale'][lay][r, :, w, None])
+                    rel = ((got - ref).abs().max()
+                           / ref.abs().max()).item()
+                    kv_rel = max(kv_rel, rel)
+        # every row that accepted its first draft given a wrong second one
+        # (one its verify did not pick): it keeps its first draft only,
+        # near-ties or not; the other rows verify as before
+        wrong = drafts.copy()
+        planted = [r for r in range(nb) if counts[r] >= 2]
+        for r in planted:
+            wrong[r, 1] = (emitted[r, 1] + 1) % engine.cfg.vocab_size
+        _, w_counts, w_after = run(snap, wrong)
+        w_index = w_after['cache']['index'].cpu().numpy()
+        if not planted:
+            problems.append('no row accepted its first draft')
+        for r in range(nb):
+            k = min(int(counts[r]), 2)
+            if (w_counts[r] != k or w_index[r] != index0[r] + k
+                    or bool(w_after['cache']['mask'][
+                        r, index0[r] + k:].any())):
+                problems.append(f'the wrong second draft of row {r}: counts '
+                                f'{w_counts[r]}, index {w_index[r]} (from '
+                                f'{index0[r]}, want {k} and '
+                                f'{index0[r] + k})')
+        # a finished row changes nothing
+        r1 = nb - 1
+        frozen = _clone_tree(torch, snap)
+        frozen['done'][r1] = True
+        f_emitted, f_counts, f_after = run(frozen, drafts)
+        unchanged = (f_counts[r1] == 0
+                     and (f_emitted[r1] == engine.eos_id).all()
+                     and all(torch.equal(f_after[k][r1], frozen[k][r1])
+                             for k in ('tok', 'pos', 'done'))
+                     and torch.equal(f_after['cache']['mask'][r1],
+                                     frozen['cache']['mask'][r1])
+                     and int(f_after['cache']['index'][r1]) == index0[r1]
+                     and all(torch.equal(
+                         f_after['cache'][key][lay][r1, :, :index0[r1]],
+                         frozen['cache'][key][lay][r1, :, :index0[r1]])
+                         for key in ('k', 'v') for lay in range(n_layers)))
+        if not unchanged:
+            problems.append(f'the finished row {r1} changed')
+        if kv_rel > STACK_VERIFY_KV_TOL:
+            problems.append(f'written keys and values of layers 1 on '
+                            f'{kv_rel:.3e} of max|sequential| apart')
+    delta = verify.graph.delta
+    want_delta = ({'int8_matmul': 4 * n_layers + 1}
+                  if verify.graph.device.type == 'cuda' else {})
+    print(f'serving stack, the verify step on the engine\'s live state (B = '
+          f'{nb}, G = {G}, drafts the next G sequential greedy tokens): '
+          f'counts {counts.tolist()} (rows with no near-tie, every '
+          f'sequential top-2 gap >= {SPEC_LOGIT_DIFF_MAX}: {full}); the '
+          f'smallest gap of each row '
+          f'{[round(float(g), 4) for g in gap.min(1)]}; '
+          f'written slots up to keep: layer 0 within one int8 unit of the '
+          f'sequential decode\'s, layers 1 on within {kv_rel:.3e} of '
+          f'max|sequential| (at most {STACK_VERIFY_KV_TOL}), the mask False '
+          f'past keep; a wrong second draft on rows {planted} (those that '
+          f'accepted their first): counts {w_counts.tolist()}; '
+          f'finished row {r1}: counts {int(f_counts[r1])}, its state '
+          f'{"unchanged" if unchanged else "CHANGED"}; replay against the '
+          f'eager step {"bitwise equal" if same else "DIFFER"}; a replay '
+          f'launches {delta} (want {want_delta}) [{card}]')
+    if problems or not same or delta != want_delta:
+        fail('serving stack, verify step: ' + '; '.join(
+            problems + ([] if same else ['replay differs from eager'])
+            + ([] if delta == want_delta else [f'launches {delta}'])))
+
+
+def serve_stack_full_width(torch, np, seed: int, card: str):
+    """Phase 7b: the serving stack at full width on JAX's REC engine cell
+    (benchmarks/bench_engine.py: 8 slots, bursts of 24, prefill chunks of
+    192, a 640-slot REC stream, 48 new tokens), int8 LLM, int8 KV.
+    Returns the chunked run's launches of #1 and #2."""
+    import base64
+
+    from groma_tpu_torch.data.datasets.base import VLDataSpec
+    from groma_tpu_torch.data.image_pipeline import normalize, resize
+    from groma_tpu_torch.serve import controller as t_controller
+    from groma_tpu_torch.serve import web as t_web
+    from groma_tpu_torch.serve.engine import BatchEngine
+    from groma_tpu_torch.serve.worker import (ModelWorker, expand_request,
+                                              make_handler)
+    t0 = time.perf_counter()
+    # the worker as `--engine --engine-slots 8 --quant_type int8 --kv-bits 8
+    # --prefill-chunk 192 --spec-lookahead 4` starts it
+    worker = ModelWorker('random', seed=seed, quant_type='int8', kv_bits=8,
+                         device='cuda', use_engine=True,
+                         engine_slots=STACK_SLOTS, prefill_chunk=STACK_CHUNK,
+                         spec_lookahead=STACK_LOOKAHEAD)
+    engine = worker.engine
+    flags = (engine.prefill_chunk_tokens, engine.spec_lookahead)
+    engine.close()
+    model, qp, cfg = engine.model, engine.qp, worker.cfg
+    del engine
+    worker.engine = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    if flags != (STACK_CHUNK, STACK_LOOKAHEAD):
+        fail(f'serving stack: the worker\'s flags reached its engine as '
+             f'{flags}')
+    # JAX's REC cell: a 640-slot stream, bursts of 24, 48 new tokens, no
+    # EOS (every request decodes all 48), max_len 768, the flag's chunk;
+    # the lookahead only on the engine whose state the verify takes
+    kw = dict(max_slots=STACK_SLOTS,
+              max_len=STACK_STREAM + STACK_MAX_NEW + 8, eos_id=-1,
+              chunk=STACK_BURST, max_new_tokens=STACK_MAX_NEW, kv_bits=8)
+    chunked = BatchEngine(model, qp, prefill_chunk_tokens=STACK_CHUNK, **kw)
+    chk_rec = _record_steps(torch, chunked)
+    worker.engine = chunked
+    worker.spec = VLDataSpec(num_image_tokens=cfg.num_image_tokens,
+                             max_region_num=cfg.max_region_num,
+                             max_seq_len=STACK_STREAM,
+                             image_size=cfg.perceiver.image_size)
+    size = cfg.perceiver.image_size
+    rng = np.random.default_rng(seed + 60)
+    pixels = [rng.integers(0, 256, (size, size, 3), dtype=np.uint8)
+              for _ in range(STACK_REQUESTS)]
+    prompts = [STACK_PROMPT.format(o) for o in STACK_ORDINALS]
+    # each request as the worker builds it (the web front's PNG decode and
+    # 448² resize for the first)
+    images = [normalize(resize(t_web.decode_png(_png_bytes(pixels[0])),
+                               (448, 448))[0])]
+    images += [normalize(p) for p in pixels[1:]]
+    expanded = [expand_request(worker.tokenizer, worker.spec, {'prompt': p})
+                for p in prompts]
+    requests = [(img, t['input_ids'], t['region_slot'], t['valid'])
+                for img, t in zip(images, expanded)]
+    print(f'serving stack: random full-width Groma-7B, int8 LLM and KV, '
+          f'{STACK_SLOTS} slots, bursts of {STACK_BURST}, prefill chunks of '
+          f'{STACK_CHUNK}, {STACK_STREAM}-slot REC streams, '
+          f'{STACK_MAX_NEW} new tokens (max_len {chunked.max_len}; the '
+          f'verify\'s engine alone takes lookahead {STACK_LOOKAHEAD}); built '
+          f'in '
+          f'{time.perf_counter() - t0:.1f} s; device memory '
+          f'{torch.cuda.memory_allocated() / 2**30:.2f} GiB [{card}]')
+
+    # 1. over HTTP: the controller, the worker registered by heartbeat, one
+    # request through the web front, the rest dispatched by the controller
+    controller = t_controller.Controller('shortest_queue')
+    servers = []
+    try:
+        c_httpd, c_url = _http_server(t_controller.make_handler(controller))
+        servers.append(c_httpd)
+        w_httpd, w_url = _http_server(make_handler(worker))
+        servers.append(w_httpd)
+        web_httpd, web_url = _http_server(t_web.make_handler(c_url, 'groma'))
+        servers.append(web_httpd)
+        worker.worker_name, worker.controller_addr = w_url, c_url
+        worker._register()
+        beat = worker._post('/receive_heart_beat', {
+            'worker_name': w_url, 'queue_length': 0})
+        if not beat.get('exist') or controller.list_models() != ['groma']:
+            fail('serving stack: the worker did not register')
+        sessions = {}
+        submit = chunked.submit
+
+        def recording_submit(*a, **k):
+            sess = submit(*a, **k)
+            sessions[np.asarray(a[1]).tobytes()] = sess
+            return sess
+        chunked.submit = recording_submit
+        finals = [None] * STACK_REQUESTS
+
+        def client(i):
+            if i == 0:
+                finals[i] = json.loads(_post(web_url + '/chat', {
+                    'image_b64': base64.b64encode(
+                        _png_bytes(pixels[0])).decode(),
+                    'prompt': prompts[0],
+                    'max_new_tokens': STACK_MAX_NEW}))
+                return
+            addr = json.loads(_post(c_url + '/get_worker_address',
+                                    {'model': 'groma'}))['address']
+            body = _post(addr + '/worker_generate_stream', {
+                'image': images[i].tolist(), 'prompt': prompts[i],
+                'max_new_tokens': STACK_MAX_NEW,
+                'stream_chunk': STACK_MAX_NEW})
+            finals[i] = [json.loads(x) for x in body.decode().split('\0')
+                         if x.strip()][-1]
+        t_http = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(STACK_REQUESTS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        t_http = time.perf_counter() - t_http
+        del chunked.submit
+    finally:
+        for httpd in servers:
+            httpd.shutdown()
+    vocab = cfg.vocab_size
+    http_tokens = []
+    for i, final in enumerate(finals):
+        sess = sessions.get(np.asarray(requests[i][1]).tobytes())
+        problems = []
+        if final is None or sess is None:
+            fail(f'serving stack: request {i} did not finish over HTTP')
+        if final.get('error_code') != 0 or 'boxes' not in final:
+            problems.append(f'final frame {str(final)[:200]}')
+        toks = np.asarray(sess.tokens)
+        if len(toks) != STACK_MAX_NEW or not ((toks >= 0)
+                                              & (toks < vocab)).all():
+            problems.append(f'{len(toks)} tokens, or out of the vocabulary')
+        boxes, mask = sess.vis['selected_boxes'], sess.vis['selected_mask']
+        if not mask.any() or not np.isfinite(boxes).all():
+            problems.append('malformed selected boxes')
+        if problems:
+            fail(f'serving stack, request {i} over HTTP: '
+                 + '; '.join(problems))
+        http_tokens.append(toks.tolist())
+    print(f'serving stack over HTTP: {STACK_REQUESTS} requests (1 through the '
+          f'web front, {STACK_REQUESTS - 1} dispatched by the controller, '
+          f'from as many threads) finished in {t_http:.2f} s, each '
+          f'{STACK_MAX_NEW} tokens in the vocabulary, boxes finite; the '
+          f'controller counted {controller.workers[w_url].queue_length} '
+          f'dispatches [{card}]')
+
+    # 2-5. the same requests in-process: the one-shot engine, then the
+    # chunked one (warm from the HTTP run), each run's launches exact
+    oneshot = BatchEngine(model, qp, **kw)
+    one_rec = _record_steps(torch, oneshot)
+    try:
+        warm = oneshot.submit(*requests[0], max_new_tokens=STACK_MAX_NEW)
+        list(warm.token_stream())
+        one = _stack_drive(torch, np, oneshot, one_rec, requests,
+                           chunked=False)
+    finally:
+        oneshot.close()
+    chk = _stack_drive(torch, np, chunked, chk_rec, requests, chunked=True)
+    n_layers = cfg.llm.num_layers
+    n = STACK_REQUESTS
+    problems = []
+    for name, rec, want in (
+            ('one-shot', one, {
+                'int8_matmul': n * (4 * n_layers + 1)
+                + one['steps'] * (4 * n_layers + 1),
+                'int8_matmul.prefill': n * 4 * n_layers,
+                'int8_decode_attention': one['steps'] * n_layers}),
+            ('chunked', chk, {
+                'int8_matmul': chk['chunks'] * 4 * n_layers + n
+                + chk['steps'] * (4 * n_layers + 1),
+                'int8_matmul.prefill': 0,
+                'int8_decode_attention': chk['steps'] * n_layers})):
+        got = {k: rec['ran'][k] for k in want}
+        if got != want:
+            problems.append(f'{name} launches {got}, want {want}')
+    want_chunks = sum((index - 1) // STACK_CHUNK + 1
+                      for _, index in chk['first'])
+    if chk['chunks'] != want_chunks:
+        problems.append(f'{chk["chunks"]} chunk steps, want {want_chunks} '
+                        f'(last_idx // {STACK_CHUNK} + 1 a request)')
+    chk_tokens = [s.tokens for s in chk['sessions']]
+    if chk_tokens != http_tokens:
+        problems.append('the in-process chunked streams differ from the '
+                        'HTTP run\'s')
+    if problems:
+        fail('serving stack: ' + '; '.join(problems))
+    _chunked_against_one_shot(torch, np, chk, one, n, card)
+    for rec in (one, chk):
+        del rec['logits']          # and with it the recorder's buffer
+    del one_rec, oneshot
+    for name, rec in (('one-shot', one), ('chunked', chk)):
+        ttft = [s.ttft * 1e3 for s in rec['sessions']]
+        tokens = sum(len(s.tokens) for s in rec['sessions'])
+        print(f'serving stack, {name}: {n} requests in {rec["wall"]:.2f} s, '
+              f'{tokens / rec["wall"]:.1f} tok/s aggregate; longest gap '
+              f'between two bursts a live stream saw '
+              f'{_worst_stall(rec["stamps"]) * 1e3:.1f} ms; TTFT ms '
+              f'{[round(t, 1) for t in ttft]} (mean {np.mean(ttft):.1f}); '
+              f'{rec["steps"]} decode steps at '
+              f'{1e3 * rec["decode_sec"] / max(rec["steps"], 1):.2f} ms a '
+              f'step (each step also keeps its logits for the comparison); '
+              f'{rec["chunks"]} chunk steps; launches '
+              f'{ {k: v for k, v in rec["ran"].items() if v} } (exact) '
+              f'[{card}]')
+    chunk_step_twin(torch, chunked, requests[1], card)
+    chunked.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 7. the verify step, on a copy of the live decode state of an engine
+    # with the lookahead (max_len grown by it): the first STACK_SLOTS
+    # requests, the state copied after a burst with every slot live
+    spec = BatchEngine(model, qp, spec_lookahead=STACK_LOOKAHEAD, **kw)
+    snap = {}
+    burst = spec._decode_burst
+
+    def snapshot_burst():
+        burst()
+        if not snap and spec._active.all() and not spec._done_np.any():
+            snap['state'] = spec.clone_state()
+    spec._decode_burst = snapshot_burst
+    try:
+        live = [spec.submit(*r, max_new_tokens=STACK_MAX_NEW)
+                for r in requests[:STACK_SLOTS]]
+        for sess in live:
+            list(sess.token_stream())
+    finally:
+        spec.close()
+        spec._decode_burst = burst
+    if 'state' not in snap:
+        fail('serving stack: no burst ran with every slot live')
+    verify_on_live_state(torch, np, spec, snap['state'], card)
+    mm = chk['ran']['int8_matmul']
+    att = chk['ran']['int8_decode_attention']
+    print(f'serving stack phase: {time.perf_counter() - t0:.1f} s; device '
+          f'memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB peak '
+          f'[{card}]')
+    del worker, chunked, spec, model, qp
+    return mm, att
+
+
 def engine_device_per_step(torch, np, worker, card: str):
     """Device time a decode step of the engine with every slot live: one
     more request per slot, after the timed run (starting and stopping the
@@ -4082,6 +4866,10 @@ def main():
         torch, np, args.seed, card)
     if not (int4_n and paged_n and int4_prefill_n):
         fail('a kernel of the engine path was never launched')
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(serve_stack_full_width(torch, np, args.seed, card)):
+        fail('a kernel of the serving stack was never launched')
     gc.collect()
     torch.cuda.empty_cache()
     mk_n, mk_times = decode_megakernel_path(torch, Timer('cuda'),

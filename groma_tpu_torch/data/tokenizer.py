@@ -10,6 +10,7 @@ data/tokenization.py) instead of queried per token.
 from __future__ import annotations
 
 import re
+import zlib
 from typing import List
 
 import numpy as np
@@ -154,9 +155,25 @@ class StubTokenizer(BaseTokenizer):
                 ids.append(self._special[piece])
             else:
                 for word in piece.split():
-                    ids.append(10 + hash(word) % (self.base_vocab - 10))
+                    ids.append(10 + self._word_hash(word)
+                               % (self.base_vocab - 10))
         return np.asarray(ids[:self.model_max_length], np.int64)
+
+    @staticmethod
+    def _word_hash(word: str) -> int:
+        return hash(word)
 
     def decode(self, ids) -> str:
         inv = {v: k for k, v in self._special.items()}
         return ' '.join(inv.get(int(i), f'w{int(i)}') for i in ids)
+
+
+class StableStubTokenizer(StubTokenizer):
+    """``StubTokenizer`` with a word hash that is the same in every
+    process (CRC-32), where Python's ``hash`` of a str is salted per
+    process (``PYTHONHASHSEED``): the tests' prompts, chip_smoke's and the
+    worker's for random weights give the same ids from run to run."""
+
+    @staticmethod
+    def _word_hash(word: str) -> int:
+        return zlib.crc32(word.encode())

@@ -15,20 +15,22 @@ Ported: the scalar-index prefill and decode branches of
 continuous-batching engine, per-row positions), the chunked append at a
 scalar index (``chunked=True``: a multi-token chunk written at the cache
 index, attending over the whole buffer through its mask; speculative
-verify), W8A8 prefill (``w8a8=True``: the four layer matmuls of a
+verify; the engine's chunked prefill), the vector-index multi-token
+append (``chunked=True`` with a (B,) index: row b writes its S tokens at
+slots ``index[b] .. index[b] + S - 1``; the engine's speculative verify),
+W8A8 prefill (``w8a8=True``: the four layer matmuls of a
 multi-token call through ``ops.quant.w8a8_matmul`` from 256 rows on,
 int8 weights only), the flash prefill (``use_flash=True``: #4 from
 ``FLASH_MIN_SEQ`` tokens on), ``quant_llama_decode_paged`` and
 ``quant_llama_decode_megakernel`` (the whole int4 + int8-KV decode step
-in one launch of ``ops.decode_megakernel``).  The vector-index
-multi-token append (the engine's chunked prefill and speculative verify)
-is not ported and raises.  The scalar index is a host int or a 0-d int64
-tensor on the cache's device: a CUDA graph can capture a decode or a
-chunked append at a tensor index, which advances in place, as a per-row
-index does.  Unlike JAX, whose ``dynamic_update_slice`` clamps a write
-past the cache end, a host-index write that does not fit raises; an index
-tensor must stay inside the cache (the caller checks once per run, and
-the engine does not advance idle rows).
+in one launch of ``ops.decode_megakernel``).  The scalar index is a host
+int or a 0-d int64 tensor on the cache's device: a CUDA graph can capture
+a decode or a chunked append at a tensor index, which advances in place,
+as a per-row index does.  Unlike JAX, whose ``dynamic_update_slice``
+clamps a write past the cache end and whose scatter drops one, a
+host-index write that does not fit raises; an index tensor must keep
+every write inside the cache (a CUDA scatter out of range is a device
+assert: the caller checks, and the engine does not advance idle rows).
 """
 
 from __future__ import annotations
@@ -241,12 +243,16 @@ def _finish_layer(x, attn, lp, cfg: LlamaConfig, a8: bool = False,
 
 def _write(buf, at, t):
     """Write this call's (B, H, S[, D]) rows ``t`` into a cache buffer at
-    ``at``: a host slice, device slots (S,) (index_copy_) or the per-row
-    (rows, slice, index) tuple."""
+    ``at``: a host slice, device slots (S,) (index_copy_), the per-row
+    (rows (B,), slice, index (B,)) tuple of a decode, or the (rows (B, 1),
+    slice, slots (B, S)) tuple of a multi-token append."""
     if torch.is_tensor(at):
         buf.index_copy_(2, at, t)
-    elif isinstance(at, tuple):
+    elif isinstance(at, tuple) and at[2].dim() == 1:
         buf[at] = t[:, :, 0]
+    elif isinstance(at, tuple):
+        # advanced indices on dims 0 and 2 put (B, S) first
+        buf[at] = t.transpose(1, 2)
     else:
         buf[:, :, at] = t
 
@@ -271,8 +277,11 @@ def quant_llama_forward(qp: dict, cfg: LlamaConfig, inputs_embeds,
     (#4, causal, key mask) when ``use_flash`` and S >= FLASH_MIN_SEQ.  With
     ``chunked=True`` a multi-token call APPENDS its chunk at the cache's
     scalar index instead (a host int, or a 0-d device tensor, the chunk's
-    slots ``index + arange(S)``) and attends over the whole buffer through
-    its mask, an int8 cache dequantized to the model dtype per layer.  A
+    slots ``index + arange(S)``), or at each row's own index where
+    ``cache['index']`` is a (B,) tensor (row b's slots ``index[b] +
+    arange(S)``, its query j seeing the slots up to ``index[b] + j``), and
+    attends over the whole buffer through its mask, an int8 cache
+    dequantized to the model dtype per layer.  A
     single-token call with a cache is DECODE: at the cache's scalar index,
     or, when ``cache['index']`` is a (B,) tensor, at each row's own index
     (the continuous-batching engine), every row seeing the slots up to its
@@ -304,14 +313,16 @@ def quant_llama_forward(qp: dict, cfg: LlamaConfig, inputs_embeds,
     rows = torch.arange(b, device=dev)
     if device_index:
         idx = cache['index']
-        if s != 1 and (vector or not append):
-            raise ValueError('a cache index tensor takes one token a row, '
-                             'or a chunked append at a scalar index (the '
-                             'vector-index multi-token append is not '
-                             'ported)')
-        if vector:
+        if s != 1 and not append:
+            raise ValueError('a multi-token call at a cache index tensor '
+                             'must be chunked')
+        if vector and s == 1:
             cache['mask'][rows, idx] = attn_mask[:, 0]
             at = (rows, slice(None), idx)
+        elif vector:
+            wpos = idx[:, None] + torch.arange(s, device=dev)[None]
+            cache['mask'][rows[:, None], wpos] = attn_mask[:, :s]
+            at = (rows[:, None], slice(None), wpos)
         else:
             at = idx.view(1) if s == 1 else idx + torch.arange(s, device=dev)
             cache['mask'].index_copy_(1, at, attn_mask[:, :s])
@@ -339,7 +350,8 @@ def quant_llama_forward(qp: dict, cfg: LlamaConfig, inputs_embeds,
     qi = torch.arange(s, device=dev)[:, None]
     kj = torch.arange(skv, device=dev)[None, :]
     if vector:
-        causal_ok = (kj <= idx[:, None])[:, None, None, :]   # (B, 1, 1, S)
+        # (B, 1, S, skv): row b's query j sees the slots up to index[b] + j
+        causal_ok = (kj[None] <= qi[None] + idx[:, None, None])[:, None]
     else:
         causal_ok = (kj <= qi + (0 if prefill or cache is None
                                  else idx))[None, None]

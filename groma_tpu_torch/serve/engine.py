@@ -42,9 +42,32 @@ each from pinned memory before a burst, and reads the tokens, positions,
 done flags and finite flag back in one copy after it.  On the CPU the same
 step runs eagerly.
 
-``w8a8_prefill`` (int8 trees) runs the one-shot and batched prefills'
-layer matmuls as int8 x int8 products, as JAX's does.  Chunked prefill
-and speculative decoding are not ported and raise ``NotImplementedError``.
+``w8a8_prefill`` (int8 trees) runs the one-shot, batched and chunked
+prefills' layer matmuls as int8 x int8 products, as JAX's does.
+
+``prefill_chunk_tokens`` (quantized trees, contiguous cache): chunked
+prefill.  Vision and token surgery run once, then the stream goes through
+the LLM in (1, c) chunks appended at a scalar cache index, the trailing
+all-pad chunks skipped, with a decode burst for the live slots between
+chunks and between back-to-back admissions, so that a long prefill stalls
+the live streams by one chunk at a time.  The chunk's forward is one
+``StepGraph`` per engine over static (1, c) buffers and a b=1 chunk cache
+whose index is a device word: eager on the CPU, one capture and replays on
+the card.  Unlike JAX, whose b=1 chunk cache is ``max_len`` long and whose
+``dynamic_update_slice`` moves a last chunk that would end past it back
+over earlier keys, the chunk cache covers every whole chunk
+(``max_len`` rounded up to a multiple of c) and only its first
+``max_len`` slots are seated: the slots past the stream's last valid token
+are mask-False padding.
+
+``spec_lookahead`` = G (quantized trees, contiguous cache, greedy only):
+JAX's speculative mode.  ``max_len`` grows by G (rounded up to 128), a
+sampled request is refused, each session keeps its context (``_ctx``), and
+``verifier(state)`` runs JAX's ``verify_chunk`` on a decode state
+(``clone_state()``): one (B, G+1) forward through
+the vector-index multi-token append, greedy acceptance, per-row counts and
+an exact per-row rewind.  As in JAX, the scheduler loop never calls it:
+the bursts stay sequential.
 
 Unlike JAX, a request taken off the queue stays the engine's until it is
 seated: if its prefill or seating raises, every unseated request of that
@@ -63,10 +86,11 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from groma_tpu_torch.eval.generate_quant import quant_embed, quant_logits
 from groma_tpu_torch.models.groma import GromaModel
-from groma_tpu_torch.models.llama import make_kv_cache
+from groma_tpu_torch.models.llama import make_kv_cache, torch_dtype
 from groma_tpu_torch.models.llama_quant import (make_quant_kv_cache,
                                                 quant_llama_decode_paged,
                                                 quant_llama_forward,
@@ -131,11 +155,19 @@ class BatchEngine:
         (int8 KV and MHA) shares a pool of ``kv_pool_tokens`` tokens
         (default max_slots x max_len); a request whose decode outruns the
         pool is truncated (``session.truncated``), and admission waits
-        while fewer pages are free than one request could need."""
-        if prefill_chunk_tokens:
-            raise NotImplementedError('chunked prefill is not ported')
-        if spec_lookahead > 0:
-            raise NotImplementedError('speculative decoding is not ported')
+        while fewer pages are free than one request could need.
+        ``prefill_chunk_tokens``: chunked prefill in chunks of that many
+        tokens; ``spec_lookahead``: the speculative mode (see the module's
+        docstring).  Both need ``qp`` and exclude ``paged_kv``."""
+        if prefill_chunk_tokens is not None and qp is None:
+            raise ValueError('chunked prefill requires the quantized path')
+        if prefill_chunk_tokens and paged_kv:
+            raise ValueError('paged_kv excludes chunked prefill')
+        if spec_lookahead > 0 and qp is None:
+            raise ValueError('engine speculative decoding requires a '
+                             'quantized/bf16 tree (qp)')
+        if spec_lookahead > 0 and paged_kv:
+            raise ValueError('speculative decoding excludes paged_kv')
         if kv_bits not in (8, 16):
             raise ValueError('kv_bits must be 8 or 16')
         if qp is None and (kv_bits != 16 or paged_kv):
@@ -159,6 +191,12 @@ class BatchEngine:
         self._kv_bits = kv_bits
         max_len = max_len or cfg.max_seq_len + max_new_tokens + 8
         self.max_len = -(-max_len // 128) * 128
+        self.prefill_chunk_tokens = prefill_chunk_tokens
+        self.spec_lookahead = spec_lookahead
+        if spec_lookahead > 0:
+            # a verify writes G + 1 slots from a row's index: room for G
+            # more past the cap (rounded up to 128, as JAX's)
+            self.max_len = -(-(self.max_len + spec_lookahead) // 128) * 128
         self.paged = paged_kv
         dev = self.device
         if paged_kv:
@@ -209,6 +247,7 @@ class BatchEngine:
         else:
             self._state['cache'] = self._cache
         self._graphs: dict = {}    # sampled -> the burst step's StepGraph
+        self._chunk = None         # the chunked prefill's state and graph
         self._gen = torch.Generator(device=dev)
         self._gen.manual_seed(sample_seed)
         self._host_rng = np.random.default_rng(sample_seed)
@@ -256,6 +295,13 @@ class BatchEngine:
         sess.max_new = min(max_new_tokens or self.max_new_tokens,
                            self.max_new_tokens)
         sess.temperature = float(temperature)
+        if self.spec_lookahead > 0:
+            if sess.temperature > 0:
+                raise ValueError('speculative decoding verifies greedily; '
+                                 'temperature sampling is unsupported')
+            sess._ctx = [int(t) for t, v in zip(
+                np.asarray(input_ids).reshape(-1),
+                np.asarray(base_valid).reshape(-1)) if v]
         with self._admission_lock:
             if self._fatal is not None:
                 raise RuntimeError('engine is dead (fatal scheduler-loop '
@@ -303,6 +349,8 @@ class BatchEngine:
         self._stop = True
         if self._thread.is_alive():
             self._thread.join(timeout=30)
+        # the exit hook held the engine, and with it its caches and graphs
+        atexit.unregister(self.close)
 
     # ---------------------------------------------------------- prefill
 
@@ -338,6 +386,84 @@ class BatchEngine:
         self._n_nonfinite += int(not torch.isfinite(logits).all())
         return logits, cache, vis, next_pos
 
+    def _chunk_step(self, st):
+        """One (1, c) chunk appended to the chunk cache at its index."""
+        hidden, _ = quant_llama_forward(
+            self.qp, self.cfg.llm, st['emb'], st['valid'], st['pos'],
+            st['cache'], chunked=True, w8a8=self.w8a8_prefill,
+            kmajor=self.kmajor)
+        st['hidden'].copy_(hidden)
+
+    def _chunk_graph(self, emb) -> StepGraph:
+        """The chunk step's StepGraph over its static state, made at the
+        first chunked prefill: (1, c) buffers of embeddings, validity,
+        positions and hidden states, and a b=1 cache of every whole chunk
+        that ``max_len`` holds, its index a device word."""
+        if self._chunk is None:
+            c = self.prefill_chunk_tokens
+            cache = self._fresh_cache(1, -(-self.max_len // c) * c)
+            cache['index'] = torch.zeros((), dtype=torch.int64,
+                                         device=self.device)
+            st = {'cache': cache,
+                  'emb': emb.new_zeros((1, c, emb.shape[2])),
+                  'valid': torch.zeros((1, c), dtype=torch.bool,
+                                       device=self.device),
+                  'pos': torch.zeros((1, c), dtype=torch.int64,
+                                     device=self.device),
+                  'hidden': emb.new_zeros((1, c, emb.shape[2]),
+                                          dtype=torch_dtype(
+                                              self.cfg.llm.dtype))}
+            self._chunk = StepGraph(self._chunk_step, st)
+        return self._chunk
+
+    def _chunked_prefill(self, req):
+        """One request -> ``_prefill``'s outputs: vision and surgery once,
+        then the LLM in chunks of ``prefill_chunk_tokens``, a decode burst
+        for the live slots between chunks."""
+        c = self.prefill_chunk_tokens
+        images = self._tensor([req[1]], torch.float32)
+        ids = self._tensor([req[2]], torch.int64)
+        rslot = self._tensor([req[3]], torch.int64)
+        valid = self._tensor([req[4]], torch.bool)
+        emb, _, valid, vis = self.model.prepare_stream(images, ids, rslot,
+                                                       valid)
+        pos = (torch.cumsum(valid.to(torch.int64), -1) - 1).clamp(min=0)
+        valid_np = valid[0].cpu().numpy()
+        last_idx = int(np.nonzero(valid_np)[0][-1])
+        n_chunks = last_idx // c + 1    # trailing all-pad chunks skipped
+        pad = n_chunks * c - emb.shape[1]
+        if pad > 0:
+            emb = F.pad(emb, (0, 0, 0, pad))
+            valid = F.pad(valid, (0, pad))
+            pos = F.pad(pos, (0, pad))
+        graph = self._chunk_graph(emb)
+        st = graph.state
+        if n_chunks * c > st['cache']['mask'].shape[1]:
+            raise ValueError(f'the stream\'s last valid token ({last_idx}) '
+                             f'lies past max_len ({self.max_len})')
+        st['cache']['mask'].zero_()
+        st['cache']['index'].zero_()
+        for ci in range(n_chunks):
+            lo = ci * c
+            st['emb'].copy_(emb[:, lo:lo + c])
+            st['valid'].copy_(valid[:, lo:lo + c])
+            st['pos'].copy_(pos[:, lo:lo + c])
+            graph.run(1)
+            if ci + 1 < n_chunks and self._active.any():
+                self._decode_burst()     # keep the live streams moving
+        local = last_idx - (n_chunks - 1) * c
+        logits = quant_logits(self.qp, st['hidden'][:, local:local + 1])[:, 0]
+        self._n_nonfinite += int(not torch.isfinite(logits).all())
+        # decode writes at last_idx + 1, not at the chunks' end: the slots
+        # between are mask-False padding; the first max_len slots seat
+        cache, n = st['cache'], self.max_len
+        one = {key: [t[:, :, :n] for t in cache[key]]
+               for key in ('k', 'v', 'k_scale', 'v_scale') if key in cache}
+        one['mask'] = cache['mask'][:, :n]
+        one['index'] = last_idx + 1
+        next_pos = np.asarray([int(valid_np.sum())])
+        return logits, one, vis, next_pos
+
     def _admit(self):
         while not self._queue.empty():
             free = [i for i in range(self.max_slots) if not self._active[i]]
@@ -364,7 +490,8 @@ class BatchEngine:
             # a prefill or seat that raises ends each unseated stream
             unseated = [req[0] for req in group]
             try:
-                if len(group) >= 2 and self.admit_batch > 1:
+                if len(group) >= 2 and self.admit_batch > 1 \
+                        and not self.prefill_chunk_tokens:
                     # one padded b=K prefill: the last request is
                     # repeated, the pad rows are computed and never seated
                     padded = group + [group[-1]] * (self.admit_batch
@@ -376,10 +503,20 @@ class BatchEngine:
                         unseated.remove(req[0])
                 else:
                     for slot, req in zip(free, group):
-                        logits, one, vis, next_pos = self._prefill([req])
+                        if self.prefill_chunk_tokens:
+                            logits, one, vis, next_pos = \
+                                self._chunked_prefill(req)
+                        else:
+                            logits, one, vis, next_pos = self._prefill([req])
                         self._seat(slot, req[0], logits[0], one, 0, vis,
                                    int(next_pos[0]))
                         unseated.remove(req[0])
+                        if self.prefill_chunk_tokens \
+                                and not self._queue.empty() \
+                                and self._active.any():
+                            # back-to-back admissions: the live streams
+                            # move between them too
+                            self._decode_burst()
             except BaseException as e:
                 for sess in unseated:
                     self._end(sess, e)
@@ -436,6 +573,8 @@ class BatchEngine:
         self._active[slot] = True
         self._emitted[slot] = 1
         self._sessions[slot] = sess
+        if self.spec_lookahead > 0:
+            sess._ctx.append(tok0)
         sess.t_first = time.time()
         self._ttft_sum += sess.t_first - sess.t_submit
         self._ttft_n += 1
@@ -541,6 +680,80 @@ class BatchEngine:
         st['out'].index_copy_(1, st['step'].view(1), new[:, None])
         st['step'].add_(1)
 
+    # ------------------------------------------------------ speculation
+
+    def _verify_step(self, st):
+        """JAX's ``verify_chunk`` on a decode state ``st`` in place: the
+        (B, G+1) tokens [tok, drafts] appended at each row's cache index,
+        greedy acceptance of each row's longest agreeing draft prefix,
+        ``emitted`` (the accepted greedy tokens, EOS past them and on rows
+        not live) and ``counts`` (n_accept + 1, cut after an EOS inside
+        the accepted run, 0 on rows not live), then each row's rewind: the
+        mask cleared on the written slots past ``keep`` (index0 + 1 +
+        n_accept on live rows, index0 on the others), the index set to
+        ``keep``, and ``tok`` / ``pos`` / ``done`` advanced."""
+        llm, G, eos = self.cfg.llm, self.spec_lookahead, self.eos_id
+        tok0, pos0, done0, active = st['tok'], st['pos'], st['done'], \
+            st['active']
+        cache = st['cache']
+        dev = tok0.device
+        nb = tok0.shape[0]
+        steps = torch.arange(G + 1, device=dev)
+        toks = torch.cat([tok0[:, None], st['drafts']], dim=1)
+        index0 = cache['index'].clone()
+        hidden, _ = quant_llama_forward(
+            self.qp, llm, quant_embed(self.qp, toks, llm.vocab_size),
+            torch.ones((nb, G + 1), dtype=torch.bool, device=dev),
+            pos0[:, None] + steps[None], cache, chunked=True)
+        greedy = torch.argmax(quant_logits(self.qp, hidden), dim=-1)
+        live = active & ~done0
+        match = (greedy[:, :-1] == st['drafts']).long()
+        n_acc = torch.cumprod(match, dim=1).sum(dim=1)
+        accepted = steps[None] <= n_acc[:, None]
+        emitted = torch.where(accepted & live[:, None], greedy, eos)
+        # an EOS inside the accepted run ends the row there
+        is_eos = (greedy == eos) & accepted
+        first_eos = torch.argmax(is_eos.long(), dim=1)
+        has_eos = is_eos.any(dim=1) & live
+        counts = torch.where(live, n_acc + 1, 0)
+        counts = torch.where(has_eos, torch.minimum(counts, first_eos + 1),
+                             counts)
+        keep = index0 + torch.where(live, 1 + n_acc, 0)
+        slots = torch.arange(cache['mask'].shape[1], device=dev)[None]
+        cache['mask'].logical_and_(~((slots >= keep[:, None])
+                                     & (slots < index0[:, None] + G + 1)))
+        cache['index'].copy_(keep)
+        tok0.copy_(torch.where(live, greedy.gather(1, n_acc[:, None])[:, 0],
+                               tok0))
+        pos0.copy_(torch.where(live, pos0 + n_acc + 1, pos0))
+        done0.copy_(done0 | has_eos | ~active)
+        st['emitted'].copy_(emitted)
+        st['counts'].copy_(counts)
+
+    def verifier(self, state: dict) -> 'Verify':
+        """The verify step (``_verify_step``) over ``state``, a decode
+        state such as ``clone_state()`` gives (the loop never verifies, as
+        in JAX)."""
+        if self.spec_lookahead <= 0:
+            raise ValueError('the engine was built without spec_lookahead')
+        return Verify(self, state)
+
+    def clone_state(self) -> dict:
+        """A copy of the decode state as of the last burst: the tensors of
+        the burst's state (the cache, tokens, positions, done flags, the
+        burst's buffers), the active mask the host's."""
+        def clone(tree):
+            if torch.is_tensor(tree):
+                return tree.clone()
+            if isinstance(tree, dict):
+                return {k: clone(v) for k, v in tree.items()}
+            if isinstance(tree, list):
+                return [clone(v) for v in tree]
+            return tree
+        out = clone(self._state)
+        out['active'].copy_(self._host['active'])
+        return out
+
     def _decode_burst(self):
         """``chunk`` decode steps over all slots, then the emitted tokens go
         to their sessions."""
@@ -587,6 +800,8 @@ class BatchEngine:
                 t = int(t)
                 sess.tokens.append(t)
                 sess._q.put(t)
+                if self.spec_lookahead > 0:
+                    sess._ctx.append(t)
                 self._emitted[slot] += 1
                 self._n_tokens += 1
                 hit_eos = t == self.eos_id
@@ -639,3 +854,42 @@ class BatchEngine:
                 self._active[slot] = False
                 self._end(self._sessions[slot], err)
         self._drain_waiting(err)
+
+
+class Verify:
+    """The engine's verify step over one decode state (``tok``, ``pos``,
+    ``done``, ``active``, ``cache`` with a (B,) index), to which it adds
+    ``drafts`` (B, G), ``emitted`` (B, G+1) and ``counts`` (B,): a
+    ``StepGraph``, eager on the CPU and captured on the card.  A call
+    writes the drafts, checks on the host that every row's G + 1 writes
+    stay inside the cache (a CUDA scatter out of range is a device
+    assert, where JAX drops the write), runs one step and reads back
+    (emitted, counts) as numpy arrays."""
+
+    def __init__(self, engine: BatchEngine, state: dict):
+        nb, G = state['tok'].shape[0], engine.spec_lookahead
+        dev = state['tok'].device
+        state.setdefault('drafts', torch.zeros((nb, G), dtype=torch.int64,
+                                               device=dev))
+        state.setdefault('emitted', torch.zeros((nb, G + 1),
+                                                dtype=torch.int64,
+                                                device=dev))
+        state.setdefault('counts', torch.zeros(nb, dtype=torch.int64,
+                                               device=dev))
+        self.state, self.G = state, G
+        self.graph = StepGraph(engine._verify_step, state)
+
+    def __call__(self, drafts):
+        st = self.state
+        end = st['cache']['index'].max().item() + self.G + 1
+        if end > st['cache']['mask'].shape[1]:
+            raise ValueError(f'a verify would write up to slot {end - 1} '
+                             f'of a {st["cache"]["mask"].shape[1]}-slot '
+                             f'cache')
+        st['drafts'].copy_(torch.as_tensor(np.asarray(drafts),
+                                           dtype=torch.int64))
+        with torch.no_grad():
+            self.graph.run(1)
+        back = torch.cat([st['emitted'], st['counts'][:, None]],
+                         dim=1).cpu().numpy()
+        return back[:, :-1], back[:, -1]

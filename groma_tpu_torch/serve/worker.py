@@ -21,6 +21,8 @@ serving other requests.
         --quant_type int4 --kv-bits 8 --paged-kv      # tiny, on the CPU
     python -m groma_tpu_torch.serve.worker --model-dir <dir> --engine \
         --quant_type int4 --kv-bits 8 --paged-kv      # the card
+    python -m groma_tpu_torch.serve.worker --model-dir <dir> --engine \
+        --quant_type int8 --kv-bits 8 --prefill-chunk 192  # chunked prefill
 
 The worker runs on the card (``--device cuda``, the default); without a
 CUDA device it refuses to start unless given ``--device cpu``.
@@ -75,15 +77,18 @@ class ModelWorker:
                  controller_addr: str = '', quant_type: str = 'none',
                  kv_bits: int = 16, device=None, seed: int = 0,
                  use_engine: bool = False, engine_slots: int = 8,
-                 paged_kv: bool = False, kv_pool_tokens: int = 0):
+                 paged_kv: bool = False, kv_pool_tokens: int = 0,
+                 prefill_chunk: int = 0, spec_lookahead: int = 0):
         """``model_dir``: a checkpoint directory, 'tiny' or 'random'
         (random weights from ``seed`` at the tiny or the full config).
         ``quant_type``: 'none' (the unquantized LLM; the KV cache is then
         bf16 whatever ``kv_bits``, as in JAX), 'int8', 'int4' or 'bf16'
         (the unquantized fused tree).  ``device``: None is the card
-        (``cuda``); 'cpu' runs on the CPU."""
+        (``cuda``); 'cpu' runs on the CPU.  ``prefill_chunk`` (0: one-shot)
+        and ``spec_lookahead`` go to the engine as its
+        ``prefill_chunk_tokens`` and ``spec_lookahead``."""
         from groma_tpu_torch.data.datasets.base import VLDataSpec
-        from groma_tpu_torch.data.tokenizer import (StubTokenizer,
+        from groma_tpu_torch.data.tokenizer import (StableStubTokenizer,
                                                     load_tokenizer)
         from groma_tpu_torch.checkpoint.loader import (load_quantized,
                                                        load_unquantized)
@@ -102,8 +107,10 @@ class ModelWorker:
                                                  seed=seed,
                                                  bits=QUANT_BITS[quant_type])
         if model_dir in ('tiny', 'random'):
-            self.tokenizer = StubTokenizer(self.cfg.llm.vocab_size,
-                                           self.cfg.max_seq_len)
+            # JAX's worker takes the salted StubTokenizer: a stable hash
+            # gives a prompt the same ids in every process
+            self.tokenizer = StableStubTokenizer(self.cfg.llm.vocab_size,
+                                                 self.cfg.max_seq_len)
         else:
             self.tokenizer = load_tokenizer(tokenizer_path or model_dir,
                                             self.cfg.max_seq_len)
@@ -120,7 +127,9 @@ class ModelWorker:
                 max_len=self.cfg.max_seq_len + ENGINE_MAX_NEW_TOKENS + 8,
                 eos_id=self.tokenizer.sp.eos,
                 max_new_tokens=ENGINE_MAX_NEW_TOKENS, kv_bits=kv_bits,
-                paged_kv=paged_kv, kv_pool_tokens=kv_pool_tokens or None)
+                prefill_chunk_tokens=prefill_chunk or None,
+                paged_kv=paged_kv, kv_pool_tokens=kv_pool_tokens or None,
+                spec_lookahead=spec_lookahead)
             limit = max(limit, engine_slots)
         elif qp is None:
             self.generator = Generator(model,
@@ -307,6 +316,13 @@ def main():
                          'weight-only int8 or int4 LLM, or the bf16 tree')
     ap.add_argument('--kv-bits', type=int, default=16, choices=[16, 8],
                     help='8 = int8 KV cache (quantized paths only)')
+    ap.add_argument('--prefill-chunk', type=int, default=0,
+                    help='engine chunked prefill: interleave N-token '
+                         'prompt chunks with decode bursts (0 = one-shot)')
+    ap.add_argument('--spec-lookahead', type=int, default=0,
+                    help='engine speculative decoding: G prompt-lookup '
+                         'draft tokens per batched verify (greedy-only, '
+                         'contiguous KV)')
     ap.add_argument('--paged-kv', action='store_true',
                     help='shared 128-token int8 KV page pool (engine, '
                          '--kv-bits 8)')
@@ -330,7 +346,9 @@ def main():
                          quant_type=a.quant_type, kv_bits=a.kv_bits,
                          device=a.device, use_engine=a.engine,
                          engine_slots=a.engine_slots, paged_kv=a.paged_kv,
-                         kv_pool_tokens=a.kv_pool_tokens)
+                         kv_pool_tokens=a.kv_pool_tokens,
+                         prefill_chunk=a.prefill_chunk,
+                         spec_lookahead=a.spec_lookahead)
     httpd = ThreadingHTTPServer((a.host, a.port), make_handler(worker))
     httpd.serve_forever()
 

@@ -14,10 +14,12 @@ The rest mirrors ``tests/test_engine.py`` on the port alone, at
 ``tiny_groma_config()`` with random weights.
 """
 
+import gc
 import os
 import sys
 import threading
 import time
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -30,12 +32,12 @@ import groma_tpu.ops.paged_attention as j_paged
 from groma_tpu.checkpoint.loader import _dummy_batch
 from groma_tpu.config import tiny_groma_config
 from groma_tpu.data.datasets.base import VLDataSpec
-from groma_tpu.data.tokenizer import StubTokenizer
 from groma_tpu.eval.generate_quant import quantize_groma_llm as j_quantize
 from groma_tpu.eval.rec import build_rec_prompt
 from groma_tpu.models.groma import GromaModel as JGroma
 from groma_tpu.serve.engine import BatchEngine as JEngine
 from groma_tpu_torch.checkpoint.loader import from_jax_params, random_groma
+from groma_tpu_torch.data.tokenizer import StableStubTokenizer
 from groma_tpu_torch.eval.generate_quant import quantize_groma_llm
 from groma_tpu_torch.serve.engine import BatchEngine
 
@@ -48,7 +50,7 @@ MAX_NEW = 6
 
 
 def _requests(cfg, n, seed=0):
-    tok = StubTokenizer(base_vocab=cfg.llm.vocab_size)
+    tok = StableStubTokenizer(base_vocab=cfg.llm.vocab_size)
     spec = VLDataSpec(num_image_tokens=cfg.num_image_tokens,
                       max_region_num=cfg.max_region_num,
                       max_seq_len=cfg.max_seq_len,
@@ -174,6 +176,18 @@ def test_idle_slot_index_stays_in_range(tiny):
         assert [list(s.token_stream()) for s in late] == fresh
     finally:
         engine.close()
+
+
+def test_a_closed_engine_is_freed(tiny):
+    """Once closed and dropped, nothing holds the engine (its exit hook is
+    removed), so its caches and captured graphs go with it."""
+    engine = _engine(tiny)
+    ref = weakref.ref(engine)
+    got, _ = _serve(engine, tiny[3][:1])
+    assert got[0]
+    del engine
+    gc.collect()
+    assert ref() is None
 
 
 def test_scheduler_thread_runs_in_inference_mode(tiny):
@@ -322,12 +336,6 @@ def test_fatal_error_fails_fast(tiny):
             engine.submit(*reqs[2])
     finally:
         engine.close()
-
-
-def test_unported_options_raise(tiny):
-    for kw in ({'prefill_chunk_tokens': 16}, {'spec_lookahead': 2}):
-        with pytest.raises(NotImplementedError):
-            _engine(tiny, **kw)
 
 
 def test_w8a8_prefill_matches_jax_engine(jax_params, monkeypatch):

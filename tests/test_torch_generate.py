@@ -18,13 +18,13 @@ import torch
 from groma_tpu.checkpoint.loader import _dummy_batch
 from groma_tpu.config import tiny_groma_config
 from groma_tpu.data.datasets.base import VLDataSpec
-from groma_tpu.data.tokenizer import StubTokenizer
 from groma_tpu.eval.generate_quant import QuantGenerator as JGenerator
 from groma_tpu.eval.generate_quant import quantize_groma_llm as j_quantize
 from groma_tpu.eval.rec import build_rec_prompt
 from groma_tpu.eval.region_cap import build_region_cap_prompt
 from groma_tpu.models.groma import GromaModel as JGroma
 from groma_tpu_torch.checkpoint.loader import from_jax_params
+from groma_tpu_torch.data.tokenizer import StableStubTokenizer
 from groma_tpu_torch.eval.generate_quant import (QuantGenerator,
                                                  quantize_groma_llm)
 
@@ -45,7 +45,7 @@ def params():
 def test_quant_generator_matches_jax(params, box_score_thres, task,
                                      kv_bits):
     cfg = tiny_groma_config(box_score_thres=box_score_thres)
-    tok = StubTokenizer(base_vocab=cfg.llm.vocab_size)
+    tok = StableStubTokenizer(base_vocab=cfg.llm.vocab_size)
     spec = VLDataSpec(
         num_image_tokens=cfg.num_image_tokens,
         max_region_num=cfg.max_region_num, max_seq_len=cfg.max_seq_len,

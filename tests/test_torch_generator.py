@@ -26,7 +26,6 @@ import torch
 from groma_tpu.checkpoint.loader import _dummy_batch
 from groma_tpu.config import tiny_groma_config
 from groma_tpu.data.datasets.base import VLDataSpec
-from groma_tpu.data.tokenizer import StubTokenizer
 from groma_tpu.eval.generate import Generator as JGenerator
 from groma_tpu.eval.rec import build_rec_prompt
 from groma_tpu.eval.rec import evaluate_rec as j_evaluate_rec
@@ -39,6 +38,7 @@ from groma_tpu_torch.checkpoint.hf_export import export_groma
 from groma_tpu_torch.checkpoint.loader import (from_jax_params,
                                                from_state_dict,
                                                random_groma_unquantized)
+from groma_tpu_torch.data.tokenizer import StableStubTokenizer
 from groma_tpu_torch.eval.generate import Generator
 from groma_tpu_torch.eval.rec import RECMetrics, evaluate_rec
 from groma_tpu_torch.models.llama import LlamaModel, make_kv_cache
@@ -51,7 +51,7 @@ SPEC = VLDataSpec(num_image_tokens=CFG.num_image_tokens,
                   max_region_num=CFG.max_region_num,
                   max_seq_len=CFG.max_seq_len,
                   image_size=CFG.perceiver.image_size)
-TOK = StubTokenizer(base_vocab=CFG.llm.vocab_size)
+TOK = StableStubTokenizer(base_vocab=CFG.llm.vocab_size)
 F32_TOL = 2e-5
 MAX_NEW = 8
 MAX_LEN = CFG.max_seq_len + MAX_NEW
@@ -300,15 +300,26 @@ def test_generator_matches_jax(params, jgen, tmodel, b, refer,
 
 
 def test_generator_eos_reached_by_one_row_only(jgen, tmodel):
-    """An EOS id that row 0 emits mid-way and row 1 never does: with
-    use_scan row 0 is cut after it and padded with EOS, and without it
-    the rows are not forced to EOS and the loop runs on for row 1."""
-    args, _ = _batch(2, refer=False)
+    """An EOS id that one row emits mid-way and the other never does: with
+    use_scan that row is cut after it and padded with EOS, and without it
+    the rows are not forced to EOS and the loop runs on for the other.
+    The two prompts differ in more than a number: on the tiny random model
+    'the dog 0' and 'the dog 1' decode the same two-token cycle, which
+    leaves no id to one row alone."""
+    ts = [build_rec_prompt(text, TOK, SPEC)
+          for text in ('the dog on the left', 'the cat on the right')]
+    args = (_images(2), *(np.stack([t[k] for t in ts])
+                          for k in ('input_ids', 'region_slot', 'valid')))
     gen = Generator(tmodel, max_len=MAX_LEN)
     free, _ = gen.generate(*args, max_new_tokens=MAX_NEW, eos_id=-1)
-    eos = next(int(t) for t in free[0, 2:] if t not in free[1])
-    stop = list(free[0]).index(eos)
-    assert 0 < stop < MAX_NEW - 1
+    rows = [[int(t) for t in r] for r in free]
+    # the first id a row emits at a step 1 .. MAX_NEW - 2 that it did not
+    # emit before and the other row never emits: whatever the prompts
+    pick = next(((r, j, t) for r in (0, 1) for j, t in enumerate(rows[r])
+                 if 0 < j < MAX_NEW - 1 and t not in rows[r][:j]
+                 and t not in rows[1 - r]), None)
+    assert pick is not None, f'no id is emitted by one row only: {rows}'
+    r, stop, eos = pick
     for use_scan in (True, False):
         want, _ = jgen.generate(*map(jnp.asarray, args),
                                 max_new_tokens=MAX_NEW, eos_id=eos,
@@ -317,9 +328,9 @@ def test_generator_eos_reached_by_one_row_only(jgen, tmodel):
                               use_scan=use_scan)
         np.testing.assert_array_equal(got, want)
         assert got.shape == (2, MAX_NEW)
-        assert got[0, stop] == eos and eos not in got[1]
+        assert got[r, stop] == eos and eos not in got[1 - r]
         if use_scan:
-            assert (got[0, stop:] == eos).all()
+            assert (got[r, stop:] == eos).all()
     assert gen.last_stats['decode_forwards'] == MAX_NEW - 1
 
 
@@ -402,8 +413,9 @@ def test_unquantized_engine_refuses_what_jax_refuses(tmodel):
     for kw in ({'kv_bits': 8}, {'kv_bits': 8, 'paged_kv': True}):
         with pytest.raises(ValueError, match='qp=None'):
             BatchEngine(tmodel, None, **kw)
-    for kw in ({'prefill_chunk_tokens': 16}, {'spec_lookahead': 2}):
-        with pytest.raises(NotImplementedError):
+    for kw, match in (({'prefill_chunk_tokens': 16}, 'chunked prefill'),
+                      ({'spec_lookahead': 2}, 'speculative')):
+        with pytest.raises(ValueError, match=match):
             BatchEngine(tmodel, None, **kw)
 
 

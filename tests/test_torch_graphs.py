@@ -40,7 +40,6 @@ from groma_tpu.checkpoint.hf_export import export_llama
 from groma_tpu.checkpoint.loader import _dummy_batch
 from groma_tpu.config import LlamaConfig, tiny_groma_config
 from groma_tpu.data.datasets.base import VLDataSpec
-from groma_tpu.data.tokenizer import StubTokenizer
 from groma_tpu.eval.generate import Generator as JGenerator
 from groma_tpu.eval.generate_quant import QuantGenerator as JQuantGenerator
 from groma_tpu.eval.generate_quant import quantize_groma_llm as j_quantize
@@ -54,6 +53,7 @@ from groma_tpu.models.llama_quant import (
 from groma_tpu.serve.engine import BatchEngine as JEngine
 from groma_tpu_torch.checkpoint.loader import (from_jax_params, random_groma,
                                                random_groma_unquantized)
+from groma_tpu_torch.data.tokenizer import StableStubTokenizer
 from groma_tpu_torch.eval.generate import Generator
 from groma_tpu_torch.eval.generate_quant import (QuantGenerator,
                                                  quantize_groma_llm)
@@ -76,7 +76,7 @@ HIDDEN_TOL = 1e-5          # test_torch_megakernel.py's, x max|hidden|
 
 
 def _prompts(cfg, n, seed=0):
-    tok = StubTokenizer(base_vocab=cfg.llm.vocab_size)
+    tok = StableStubTokenizer(base_vocab=cfg.llm.vocab_size)
     spec = VLDataSpec(num_image_tokens=cfg.num_image_tokens,
                       max_region_num=cfg.max_region_num,
                       max_seq_len=cfg.max_seq_len,

@@ -57,9 +57,9 @@ def test_weight_bridge_loads_every_parameter(models):
 
 def _prompt():
     from groma_tpu.data.datasets.base import VLDataSpec
-    from groma_tpu.data.tokenizer import StubTokenizer
+    from groma_tpu_torch.data.tokenizer import StableStubTokenizer
     from groma_tpu.eval.rec import build_rec_prompt
-    tok = StubTokenizer(base_vocab=CFG.llm.vocab_size)
+    tok = StableStubTokenizer(base_vocab=CFG.llm.vocab_size)
     t = build_rec_prompt('the dog', tok, VLDataSpec(
         num_image_tokens=CFG.num_image_tokens,
         max_region_num=CFG.max_region_num, max_seq_len=CFG.max_seq_len,

@@ -305,7 +305,7 @@ def test_quant_generator_serves_int4_as_jax(monkeypatch):
     from groma_tpu.checkpoint.loader import _dummy_batch
     from groma_tpu.config import tiny_groma_config
     from groma_tpu.data.datasets.base import VLDataSpec
-    from groma_tpu.data.tokenizer import StubTokenizer
+    from groma_tpu_torch.data.tokenizer import StableStubTokenizer
     from groma_tpu.eval.generate_quant import QuantGenerator as JGenerator
     from groma_tpu.eval.generate_quant import quantize_groma_llm as j_qgroma
     from groma_tpu.eval.rec import build_rec_prompt
@@ -322,7 +322,7 @@ def test_quant_generator_serves_int4_as_jax(monkeypatch):
     params = jax.tree_util.tree_map(np.asarray, jax.jit(
         lambda: jmodel.init(jax.random.PRNGKey(0),
                             **_dummy_batch(cfg)))()['params'])
-    tok = StubTokenizer(base_vocab=cfg.llm.vocab_size)
+    tok = StableStubTokenizer(base_vocab=cfg.llm.vocab_size)
     t = build_rec_prompt('the dog', tok, VLDataSpec(
         num_image_tokens=cfg.num_image_tokens,
         max_region_num=cfg.max_region_num, max_seq_len=cfg.max_seq_len,

@@ -25,7 +25,6 @@ import torch
 from groma_tpu.checkpoint.loader import _dummy_batch
 from groma_tpu.config import tiny_groma_config
 from groma_tpu.data.datasets.base import VLDataSpec
-from groma_tpu.data.tokenizer import StubTokenizer
 from groma_tpu.eval import speculative as j_spec
 from groma_tpu.eval.generate_quant import QuantGenerator as JGenerator
 from groma_tpu.eval.generate_quant import quantize_groma_llm as j_quantize
@@ -35,6 +34,7 @@ from groma_tpu.models.llama import make_kv_cache as j_fcache
 from groma_tpu.models.llama_quant import make_quant_kv_cache as j_qcache
 from groma_tpu.models.llama_quant import quant_llama_forward as j_forward
 from groma_tpu_torch.checkpoint.loader import from_jax_params
+from groma_tpu_torch.data.tokenizer import StableStubTokenizer
 from groma_tpu_torch.eval import speculative as t_spec
 from groma_tpu_torch.eval.generate_quant import (QuantGenerator,
                                                  quant_embed, quant_logits,
@@ -156,15 +156,58 @@ def test_chunked_append_at_a_scalar_index_matches_jax(trees, kind, index):
     assert torch.is_tensor(tc['index']) == (index == 'device')
 
 
+@pytest.mark.parametrize('kind', ['int8', 'float'])
+def test_vector_index_multi_token_append_matches_jax(trees, kind):
+    """JAX's per-row multi-token append (the engine's speculative verify):
+    rows at different cache indices append S tokens each at their own
+    slots, row 2 frozen (its tokens masked out): the hidden states within
+    1e-5 of max|hidden|, the int8 cache bytes, the mask and the indices
+    equal, the scales and a float cache to 1e-6 (the f32 scale divisions
+    round apart in the last bit, as in the prefill)."""
+    b, s, max_len = 3, 4, 24
+    jc, tc, _ = _prefill(trees, 8, kind, b, 10, max_len, seed=5)
+    jqp, tqp = trees[8]
+    index = np.asarray([10, 7, 12])
+    mask = np.asarray(jc['mask']) & (np.arange(max_len)[None]
+                                     < index[:, None])
+    jc = {**jc, 'mask': jnp.asarray(mask),
+          'index': jnp.asarray(index, jnp.int32)}
+    tc['mask'] = _t(mask)
+    tc['index'] = _t(index).long()
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((b, s, LLM.hidden_size)).astype(np.float32)
+    valid = np.ones((b, s), bool)
+    valid[2] = False
+    cpos = index[:, None] + np.arange(s)[None]
+    jh, jc = jax.jit(lambda *a: j_forward(a[0], LLM, *a[1:], chunked=True))(
+        jqp, jnp.asarray(x), jnp.asarray(valid), jnp.asarray(cpos), jc)
+    with torch.no_grad():
+        th, tc = quant_llama_forward(tqp, LLM, _t(x), _t(valid), _t(cpos),
+                                     tc, chunked=True)
+    want = np.asarray(jh)
+    _close(th, want, 1e-5 * np.abs(want).max())
+    np.testing.assert_array_equal(tc['mask'].numpy(), np.asarray(jc['mask']))
+    np.testing.assert_array_equal(tc['index'].numpy(), index + s)
+    np.testing.assert_array_equal(np.asarray(jc['index']), index + s)
+    keys = ('k', 'v', 'k_scale', 'v_scale') if kind == 'int8' else ('k', 'v')
+    for key in keys:
+        for got, ref in zip(tc[key], jc[key]):
+            if key in ('k', 'v') and kind == 'int8':
+                np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+            else:
+                _close(got, ref, 1e-6)
+
+
 def test_vector_index_multi_token_append_still_raises(trees):
+    """Unchunked, as JAX's assert: a multi-token call at an index tensor
+    appends only with ``chunked=True``."""
     _, tqp = trees[8]
     cache = make_quant_kv_cache(LLM, 2, 16)
     cache['index'] = torch.zeros(2, dtype=torch.int64)
-    with pytest.raises(ValueError, match='vector-index'):
+    with pytest.raises(ValueError, match='must be chunked'):
         quant_llama_forward(tqp, LLM, torch.zeros(2, 3, LLM.hidden_size),
                             torch.ones(2, 3, dtype=torch.bool),
-                            torch.zeros(2, 3, dtype=torch.int64), cache,
-                            chunked=True)
+                            torch.zeros(2, 3, dtype=torch.int64), cache)
 
 
 @pytest.mark.parametrize('kind', ['int8', 'float'])
@@ -202,7 +245,7 @@ def test_verify_step_matches_jax(params, trees, kind):
 
 
 def _request(seed=0, cfg=CFG):
-    tok = StubTokenizer(base_vocab=cfg.llm.vocab_size)
+    tok = StableStubTokenizer(base_vocab=cfg.llm.vocab_size)
     t = build_rec_prompt('a red thing on the left', tok, VLDataSpec(
         num_image_tokens=cfg.num_image_tokens,
         max_region_num=cfg.max_region_num, max_seq_len=cfg.max_seq_len,

@@ -22,7 +22,6 @@ import torch
 from groma_tpu.checkpoint.loader import _dummy_batch
 from groma_tpu.config import tiny_groma_config
 from groma_tpu.data.datasets.base import VLDataSpec
-from groma_tpu.data.tokenizer import StubTokenizer
 from groma_tpu.eval.generate_quant import QuantGenerator as JGenerator
 from groma_tpu.eval.generate_quant import quantize_groma_llm as j_quantize
 from groma_tpu.eval.rec import build_rec_prompt
@@ -31,6 +30,7 @@ from groma_tpu.models.groma import GromaModel as JGroma
 from groma_tpu.models.llama_quant import quant_llama_forward as j_forward
 from groma_tpu.ops import quant as jq
 from groma_tpu_torch.checkpoint.loader import from_jax_params
+from groma_tpu_torch.data.tokenizer import StableStubTokenizer
 from groma_tpu_torch.eval.generate_quant import (QuantGenerator,
                                                  quantize_groma_llm)
 from groma_tpu_torch.models import groma as t_groma
@@ -183,7 +183,7 @@ def test_card_shape_rules_raise():
 # -------------------------------------------------------- vision_int8
 
 def _prompt(cfg):
-    tok = StubTokenizer(base_vocab=cfg.llm.vocab_size)
+    tok = StableStubTokenizer(base_vocab=cfg.llm.vocab_size)
     t = build_rec_prompt('the dog', tok, VLDataSpec(
         num_image_tokens=cfg.num_image_tokens,
         max_region_num=cfg.max_region_num, max_seq_len=cfg.max_seq_len,
