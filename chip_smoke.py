@@ -209,6 +209,19 @@ Phases, each printed before the last line:
     variant was held against its plain version in phase 2): each probe's
     entry point as `python -m groma_tpu_torch.benchmarks.<name>` runs it,
     printing the probe's table.
+ 11. the detection stage (stage 1, scripts/det_pretrain.sh) at full width
+    (DINOv2-L at 448 frozen, DDETR d=256, 6+6 layers, 300 queries, one
+    level), random f32 weights from --seed, B=8 (the script's 64 cut for
+    memory and time) on seeded synthetic 640x480 PNGs with 10 to 50 boxes
+    each from a coco_box and an sa1b_box source: train_det through its
+    entry point for an epoch (4 steps) and a resume for one more (losses
+    finite, the ViT bitwise unchanged, every other tensor moved, peak
+    memory), its step function's warm ms/step and, under torch.profiler,
+    device busy share and top kernels, both matchers' ms per step at these
+    shapes, evaluate_detector's COCO summary on 8 images and run_ddetr on
+    the export; then a twin at 2 ViT and 2+2 DDETR layers: one step on the
+    card against the CPU (the same matches, every loss, every trainable
+    gradient, within the DET_TWIN limits).  No kernel runs on this path.
 Then one JSON line with the nineteen kernels, the int8 and the int4
 matmuls' two tiles apart (launches: the training
 path's for the forward flash kernels and the causal backward, the DINOv2-L
@@ -4784,6 +4797,386 @@ def engine_device_per_step(torch, np, worker, card: str):
           f'each burst\'s first step: {lengths} [{card}]')
 
 
+# the detection stage (stage 1, scripts/det_pretrain.sh) at full width:
+# DINOv2-L at 448 (frozen), DDETR d=256, 6+6 layers, 300 queries, one level
+DET_BATCH = 8              # train_det's --per_device_train_batch_size
+DET_IMAGES = {'coco': 24, 'sa1b': 8}   # 4 single-source batches an epoch
+DET_MAX_BOXES = 50
+DET_IMAGE_HW = (480, 640)
+DET_PROFILED_STEPS = 2
+DET_MATCHER_RUNS = 3
+DET_EVAL_IMAGES = 8
+DET_TWIN_BATCH = 2
+# the reduced-depth twin (2 ViT layers, 2+2 DDETR layers): one step's
+# losses and trainable gradients on the card against the CPU, both in f32
+# after the ViT (the CPU takes the card's DDETR features).  Measured on an
+# H100 at seeds 0 and 1: losses within 1.88e-7 and 2.06e-7, the whole
+# gradient 4.36e-7 and 4.89e-7, the worst tensor 3.93e-6 and 8.11e-6 (the
+# decoder's attention weights); the limits are four to five times those
+DET_TWIN_LOSS_TOL = 1e-6      # relative, every loss key
+DET_TWIN_GRAD_TOL = 2e-6      # relative Frobenius error, all trainable grads
+DET_TWIN_TENSOR_TOL = 4e-5    # the same, per gradient tensor
+# the card's matches scored on the CPU's costs, above the CPU's optimum,
+# relative to it: near-identical queries may swap on rounding (at the
+# init's kinks 2 targets did, 3.9e-10 above); anything above rounding is a
+# fault
+DET_TWIN_MATCH_TOL = 1e-5
+
+
+def _det_dataset(np, root: str, seed: int):
+    """A seeded COCO-format set in ``root``: PNG images of DET_IMAGE_HW with
+    10 to DET_MAX_BOXES boxes each, a coco_box and an sa1b_box source, and
+    its dataset config.  Returns (config path, {source: [(image, boxes
+    xyxy)]})."""
+    import os
+    rng = np.random.default_rng(seed)
+    h, w = DET_IMAGE_HW
+    made, entries = {}, []
+    for source, n in DET_IMAGES.items():
+        images, anns, made[source] = [], [], []
+        for i in range(n):
+            img = rng.integers(0, 255, (h, w, 3), dtype=np.uint8)
+            name = f'{source}{i}.png'
+            with open(os.path.join(root, name), 'wb') as f:
+                f.write(_png_bytes(img))
+            images.append({'id': i, 'file_name': name, 'width': w,
+                           'height': h})
+            k = int(rng.integers(10, DET_MAX_BOXES + 1))
+            wh = rng.uniform(24, 240, (k, 2))
+            xy = rng.uniform(0, 1, (k, 2)) * (np.array([w, h]) - wh)
+            for (x, y), (bw, bh) in zip(xy, wh):
+                anns.append({'id': len(anns), 'image_id': i,
+                             'bbox': [float(x), float(y), float(bw),
+                                      float(bh)],
+                             'area': float(bw * bh), 'category_id': 1,
+                             'iscrowd': 0})
+            made[source].append((img, np.concatenate([xy, xy + wh], 1)))
+        ann = os.path.join(root, f'{source}.json')
+        with open(ann, 'w') as f:
+            json.dump({'images': images, 'annotations': anns,
+                       'categories': [{'id': 1, 'name': 'object'}]}, f)
+        entries.append(f"dict(type='{source}_box', ann_file={ann!r}, "
+                       f"img_prefix={root!r})")
+    cfg_file = os.path.join(root, 'det_data.py')
+    with open(cfg_file, 'w') as f:
+        f.write('datasets = [' + ',\n            '.join(entries) + ']\n')
+    return cfg_file, made
+
+
+def train_det_full_width(torch, np, seed: int, card: str):
+    """Stage 1 through its entry point at full width (phase 11): train_det
+    for an epoch of DET_BATCH-image batches from both sources, then a
+    resume for one more step; checks, ms/step, peak memory, the device's
+    busy share, both matchers' ms per step, evaluate_detector on
+    DET_EVAL_IMAGES images and run_ddetr on the export."""
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from groma_tpu_torch.checkpoint.loader import random_perceiver
+    from groma_tpu_torch.data.build import build_multi_datasets, collate_det
+    from groma_tpu_torch.data.image_pipeline import normalize, resize
+    from groma_tpu_torch.eval import run_ddetr
+    from groma_tpu_torch.eval.det_eval import evaluate_detector
+    from groma_tpu_torch.models import ddetr_loss as dl
+    from groma_tpu_torch.ops import matcher
+    from groma_tpu_torch.train import train_det
+    from groma_tpu_torch.train.optimizer import (det_lr_mult_rules,
+                                                 freeze_predicate, make_adamw)
+    from groma_tpu_torch.train.steps import det_batch_to, make_det_train_step
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        cfg_file, made = _det_dataset(np, root, seed + 11)
+        out = os.path.join(root, 'out')
+        argv = ['--dataset_config', cfg_file, '--output_dir', out,
+                '--per_device_train_batch_size', str(DET_BATCH),
+                '--warmup_steps', '1', '--logging_steps', '1',
+                '--seed', str(seed)]
+        print(f'detection stage: {sum(DET_IMAGES.values())} synthetic '
+              f'{DET_IMAGE_HW[1]}x{DET_IMAGE_HW[0]} images ({DET_IMAGES}), '
+              f'10 to {DET_MAX_BOXES} boxes each, made in '
+              f'{time.perf_counter() - t0:.1f} s [{card}]')
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        first = train_det.main(argv + ['--num_train_epochs', '1'])
+        first_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        cfg = first['model'].cfg
+        n = first['step']
+        t0 = time.perf_counter()
+        second = train_det.main(argv + ['--num_train_epochs',
+                                        str((n + 1) / n)])
+        second_s = time.perf_counter() - t0
+        if second['step'] != n + 1 or len(second['losses']) != 1:
+            fail(f'train_det resumed to step {second["step"]} with '
+                 f'{len(second["losses"])} new steps, want {n + 1} and 1')
+        losses = [d['loss'] for d in first['losses'] + second['losses']]
+        if not all(math.isfinite(v) for d in first['losses']
+                   + second['losses'] for v in d.values()):
+            fail(f'train_det: a loss is not finite: {losses}')
+        model = second['model']
+        fresh = random_perceiver(cfg, seed=seed, device='cuda')
+        start = dict(fresh.named_parameters())
+        moved_vit = [k for k, p in model.named_parameters()
+                     if k.startswith('vis_encoder.')
+                     and not torch.equal(p, start[k])]
+        still = [k for k, p in model.named_parameters()
+                 if not k.startswith('vis_encoder.')
+                 and torch.equal(p, start[k])]
+        del fresh, start
+        entry = sorted(first['step_seconds'][1:])
+        del first
+        if moved_vit:
+            fail(f'train_det: frozen ViT parameters moved: {moved_vit[:3]}')
+        if still:
+            fail(f'train_det: parameters that did not move: {still[:5]}')
+        print(f'train_det: {n} steps then a resume for 1 ({first_s:.1f} s '
+              f'and {second_s:.1f} s through the entry point, the model '
+              f'built, the data loaded, checkpoints and the export '
+              f'written), losses '
+              + ', '.join(f'{v:.3f}' for v in losses)
+              + f'; {entry[len(entry) // 2] * 1e3:.1f} ms a step (median '
+              f'after the first, host clock, synchronized); peak '
+              f'{peak:.2f} GiB at B={DET_BATCH}; the ViT bitwise unchanged, '
+              f'every other tensor moved [{card}]')
+
+        # steps of the entry point's own step function on one batch of
+        # each source, timed and then profiled
+        ds = build_multi_datasets(cfg_file, image_size=cfg.image_size)
+        batches = {}
+        for k, src in enumerate(DET_IMAGES):
+            lo = int(ds.offsets[k])
+            batches[src] = det_batch_to(collate_det(
+                [ds[lo + i] for i in range(DET_BATCH)]), 'cuda')
+        opt = make_adamw(model, 2e-4, weight_decay=1e-4, max_grad_norm=1.0,
+                         lr_mult_rules=det_lr_mult_rules(0.1),
+                         frozen_pred=freeze_predicate(freeze_vis_encoder=True))
+        steps = {src: make_det_train_step(model, cfg.ddetr, opt, src)
+                 for src in DET_IMAGES}
+        times = []
+        for i in range(4):
+            src = ('coco', 'sa1b')[i % 2]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            steps[src](batches[src])['loss'].item()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        warm = sorted(times[1:])
+        print(f'det step (B={DET_BATCH}, 300 queries, 1024 encoder tokens, '
+              f'up to {DET_MAX_BOXES} targets an image), batches in memory: '
+              f'{warm[len(warm) // 2] * 1e3:.1f} ms median of {len(warm)} '
+              f'warm steps (first {times[0] * 1e3:.1f}) [{card}]')
+        torch.cuda.synchronize()
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(DET_PROFILED_STEPS):
+                steps['coco'](batches['coco'])['loss'].item()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        events = [e for e in prof.events()
+                  if e.device_type.name == 'CUDA' and e.device_time > 0]
+        device_ms = sum(e.device_time for e in events) / 1e3
+        by_name = {}
+        for e in events:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        k = DET_PROFILED_STEPS
+        print(f'profiled {k} det steps: wall {wall * 1e3 / k:.1f} ms/step, '
+              f'device kernel time {device_ms / k:.1f} ms/step, busy '
+              f'{100 * device_ms / (wall * 1e3):.1f} % [{card}]')
+        for name, ms in top:
+            print(f'  {ms / k:9.2f} ms/step  {name[:100]} [{card}]')
+
+        # both matchers at these shapes, on one forward's outputs
+        with torch.no_grad():
+            outs = model(batches['coco']['images'])
+        for kind in ('hungarian', 'auction'):
+            real = dl.MATCHERS[kind]
+            calls = []
+
+            def timed(c, v, _real=real, _calls=calls):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                a = _real(c, v)
+                torch.cuda.synchronize()
+                _calls.append((tuple(c.shape), time.perf_counter() - t))
+                return a
+            dl.MATCHERS[kind] = timed
+            try:
+                for _ in range(DET_MATCHER_RUNS):
+                    loss = dl.ddetr_loss(outs, batches['coco']['targets'],
+                                         cfg.ddetr, 'coco', matcher=kind)
+            finally:
+                dl.MATCHERS[kind] = real
+            per = len(calls) // DET_MATCHER_RUNS
+            ms = sorted(sum(t for _, t in calls[i * per:(i + 1) * per])
+                        for i in range(DET_MATCHER_RUNS))
+            shapes = ', '.join(str(s) for s, _ in calls[:per])
+            print(f'{kind} matcher: {ms[len(ms) // 2] * 1e3:.2f} ms per '
+                  f'step (median of {DET_MATCHER_RUNS}; {per} calls over '
+                  f'{shapes}{", convergence read every %d rounds" % matcher.CHECK_EVERY if kind == "auction" else ""}), '
+                  f'loss {float(loss["loss"]):.4f} [{card}]')
+            if not math.isfinite(float(loss['loss'])):
+                fail(f'{kind} matcher: loss {float(loss["loss"])}')
+
+        # the detector's COCO-protocol evaluation and the demo on the export
+        samples = []
+        for i, (img, boxes) in enumerate(made['coco'][:DET_EVAL_IMAGES]):
+            sized, _ = resize(img, (cfg.image_size, cfg.image_size))
+            samples.append({'images': normalize(sized), 'image_id': i,
+                            'ori_shape': img.shape[:2],
+                            'gt': [(0, b) for b in boxes]})
+        t0 = time.perf_counter()
+        summary = evaluate_detector(model.eval(), samples)
+        ev_s = time.perf_counter() - t0
+        if not all(math.isfinite(v) for v in summary.values()):
+            fail(f'evaluate_detector: {summary}')
+        print(f'evaluate_detector on {len(samples)} images in {ev_s:.1f} s: '
+              f'{json.dumps(summary)} [{card}]')
+        t0 = time.perf_counter()
+        kept = run_ddetr.main(['--model-dir', out, '--image-file',
+                               os.path.join(root, 'coco0.png'),
+                               '--output-image', ''])
+        if kept.ndim != 2 or not np.isfinite(kept).all():
+            fail(f'run_ddetr: kept boxes {kept!r}')
+        print(f'run_ddetr on the export: {len(kept)} boxes kept, '
+              f'{time.perf_counter() - t0:.1f} s with the load [{card}]')
+        del model, opt, steps, batches, outs, second
+        return check_det_twin(torch, np, made, cfg_file, seed, card)
+
+
+def check_det_twin(torch, np, made, cfg_file, seed: int, card: str):
+    """The reduced-depth twin (2 ViT layers, 2+2 DDETR layers, full widths):
+    one detection step on the card against the same weights and batch on
+    the CPU, every loss, the matches and every trainable gradient.  The CPU
+    takes the card's DDETR features (the bf16 mean of the ViT's last
+    hidden states), so both run the head in f32 from the same values."""
+    from groma_tpu_torch.checkpoint.loader import random_perceiver
+    from groma_tpu_torch.config import DDETRConfig, PerceiverConfig, ViTConfig
+    from groma_tpu_torch.data.build import build_multi_datasets, collate_det
+    from groma_tpu_torch.models import ddetr_loss as dl
+    from groma_tpu_torch.models.perceiver import Perceiver
+    from groma_tpu_torch.train.optimizer import (det_lr_mult_rules,
+                                                 freeze_predicate, make_adamw)
+    from groma_tpu_torch.train.steps import det_batch_to, make_det_train_step
+    cfg = PerceiverConfig(vit=ViTConfig(num_layers=2), ddetr=DDETRConfig(
+        encoder_layers=2, decoder_layers=2))
+    card_model = random_perceiver(cfg, seed=seed + 1, device='cuda')
+    # off the bilinear weight's kinks: at init every sampling point lies on
+    # a cell's centre line (zero offset weights and box deltas, ring
+    # offsets of 0.2 cell), where the slope of grid_sample's weight flips
+    # with the last bit of the location; the parameters that start at zero
+    # get a little noise, as any training step gives them
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(seed + 2)
+    with torch.no_grad():
+        for p in card_model.parameters():
+            if not p.any():
+                p.normal_(0.0, 1e-2, generator=gen)
+    cpu_model = Perceiver(cfg, device='meta', vit_dtype=torch.float32,
+                          vit_compute_dtype=torch.bfloat16)
+    cpu_model.load_state_dict({k: v.to('cpu', copy=True) for k, v in
+                               card_model.state_dict().items()}, assign=True)
+    states = []
+    features = card_model.ddetr_features
+
+    def recording(hidden_states):
+        states.append(features(hidden_states))
+        return states[-1]
+    card_model.ddetr_features = recording
+    cpu_model.encode_image = lambda images, use_flash=False: ()
+    cpu_model.ddetr_features = lambda hidden_states: states[0].cpu()
+    ds = build_multi_datasets(cfg_file, image_size=cfg.image_size)
+    batch = collate_det([ds[i] for i in range(DET_TWIN_BATCH)])
+    real = dl.MATCHERS['hungarian']
+    card_calls, cpu_calls = [], []
+
+    def card_match(c, v):
+        a = real(c, v)
+        card_calls.append((c.float().cpu(), a.cpu()))
+        return a
+
+    def cpu_match(c, v):
+        # the CPU's own optimum is kept for the tie check; the step runs
+        # on the card's matches, so both differentiate the same pairs
+        cpu_calls.append((c.float().cpu(), real(c, v)))
+        return card_calls[len(cpu_calls) - 1][1]
+    results = {}
+    for name, model, dev, match in (('card', card_model, 'cuda', card_match),
+                                    ('cpu', cpu_model, 'cpu', cpu_match)):
+        dl.MATCHERS['hungarian'] = match
+        opt = make_adamw(model, 2e-4, weight_decay=1e-4, max_grad_norm=1.0,
+                         lr_mult_rules=det_lr_mult_rules(0.1),
+                         frozen_pred=freeze_predicate(freeze_vis_encoder=True))
+        grads = {}
+        real_step = opt.step
+
+        def keep_grads(_model=model, _grads=grads, _step=real_step):
+            _grads.update({k: p.grad.float().cpu().clone() for k, p in
+                           _model.named_parameters() if p.grad is not None})
+            return _step()
+        opt.step = keep_grads
+        t0 = time.perf_counter()
+        try:
+            losses = make_det_train_step(model, cfg.ddetr, opt, 'coco')(
+                det_batch_to(batch, dev))
+        finally:
+            dl.MATCHERS['hungarian'] = real
+        losses = {k: float(v) for k, v in losses.items() if k != 'updated'}
+        results[name] = (losses, grads, time.perf_counter() - t0)
+    (g_loss, g_grads, g_s), (c_loss, c_grads, c_s) = results['card'], \
+        results['cpu']
+    # the card's matches against the CPU's own on the CPU's costs: a match
+    # may differ only where its total cost ties the CPU's optimum
+
+    def cost_of(cost, assign):
+        b, t = torch.nonzero(assign >= 0, as_tuple=True)
+        return cost[b, assign[b, t], t].double().sum().item()
+    differ, gap = 0, 0.0
+    for (_, g_a), (c_cost, c_a) in zip(card_calls, cpu_calls):
+        differ += int((g_a != c_a).sum())
+        best = cost_of(c_cost, c_a)
+        gap = max(gap, (cost_of(c_cost, g_a) - best) / abs(best))
+    if len(card_calls) != len(cpu_calls) or gap > DET_TWIN_MATCH_TOL:
+        fail(f'detection twin: the card matched {differ} targets otherwise '
+             f'than the CPU, {gap:.2e} above its optimum (tol '
+             f'{DET_TWIN_MATCH_TOL})')
+    if g_grads.keys() != c_grads.keys() or not g_grads:
+        fail('detection twin: the card and the CPU trained different '
+             'parameters')
+    loss_rel = max(abs(g_loss[k] - c_loss[k]) / max(abs(c_loss[k]), 1e-12)
+                   for k in c_loss)
+    # the decoder's key biases get no gradient in exact arithmetic (softmax
+    # ignores a shift shared by every key): both sides compute rounding
+    rel = {k: ((g_grads[k] - c_grads[k]).norm()
+               / c_grads[k].norm().clamp(min=1e-30)).item() for k in c_grads
+           if not k.endswith('k_proj.bias')}
+    total = (sum(((g_grads[k] - c_grads[k]) ** 2).sum() for k in c_grads)
+             / sum((c_grads[k] ** 2).sum() for k in c_grads)).sqrt().item()
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:3]
+    ok = (loss_rel <= DET_TWIN_LOSS_TOL and total <= DET_TWIN_GRAD_TOL
+          and all(v <= DET_TWIN_TENSOR_TOL for v in rel.values())
+          and all(math.isfinite(v) for v in g_loss.values()))
+    print(f'detection twin (2 ViT layers, 2+2 DDETR layers, full widths, '
+          f'B={DET_TWIN_BATCH}): {len(card_calls)} matcher calls, {differ} '
+          f'targets matched otherwise on the CPU, at most {gap:.2e} of the '
+          f'total cost above the CPU optimum (tol {DET_TWIN_MATCH_TOL}; '
+          f'both steps on the card\'s matches); losses card vs CPU worst '
+          f'rel {loss_rel:.2e} (tol {DET_TWIN_LOSS_TOL}), loss {g_loss["loss"]:.6f} vs '
+          f'{c_loss["loss"]:.6f}; {len(c_grads)} trainable gradients, '
+          f'whole-gradient rel err {total:.2e} (tol {DET_TWIN_GRAD_TOL}), '
+          f'worst tensors ' + ', '.join(f'{k} {v:.2e}' for k, v in worst)
+          + f' (tol {DET_TWIN_TENSOR_TOL}) {"ok" if ok else "FAIL"}; card '
+          f'step {g_s * 1e3:.1f} ms (cold), CPU {c_s:.1f} s [{card}]')
+    if not ok:
+        fail('detection twin: the card step disagrees with the CPU')
+    del card_model, cpu_model, results, states
+    return True
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--seed', type=int, default=0,
@@ -4879,6 +5272,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     probe_n = probes_main_path(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_det_full_width(torch, np, args.seed, card)
     if 'jax' in sys.modules or 'flax' in sys.modules:
         fail('jax was imported')
 

@@ -16,7 +16,11 @@ time so its full-precision copy never exists at once; ``random_groma_full``
 keeps every weight in f32, for training.  ``full_precision=True`` loads a
 model for training: f32 master weights everywhere (the JAX package's
 params), the ViT and region encoder still computing in their config dtype.
-``load_unquantized`` (and ``random_groma_unquantized``) loads the model of
+``random_perceiver`` and ``load_perceiver`` make the detector alone (the
+stage-1 trainer's model and ``eval/run_ddetr``'s), the latter from a
+perceiver checkpoint directory (its config.json the reference's
+``perceiver_cfg``).  ``load_unquantized`` (and
+``random_groma_unquantized``) loads the model of
 the unquantized inference path (``--quant_type none``): the LLM trunk's
 linears stored once in ``cfg.llm.dtype``, the embeddings, norms and heads
 in f32, as the JAX package's params are.
@@ -28,6 +32,8 @@ CPU).
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -38,6 +44,7 @@ from groma_tpu_torch.models.groma import GromaModel
 from groma_tpu_torch.models.llama import LlamaDecoderLayer, torch_dtype
 from groma_tpu_torch.models.llama_quant import (quantize_head,
                                                 quantize_llama_layer)
+from groma_tpu_torch.models.perceiver import Perceiver
 
 QUANT_BITS = {'bf16': 16, 'int8': 8, 'int4': 4}   # --quant_type -> bits
 QUANT_TYPES = ('none', 'bf16', 'int8', 'int4')    # 'none': unquantized LLM
@@ -297,3 +304,76 @@ def load_quantized(model_dir: str, device=None, seed: int = 0,
         return model, qp, cfg
     model, cfg = load_groma(model_dir, device)
     return model, quantize_groma_llm(model, cfg, bits), cfg
+
+
+@torch.no_grad()
+def _init_ddetr(ddetr, gen: torch.Generator):
+    """The DDETR head's own initial values, as the JAX package's
+    ``DDETRTransformer`` draws them: sampling offsets on a ring of unit
+    directions scaled by point (zero weights), class biases at the 0.01
+    focal prior, each box head's last layer zero, the level and query
+    embeddings N(0, 1)."""
+    for mod in ddetr.modules():
+        offsets = getattr(mod, 'sampling_offsets', None)
+        if offsets is None:
+            continue
+        nh, n_points = mod.num_heads, mod.n_points
+        nl = offsets.out_features // (nh * n_points * 2)
+        theta = torch.arange(nh, dtype=torch.float32) * (2.0 * math.pi / nh)
+        grid = torch.stack([theta.cos(), theta.sin()], -1)
+        grid = grid / grid.abs().amax(-1, keepdim=True)
+        grid = grid[:, None, None, :].expand(nh, nl, n_points, 2)
+        scale = torch.arange(1, n_points + 1,
+                             dtype=torch.float32)[None, None, :, None]
+        offsets.weight.zero_()
+        offsets.bias.copy_((grid * scale).reshape(-1))
+    prior = -math.log((1 - 0.01) / 0.01)
+    for heads in (ddetr.class_embed_coco, ddetr.class_embed_sa1b,
+                  [ddetr.class_embed_enc]):
+        for head in heads:
+            head.bias.fill_(prior)
+    for mlp in ddetr.bbox_embed:
+        mlp.layers[-1].weight.zero_()
+        mlp.layers[-1].bias.zero_()
+    ddetr.level_embed.normal_(0.0, 1.0, generator=gen)
+    ddetr.query_position_embeddings.weight.normal_(0.0, 1.0, generator=gen)
+
+
+def random_perceiver(cfg: PerceiverConfig, seed: int = 0, device='cpu'):
+    """A detector with random weights from ``seed``, f32 on ``device``, the
+    ViT computing in ``cfg.vit.dtype`` (the stage-1 trainer's model)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    model = Perceiver(cfg, device='meta', vit_dtype=torch.float32,
+                      vit_compute_dtype=torch_dtype(cfg.vit.dtype))
+    model.to_empty(device=device)
+    _fill(model, gen)
+    _init_ddetr(model.ddetr_transformer, gen)
+    return model
+
+
+def perceiver_config_json(cfg: PerceiverConfig) -> dict:
+    """The reference's ``perceiver_cfg`` dict of a detector checkpoint
+    directory's config.json."""
+    from groma_tpu_torch.checkpoint.hf_export import export_config
+    return export_config(GromaConfig(perceiver=cfg))['perceiver_cfg']
+
+
+def load_perceiver(path: str, device=None):
+    """A perceiver checkpoint directory (config.json holding the
+    reference's ``perceiver_cfg``, weights under the reference's names)
+    -> (Perceiver in f32 on ``device``, PerceiverConfig)."""
+    from groma_tpu_torch.checkpoint.hf_import import (load_config_json,
+                                                      load_state_dict,
+                                                      resize_vit_pos_embed)
+    cfg = hf_groma_config({'perceiver_cfg': load_config_json(path)}
+                          ).perceiver
+    sd = resize_vit_pos_embed(load_state_dict(path),
+                              'vis_encoder.embeddings.position_embeddings',
+                              cfg.image_size // cfg.vit.patch_size)
+    model = Perceiver(cfg, device='meta', vit_dtype=torch.float32,
+                      vit_compute_dtype=torch_dtype(cfg.vit.dtype))
+    model.load_state_dict({k: torch.as_tensor(np.asarray(v, np.float32),
+                                              device=device)
+                           for k, v in sd.items()}, strict=True, assign=True)
+    return model.eval(), cfg

@@ -1,12 +1,14 @@
-"""Two-stage Deformable-DETR region proposer, inference (counterpart of
+"""Two-stage Deformable-DETR region proposer (counterpart of
 ``groma_tpu/models/ddetr.py``), under the reference's parameter names.
 
 Reproduced as in the JAX package: per-cell anchors with wh 0.05 * 2^level
 and the (0.01, 0.99) validity window; top-k by the first class logit of
-``class_embed_enc``; decoder cross-attention at the INITIAL top-k
-reference points (the reference never updates them per layer) while the
-per-layer box heads chain their refinements; dual coco / sa1b objectness
-heads; query targets from a learned embedding.  All masks are valid.
+``class_embed_enc``, no gradient through the top-k boxes; decoder
+cross-attention at the INITIAL top-k reference points (the reference never
+updates them per layer) while the per-layer box heads chain their
+refinements; dual coco / sa1b objectness heads; query targets from a
+learned embedding.  All masks are valid.  There is no dropout: every JAX
+entry point runs the head with ``deterministic=True``.
 """
 
 from __future__ import annotations
@@ -19,8 +21,7 @@ from groma_tpu_torch.models.layers import (MLP, multi_head_attention,
                                            proposal_position_embedding,
                                            sine_position_embedding_2d)
 from groma_tpu_torch.ops.bbox import inverse_sigmoid
-from groma_tpu_torch.ops.msda import (ms_deform_attn_dense,
-                                      sampling_locations_from_reference)
+from groma_tpu_torch.ops import msda
 
 PROPOSAL_INF = 1e4
 
@@ -45,9 +46,9 @@ class MSDAttention(nn.Module):
         attn = torch.softmax(
             self.attention_weights(query).reshape(b, q, nh, nl * np_), -1)
         attn = attn.reshape(b, q, nh, nl, np_)
-        loc = sampling_locations_from_reference(reference_points, offsets,
-                                                spatial_shapes, np_)
-        out = ms_deform_attn_dense(v, spatial_shapes, loc, attn)
+        loc = msda.sampling_locations_from_reference(
+            reference_points, offsets, spatial_shapes, np_)
+        out = msda.msda(v, spatial_shapes, loc, attn)
         return self.output_proj(out)
 
 
@@ -131,9 +132,13 @@ def encoder_reference_points(spatial_shapes, device=None) -> torch.Tensor:
 
 class DDETRTransformer(nn.Module):
     """Encoder, two-stage proposals, decoder and heads.  ``forward`` takes
-    the projected sources (list of (B, H, W, d_model)) and returns logits
-    {'coco', 'sa1b'} (B, Q, num_labels), pred_boxes (B, Q, 4) cxcywh, the
-    encoder's class logits and boxes, and the initial reference points."""
+    the projected sources (list of (B, H, W, d_model)) and returns what
+    JAX's ``DDETRTransformer.__call__`` does: logits {'coco', 'sa1b'}
+    (B, Q, num_labels) and pred_boxes (B, Q, 4) cxcywh of the last decoder
+    layer; ``aux`` {'coco', 'sa1b', 'boxes'}, lists of those of the first
+    L-1 layers; the encoder's class logits and boxes; the initial reference
+    points; ``intermediate_hidden_states`` (B, L, Q, d) and
+    ``intermediate_reference_points`` (B, L, Q, 4)."""
 
     def __init__(self, c: DDETRConfig, device=None):
         super().__init__()
@@ -211,7 +216,8 @@ class DDETRTransformer(nn.Module):
         topk_idx = torch.topk(enc_outputs_class[..., 0], c.num_queries,
                               dim=1).indices
         topk_coords_logits = torch.gather(
-            enc_outputs_coord_logits, 1, topk_idx[..., None].expand(-1, -1, 4))
+            enc_outputs_coord_logits, 1,
+            topk_idx[..., None].expand(-1, -1, 4)).detach()
         reference_points = torch.sigmoid(topk_coords_logits)
 
         pos_trans = self.pos_trans_norm(self.pos_trans(
@@ -225,21 +231,30 @@ class DDETRTransformer(nn.Module):
         ref_input = reference_points[:, :, None, :].expand(-1, -1, nl, -1)
         inv_ref = inverse_sigmoid(reference_points)
         hidden = target
-        refs = [reference_points]      # refs[i]: the box the head i refines
+        hiddens, deltas, new_refs = [], [], []
         for i, layer in enumerate(self.decoder.layers):
             hidden = layer(hidden, query_pos, encoder_hidden, ref_input,
                            spatial_shapes)
-            if i < len(self.decoder.layers) - 1:
-                refs.append(torch.sigmoid(self.bbox_embed[i](hidden)
-                                          + inv_ref))
-        last = len(self.decoder.layers) - 1
-        pred_boxes = torch.sigmoid(self.bbox_embed[last](hidden)
-                                   + inverse_sigmoid(refs[last]))
+            delta = self.bbox_embed[i](hidden)
+            hiddens.append(hidden)
+            deltas.append(delta)
+            new_refs.append(torch.sigmoid(delta + inv_ref))
+
+        # head i refines the box of layer i - 1 (the top-k box for i = 0)
+        coco, sa1b, boxes = [], [], []
+        for i, (h, delta) in enumerate(zip(hiddens, deltas)):
+            ref = inv_ref if i == 0 else inverse_sigmoid(new_refs[i - 1])
+            coco.append(self.class_embed_coco[i](h))
+            sa1b.append(self.class_embed_sa1b[i](h))
+            boxes.append(torch.sigmoid(delta + ref))
         return {
-            'logits': {'coco': self.class_embed_coco[last](hidden),
-                       'sa1b': self.class_embed_sa1b[last](hidden)},
-            'pred_boxes': pred_boxes,
+            'logits': {'coco': coco[-1], 'sa1b': sa1b[-1]},
+            'pred_boxes': boxes[-1],
+            'aux': {'coco': coco[:-1], 'sa1b': sa1b[:-1],
+                    'boxes': boxes[:-1]},
             'enc_outputs_class': enc_outputs_class,
             'enc_outputs_coord': torch.sigmoid(enc_outputs_coord_logits),
             'init_reference_points': reference_points,
+            'intermediate_hidden_states': torch.stack(hiddens, 1),
+            'intermediate_reference_points': torch.stack(new_refs, 1),
         }

@@ -26,13 +26,14 @@ import argparse
 import base64
 import io
 import json
-import struct
 import time
 import urllib.request
-import zlib
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
+
+from groma_tpu_torch.data.image_pipeline import (  # noqa: F401
+    PNG_SIGNATURE, decode_png)
 
 PAGE = """<!doctype html>
 <html><head><title>Groma-TPU</title><style>
@@ -141,71 +142,6 @@ async function vote(v){
   document.getElementById('down').disabled=true;
 }
 </script></body></html>"""
-
-
-PNG_SIGNATURE = b'\x89PNG\r\n\x1a\n'
-PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}     # color type -> samples a pixel
-
-
-def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
-    """PNG scanline filters (None, Sub, Up, Average, Paeth) undone."""
-    out = np.zeros((h, stride), np.uint8)
-    prev = np.zeros(stride, np.int32)
-    for y in range(h):
-        kind = raw[y * (stride + 1)]
-        line = raw[y * (stride + 1) + 1:(y + 1) * (stride + 1)].astype(
-            np.int32)
-        if kind == 2:
-            line = (line + prev) & 255
-        elif kind in (1, 3, 4):
-            for x in range(stride):
-                a = int(line[x - bpp]) if x >= bpp else 0
-                b = int(prev[x])
-                if kind == 1:
-                    pred = a
-                elif kind == 3:
-                    pred = (a + b) // 2
-                else:
-                    c = int(prev[x - bpp]) if x >= bpp else 0
-                    pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
-                    pred = a if pa <= pb and pa <= pc else (
-                        b if pb <= pc else c)
-                line[x] = (line[x] + pred) & 255
-        elif kind != 0:
-            raise ValueError(f'PNG filter type {kind}')
-        out[y] = line
-        prev = line
-    return out
-
-
-def decode_png(data: bytes) -> np.ndarray:
-    """A non-interlaced PNG of 8-bit samples (gray, gray + alpha, RGB or
-    RGBA) -> RGB uint8 (H, W, 3), with the standard library and numpy."""
-    if data[:8] != PNG_SIGNATURE:
-        raise ValueError('not a PNG (PIL is not installed to read others)')
-    pos, idat, header = 8, [], None
-    while pos < len(data):
-        n, kind = struct.unpack('>I4s', data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + n]
-        if kind == b'IHDR':
-            header = struct.unpack('>IIBBBBB', body)
-        elif kind == b'IDAT':
-            idat.append(body)
-        elif kind == b'IEND':
-            break
-        pos += 12 + n
-    if header is None:
-        raise ValueError('a PNG without its IHDR chunk')
-    w, h, depth, color, _, _, interlace = header
-    if depth != 8 or interlace or color not in PNG_CHANNELS:
-        raise ValueError(f'PNG of bit depth {depth}, color type {color}, '
-                         f'interlace {interlace} is not read without PIL')
-    ch = PNG_CHANNELS[color]
-    raw = np.frombuffer(zlib.decompress(b''.join(idat)), np.uint8)
-    img = _unfilter(raw, h, w * ch, ch).reshape(h, w, ch)
-    if ch <= 2:
-        img = np.repeat(img[..., :1], 3, axis=-1)
-    return np.ascontiguousarray(img[..., :3])
 
 
 def decode_image(data: bytes) -> np.ndarray:

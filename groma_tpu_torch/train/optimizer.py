@@ -17,6 +17,8 @@ state-dict names:
   they get no update, no gradient and no Adam state;
 * optax's ``warmup_cosine_decay_schedule`` (lr 0 at step 0), the schedule
   read at the count of updates already applied;
+* every trainable parameter updated at every step, a zero gradient where
+  the loss does not reach it (optax transforms every leaf);
 * optional global-norm clipping over the trainable gradients, and
   gradient accumulation as optax.MultiSteps does it (the mean of
   ``accum_steps`` micro-batch gradients, one update).
@@ -136,7 +138,13 @@ class AdamW:
         self.micro += 1
         if self.micro % self.accum_steps:
             return False
-        grads = [p.grad for p in self.params if p.grad is not None]
+        # optax updates every leaf: a trainable parameter the loss did not
+        # reach (the idle objectness head of a single-source batch) takes
+        # a zero gradient, so its moments and decay move as in JAX
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in self.params]
         if self.accum_steps > 1:
             torch._foreach_div_(grads, float(self.accum_steps))
         if self.max_grad_norm:

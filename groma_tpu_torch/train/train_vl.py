@@ -149,23 +149,27 @@ def _checkpoints(output_dir: str):
     return sorted(found)
 
 
-def save_checkpoint(output_dir, step, model, optimizer, generator, cfg,
-                    keep: int):
-    """Model, optimizer and generator state at ``step`` (torch.save,
-    written to a temporary name and renamed); keeps the newest ``keep``."""
+def save_checkpoint(output_dir, step, model, optimizer, cfg, keep: int,
+                    generator=None):
+    """Model, optimizer and (if given) generator state at ``step``
+    (torch.save, written to a temporary name and renamed; kept as it is when
+    ``step`` has one already); keeps the newest ``keep``."""
     import torch
     os.makedirs(output_dir, exist_ok=True)
     path = os.path.join(output_dir, f'checkpoint-{step}.pt')
-    torch.save({'step': step, 'model': model.state_dict(),
-                'optimizer': optimizer.state_dict(),
-                'generator': generator.get_state(),
-                'config': cfg.to_dict()}, path + '.tmp')
+    if os.path.exists(path):
+        return
+    ck = {'step': step, 'model': model.state_dict(),
+          'optimizer': optimizer.state_dict(), 'config': cfg.to_dict()}
+    if generator is not None:
+        ck['generator'] = generator.get_state()
+    torch.save(ck, path + '.tmp')
     os.replace(path + '.tmp', path)
     for _, old in _checkpoints(output_dir)[:-max(keep, 1)]:
         os.remove(old)
 
 
-def maybe_resume(output_dir, model, optimizer, generator) -> int:
+def maybe_resume(output_dir, model, optimizer, generator=None) -> int:
     """Load the newest checkpoint in ``output_dir``, if any -> its step."""
     import torch
     found = _checkpoints(output_dir)
@@ -174,19 +178,18 @@ def maybe_resume(output_dir, model, optimizer, generator) -> int:
     ck = torch.load(found[-1][1], map_location='cpu', weights_only=True)
     model.load_state_dict(ck['model'])
     optimizer.load_state_dict(ck['optimizer'])
-    generator.set_state(ck['generator'])
+    if generator is not None:
+        generator.set_state(ck['generator'])
     return ck['step']
 
 
-def export_weights(output_dir, model, cfg):
-    """The weights under the reference's state-dict names, f32, with the
-    reference-format config.json."""
+def export_weights(output_dir, model, config: dict):
+    """The weights under the reference's state-dict names, f32, with
+    ``config`` (the reference-format config) as config.json."""
     import torch
-
-    from groma_tpu_torch.checkpoint.hf_export import export_config
     os.makedirs(output_dir, exist_ok=True)
     with open(os.path.join(output_dir, 'config.json'), 'w') as f:
-        json.dump(export_config(cfg), f, indent=1)
+        json.dump(config, f, indent=1)
     torch.save({k: v.detach().float().cpu() for k, v in
                 model.state_dict().items()},
                os.path.join(output_dir, 'pytorch_model.bin'))
@@ -199,6 +202,7 @@ def main(argv=None):
     import numpy as np
     import torch
 
+    from groma_tpu_torch.checkpoint.hf_export import export_config
     from groma_tpu_torch.checkpoint.loader import resolve_device
     # host-side data pipeline (PIL): imported here, not by the module
     from groma_tpu_torch.data.build import (SourceGroupedBatchSampler,
@@ -274,12 +278,12 @@ def main(argv=None):
                 t0 = time.time()
             if metrics['updated'] and step % args.save_steps == 0:
                 save_checkpoint(args.output_dir, step, model, optimizer,
-                                generator, cfg, args.save_total_limit)
+                                cfg, args.save_total_limit, generator)
         if step >= total_steps:
             break
-    save_checkpoint(args.output_dir, total_steps, model, optimizer, generator,
-                    cfg, args.save_total_limit)
-    export_weights(args.output_dir, model, cfg)
+    save_checkpoint(args.output_dir, total_steps, model, optimizer, cfg,
+                    args.save_total_limit, generator)
+    export_weights(args.output_dir, model, export_config(cfg))
     print('training complete', flush=True)
 
 

@@ -241,3 +241,48 @@ def test_worker_refuses_the_cpu_by_default(no_card, monkeypatch):
     with pytest.raises(RuntimeError, match='--device cpu'):
         t_loader.load_quantized('tiny')
     assert t_loader.resolve_device('cpu') == 'cpu'
+
+
+# ------------------------------------------- detection-stage host copies
+
+@pytest.mark.parametrize('name', ['det_pretrain', 'vl_pretrain',
+                                  'vl_finetune'])
+def test_dataset_config_copies_match(name):
+    import os
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    want = j_build.load_config(os.path.join(repo, 'groma_tpu', 'data',
+                                            'configs', f'{name}.py'))
+    got = t_build.load_config(os.path.join(repo, 'groma_tpu_torch', 'data',
+                                           'configs', f'{name}.py'))
+    assert got == want and got['datasets']
+
+
+def test_logging_copy_matches(tmp_path, capsys):
+    import logging
+
+    import groma_tpu.utils.logging as j_logging
+    import groma_tpu_torch.utils.logging as t_logging
+    records = {}
+    for name, mod in (('jax', j_logging), ('port', t_logging)):
+        logger = mod.build_logger(f'{name}_log', f'{name}.log',
+                                  str(tmp_path / name))
+        seen = []
+
+        class Keep(logging.Handler):
+            def emit(self, record, _seen=seen):
+                _seen.append((record.levelno, record.getMessage()))
+        logger.addHandler(Keep())
+        stream = mod.StreamToLogger(logger, logging.WARNING)
+        stream.write('first line\nsecond ')
+        stream.write('half\n\ntail')
+        stream.flush()
+        assert not stream.isatty()
+        assert mod.is_main_process()
+        mod.print0('rank zero speaks', name)
+        records[name] = seen
+        assert (tmp_path / name / f'{name}.log').exists()
+    assert records['port'] == records['jax'] == [
+        (logging.WARNING, 'first line'), (logging.WARNING, 'second half'),
+        (logging.WARNING, 'tail')]
+    assert capsys.readouterr().out.splitlines()[-2:] == [
+        'rank zero speaks jax', 'rank zero speaks port']
