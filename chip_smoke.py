@@ -222,12 +222,37 @@ Phases, each printed before the last line:
     the export; then a twin at 2 ViT and 2+2 DDETR layers: one step on the
     card against the CPU (the same matches, every loss, every trainable
     gradient, within the DET_TWIN limits).  No kernel runs on this path.
-Then one JSON line with the nineteen kernels, the int8 and the int4
+ 12. GQA, DINOv2-giant, the evaluation kits and FSDP.  In phase 2, #1
+    and #7 at the GQA qkv width
+    (K, N) = GQA_QKV (32 query heads over 8 KV heads) at M = 1, 8 and
+    2048 against their plain versions (twice, bitwise equal) with bound
+    and library times; after the int8 path, the GQA LLaMA path at full
+    width and 2 layers, int8 and int4 weights, prefill and decode over the
+    int8 cache (dequantized, heads repeated, #2 never launched) against
+    the CPU; after DINOv2-L, DINOv2-giant (hidden 1536, 40 layers, 24
+    heads, SwiGLU) forward at 448² with use_flash against the plain
+    forward (40 flash launches; each layer, and the whole forward) and #3
+    at its shape; after the engine, GQA serving at GromaConfig() widths
+    with 8 KV heads, 32 layers: QuantGenerator(kv_bits=8) on int8 weights
+    (2 requests) and the contiguous BatchEngine on int4 weights (8 slots,
+    GQA_REQUESTS requests), GQA_MAX_NEW tokens each, the prefill tiles
+    exactly 4L a prefill, #2 and #8 never; last, region captioning through
+    eval/region_cap's CLI on REGION_CAP_IMAGES PNGs and merge_and_score,
+    the LLaVA-bench kit (answer_questions on LLAVA_QUESTIONS carried
+    questions, the stub judge over its answers and the carried answer
+    files), both on random full-width Groma-7B, and train_vl's step under
+    a 1-rank NCCL process group with FSDP over a (1, 1) mesh against the
+    same step without a group (stage 3, 2 LLM layers: loss within
+    FSDP_LOSS_TOL, the trained leaves' gradients and updates within the
+    FSDP_*_TOL relative Frobenius limits, controls that must miss them,
+    the same flash launches).
+Then one JSON line with the twenty-four kernel rows, the int8 and the int4
 matmuls' two tiles apart (launches: the training
 path's for the forward flash kernels and the causal backward, the DINOv2-L
 phase's for the bidirectional backward, the served path's for the int8
 ones, the engine's for the int4 and paged ones, the decode path's for the
-megakernel, the probes' entry points' for theirs), and as the last line
+megakernel, the probes' entry points' for theirs; the GQA rows' from the
+GQA serving runs, DINOv2-giant's from its forward), and as the last line
 {"ok": true, "device": {...}}.  Any failed check exits non-zero and prints
 no result; so does a machine without a CUDA device.
 """
@@ -5177,6 +5202,695 @@ def check_det_twin(torch, np, made, cfg_file, seed: int, card: str):
     return True
 
 
+# ------------- GQA, DINOv2-giant, the evaluation kits and FSDP (phase 12)
+# GQA: Groma at GromaConfig() widths with 8 KV heads of 128 under its 32
+# query heads; the fused qkv is N = 4096 + 2 x 1024 columns wide
+GQA_KV_HEADS = 8
+GQA_QKV = (4096, 4096 + 2 * GQA_KV_HEADS * 128)
+GQA_ROWS = (1, 8, 2048)
+GQA_MAX_NEW = 16
+GQA_REQUESTS = 8            # through the contiguous int4 engine's 8 slots
+# DINOv2-giant (dinov2-giant's config: hidden 1536, 40 layers, 24 heads of
+# 64, the SwiGLU FFN) at 448, B=1, with the bidirectional flash kernel
+# against the plain attention: each layer alone on the plain path's input
+# to it, and the whole 40-layer forward (a drift limit: bf16 rounding of
+# p in the kernel against bf16 scores in the plain path, carried through
+# 40 layers of random weights); measured on an H100 1.04e-2 (worst layer)
+# and 4.1e-2 (the forward): limits about three and two and a half times
+GIANT_LAYER_TOL = 3e-2      # relative to max|layer output|
+GIANT_DEPTH_TOL = 0.1       # relative to max|last hidden|
+# the eval kits at GromaConfig() widths, random weights
+REGION_CAP_IMAGES = 3
+KIT_MAX_NEW = 8
+LLAVA_QUESTIONS = 2
+# the 1-rank FSDP step against the same step without a group (stage 3 at
+# check_stage3's 2 LLM layers), the trained leaves' gradients and updates
+# (after - start) in relative Frobenius norm.  Adam's first step moves an
+# element by about lr * sign(g) whatever g's scale, so the update checks
+# the step's direction and the gradient its scale.  The step is not
+# bitwise repeatable on the card (the flash backward adds dq with atomics;
+# the repeat's worst leaf is a convolution's weight): on an H100 two steps
+# without a group part by 1.1e-3 (gradients, all leaves; 2.8e-3 to 2.9e-3
+# the worst leaf) and 1.7e-2 (updates; 5.4e-2 to 6.0e-2 the worst, a small
+# norm layer's), where a near-zero gradient element takes the other sign;
+# the limits sit 5 to 35 x above that and 5 to 50 x below the controls
+# (no update 1, the sign flipped 2, the gradient halved 0.5)
+FSDP_LOSS_TOL = 1e-5        # relative
+FSDP_GRAD_ALL_TOL = 1e-2    # relative Frobenius, all trained leaves
+FSDP_GRAD_LEAF_TOL = 1e-1   # the same, the worst leaf
+FSDP_UPDATE_ALL_TOL = 1e-1  # relative Frobenius, all trained leaves
+FSDP_UPDATE_LEAF_TOL = 3e-1  # the same, the worst leaf
+
+
+def check_gqa_qkv_matmuls(torch, gen, timer, card):
+    """#1 and #7 at the GQA qkv width (K, N) = GQA_QKV against their plain
+    versions at M = 1, 8 (decode tiles) and 2048 (prefill tiles), each
+    called twice (bitwise equal); kernel, plain, bound and library times.
+    Returns {(kind, M): (max_abs_err, [ms, plain ms], (bound ms, by),
+    library ms)}."""
+    from groma_tpu_torch.ops.quant import (DENSE_MIN_ROWS, int8_matmul,
+                                           int8_matmul_dense_reference,
+                                           int8_matmul_reference)
+    from groma_tpu_torch.ops.quant4 import int4_matmul, int4_matmul_reference
+    dev = 'cuda'
+    k, n = GQA_QKV
+    out = {}
+    for kind in ('int8', 'int4'):
+        if kind == 'int8':
+            w = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
+                              dtype=torch.int8)
+            scale = torch.rand((n,), generator=gen, device=dev) * 1e-3 + 1e-4
+            w_bytes = k * n + 4 * n
+        else:
+            w = torch.randint(0, 256, (k // 2, n), generator=gen, device=dev,
+                              dtype=torch.uint8)
+            scale = torch.rand((k // 256, n), generator=gen, device=dev) \
+                * 1e-3 + 1e-4
+            w_bytes = k * n // 2 + (k // 256) * n * 4
+        for m in GQA_ROWS:
+            x = torch.randn((m, k), generator=gen, device=dev).to(
+                torch.bfloat16)
+            if kind == 'int8':
+                fn = lambda: int8_matmul(x, w, scale)   # noqa: E731
+                plain = int8_matmul_dense_reference if m >= DENSE_MIN_ROWS \
+                    else int8_matmul_reference
+            else:
+                fn = lambda: int4_matmul(x, w, scale)   # noqa: E731
+                plain = int4_matmul_reference
+            got, again = fn(), fn()
+            stable = bool(torch.equal(got, again))
+            want = plain(x, w, scale).float()
+            err = (got.float() - want).abs()
+            # f32 sums in another order, then one bf16 rounding each
+            tol = 2.0 ** -7 * want.abs() + 1e-4 * want.abs().max()
+            ok = bool((err <= tol).all()) and stable \
+                and bool(torch.isfinite(got).all())
+            ms = timer(fn)
+            plain_ms = timer(lambda: plain(x, w, scale))
+            bnd = bound(w_bytes + 2 * m * (k + n), 2 * m * k * n)
+            if kind == 'int8':
+                w_t = w.T.contiguous()
+                lib = library_time(
+                    torch, timer, f'torch._weight_int8pack_mm M={m} GQA qkv',
+                    lambda: torch._weight_int8pack_mm(
+                        x, w_t, scale.to(torch.bfloat16)), want, card)
+                del w_t
+            else:
+                try:
+                    tg = _tinygemm(torch, x, w, scale)
+                except (RuntimeError, TypeError, AttributeError) as e:
+                    print(f'  library torch._weight_int4pack_mm: none '
+                          f'({type(e).__name__}) [{card}]')
+                    tg = None
+                lib = tg and library_time(
+                    torch, timer, f'torch._weight_int4pack_mm M={m} GQA qkv',
+                    tg, want, card)
+            tile = 'prefill' if (m >= DENSE_MIN_ROWS if kind == 'int8'
+                                 else m > 8) else 'decode'
+            print(f'{kind}_matmul {tile} tile M={m} GQA qkv K={k} N={n}: '
+                  f'max_abs_err {err.max().item():.3e}, rel '
+                  f'{err.max().item() / want.abs().max().item():.3e} of '
+                  f'max|plain| (tol 2^-7*|plain| + 1e-4*max|plain|) '
+                  f'{"ok" if ok else "FAIL"}, two calls '
+                  f'{"bitwise equal" if stable else "DIFFER"}; kernel '
+                  f'{ms:.4f} ms, plain {plain_ms:.4f} ms, bound '
+                  f'{bnd[0]:.4f} ms ({bnd[1]}), {100 * bnd[0] / ms:.1f} % of '
+                  f'it [{card}]')
+            if not ok:
+                fail(f'{kind}_matmul disagrees with its plain version at the '
+                     f'GQA qkv width, M={m}, or two calls differ')
+            out[(kind, m)] = (err.max().item(), [ms, plain_ms], bnd, lib)
+            del x, got, again, want, err
+        del w, scale
+    return out
+
+
+def check_gqa_llm_path(torch, seed: int, card: str):
+    """The quantized LLaMA path at GQA (32 query heads over 8 KV heads),
+    full width and two layers, int8 and int4 weights over an int8 KV cache:
+    a prefill (M = 400: the prefill tiles) and decode steps (JAX's route
+    at rep > 1: the layer's cache dequantized, the K/V heads repeated,
+    the plain attention chain) on the card against the CPU."""
+    from groma_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from groma_tpu_torch.models.llama_quant import (make_quant_kv_cache,
+                                                    quant_llama_forward,
+                                                    quantize_llama_params)
+    from groma_tpu_torch.ops.decode_attention import int8_decode_attention
+    cfg = LlamaConfig(num_layers=2, num_kv_heads=GQA_KV_HEADS)
+    torch.manual_seed(seed)
+    with torch.no_grad():
+        llm = LlamaForCausalLM(cfg, device='cuda')
+        sd = llm.state_dict()
+        trees = {bits: quantize_llama_params(sd, cfg, bits=bits)
+                 for bits in (8, 4)}
+        del llm, sd
+    b, s, steps = 2, 200, 4
+    gen = torch.Generator().manual_seed(seed)
+    emb = torch.randn((b, s, cfg.hidden_size), generator=gen)
+    valid = torch.ones((b, s), dtype=torch.bool)
+    valid[1, 150:] = False
+    pos = (torch.cumsum(valid.long(), -1) - 1).clamp(min=0)
+    steps_in = [torch.randn((b, 1, cfg.hidden_size), generator=gen)
+                for _ in range(steps)]
+
+    def run(qp, device):
+        def move(t):
+            return t.to(device)
+        tree = {'norm': move(qp['norm']),
+                'layers': [{k: ({kk: move(vv) for kk, vv in v.items()}
+                                if isinstance(v, dict) else move(v))
+                            for k, v in lp.items()} for lp in qp['layers']]}
+        cache = make_quant_kv_cache(cfg, b, s + steps, device=device)
+        h, cache = quant_llama_forward(tree, cfg, move(emb), move(valid),
+                                       move(pos), cache)
+        outs = [h.float().cpu()]
+        for i, x in enumerate(steps_in):
+            h, cache = quant_llama_forward(
+                tree, cfg, move(x), move(torch.ones((b, 1), dtype=bool)),
+                move(pos[:, -1:] + 1 + i), cache)
+            outs.append(h.float().cpu())
+        return outs
+
+    for bits, qp in trees.items():
+        n_att = int8_decode_attention.launches
+        with torch.no_grad():
+            got, want = run(qp, 'cuda'), run(qp, 'cpu')
+        worst = 0.0
+        for i, (g, w) in enumerate(zip(got, want)):
+            # bf16 activations rounded at other points: as check_llm_path
+            err = (g - w).abs().max().item() / w.abs().max().item()
+            worst = max(worst, err)
+            if not (err <= 3e-2 and torch.isfinite(g).all()):
+                fail(f'GQA {bits}-bit LLaMA path: step {i} differs from the '
+                     f'CPU plain path by {err:.3e}')
+        if int8_decode_attention.launches != n_att:
+            fail('GQA decode launched the int8 decode-attention kernel (#2 '
+                 'runs only at num_kv_heads == num_heads, as in JAX)')
+        print(f'GQA ({cfg.num_heads} query heads over {cfg.num_kv_heads} KV '
+              f'heads) {bits}-bit LLaMA path, full width, 2 layers, B={b}: '
+              f'prefill {s} tokens + {steps} decode steps over the int8 '
+              f'cache (dequantized, heads repeated; #2 not launched) match '
+              f'the CPU plain path within {worst:.3e} x max|hidden| (tol '
+              f'3e-2) [{card}]')
+    del trees
+
+
+def serve_gqa_full_width(torch, np, seed: int, card: str):
+    """GQA serving at GromaConfig() widths with GQA_KV_HEADS KV heads, 32
+    layers: QuantGenerator(kv_bits=8) on int8 weights (two requests, B=1,
+    GQA_MAX_NEW tokens, no EOS) and the contiguous BatchEngine (no paging:
+    GQA refuses it, as in JAX) on int4 weights with 8 slots and
+    GQA_REQUESTS requests.  Counts zeroed before each run and read after:
+    the prefill tiles exactly 4 x 32 a prefill, the decode tiles
+    launched, #2 and #8 never.  Returns {'int8': (decode tile launches,
+    prefill tile launches), 'int4': (...)}."""
+    from groma_tpu_torch.checkpoint.loader import random_groma
+    from groma_tpu_torch.data.datasets.base import VLDataSpec
+    from groma_tpu_torch.data.tokenizer import StableStubTokenizer
+    from groma_tpu_torch.eval.generate_quant import QuantGenerator
+    from groma_tpu_torch.eval.rec import build_rec_prompt
+    from groma_tpu_torch.models.groma import GromaConfig
+    from groma_tpu_torch.serve.engine import BatchEngine
+    base = GromaConfig()
+    cfg = base.replace(llm=base.llm.replace(num_kv_heads=GQA_KV_HEADS))
+    n_layers = cfg.llm.num_layers
+    spec = VLDataSpec(num_image_tokens=cfg.num_image_tokens,
+                      max_region_num=cfg.max_region_num,
+                      max_seq_len=cfg.max_seq_len,
+                      image_size=cfg.perceiver.image_size)
+    tok = StableStubTokenizer(base_vocab=cfg.llm.vocab_size)
+    prompts = [build_rec_prompt(p, tok, spec) for p in SERVED_PROMPTS]
+    images = [random_image(np, seed + 70 + i, cfg.perceiver.image_size)
+              for i in range(GQA_REQUESTS)]
+    launched = {}
+    for bits in (8, 4):
+        t0 = time.perf_counter()
+        model, qp = random_groma(cfg, seed=seed, device='cuda', bits=bits)
+        built = time.perf_counter() - t0
+        width = qp['layers'][0]['qkv_proj']['q'].shape[1]
+        if width != GQA_QKV[1]:
+            fail(f'GQA qkv is {width} columns wide, not {GQA_QKV[1]}')
+        zero_counts()
+        t0 = time.perf_counter()
+        if bits == 8:
+            gen = QuantGenerator(model, qp, max_len=cfg.max_seq_len + 64,
+                                 kv_bits=8)
+            outs = []
+            for i, t in enumerate(prompts[:2]):
+                toks, vis = gen.generate(
+                    images[i][None], t['input_ids'][None],
+                    t['region_slot'][None], t['valid'][None],
+                    max_new_tokens=GQA_MAX_NEW, eos_id=-1)
+                outs.append(np.asarray(toks)[0])
+            st = gen.last_stats
+            n_prefills = 2
+            what = (f'QuantGenerator(kv_bits=8), int8, 2 requests, '
+                    f'{GQA_MAX_NEW} tokens each, the second: prefill '
+                    f'{st["prefill_ms"]:.1f} ms, decode '
+                    f'{st["decode_ms_per_token"]:.2f} ms/token (host clock)')
+            del gen
+        else:
+            engine = BatchEngine(model, qp, max_slots=8,
+                                 max_len=cfg.max_seq_len + GQA_MAX_NEW + 8,
+                                 eos_id=-1, chunk=8,
+                                 max_new_tokens=GQA_MAX_NEW, kv_bits=8)
+            try:
+                sessions = [engine.submit(images[i],
+                                          prompts[i % 3]['input_ids'],
+                                          prompts[i % 3]['region_slot'],
+                                          prompts[i % 3]['valid'])
+                            for i in range(GQA_REQUESTS)]
+                outs = [np.asarray(list(s.token_stream())) for s in sessions]
+                st = engine.stats()
+            finally:
+                engine.close()
+            n_prefills = GQA_REQUESTS
+            what = (f'contiguous BatchEngine, int4 + int8 KV, 8 slots, '
+                    f'{GQA_REQUESTS} requests of {GQA_MAX_NEW} tokens: '
+                    f'{st["decode_ms_per_step"]} ms/step, '
+                    f'{st["tokens_per_sec"]} tok/s, mean TTFT '
+                    f'{st["mean_ttft_sec"]} s (stats())')
+            del engine
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        ran = device_launches()
+        name = f'int{bits}_matmul'
+        pre = ran[f'{name}.prefill']
+        dec = ran[name] - pre
+        ok = (pre == 4 * n_layers * n_prefills and dec > 0
+              and ran['int8_decode_attention'] == 0
+              and ran['paged_int8_decode_attention'] == 0
+              and all(len(o) == GQA_MAX_NEW and ((o >= 0)
+                      & (o < cfg.vocab_size)).all() for o in outs))
+        print(f'GQA serving ({cfg.llm.num_heads} query heads over '
+              f'{cfg.llm.num_kv_heads} KV heads, qkv N={width}), {what}: '
+              f'{seconds:.1f} s (weights drawn in {built:.1f} s), launches '
+              f'{name} prefill tile {pre} (want {4 * n_layers * n_prefills}), '
+              f'decode tile {dec}, int8_decode_attention '
+              f'{ran["int8_decode_attention"]}, paged '
+              f'{ran["paged_int8_decode_attention"]}; first tokens '
+              f'{outs[0][:8].tolist()} {"ok" if ok else "FAIL"} [{card}]')
+        if not ok:
+            fail(f'GQA serving ({name}): launches or tokens wrong')
+        launched[f'int{bits}'] = (dec, pre)
+        del model, qp
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launched
+
+
+def dinov2_giant_forward(torch, seed: int, card: str):
+    """DINOv2-giant at its published widths with the SwiGLU FFN, 448², B=1,
+    weights in bf16: the forward with use_flash (one bidirectional flash
+    launch a layer, counted) against the plain forward; each layer alone
+    on the plain path's input to it within GIANT_LAYER_TOL, the whole
+    forward within GIANT_DEPTH_TOL; #3 at its shape (1, 24, 1025, 64)
+    timed against its plain version and SDPA.  Returns the flash launches
+    of the checked forward and #3's row tuple."""
+    from groma_tpu_torch.checkpoint.loader import _fill
+    from groma_tpu_torch.models.dinov2 import Dinov2Model
+    from groma_tpu_torch.models.groma import GromaConfig
+    from groma_tpu_torch.ops.flash_attention import flash_fwd, mha_reference
+    import torch.nn.functional as F
+    pc = GromaConfig().perceiver
+    c = pc.vit.replace(hidden_size=1536, num_layers=40, num_heads=24,
+                       use_swiglu_ffn=True)
+    model = Dinov2Model(c, deploy_image_size=pc.image_size, device='meta',
+                        dtype=torch.bfloat16)
+    model.to_empty(device='cuda')
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    with torch.no_grad():
+        _fill(model, gen)
+    n_params = sum(p.numel() for p in model.parameters())
+    images = torch.randn((1, pc.image_size, pc.image_size, 3),
+                         generator=gen, device='cuda')
+    times = {}
+    with torch.no_grad():
+        for flash in (True, False):
+            model(images, use_flash=flash)            # warm
+            torch.cuda.synchronize()
+            flash_fwd.launches.update(dict.fromkeys(flash_fwd.launches, 0))
+            t0 = time.perf_counter()
+            last, hidden = model(images, use_flash=flash)
+            torch.cuda.synchronize()
+            times[flash] = (time.perf_counter() - t0) * 1e3
+            n = flash_fwd.launches['bidirectional']
+            if flash:
+                flash_last, flash_n = last, n
+            elif n:
+                fail('the plain DINOv2-g forward launched the flash kernel')
+        plain_last, plain_hidden = last, hidden
+        depth = ((flash_last.float() - plain_last.float()).abs().max()
+                 / plain_last.float().abs().max()).item()
+        layer_worst = 0.0
+        for i, layer in enumerate(model.encoder.layer):
+            x = plain_hidden[i]
+            a = layer(x, use_flash=True).float()
+            b = layer(x, use_flash=False).float()
+            layer_worst = max(layer_worst, ((a - b).abs().max()
+                                            / b.abs().max()).item())
+    ok = (flash_n == c.num_layers and layer_worst <= GIANT_LAYER_TOL
+          and depth <= GIANT_DEPTH_TOL
+          and bool(torch.isfinite(flash_last).all()))
+    print(f'DINOv2-giant ({n_params / 1e9:.3f} B parameters: hidden '
+          f'{c.hidden_size}, {c.num_layers} layers, {c.num_heads} heads, '
+          f'SwiGLU FFN {model.encoder.layer[0].mlp.weights_out.in_features} '
+          f'wide) at {pc.image_size}², B=1, bf16: forward {times[True]:.1f} ms '
+          f'with use_flash ({flash_n} bidirectional flash launches, want '
+          f'{c.num_layers}), {times[False]:.1f} ms plain (host clock, one '
+          f'synchronized run); each layer on the plain input within '
+          f'{layer_worst:.3e} x max|out| (tol {GIANT_LAYER_TOL}), the whole '
+          f'forward within {depth:.3e} x max|last hidden| (tol '
+          f'{GIANT_DEPTH_TOL}) {"ok" if ok else "FAIL"} [{card}]')
+    if not ok:
+        fail('DINOv2-giant: the flash forward disagrees with the plain one '
+             'or missed a layer')
+    del model, hidden, plain_hidden, flash_last, plain_last
+    # #3 at the giant's own shape
+    timer = Timer('cuda')
+    b, h, s, d = 1, c.num_heads, 1 + (pc.image_size // c.patch_size) ** 2, \
+        c.hidden_size // c.num_heads
+    q, k, v = (torch.randn((b, h, s, d), generator=gen, device='cuda').to(
+        torch.bfloat16) for _ in range(3))
+    mask = torch.ones((b, s), dtype=torch.bool, device='cuda')
+    out = flash_fwd(q, k, v, mask, causal=False, scale=d ** -0.5)[0]
+    want = mha_reference(q, k, v, mask, causal=False, scale=d ** -0.5)
+    want = want[0] if isinstance(want, tuple) else want
+    diff = (out.float() - want.float()).abs()
+    # f32 sums in another order, p rounded to bf16: check_flash's limit
+    ok3 = bool((diff <= 2.0 ** -7 * want.float().abs()
+                + 2.0 ** -9 * want.float().abs().max()).all())
+    err = diff.max().item()
+    ms = timer(lambda: flash_fwd(q, k, v, mask, causal=False,
+                                 scale=d ** -0.5))
+    plain_ms = timer(lambda: mha_reference(q, k, v, mask, causal=False,
+                                           scale=d ** -0.5))
+    bnd = bound(4 * b * h * s * d * 2 + b * s, 4 * b * h * s * s * d)
+    lib = library_time(torch, timer, 'F.scaled_dot_product_attention '
+                       '(#3, DINOv2-g)', lambda: F.scaled_dot_product_attention(
+                           q, k, v, scale=d ** -0.5), want, card)
+    print(f'flash_fwd bidirectional (#3) at DINOv2-g {(b, h, s, d)}: '
+          f'max_abs_err {err:.3e} (tol 2^-7*|plain| + 2^-9*max|plain|) '
+          f'{"ok" if ok3 else "FAIL"}; kernel {ms:.4f} ms, plain '
+          f'{plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), '
+          f'{100 * bnd[0] / ms:.1f} % of it [{card}]')
+    if not ok3:
+        fail('flash_fwd disagrees with its plain version at DINOv2-g')
+    return flash_n, (err, [ms, plain_ms], bnd, lib)
+
+
+def region_caption_full_width(torch, np, seed: int, card: str):
+    """Region captioning through its CLI (eval/region_cap.main) at
+    GromaConfig() widths with random weights on the card: a COCO-format
+    file of REGION_CAP_IMAGES PNG images, each with one box and its
+    caption, KIT_MAX_NEW new tokens a caption, the stub tokenizer; then
+    its shard and merge_and_score's CIDEr, BLEU, METEOR and ROUGE-L."""
+    import os
+    import tempfile
+
+    from groma_tpu_torch.eval import region_cap
+    rng = np.random.default_rng(seed + 80)
+    with tempfile.TemporaryDirectory() as root:
+        images, anns = [], []
+        for i in range(REGION_CAP_IMAGES):
+            h, w = 480, 560 + 40 * i
+            name = f'region{i}.png'
+            with open(os.path.join(root, name), 'wb') as f:
+                f.write(_png_bytes(rng.integers(0, 255, (h, w, 3),
+                                                dtype=np.uint8)))
+            images.append({'id': i, 'file_name': name, 'width': w,
+                           'height': h})
+            anns.append({'id': i, 'image_id': i, 'category_id': 1,
+                         'bbox': [40.0 + 20 * i, 60.0, 200.0, 150.0],
+                         'area': 30000.0, 'iscrowd': 0,
+                         'caption': f'a red object number {i}'})
+        ann = os.path.join(root, 'region_cap.json')
+        with open(ann, 'w') as f:
+            json.dump({'images': images, 'annotations': anns,
+                       'categories': [{'id': 1, 'name': 'object'}]}, f)
+        out = os.path.join(root, 'shards')
+        t0 = time.perf_counter()
+        scores = region_cap.main([
+            '--model-dir', 'random', '--tokenizer', 'stub', '--img-prefix',
+            root, '--ann-file', ann, '--result-dir', out,
+            '--max-new-tokens', str(KIT_MAX_NEW), '--device', 'cuda'])
+        seconds = time.perf_counter() - t0
+        with open(os.path.join(out, 'captions_rank0.json')) as f:
+            shard = json.load(f)
+    keys = ('CIDEr', 'BLEU-1', 'BLEU-4', 'METEOR', 'ROUGE_L')
+    ok = (scores['num'] == REGION_CAP_IMAGES and len(shard) ==
+          REGION_CAP_IMAGES and all(math.isfinite(scores[k]) for k in keys))
+    print(f'region captioning (eval/region_cap CLI, random full-width '
+          f'Groma-7B, bf16 Generator): {REGION_CAP_IMAGES} images, '
+          f'{KIT_MAX_NEW} tokens a caption, {seconds:.1f} s with the model '
+          f'load; shard of {len(shard)} captions, first '
+          f'{shard[0]["caption"][:60]!r}; scores '
+          + ', '.join(f'{k} {scores[k]:.4f}' for k in keys)
+          + f' {"ok" if ok else "FAIL"} [{card}]')
+    if not ok:
+        fail('region captioning: shard or scores wrong')
+
+
+def llava_bench_full_width(torch, np, seed: int, card: str):
+    """The LLaVA-bench kit at GromaConfig() widths with random weights:
+    answer_questions on the first LLAVA_QUESTIONS of the carried questions
+    with synthetic images (the bf16 Generator, KIT_MAX_NEW tokens), those
+    answers reviewed against a carried model's with the stub judge, then
+    review_files over the carried answer files (80 questions) and the
+    summary."""
+    import os
+    import tempfile
+
+    from groma_tpu_torch.checkpoint.loader import load_unquantized
+    from groma_tpu_torch.data.datasets.base import VLDataSpec
+    from groma_tpu_torch.data.tokenizer import StubTokenizer
+    from groma_tpu_torch.eval import vqa
+    from groma_tpu_torch.eval.generate import Generator
+    t0 = time.perf_counter()
+    model, cfg = load_unquantized('random', device='cuda', seed=seed)
+    tok = StubTokenizer(base_vocab=cfg.llm.vocab_size,
+                        model_max_length=cfg.max_seq_len)
+    spec = VLDataSpec(num_image_tokens=cfg.num_image_tokens,
+                      max_region_num=cfg.max_region_num,
+                      max_seq_len=cfg.max_seq_len,
+                      image_size=cfg.perceiver.image_size)
+    table = vqa.TABLE
+    with open(os.path.join(table, 'question.jsonl')) as f:
+        lines = f.readlines()[:LLAVA_QUESTIONS]
+    questions = [json.loads(x) for x in lines]
+    samples = [{'image': random_image(np, seed + 90 + i,
+                                      cfg.perceiver.image_size),
+                'question': q['text'], 'question_id': q['question_id']}
+               for i, q in enumerate(questions)]
+    answers = vqa.answer_questions(Generator(model, cfg.max_seq_len + 16),
+                                   samples, tok, spec,
+                                   max_new_tokens=KIT_MAX_NEW)
+    seconds = time.perf_counter() - t0
+    del model
+    judge = vqa.make_judge('stub')
+    with tempfile.TemporaryDirectory() as root:
+        paths = {}
+        for name, rows in (('q', lines), ('ours', [json.dumps(a) + '\n'
+                                                   for a in answers])):
+            paths[name] = os.path.join(root, f'{name}.jsonl')
+            with open(paths[name], 'w') as f:
+                f.writelines(rows)
+        mine = vqa.review_files(paths['q'], paths['ours'], os.path.join(
+            table, 'answer', 'answer_gpt35.jsonl'), judge)
+        carried = vqa.review_files(
+            os.path.join(table, 'question.jsonl'),
+            os.path.join(table, 'answer', 'answer_alpaca-13b.jsonl'),
+            os.path.join(table, 'answer', 'answer_vicuna-13b.jsonl'), judge,
+            output_path=os.path.join(root, 'review.jsonl'))
+    summary = vqa.summarize_reviews(carried)
+    ok = (len(answers) == LLAVA_QUESTIONS and all(a['text'] for a in answers)
+          and [r['tuple'] for r in mine] == [[5.0, 5.0]] * LLAVA_QUESTIONS
+          and len(carried) == 80
+          and summary['generic']['relative_score'] == 100.0)
+    print(f'LLaVA-bench kit: {LLAVA_QUESTIONS} carried questions answered '
+          f'by random full-width Groma-7B (bf16 Generator, {KIT_MAX_NEW} '
+          f'tokens) in {seconds:.1f} s with the model load, first answer '
+          f'{answers[0]["text"][:60]!r}; stub-judged against gpt35: '
+          f'{[r["tuple"] for r in mine]}; review_files over the carried '
+          f'answers: {len(carried)} reviews, categories {sorted(summary)} '
+          f'{"ok" if ok else "FAIL"} [{card}]')
+    if not ok:
+        fail('LLaVA-bench kit: answers or reviews wrong')
+
+
+def _rel_frobenius(a, b) -> float:
+    """||a - b|| / ||b|| (0 where both are zero, inf where b alone is)."""
+    num, den = (a - b).norm().item(), b.norm().item()
+    return num / den if den else (0.0 if num == 0 else math.inf)
+
+
+def _step_departure(run, ref, start, trained) -> dict:
+    """How far ``run``'s step parts from ``ref``'s, both from ``start``:
+    the worst trained leaf's gradient and update (after - start) in
+    relative Frobenius norm, and the same over all trained leaves as one
+    vector."""
+    grad, upd, sq = {}, {}, [0.0, 0.0, 0.0, 0.0]
+    for k in trained:
+        d_run, d_ref = run['after'][k] - start[k], ref['after'][k] - start[k]
+        grad[k] = _rel_frobenius(run['grads'][k], ref['grads'][k])
+        upd[k] = _rel_frobenius(d_run, d_ref)
+        sq[0] += (run['grads'][k] - ref['grads'][k]).norm().item() ** 2
+        sq[1] += ref['grads'][k].norm().item() ** 2
+        sq[2] += (d_run - d_ref).norm().item() ** 2
+        sq[3] += d_ref.norm().item() ** 2
+    worst_grad = max(grad.items(), key=lambda kv: kv[1])
+    worst_upd = max(upd.items(), key=lambda kv: kv[1])
+    return {'grad_leaf': worst_grad, 'update_leaf': worst_upd,
+            'grad_all': math.sqrt(sq[0] / sq[1]),
+            'update_all': math.sqrt(sq[2] / sq[3])}
+
+
+def train_vl_fsdp_one_rank(torch, seed: int, card: str):
+    """train_vl's step under a 1-rank NCCL process group (init_method a
+    file) with FSDP over a (1, 1) mesh (parallel/mesh.shard_model: each
+    LLaMA and DINOv2 layer a unit, then the root), stage 3 at full width
+    and check_stage3's 2 LLM layers, one AdamW step, against the same step
+    on the same weights without a group, run twice: the loss, and each
+    trained leaf's gradient (as the optimizer reads it) and update within
+    their relative Frobenius limits, alone and over all trained leaves;
+    the frozen leaves unchanged.  The second step without a group shows
+    the run-to-run noise beside them; three controls made from the step
+    without the group (no update, the update's sign flipped, the gradient
+    halved) must each miss their limits.  Returns the step's flash
+    launches (bidirectional, causal, causal backward)."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from groma_tpu_torch.checkpoint.loader import random_groma_full
+    from groma_tpu_torch.models.groma import GromaConfig
+    from groma_tpu_torch.models.llama import LlamaConfig
+    from groma_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd
+    from groma_tpu_torch.parallel import mesh as pm
+    from groma_tpu_torch.train.optimizer import freeze_predicate, make_adamw
+    from groma_tpu_torch.train.steps import batch_to, make_vl_train_step
+    from groma_tpu_torch.train.synthetic import grounded_batch
+    cfg = GromaConfig(llm=LlamaConfig(num_layers=2))
+    batch = batch_to(grounded_batch(cfg, 1, seed + 5), 'cuda')
+    frozen = freeze_predicate(freeze_perceiver=True, freeze_llm=False)
+
+    def whole(v):
+        return (v.full_tensor() if hasattr(v, 'full_tensor') else v
+                ).to('cpu', torch.float32, copy=True)
+
+    runs, start = {}, None
+    with tempfile.TemporaryDirectory() as root:
+        for name in ('fsdp', 'plain', 'plain again'):
+            if name == 'fsdp':
+                pm.init_distributed('cuda', init_method='file://' + os.path.
+                                    join(root, 'group'), num_processes=1,
+                                    process_id=0)
+            model = random_groma_full(cfg, seed=seed, device='cuda')
+            if name == 'fsdp':
+                mesh = pm.make_mesh(dp=1, device_type='cuda')
+                pm.shard_model(model, mesh)
+                sharded = sum(hasattr(p, 'placements')
+                              for p in model.parameters())
+                n_params = sum(1 for _ in model.parameters())
+            opt = make_adamw(model, 1e-5, frozen_pred=frozen)
+            if start is None:
+                start = {k: whole(v) for k, v in
+                         pm.full_model_state(model).items()}
+            grads = {}
+            adam_step = opt.opt.step
+
+            def read_grads_then_step(*a, **kw):
+                grads.update({k: whole(p.grad) for k, p in
+                              model.named_parameters() if p.requires_grad})
+                return adam_step(*a, **kw)
+            opt.opt.step = read_grads_then_step
+            step = make_vl_train_step(model, opt, use_flash=True,
+                                      permute_regions=False)
+            for counts in (flash_fwd.launches, flash_bwd.launches):
+                counts.update(dict.fromkeys(counts, 0))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(batch)
+            torch.cuda.synchronize()
+            runs[name] = {
+                'ms': (time.perf_counter() - t0) * 1e3,
+                'n': (flash_fwd.launches['bidirectional'],
+                      flash_fwd.launches['causal'],
+                      flash_bwd.launches['causal']),
+                'loss': out['loss'].item(), 'grads': grads,
+                'trained': [k for k, p in model.named_parameters()
+                            if p.requires_grad],
+                'after': {k: whole(v) for k, v in
+                          pm.full_model_state(model).items()}}
+            if name == 'fsdp':
+                dist.destroy_process_group()
+            del model, opt, step, out
+            gc.collect()
+            torch.cuda.empty_cache()
+    fsdp, plain, again = runs['fsdp'], runs['plain'], runs['plain again']
+    trained = plain['trained']
+    same_keys = all(r['after'].keys() == start.keys()
+                    and r['trained'] == trained
+                    and r['grads'].keys() == set(trained)
+                    for r in runs.values())
+    still = [k for k in start if k not in trained]
+    frozen_ok = same_keys and all(torch.equal(r['after'][k], start[k])
+                                  for r in runs.values() for k in still)
+    if not same_keys:
+        fail('the FSDP step\'s parameters are not the plain step\'s')
+    loss_rel = abs(fsdp['loss'] - plain['loss']) / abs(plain['loss'])
+    got = _step_departure(fsdp, plain, start, trained)
+    noise = _step_departure(again, plain, start, trained)
+    no_update = dict(plain, after=start)
+    flipped = dict(plain, after={k: 2 * start[k] - plain['after'][k]
+                                 for k in trained})
+    halved = dict(plain, grads={k: 0.5 * g for k, g in
+                                plain['grads'].items()})
+    controls = {'no update': _step_departure(no_update, plain, start,
+                                             trained)['update_all'],
+                'sign flipped': _step_departure(flipped, plain, start,
+                                                trained)['update_all'],
+                'gradient halved': _step_departure(halved, plain, start,
+                                                   trained)['grad_all']}
+    limits = {'no update': FSDP_UPDATE_ALL_TOL,
+              'sign flipped': FSDP_UPDATE_ALL_TOL,
+              'gradient halved': FSDP_GRAD_ALL_TOL}
+    controls_miss = all(controls[c] > limits[c] for c in limits)
+    within = (got['grad_leaf'][1] <= FSDP_GRAD_LEAF_TOL
+              and got['update_leaf'][1] <= FSDP_UPDATE_LEAF_TOL
+              and got['grad_all'] <= FSDP_GRAD_ALL_TOL
+              and got['update_all'] <= FSDP_UPDATE_ALL_TOL)
+
+    def said(d):
+        return (f'gradients {d["grad_all"]:.2e} over all, worst leaf '
+                f'{d["grad_leaf"][1]:.2e} ({d["grad_leaf"][0]}); updates '
+                f'{d["update_all"]:.2e} over all, worst leaf '
+                f'{d["update_leaf"][1]:.2e} ({d["update_leaf"][0]})')
+    ok = (frozen_ok and loss_rel <= FSDP_LOSS_TOL and within
+          and controls_miss and fsdp['n'] == plain['n'] and all(fsdp['n'])
+          and sharded == n_params and math.isfinite(fsdp['loss']))
+    print(f'train_vl step under a 1-rank NCCL group, FSDP over a (1, 1) '
+          f'mesh (stage 3, full width, 2 LLM layers, B=1): {sharded} '
+          f'DTensor parameters; loss {fsdp["loss"]:.6f} against '
+          f'{plain["loss"]:.6f} without the group (rel {loss_rel:.2e}, tol '
+          f'{FSDP_LOSS_TOL}); {len(trained)} trained leaves, relative '
+          f'Frobenius against the step without the group: {said(got)} '
+          f'(tol {FSDP_GRAD_ALL_TOL} / {FSDP_GRAD_LEAF_TOL} and '
+          f'{FSDP_UPDATE_ALL_TOL} / {FSDP_UPDATE_LEAF_TOL}); that step '
+          f'again, the noise: {said(noise)}; {len(still)} frozen leaves '
+          f'unchanged {frozen_ok}; controls over all leaves '
+          + ', '.join(f'{c} {v:.3f}' for c, v in controls.items())
+          + f' {"all miss" if controls_miss else "ONE PASSES"}; flash '
+          f'launches {fsdp["n"]} (without the group {plain["n"]}); step '
+          f'{fsdp["ms"]:.1f} ms against {plain["ms"]:.1f} and '
+          f'{again["ms"]:.1f} ms, all cold {"ok" if ok else "FAIL"} '
+          f'[{card}]')
+    if not ok:
+        fail('the FSDP step disagrees with the step without a group')
+    return fsdp['n']
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--seed', type=int, default=0,
@@ -5217,6 +5931,7 @@ def main():
     att_err, att_ms, att_bound = check_decode_attention(torch, gen, timer,
                                                         card)
     int4_decode, int4_prefill = check_int4_matmul(torch, gen, timer, card)
+    gqa_mm = check_gqa_qkv_matmuls(torch, gen, timer, card)
     paged_err, paged_ms, paged_plain_ms, paged_bound = check_paged_attention(
         torch, gen, timer, card)
     flash = check_flash(torch, gen, timer, card)
@@ -5225,6 +5940,7 @@ def main():
     del timer
     check_llm_path(torch, args.seed, card)
     check_int4_paged_path(torch, args.seed, card)
+    check_gqa_llm_path(torch, args.seed, card)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5237,6 +5953,9 @@ def main():
     if not all(flash_n):
         fail('a flash kernel of the training path was never launched')
     vit_bwd_n = vit_backward_full_width(torch, args.seed, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    giant_n, giant_flash = dinov2_giant_forward(torch, args.seed, card)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5261,6 +5980,9 @@ def main():
         fail('a kernel of the engine path was never launched')
     gc.collect()
     torch.cuda.empty_cache()
+    gqa_n = serve_gqa_full_width(torch, np, args.seed, card)
+    gc.collect()
+    torch.cuda.empty_cache()
     if not all(serve_stack_full_width(torch, np, args.seed, card)):
         fail('a kernel of the serving stack was never launched')
     gc.collect()
@@ -5275,6 +5997,15 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     train_det_full_width(torch, np, args.seed, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    region_caption_full_width(torch, np, args.seed, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    llava_bench_full_width(torch, np, args.seed, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_vl_fsdp_one_rank(torch, args.seed, card)
     if 'jax' in sys.modules or 'flax' in sys.modules:
         fail('jax was imported')
 
@@ -5325,6 +6056,29 @@ def main():
         flash_entry('flash_bwd (bidirectional)', 'bidirectional backward',
                     'flash_attention_bwd.cu',
                     'groma_tpu/ops/flash_attention.py:453', vit_bwd_n),
+        entry('int8_matmul (decode tile, all of GQA serving\'s launches; '
+              'timed at the qkv N=6144, M=1)',
+              'int8_matmul.cu', 'groma_tpu/ops/quant.py:52', gqa_n['int8'][0],
+              gqa_mm[('int8', 1)][0], *gqa_mm[('int8', 1)][1],
+              *gqa_mm[('int8', 1)][2:]),
+        entry('int8_matmul (prefill tile, all of GQA serving\'s launches; '
+              'timed at the qkv N=6144, M=2048)', 'int8_matmul.cu',
+              'groma_tpu/ops/quant.py:52',
+              gqa_n['int8'][1], gqa_mm[('int8', 2048)][0],
+              *gqa_mm[('int8', 2048)][1], *gqa_mm[('int8', 2048)][2:]),
+        entry('int4_matmul (decode tile, all of the GQA engine\'s launches; '
+              'timed at the qkv N=6144, M=8)',
+              'int4_matmul.cu', 'groma_tpu/ops/quant4.py:85',
+              gqa_n['int4'][0], gqa_mm[('int4', 8)][0],
+              *gqa_mm[('int4', 8)][1], *gqa_mm[('int4', 8)][2:]),
+        entry('int4_matmul (prefill tile, all of the GQA engine\'s launches; '
+              'timed at the qkv N=6144, M=2048)', 'int4_matmul.cu',
+              'groma_tpu/ops/quant4.py:85',
+              gqa_n['int4'][1], gqa_mm[('int4', 2048)][0],
+              *gqa_mm[('int4', 2048)][1], *gqa_mm[('int4', 2048)][2:]),
+        entry('flash_fwd (bidirectional, DINOv2-giant (1, 24, 1025, 64))',
+              'flash_attention_fwd.cu', 'groma_tpu/ops/flash_attention.py:68',
+              giant_n, giant_flash[0], *giant_flash[1], *giant_flash[2:]),
         *[entry(f'{name} ({key})', source, replaces, probe_n[key],
                 *probes[key][:3], probes[key][3], probes[key][4])
           for key, name, source, replaces in PROBE_KERNELS],

@@ -139,10 +139,11 @@ def export_dinov2(params: dict, num_layers: int, patch_size: int,
         put(p + 'layer_scale1.lambda1', lp['layerscale1'])
         put(p + 'norm2.weight', lp['norm2']['scale'])
         put(p + 'norm2.bias', lp['norm2']['bias'])
-        put(p + 'mlp.fc1.weight', _n(lp['fc1']['kernel']).T)
-        put(p + 'mlp.fc1.bias', lp['fc1']['bias'])
-        put(p + 'mlp.fc2.weight', _n(lp['fc2']['kernel']).T)
-        put(p + 'mlp.fc2.bias', lp['fc2']['bias'])
+        # the SwiGLU FFN of DINOv2-giant (HF Dinov2SwiGLUFFN) or the MLP
+        for nm in (('weights_in', 'weights_out') if 'weights_in' in lp
+                   else ('fc1', 'fc2')):
+            put(p + f'mlp.{nm}.weight', _n(lp[nm]['kernel']).T)
+            put(p + f'mlp.{nm}.bias', lp[nm]['bias'])
         put(p + 'layer_scale2.lambda1', lp['layerscale2'])
     return out
 

@@ -1,6 +1,6 @@
 """The numpy-side pieces of ``groma_tpu/checkpoint/hf_import.py`` that the
-port needs to read a reference-format checkpoint: the file loaders and the
-DINOv2 position-table resize.
+port needs to read a reference-format checkpoint: the file loaders, the
+DINOv2 position-table resize and the bitsandbytes-nf4 weight import.
 
 The port's modules carry the reference's parameter names, so a state dict
 loads into them as it is; the one transform the JAX package's import
@@ -104,3 +104,51 @@ def resize_vit_pos_embed(sd: Dict[str, np.ndarray], key: str,
     if src_grid == deploy_grid:
         return sd
     return {**sd, key: interpolate_pos_embed(pos, src_grid, deploy_grid)}
+
+
+# --------------------------------------------- bitsandbytes 4-bit import
+
+def is_bnb_nf4(sd: Dict[str, np.ndarray], name: str) -> bool:
+    """True when ``name`` was serialized by a bitsandbytes Linear4bit (the
+    reference's nf4 switch; bnb 0.43 writes the packed codes as ``<name>``
+    beside ``<name>.absmax``, ``<name>.quant_map`` and
+    ``<name>.quant_state.bitsandbytes__nf4``)."""
+    return f'{name}.quant_state.bitsandbytes__nf4' in sd \
+        or (f'{name}.absmax' in sd and f'{name}.quant_map' in sd)
+
+
+def import_bnb_nf4_weight(sd: Dict[str, np.ndarray], name: str,
+                          shape=None, dtype=np.float32) -> np.ndarray:
+    """A bnb-nf4 serialized weight, dequantized to a dense array.
+
+    The layout without double quantization: ``<name>`` the packed uint8
+    codes (two a byte, the first element in the HIGH nibble),
+    ``<name>.absmax`` the f32 block scales, ``<name>.quant_map`` the
+    16-entry NF4 table.  ``shape`` ((out_features, in_features)) comes
+    from the quant_state blob where it parses, else must be given.  A
+    double-quantized absmax raises NotImplementedError.  No loader calls
+    it, as in the JAX package."""
+    from groma_tpu_torch.ops.quant4 import NF4_TABLE
+
+    if f'{name}.nested_absmax' in sd:
+        raise NotImplementedError(
+            'double-quantized (bnb_4bit_use_double_quant) checkpoints are '
+            'not supported; re-export with double quant off')
+    codes = np.asarray(sd[name]).reshape(-1).astype(np.uint8)
+    absmax = np.asarray(sd[f'{name}.absmax']).astype(np.float32).reshape(-1)
+    qmap = np.asarray(sd.get(f'{name}.quant_map', NF4_TABLE))
+    np.testing.assert_allclose(np.sort(qmap.reshape(-1)),
+                               np.sort(NF4_TABLE), atol=1e-6,
+                               err_msg='quant_map is not the NF4 table')
+    if shape is None:
+        qs = sd.get(f'{name}.quant_state.bitsandbytes__nf4')
+        if qs is None:
+            raise ValueError(f'{name}: no shape in state dict; pass shape=')
+        shape = tuple(json.loads(bytes(np.asarray(qs).astype(
+            np.uint8)))['shape'])
+    numel = int(np.prod(shape))
+    block = numel // absmax.shape[0]
+    idx = np.stack([(codes >> 4) & 0xF, codes & 0xF],
+                   axis=1).reshape(-1)[:numel]
+    vals = qmap.reshape(-1)[idx].reshape(-1, block) * absmax[:, None]
+    return vals.reshape(shape).astype(dtype)

@@ -52,11 +52,10 @@ def main(argv=None):
     from groma_tpu_torch.data.tokenizer import StubTokenizer, load_tokenizer
     from groma_tpu_torch.eval.generate import Generator
     from groma_tpu_torch.eval.rec import evaluate_rec
+    from groma_tpu_torch.parallel.mesh import init_distributed
 
     device = resolve_device(args.device)
-    if int(os.environ.get('WORLD_SIZE', 1)) > 1 and not dist.is_initialized():
-        dist.init_process_group('nccl' if device.startswith('cuda')
-                                else 'gloo')
+    init_distributed(device)
     model, cfg = load_unquantized(args.model_dir, device=device)
     if args.tokenizer == 'stub':
         tokenizer = StubTokenizer(base_vocab=cfg.llm.vocab_size,

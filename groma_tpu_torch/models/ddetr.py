@@ -7,8 +7,12 @@ and the (0.01, 0.99) validity window; top-k by the first class logit of
 cross-attention at the INITIAL top-k reference points (the reference never
 updates them per layer) while the per-layer box heads chain their
 refinements; dual coco / sa1b objectness heads; query targets from a
-learned embedding.  All masks are valid.  There is no dropout: every JAX
-entry point runs the head with ``deterministic=True``.
+learned embedding.  All masks are valid.  Under ``deterministic=False``
+the encoder and decoder layers drop out as JAX's do (the attention outputs
+and the FFN's output at ``cfg.dropout``, the FFN's hidden activation at
+``cfg.activation_dropout``), each keep mask drawn from an explicit
+``torch.Generator``; nothing turns it on, as every JAX entry point runs the
+head with ``deterministic=True``.
 """
 
 from __future__ import annotations
@@ -24,6 +28,21 @@ from groma_tpu_torch.ops.bbox import inverse_sigmoid
 from groma_tpu_torch.ops import msda
 
 PROPOSAL_INF = 1e4
+
+
+def dropout(x, rate: float, deterministic: bool = True, generator=None):
+    """flax ``nn.Dropout``: ``x`` itself when deterministic or at rate 0;
+    otherwise each value kept with probability 1 - rate (a uniform draw
+    from ``generator`` below it) and scaled by 1 / (1 - rate), else 0."""
+    if deterministic or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError('dropout under deterministic=False draws from a '
+                         'torch.Generator: pass generator=')
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator,
+                      device=generator.device).to(x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
 class MSDAttention(nn.Module):
@@ -63,12 +82,18 @@ class EncoderLayer(nn.Module):
         self.fc2 = nn.Linear(c.ffn_dim, c.d_model, **kw)
         self.final_layer_norm = nn.LayerNorm(c.d_model, eps=c.layer_norm_eps,
                                              **kw)
+        self.rates = (c.dropout, c.activation_dropout)
 
-    def forward(self, hidden, pos, reference_points, spatial_shapes):
+    def forward(self, hidden, pos, reference_points, spatial_shapes,
+                deterministic: bool = True, generator=None):
+        drop, act_drop = self.rates
+        det = dict(deterministic=deterministic, generator=generator)
         attn = self.self_attn(hidden + pos, reference_points, hidden,
                               spatial_shapes)
-        hidden = self.self_attn_layer_norm(hidden + attn)
-        h = self.fc2(torch.relu(self.fc1(hidden)))
+        hidden = self.self_attn_layer_norm(hidden + dropout(attn, drop,
+                                                            **det))
+        h = dropout(torch.relu(self.fc1(hidden)), act_drop, **det)
+        h = dropout(self.fc2(h), drop, **det)
         return self.final_layer_norm(hidden + h)
 
 
@@ -97,18 +122,24 @@ class DecoderLayer(nn.Module):
         self.fc1 = nn.Linear(d, c.ffn_dim, **kw)
         self.fc2 = nn.Linear(c.ffn_dim, d, **kw)
         self.final_layer_norm = nn.LayerNorm(d, eps=c.layer_norm_eps, **kw)
+        self.rates = (c.dropout, c.activation_dropout)
 
     def forward(self, hidden, query_pos, encoder_hidden, reference_points,
-                spatial_shapes):
+                spatial_shapes, deterministic: bool = True, generator=None):
+        drop, act_drop = self.rates
+        det = dict(deterministic=deterministic, generator=generator)
         sa = self.self_attn
         qk = hidden + query_pos
         out = multi_head_attention(sa.q_proj(qk), sa.k_proj(qk),
                                    sa.v_proj(hidden), self.num_heads)
-        hidden = self.self_attn_layer_norm(hidden + sa.out_proj(out))
+        hidden = self.self_attn_layer_norm(
+            hidden + dropout(sa.out_proj(out), drop, **det))
         ca = self.encoder_attn(hidden + query_pos, reference_points,
                                encoder_hidden, spatial_shapes)
-        hidden = self.encoder_attn_layer_norm(hidden + ca)
-        h = self.fc2(torch.relu(self.fc1(hidden)))
+        hidden = self.encoder_attn_layer_norm(hidden + dropout(ca, drop,
+                                                               **det))
+        h = dropout(torch.relu(self.fc1(hidden)), act_drop, **det)
+        h = dropout(self.fc2(h), drop, **det)
         return self.final_layer_norm(hidden + h)
 
 
@@ -138,7 +169,8 @@ class DDETRTransformer(nn.Module):
     layer; ``aux`` {'coco', 'sa1b', 'boxes'}, lists of those of the first
     L-1 layers; the encoder's class logits and boxes; the initial reference
     points; ``intermediate_hidden_states`` (B, L, Q, d) and
-    ``intermediate_reference_points`` (B, L, Q, 4)."""
+    ``intermediate_reference_points`` (B, L, Q, 4).  ``deterministic=False``
+    turns dropout on, drawn from ``generator``."""
 
     def __init__(self, c: DDETRConfig, device=None):
         super().__init__()
@@ -166,7 +198,7 @@ class DDETRTransformer(nn.Module):
         self.bbox_embed = nn.ModuleList(
             MLP(d, 256, 4, 3, **kw) for _ in range(c.decoder_layers + 1))
 
-    def forward(self, sources):
+    def forward(self, sources, deterministic: bool = True, generator=None):
         c = self.cfg
         b = sources[0].shape[0]
         dev = sources[0].device
@@ -188,7 +220,8 @@ class DDETRTransformer(nn.Module):
         enc_ref = enc_ref.expand(b, -1, -1, -1)
         hidden = src_flat
         for layer in self.encoder.layers:
-            hidden = layer(hidden, pos_flat, enc_ref, spatial_shapes)
+            hidden = layer(hidden, pos_flat, enc_ref, spatial_shapes,
+                           deterministic, generator)
         encoder_hidden = hidden
 
         # two-stage proposals: a box per cell, logit space, validity window
@@ -234,7 +267,7 @@ class DDETRTransformer(nn.Module):
         hiddens, deltas, new_refs = [], [], []
         for i, layer in enumerate(self.decoder.layers):
             hidden = layer(hidden, query_pos, encoder_hidden, ref_input,
-                           spatial_shapes)
+                           spatial_shapes, deterministic, generator)
             delta = self.bbox_embed[i](hidden)
             hiddens.append(hidden)
             deltas.append(delta)

@@ -7,14 +7,15 @@ matched pairs, for the last decoder layer, each earlier layer (``_0`` to
 the total weights every ``loss_ce*``, ``loss_bbox*`` and ``loss_giou*``
 by its coefficient.  Targets are fixed-capacity padded tensors
 (class_labels (B, T), boxes (B, T, 4) normalized cxcywh, valid (B, T));
-``num_boxes`` is the local batch's target count, clamped to at least 1.
+``num_boxes`` is the batch's target count, clamped to at least 1 (a
+data-parallel step passes the global batch's).
 The stages with one query count share one matcher call over their stacked
 costs.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -95,7 +96,8 @@ def _single_stage_loss(logits, pred_boxes, tgt_labels, tgt_boxes, tgt_valid,
 
 
 def ddetr_loss(outputs: Dict, targets: Dict, cfg: DDETRConfig,
-               source: str, matcher: str = 'hungarian'
+               source: str, matcher: str = 'hungarian',
+               num_boxes: Optional[torch.Tensor] = None
                ) -> Dict[str, torch.Tensor]:
     """Every stage's losses and their weighted total ``loss``.
 
@@ -103,11 +105,14 @@ def ddetr_loss(outputs: Dict, targets: Dict, cfg: DDETRConfig,
     {'class_labels', 'boxes', 'valid'}; ``source`` 'coco' | 'sa1b' picks
     the objectness head supervised (batches are single-source);
     ``matcher`` 'hungarian' (exact, on the host) or 'auction' (on the
-    device)."""
+    device); ``num_boxes`` the normalizing target count (default: this
+    batch's)."""
     tgt_labels = targets['class_labels']
     tgt_boxes = targets['boxes'].to(torch.float32)
     tgt_valid = targets['valid'].to(torch.bool)
-    num_boxes = tgt_valid.sum().to(torch.float32).clamp(min=1.0)
+    if num_boxes is None:
+        num_boxes = tgt_valid.sum().to(torch.float32)
+    num_boxes = num_boxes.clamp(min=1.0)
 
     stages = [('', outputs['logits'][source], outputs['pred_boxes'],
                tgt_labels)]

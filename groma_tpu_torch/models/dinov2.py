@@ -10,7 +10,9 @@ the final LayerNorm (Groma taps those).
 Parameters may be kept in another dtype than the one the layers compute
 in (``compute_dtype``): a trainer keeps f32 weights and runs bf16, as the
 JAX package's f32 params with ``cfg.dtype`` do.  ``use_flash`` routes the
-attention through the bidirectional flash-attention kernel.
+attention through the bidirectional flash-attention kernel.  With
+``use_swiglu_ffn`` (DINOv2-giant) each layer's FFN is the SwiGLU one
+(``mlp.weights_in`` / ``mlp.weights_out``, HF's names).
 """
 
 from __future__ import annotations
@@ -88,12 +90,30 @@ class _Mlp(nn.Module):
         self.fc1 = nn.Linear(d, inner, device=device, dtype=dtype)
         self.fc2 = nn.Linear(inner, d, device=device, dtype=dtype)
 
+    def forward(self, h):
+        return linear(self.fc2, F.gelu(linear(self.fc1, h)))
+
+
+class _SwiGLUFFN(nn.Module):
+    """DINOv2-giant's FFN (HF ``Dinov2SwiGLUFFN``): silu(x1) * x2 of one
+    fused input projection, the hidden width ``inner * 2 // 3`` rounded up
+    to a multiple of 8, as the JAX package rounds it."""
+
+    def __init__(self, d: int, inner: int, device=None, dtype=None):
+        super().__init__()
+        hidden = (inner * 2 // 3 + 7) // 8 * 8
+        self.weights_in = nn.Linear(d, 2 * hidden, device=device,
+                                    dtype=dtype)
+        self.weights_out = nn.Linear(hidden, d, device=device, dtype=dtype)
+
+    def forward(self, h):
+        h1, h2 = linear(self.weights_in, h).chunk(2, dim=-1)
+        return linear(self.weights_out, F.silu(h1) * h2)
+
 
 class Dinov2Layer(nn.Module):
     def __init__(self, c: ViTConfig, device=None, dtype=None):
         super().__init__()
-        if c.use_swiglu_ffn:
-            raise ValueError('the SwiGLU FFN (dinov2-giant) is not ported')
         d = c.hidden_size
         self.num_heads = c.num_heads
         self.norm1 = nn.LayerNorm(d, eps=c.layer_norm_eps, device=device,
@@ -102,7 +122,8 @@ class Dinov2Layer(nn.Module):
         self.layer_scale1 = _LayerScale(d, c.layerscale_value, device, dtype)
         self.norm2 = nn.LayerNorm(d, eps=c.layer_norm_eps, device=device,
                                   dtype=dtype)
-        self.mlp = _Mlp(d, int(d * c.mlp_ratio), device, dtype)
+        ffn = _SwiGLUFFN if c.use_swiglu_ffn else _Mlp
+        self.mlp = ffn(d, int(d * c.mlp_ratio), device, dtype)
         self.layer_scale2 = _LayerScale(d, c.layerscale_value, device, dtype)
 
     def forward(self, x, use_flash: bool = False):
@@ -115,8 +136,7 @@ class Dinov2Layer(nn.Module):
                                     use_flash=use_flash)
         attn = linear(self.attention.output.dense, attn)
         x = x + attn * self.layer_scale1.lambda1.to(dt)
-        h = layer_norm(self.norm2, x)
-        h = linear(self.mlp.fc2, F.gelu(linear(self.mlp.fc1, h)))
+        h = self.mlp(layer_norm(self.norm2, x))
         return x + h * self.layer_scale2.lambda1.to(dt)
 
 

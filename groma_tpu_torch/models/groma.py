@@ -56,7 +56,7 @@ from groma_tpu_torch.models.llama import (LlamaForCausalLM, make_kv_cache,
 from groma_tpu_torch.models.perceiver import Perceiver
 from groma_tpu_torch.models.region_encoder import RegionEncoder
 from groma_tpu_torch.ops.bbox import box_iou, cxcywh_to_xyxy
-from groma_tpu_torch.ops.fused_ce import fused_cross_entropy
+from groma_tpu_torch.ops.fused_ce import fused_nll_sum
 from groma_tpu_torch.ops.nms import nms
 
 
@@ -123,12 +123,16 @@ class GromaModel(nn.Module):
 
     def vision(self, images, refer_boxes=None, refer_valid=None,
                ground_boxes=None, ground_valid=None, generator=None,
-               permute: bool = False, use_flash: bool = False):
+               permute: bool = False, use_flash: bool = False,
+               permute_rows: Optional[tuple] = None):
         """(B, H, W, 3) image -> image tokens, the selected region pool and
         its region tokens.  Boxes are normalized cxcywh; refer and ground
         boxes are fixed-capacity (B, R, 4) with validity masks.
         ``permute`` shuffles the kept regions with noise from
-        ``generator``."""
+        ``generator``; ``permute_rows`` (start, global batch): these rows
+        are a data-parallel rank's slice of a larger batch, and the noise
+        is drawn for the whole batch and these rows of it taken, so every
+        row is shuffled as an unsharded step shuffles it."""
         c = self.cfg
         b = images.shape[0]
         with torch.no_grad():
@@ -152,8 +156,10 @@ class GromaModel(nn.Module):
             if permute:
                 if generator is None:
                     raise ValueError('permute needs a torch.Generator')
-                noise = torch.rand(keep_mask.shape, generator=generator,
-                                   device=generator.device)
+                start, total = permute_rows or (0, b)
+                noise = torch.rand((total, keep_mask.shape[1]),
+                                   generator=generator,
+                                   device=generator.device)[start:start + b]
                 order = torch.argsort(torch.where(
                     keep_mask, noise.to(keep_mask.device), 2.0), dim=-1)
                 keep_idx = torch.gather(keep_idx, 1, order)
@@ -317,14 +323,17 @@ class GromaModel(nn.Module):
                 labels=None, refer_boxes=None, refer_valid=None,
                 ground_boxes=None, ground_valid=None, generator=None,
                 permute: bool = False, use_flash: bool = False,
-                fused_ce: bool = True):
-        """Training forward through the LLM -> {'loss', 'vis', 'valid',
-        'final_input_ids'}, plus 'logits' (B, S, V) f32 when not
-        ``fused_ce``.  The loss is the mean NLL of the labels, each
-        conditioned on the last valid position before it."""
+                fused_ce: bool = True, permute_rows: Optional[tuple] = None):
+        """Training forward through the LLM -> {'loss', 'nll_sum',
+        'n_tokens', 'vis', 'valid', 'final_input_ids'}, plus 'logits'
+        (B, S, V) f32 when not ``fused_ce``.  The loss is the mean NLL of
+        the labels, each conditioned on the last valid position before it:
+        'nll_sum' over 'n_tokens' supervised positions (a data-parallel
+        step divides by the global count).  ``permute_rows``: see
+        ``vision``."""
         vis = self.vision(images, refer_boxes, refer_valid, ground_boxes,
                           ground_valid, generator=generator, permute=permute,
-                          use_flash=use_flash)
+                          use_flash=use_flash, permute_rows=permute_rows)
         emb, input_ids, labels, valid = self.build_stream(
             input_ids, labels, region_slot, base_valid, vis, refer_boxes,
             refer_valid, ground_boxes, ground_valid)
@@ -347,15 +356,16 @@ class GromaModel(nn.Module):
         src = prev_valid.clamp(min=0)
         safe = torch.where(ok, labels, 0)
         if fused_ce:
-            out['loss'] = fused_cross_entropy(
+            nll_sum = fused_nll_sum(
                 _gather_rows(hidden, src),
                 (self.llm.lm_head.weight.T, self.extra_lm_head.weight.T),
                 safe, ok, chunk=512)
         else:
             logp = torch.log_softmax(_gather_rows(out['logits'], src), -1)
             nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
-            out['loss'] = torch.where(ok, nll, 0.0).sum() \
-                / ok.sum().clamp(min=1)
+            nll_sum = torch.where(ok, nll, 0.0).sum()
+        out['nll_sum'], out['n_tokens'] = nll_sum, ok.sum()
+        out['loss'] = nll_sum / ok.sum().clamp(min=1)
         return out
 
 

@@ -23,7 +23,13 @@ multi-token call through ``ops.quant.w8a8_matmul`` from 256 rows on,
 int8 weights only), the flash prefill (``use_flash=True``: #4 from
 ``FLASH_MIN_SEQ`` tokens on), ``quant_llama_decode_paged`` and
 ``quant_llama_decode_megakernel`` (the whole int4 + int8-KV decode step
-in one launch of ``ops.decode_megakernel``).  The scalar index is a host
+in one launch of ``ops.decode_megakernel``), and grouped-query attention
+(``num_kv_heads < num_heads``) by JAX's route: the fused qkv narrows to
+``(num_heads + 2 * num_kv_heads) * head_dim`` columns, a decode over an
+int8 cache dequantizes the layer's cache, the K/V heads are repeated, and
+the int8 decode kernel runs only without GQA (the paged decode, the
+engine's paged mode and the megakernel refuse GQA, as JAX's do).  The
+scalar index is a host
 int or a 0-d int64 tensor on the cache's device: a CUDA graph can capture
 a decode or a chunked append at a tensor index, which advances in place,
 as a per-row index does.  Unlike JAX, whose ``dynamic_update_slice``
@@ -217,11 +223,12 @@ def _project_qkv(x, lp, cfg: LlamaConfig, cos, sin, a8: bool = False,
     layer's dict of K-major copies)."""
     dtype = torch_dtype(cfg.dtype)
     b, s, _ = x.shape
-    nh, hd = cfg.num_heads, cfg.hidden_size // cfg.num_heads
+    nh, nkv = cfg.num_heads, cfg.num_kv_heads
+    hd = cfg.hidden_size // nh
     h = rms_norm(x, lp['input_layernorm'], cfg.rms_norm_eps)
-    q, k, v = (t.reshape(b, s, nh, hd).transpose(1, 2)
-               for t in _qmm(h, lp['qkv_proj'], a8,
-                              (kmajor or {}).get('qkv_proj')).chunk(3, -1))
+    qkv = _qmm(h, lp['qkv_proj'], a8, (kmajor or {}).get('qkv_proj'))
+    q, k, v = (t.reshape(b, s, n, hd).transpose(1, 2) for t, n in zip(
+        qkv.split([nh * hd, nkv * hd, nkv * hd], -1), (nh, nkv, nkv)))
     return (apply_rope(q.to(dtype), cos, sin),
             apply_rope(k.to(dtype), cos, sin), v.to(dtype))
 
@@ -291,12 +298,14 @@ def quant_llama_forward(qp: dict, cfg: LlamaConfig, inputs_embeds,
     256 rows on), on ``kmajor`` (``w8a8_weights(qp)``, which the caller
     builds once and keeps) where given; decode stays weight-only.  The
     cache is updated in place and returned; every row's index advances by
-    S, as in JAX (a tensor index in place).  Multi-head attention only (Vicuna-7B): grouped-query
-    configs raise."""
+    S, as in JAX (a tensor index in place).  Grouped-query configs
+    (``num_kv_heads < num_heads``) take JAX's route: a decode over an int8
+    cache dequantizes the layer's cache, and every attention but the int8
+    decode kernel's repeats the K/V heads; the int8 decode kernel runs
+    only at ``num_kv_heads == num_heads``, as in JAX."""
     dtype = torch_dtype(cfg.dtype)
     hd = cfg.hidden_size // cfg.num_heads
-    if cfg.num_kv_heads != cfg.num_heads:
-        raise ValueError('num_kv_heads != num_heads (GQA) is not ported')
+    rep = cfg.num_heads // cfg.num_kv_heads
     cos, sin = rope_tables(position_ids, hd, cfg.rope_theta)
     x = inputs_embeds.to(dtype)
     b, s, _ = x.shape
@@ -369,7 +378,7 @@ def quant_llama_forward(qp: dict, cfg: LlamaConfig, inputs_embeds,
                 _write(cache['v'][i], at, vq8)
                 _write(cache['k_scale'][i], at, ksc)
                 _write(cache['v_scale'][i], at, vsc)
-                if append:
+                if append or (not prefill and rep > 1):
                     k = _dequantize_cache(cache['k'][i],
                                           cache['k_scale'][i], dtype)
                     v = _dequantize_cache(cache['v'][i],
@@ -380,7 +389,10 @@ def quant_llama_forward(qp: dict, cfg: LlamaConfig, inputs_embeds,
                 if not prefill:
                     k, v = cache['k'][i], cache['v'][i]
 
-        if quant_kv and not prefill and s == 1:
+        if rep > 1:
+            k = k.repeat_interleave(rep, dim=1)
+            v = v.repeat_interleave(rep, dim=1)
+        if quant_kv and not prefill and s == 1 and rep == 1:
             attn = int8_decode_attention(
                 q, cache['k'][i], cache['k_scale'][i], cache['v'][i],
                 cache['v_scale'][i], mask_bias)
@@ -478,8 +490,8 @@ def quant_llama_decode_paged(qp: dict, cfg: LlamaConfig, inputs_embeds,
     average over its pages, finite and discarded).  Frozen rows of the
     engine all write into the trash page 0, possibly at one offset: the
     scatter takes duplicate indices, and that page's content is garbage by
-    design.  MHA only.  The pools are updated in place; returns
-    (hidden (B, 1, D), pools)."""
+    design.  MHA only, as in JAX: the paged kernel has no head repeat.  The
+    pools are updated in place; returns (hidden (B, 1, D), pools)."""
     hd = cfg.hidden_size // cfg.num_heads
     if cfg.num_kv_heads != cfg.num_heads:
         raise ValueError('paged decode requires MHA')

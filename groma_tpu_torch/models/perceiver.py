@@ -95,11 +95,16 @@ class Perceiver(nn.Module):
         g = int(round(l ** 0.5))
         return feats.reshape(b, g, g, d)
 
-    def propose(self, hidden_states):
-        """ViT hidden states -> DDETR outputs (boxes + dual objectness)."""
+    def propose(self, hidden_states, deterministic: bool = True,
+                generator=None):
+        """ViT hidden states -> DDETR outputs (boxes + dual objectness);
+        ``deterministic=False`` turns the head's dropout on, drawn from
+        ``generator``."""
         feat2d = self.ddetr_features(hidden_states)
         srcs = [proj(feat2d.to(torch.float32)) for proj in self.input_proj]
-        return self.ddetr_transformer(srcs)
+        return self.ddetr_transformer(srcs, deterministic, generator)
 
-    def forward(self, images, use_flash: bool = False):
-        return self.propose(self.encode_image(images, use_flash))
+    def forward(self, images, use_flash: bool = False,
+                deterministic: bool = True, generator=None):
+        return self.propose(self.encode_image(images, use_flash),
+                            deterministic, generator)

@@ -36,6 +36,15 @@ def fused_cross_entropy(hidden: torch.Tensor, heads: Sequence[torch.Tensor],
     heads:  (H, Vi) projections (Groma's dual head); labels index the
             concatenated [0, sum Vi) vocabulary.
     labels: (B, S) int; ok: (B, S) bool, the positions in the mean."""
+    return fused_nll_sum(hidden, heads, labels, ok, chunk) \
+        / ok.sum().clamp(min=1)
+
+
+def fused_nll_sum(hidden: torch.Tensor, heads: Sequence[torch.Tensor],
+                  labels: torch.Tensor, ok: torch.Tensor,
+                  chunk: int = 256) -> torch.Tensor:
+    """The summed NLL of the ``ok`` positions (``fused_cross_entropy``
+    before its division by their count)."""
     labels = torch.where(ok, labels, 0).long()
     total = hidden.new_zeros((), dtype=torch.float32)
     for start in range(0, hidden.shape[1], chunk):
@@ -45,4 +54,4 @@ def fused_cross_entropy(hidden: torch.Tensor, heads: Sequence[torch.Tensor],
             total = total + checkpoint(_chunk_nll, *args, use_reentrant=False)
         else:
             total = total + _chunk_nll(*args)
-    return total / ok.sum().clamp(min=1)
+    return total

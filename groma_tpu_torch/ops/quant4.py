@@ -1,7 +1,10 @@
-"""4-bit weight-only quantization and the packed-int4 matmul.
+"""4-bit weight-only quantization, the packed-int4 matmul and the nf4
+codec.
 
-Counterpart of ``groma_tpu/ops/quant4.py`` (the int4 half; the nf4 codec is
-host-side format parity and is not ported yet).  ``int4_matmul`` replaces
+Counterpart of ``groma_tpu/ops/quant4.py``.  The nf4 codec
+(``nf4_quantize``, ``nf4_dequantize``: bitsandbytes' NormalFloat4 table
+with blockwise absmax over the flattened weight) is format parity for
+importing bnb-nf4 checkpoints and has no kernel, as in JAX.  ``int4_matmul`` replaces
 the TPU kernel ``_int4_matmul_kernel`` with the hand-written CUDA kernel in
 ``csrc/int4_matmul.cu``, at every M: for decode (M <= ``DECODE_MAX_ROWS``)
 a tile that streams the weights through a TMA ring into ``mma.sync`` with
@@ -30,6 +33,16 @@ from __future__ import annotations
 import torch
 
 from groma_tpu_torch.ops.quant import true_div
+
+import numpy as np
+
+# bitsandbytes' NF4 table (create_normal_map order: 0 at index 7)
+NF4_TABLE = np.array([
+    -1.0, -0.6961928009986877, -0.5250730514526367, -0.39491748809814453,
+    -0.28444138169288635, -0.18477343022823334, -0.09105003625154495, 0.0,
+    0.07958029955625534, 0.16093020141124725, 0.24611230194568634,
+    0.33791524171829224, 0.44070982933044434, 0.5626170039176941,
+    0.7229568362236023, 1.0], np.float32)
 
 INT4_BLOCK = 256          # scale block of the packed-int4 LLM tree
 DECODE_MAX_ROWS = 8       # up to this many rows: the weight-streaming tile
@@ -223,3 +236,35 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
 
 int4_matmul.launches = 0
 int4_matmul.prefill_launches = 0
+
+
+# -------------------------------------------------------------------- nf4
+
+def nf4_quantize(w: torch.Tensor, block: int = 64) -> dict:
+    """bitsandbytes-style NF4: the weight flattened, an absmax per
+    ``block`` values, each value the nearest table code (the first on a
+    tie), two codes a byte with the first in the HIGH nibble.  Returns
+    {'codes': uint8 (numel/2,), 'absmax': f32 (numel/block,), 'shape',
+    'block'}."""
+    flat = w.to(torch.float32).reshape(-1)
+    if flat.numel() % block or flat.numel() % 2:
+        raise ValueError(f'nf4_quantize: {flat.numel()} values do not fill '
+                         f'blocks of {block} and byte pairs')
+    blocks = flat.reshape(-1, block)
+    absmax = blocks.abs().amax(dim=1)
+    normed = blocks / torch.where(absmax > 0, absmax,
+                                  torch.ones_like(absmax))[:, None]
+    table = torch.as_tensor(NF4_TABLE, device=w.device)
+    idx = (normed.reshape(-1)[:, None] - table[None]).abs().argmin(1)
+    idx = idx.to(torch.uint8)
+    codes = idx[1::2] | (idx[0::2] << 4)
+    return {'codes': codes, 'absmax': absmax, 'shape': tuple(w.shape),
+            'block': block}
+
+
+def nf4_dequantize(qd: dict, dtype=torch.float32) -> torch.Tensor:
+    codes = qd['codes'].to(torch.int64)
+    idx = torch.stack([(codes >> 4) & 0xF, codes & 0xF], dim=1).reshape(-1)
+    table = torch.as_tensor(NF4_TABLE, device=codes.device)
+    vals = table[idx].reshape(-1, qd['block']) * qd['absmax'][:, None]
+    return vals.reshape(qd['shape']).to(dtype)

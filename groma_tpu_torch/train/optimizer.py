@@ -21,7 +21,11 @@ state-dict names:
   the loss does not reach it (optax transforms every leaf);
 * optional global-norm clipping over the trainable gradients, and
   gradient accumulation as optax.MultiSteps does it (the mean of
-  ``accum_steps`` micro-batch gradients, one update).
+  ``accum_steps`` micro-batch gradients, one update);
+* parameters sharded by FSDP (``parallel/mesh.shard_model``, DTensors):
+  the arithmetic runs on each rank's shards, and the clipping norm sums
+  the shards' squares over the mesh axes they are sharded on, so it is the
+  whole gradient's norm.
 """
 
 from __future__ import annotations
@@ -93,6 +97,26 @@ def freeze_predicate(freeze_perceiver=False, freeze_llm=False,
     return pred
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's shard on this rank (a view: writes reach the DTensor),
+    or the tensor itself."""
+    return t.to_local() if hasattr(t, 'placements') else t
+
+
+def _sum_of_squares(grads) -> torch.Tensor:
+    """The squared global norm of ``grads``: the sum over this rank's
+    shards, all-reduced over each mesh axis the gradients are sharded on
+    (they share one mesh and placement, ``shard_model``'s)."""
+    total = sum((_local(g).float() ** 2).sum() for g in grads)
+    if grads and hasattr(grads[0], 'placements'):
+        import torch.distributed as dist
+        for dim, placement in enumerate(grads[0].placements):
+            if placement.is_shard():
+                dist.all_reduce(total,
+                                group=grads[0].device_mesh.get_group(dim))
+    return total
+
+
 class AdamW:
     """torch.optim.AdamW over the trainable parameters of ``model``, with
     the schedule, multipliers, clipping and accumulation above.  Call
@@ -145,14 +169,15 @@ class AdamW:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
+        local = [_local(g) for g in grads]
         if self.accum_steps > 1:
-            torch._foreach_div_(grads, float(self.accum_steps))
+            torch._foreach_div_(local, float(self.accum_steps))
         if self.max_grad_norm:
-            norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+            norm = torch.sqrt(_sum_of_squares(grads))
             # optax.clip_by_global_norm: rescale only at or above the limit
             factor = torch.where(norm < self.max_grad_norm, 1.0,
                                  self.max_grad_norm / norm)
-            torch._foreach_mul_(grads, factor)
+            torch._foreach_mul_(local, factor)
         lr = self.lr
         for group in self.opt.param_groups:
             group['lr'] = lr * group['mult']

@@ -1,6 +1,13 @@
 """Train steps (counterpart of ``groma_tpu/train/steps.py``): the VL stage's
 (the CE loss of the grounded token stream) and the detection stage's (the
-DDETR losses), each a forward, its backward and the optimizer's step."""
+DDETR losses), each a forward, its backward and the optimizer's step.
+
+Under a process group each rank holds a slice of the global batch
+(``parallel/mesh.RankBatches``) and FSDP averages the gradients over the
+ranks, so a step divides its summed losses by the GLOBAL token or box
+count and scales the backward by the world size: the gradient and the
+reported loss are those of JAX's one program over the whole batch (a
+mean of per-rank means would differ wherever the ranks' counts do)."""
 
 from __future__ import annotations
 
@@ -9,6 +16,7 @@ from typing import Callable
 import torch
 
 from groma_tpu_torch.models.ddetr_loss import ddetr_loss
+from groma_tpu_torch.parallel.mesh import all_reduce_sum, rank_and_world
 
 BATCH_KEYS = ('images', 'input_ids', 'region_slot', 'valid', 'labels',
               'refer_boxes', 'refer_valid', 'ground_boxes', 'ground_valid')
@@ -29,6 +37,8 @@ def make_vl_train_step(model, optimizer, use_flash: bool = False,
     accumulation."""
 
     def step(batch: dict, generator=None) -> dict:
+        rank, world = rank_and_world()
+        b = batch['images'].shape[0]
         out = model(images=batch['images'], input_ids=batch['input_ids'],
                     region_slot=batch['region_slot'],
                     base_valid=batch['valid'], labels=batch['labels'],
@@ -37,9 +47,11 @@ def make_vl_train_step(model, optimizer, use_flash: bool = False,
                     ground_boxes=batch.get('ground_boxes'),
                     ground_valid=batch.get('ground_valid'),
                     generator=generator, permute=permute_regions,
-                    use_flash=use_flash)
-        loss = out['loss']
-        loss.backward()
+                    use_flash=use_flash,
+                    permute_rows=(rank * b, world * b))
+        n = all_reduce_sum(out['n_tokens'].float()).clamp(min=1)
+        (out['nll_sum'] * (world / n)).backward()
+        loss = all_reduce_sum(out['nll_sum'].detach() / n)
         updated = optimizer.step()
         return {'loss': loss.detach(), 'updated': updated}
 
@@ -63,12 +75,22 @@ def make_det_train_step(perceiver, ddetr_cfg, optimizer, source: str,
     ``source`` ('coco' | 'sa1b') picks the objectness head, as every batch
     is single-source; ``matcher`` 'hungarian' or 'auction'.  The forward
     has no dropout (JAX's ``deterministic=True``); frozen parameters take
-    no part in the backward."""
+    no part in the backward.  Across ranks the losses are normalized by
+    the global box count and summed over the ranks (the cardinality
+    error, a mean over images, averaged)."""
     def step(batch: dict) -> dict:
+        _, world = rank_and_world()
         out = perceiver(batch['images'])
+        num_boxes = all_reduce_sum(
+            batch['targets']['valid'].sum().to(torch.float32))
         losses = ddetr_loss(out, batch['targets'], ddetr_cfg, source,
-                            matcher=matcher)
-        losses['loss'].backward()
+                            matcher=matcher, num_boxes=num_boxes)
+        (losses['loss'] * world).backward()
+        keys = list(losses)
+        total = all_reduce_sum(torch.stack(
+            [losses[k].detach() for k in keys]))
+        losses = {k: v / world if k.startswith('cardinality_error')
+                  else v for k, v in zip(keys, total)}
         updated = optimizer.step()
         return {**{k: v.detach() for k, v in losses.items()},
                 'updated': updated}

@@ -20,9 +20,13 @@ the reference's names (``pytorch_model.bin`` + the reference's
 ``perceiver_cfg`` as ``config.json``), which ``eval/run_ddetr --model-dir``
 and ``train_vl --perceiver`` read.
 
-Boolean flags take ``True``/``False`` strings.  ``--dp`` / ``--tp`` take 1
-only: the port trains on one device.  Training runs on the card;
-``--device cpu`` runs it on the CPU.
+Boolean flags take ``True``/``False`` strings.  Training runs on the card;
+``--device cpu`` runs it on the CPU.  Across processes
+(``torchrun --nproc_per_node N``), as in ``train_vl``: FSDP over a (``--dp``,
+the rest) mesh (``parallel/mesh.py``), the ViT's layers as units; the batch
+global, each rank a contiguous 1/N slice of it; the losses normalized by
+the global box count and clipped by the global gradient norm; ``--tp``
+takes 1 only.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from __future__ import annotations
 import argparse
 import time
 
+from groma_tpu_torch.parallel.mesh import TP_ITEM
 from groma_tpu_torch.train.train_vl import (export_weights, maybe_resume,
                                             save_checkpoint, str2bool)
 
@@ -71,10 +76,9 @@ def parse_args(argv=None):
                     help="torch device (default cuda; 'cpu' to train on the "
                          "CPU)")
     args = ap.parse_args(argv)
-    if args.dp != 1 or args.tp != 1:
-        ap.error(f'--dp {args.dp} --tp {args.tp}: the port trains on one '
-                 f'device; data and tensor parallelism wait for ROADMAP.md '
-                 f'§1 item 11 (distribution)')
+    if args.tp != 1:
+        ap.error(f'--tp {args.tp}: tensor parallelism is not ported; it '
+                 f'waits for {TP_ITEM}')
     return args
 
 
@@ -128,15 +132,24 @@ def train(args, cfg, device: str) -> dict:
     from groma_tpu_torch.data.build import (SourceGroupedBatchSampler,
                                             build_multi_datasets, collate_det)
     from groma_tpu_torch.data.loader import DataLoader
+    from groma_tpu_torch.parallel.mesh import (RankBatches,
+                                               init_distributed, make_mesh,
+                                               rank_and_world, shard_model)
     from groma_tpu_torch.train.optimizer import (cosine_schedule,
                                                  det_lr_mult_rules,
                                                  freeze_predicate, make_adamw)
     from groma_tpu_torch.train.steps import det_batch_to, make_det_train_step
     from groma_tpu_torch.utils.logging import print0
 
+    init_distributed(device)
+    mesh = make_mesh(dp=args.dp, tp=args.tp,
+                     device_type=torch.device(device).type)
+    rank, world = rank_and_world()
     model = random_perceiver(cfg, seed=args.seed, device=device)
     if args.vis_encoder:
         load_vis_encoder(model, args.vis_encoder)
+    if mesh is not None:
+        shard_model(model, mesh)
     dataset = build_multi_datasets(args.dataset_config,
                                    image_size=cfg.image_size)
     sampler = SourceGroupedBatchSampler(
@@ -157,7 +170,8 @@ def train(args, cfg, device: str) -> dict:
     n_train = sum(p.numel() for p in optimizer.params)
     n_all = sum(p.numel() for p in model.parameters())
     print0(f'{n_train} of {n_all} parameters train; {total_steps} steps of '
-           f'{args.per_device_train_batch_size} on {device}', flush=True)
+           f'{args.per_device_train_batch_size} on {device}'
+           + (f' x {world} ranks' if world > 1 else ''), flush=True)
 
     step_fns = {}
     losses, seconds = [], []
@@ -171,7 +185,8 @@ def train(args, cfg, device: str) -> dict:
         if done >= steps_per_epoch:
             continue
         sampler.set_epoch(epoch)
-        batches = list(sampler)[max(done, 0):]
+        batches = list(RankBatches(list(sampler)[max(done, 0):], rank,
+                                   world))
         loader = DataLoader(dataset, batches, collate_det,
                             num_workers=args.dataloader_num_workers)
         for batch in loader:

@@ -21,6 +21,18 @@ has no effect, as in the JAX package.  ``--tokenizer stub`` selects the
 deterministic word-hash tokenizer of smoke runs.  Training runs on the
 card; ``--device cpu`` runs it on the CPU (without a CUDA device, nothing
 else starts).
+
+Across processes, as JAX's ``--dp`` / ``--tp`` mesh:
+
+    torchrun --nproc_per_node 8 -m groma_tpu_torch.train.train_vl \
+        --dp 2 ...            # 2-way replicas of 4-way FSDP shards
+
+``parallel/mesh.py``: FSDP over a (dp, fsdp) mesh, fsdp the rest of the
+ranks, each LLaMA decoder layer and DINOv2 layer a unit;
+``--per_device_train_batch_size`` is the GLOBAL batch, as in JAX, each
+rank taking a contiguous 1/world slice of it; checkpoints hold the whole
+state (written by rank 0) and resume on any number of ranks.  ``--tp``
+takes 1 only.
 """
 
 from __future__ import annotations
@@ -76,11 +88,21 @@ def parse_args(argv=None):
                     help='accepted; no effect yet')
     ap.add_argument('--use_flash_attention', type=str2bool, default=True)
     ap.add_argument('--dataloader_num_workers', type=int, default=8)
+    ap.add_argument('--dp', type=int, default=1,
+                    help='data-parallel replicas; the other ranks shard')
+    ap.add_argument('--tp', type=int, default=1,
+                    help='tensor parallelism: 1 only (ROADMAP.md §1 item '
+                         '11b)')
     ap.add_argument('--seed', type=int, default=0)
     ap.add_argument('--device', default='cuda',
                     help="torch device (default cuda; 'cpu' to train on the "
                          "CPU)")
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    if args.tp != 1:
+        from groma_tpu_torch.parallel.mesh import TP_ITEM
+        ap.error(f'--tp {args.tp}: tensor parallelism is not ported; it '
+                 f'waits for {TP_ITEM}')
+    return args
 
 
 def compose_model(args, device):
@@ -153,14 +175,21 @@ def save_checkpoint(output_dir, step, model, optimizer, cfg, keep: int,
                     generator=None):
     """Model, optimizer and (if given) generator state at ``step``
     (torch.save, written to a temporary name and renamed; kept as it is when
-    ``step`` has one already); keeps the newest ``keep``."""
+    ``step`` has one already); keeps the newest ``keep``.  Sharded state
+    is gathered whole first and rank 0 writes it: every rank calls this."""
     import torch
+
+    from groma_tpu_torch.parallel.mesh import (full_state_dicts,
+                                               rank_and_world)
+    msd, osd = full_state_dicts(model, optimizer)
+    if rank_and_world()[0] != 0:
+        return
     os.makedirs(output_dir, exist_ok=True)
     path = os.path.join(output_dir, f'checkpoint-{step}.pt')
     if os.path.exists(path):
         return
-    ck = {'step': step, 'model': model.state_dict(),
-          'optimizer': optimizer.state_dict(), 'config': cfg.to_dict()}
+    ck = {'step': step, 'model': msd, 'optimizer': osd,
+          'config': cfg.to_dict()}
     if generator is not None:
         ck['generator'] = generator.get_state()
     torch.save(ck, path + '.tmp')
@@ -170,14 +199,17 @@ def save_checkpoint(output_dir, step, model, optimizer, cfg, keep: int,
 
 
 def maybe_resume(output_dir, model, optimizer, generator=None) -> int:
-    """Load the newest checkpoint in ``output_dir``, if any -> its step."""
+    """Load the newest checkpoint in ``output_dir``, if any -> its step;
+    a model and optimizer sharded over any number of ranks take their
+    shards of it (every rank calls this)."""
     import torch
+
+    from groma_tpu_torch.parallel.mesh import load_full_state_dicts
     found = _checkpoints(output_dir)
     if not found:
         return 0
     ck = torch.load(found[-1][1], map_location='cpu', weights_only=True)
-    model.load_state_dict(ck['model'])
-    optimizer.load_state_dict(ck['optimizer'])
+    load_full_state_dicts(model, optimizer, ck['model'], ck['optimizer'])
     if generator is not None:
         generator.set_state(ck['generator'])
     return ck['step']
@@ -185,13 +217,18 @@ def maybe_resume(output_dir, model, optimizer, generator=None) -> int:
 
 def export_weights(output_dir, model, config: dict):
     """The weights under the reference's state-dict names, f32, with
-    ``config`` (the reference-format config) as config.json."""
+    ``config`` (the reference-format config) as config.json; gathered
+    whole where sharded, and written by rank 0 (every rank calls this)."""
     import torch
+
+    from groma_tpu_torch.parallel.mesh import full_model_state, rank_and_world
+    sd = full_model_state(model)
+    if rank_and_world()[0] != 0:
+        return
     os.makedirs(output_dir, exist_ok=True)
     with open(os.path.join(output_dir, 'config.json'), 'w') as f:
         json.dump(config, f, indent=1)
-    torch.save({k: v.detach().float().cpu() for k, v in
-                model.state_dict().items()},
+    torch.save({k: v.detach().float().cpu() for k, v in sd.items()},
                os.path.join(output_dir, 'pytorch_model.bin'))
 
 
@@ -210,11 +247,19 @@ def main(argv=None):
     from groma_tpu_torch.data.datasets.base import VLDataSpec
     from groma_tpu_torch.data.loader import DataLoader
     from groma_tpu_torch.data.tokenizer import StubTokenizer, load_tokenizer
+    from groma_tpu_torch.parallel.mesh import (RankBatches, init_distributed,
+                                               make_mesh, rank_and_world,
+                                               shard_model)
     from groma_tpu_torch.train.optimizer import (cosine_schedule,
                                                  freeze_predicate, make_adamw)
     from groma_tpu_torch.train.steps import batch_to, make_vl_train_step
+    from groma_tpu_torch.utils.logging import print0
 
     device = resolve_device(args.device)
+    init_distributed(device)
+    mesh = make_mesh(dp=args.dp, tp=args.tp, device_type=torch.device(
+        device).type)
+    rank, world = rank_and_world()
     torch.manual_seed(args.seed)
     model, cfg = compose_model(args, device)
     cfg = cfg.replace(max_seq_len=args.model_max_length)
@@ -231,14 +276,17 @@ def main(argv=None):
                       image_size=cfg.perceiver.image_size)
     dataset = build_multi_datasets(args.dataset_config, tokenizer=tokenizer,
                                    spec=spec)
-    sampler = SourceGroupedBatchSampler(
-        dataset, args.per_device_train_batch_size, seed=args.seed)
+    sampler = RankBatches(SourceGroupedBatchSampler(
+        dataset, args.per_device_train_batch_size, seed=args.seed),
+        rank, world)
     loader = DataLoader(dataset, sampler, collate_vl,
                         num_workers=args.dataloader_num_workers)
     accum = args.gradient_accumulation_steps
     steps_per_epoch = max(len(sampler) // accum, 1)
     total_steps = int(steps_per_epoch * args.num_train_epochs)
 
+    if mesh is not None:
+        shard_model(model, mesh)
     optimizer = make_adamw(
         model, cosine_schedule(args.learning_rate, total_steps,
                                warmup_ratio=args.warmup_ratio),
@@ -250,11 +298,12 @@ def main(argv=None):
     generator.manual_seed(args.seed)
     start_step = maybe_resume(args.output_dir, model, optimizer, generator)
     if start_step:
-        print(f'resumed from step {start_step}', flush=True)
+        print0(f'resumed from step {start_step}', flush=True)
     n_train = sum(p.numel() for p in optimizer.params)
     n_all = sum(p.numel() for p in model.parameters())
-    print(f'{n_train} of {n_all} parameters train; {total_steps} steps on '
-          f'{device}', flush=True)
+    print0(f'{n_train} of {n_all} parameters train; {total_steps} steps on '
+           f'{device}' + (f' x {world} ranks' if world > 1 else ''),
+           flush=True)
 
     step_fn = make_vl_train_step(model, optimizer,
                                  use_flash=args.use_flash_attention)
@@ -272,9 +321,9 @@ def main(argv=None):
             step = micro // accum
             if micro % (args.logging_steps * accum) == 0:
                 dt = (time.time() - t0) / args.logging_steps
-                print(f'step {step}/{total_steps} loss '
-                      f'{float(metrics["loss"]):.4f} lr {optimizer.lr:.3e} '
-                      f'({dt:.2f} s/step)', flush=True)
+                print0(f'step {step}/{total_steps} loss '
+                       f'{float(metrics["loss"]):.4f} lr {optimizer.lr:.3e} '
+                       f'({dt:.2f} s/step)', flush=True)
                 t0 = time.time()
             if metrics['updated'] and step % args.save_steps == 0:
                 save_checkpoint(args.output_dir, step, model, optimizer,
@@ -284,7 +333,7 @@ def main(argv=None):
     save_checkpoint(args.output_dir, total_steps, model, optimizer, cfg,
                     args.save_total_limit, generator)
     export_weights(args.output_dir, model, export_config(cfg))
-    print('training complete', flush=True)
+    print0('training complete', flush=True)
 
 
 if __name__ == '__main__':
