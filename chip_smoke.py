@@ -246,13 +246,26 @@ Phases, each printed before the last line:
     FSDP_LOSS_TOL, the trained leaves' gradients and updates within the
     FSDP_*_TOL relative Frobenius limits, controls that must miss them,
     the same flash launches).
-Then one JSON line with the twenty-four kernel rows, the int8 and the int4
+ 13. tensor parallelism at tp = 2 on the one card: two processes spawned
+    on cuda:0 under a gloo group (NCCL refuses two ranks on one device;
+    the tp collectives are all-reduces, which gloo carries for CUDA
+    tensors), every time of it one card time-shared by two ranks, not a
+    multi-card time.  Groma-7B at GromaConfig() widths served through
+    Generator(use_flash=True), each rank on its 16 query heads and half
+    the vocabulary, against the same weights without a group (the
+    prefill's last hidden and first logits, the tokens, #3 and #4's
+    launches and shapes a rank, the eager decode); then train_vl's
+    stage-3 step at 2 LLM layers cut over tp against two steps without a
+    group and one with the LLM in f32, with four controls.  In phase 2,
+    #4 and #5 also at a rank's local heads, (1, 16, 2048, 128).
+Then one JSON line with the twenty-six kernel rows, the int8 and the int4
 matmuls' two tiles apart (launches: the training
 path's for the forward flash kernels and the causal backward, the DINOv2-L
 phase's for the bidirectional backward, the served path's for the int8
 ones, the engine's for the int4 and paged ones, the decode path's for the
 megakernel, the probes' entry points' for theirs; the GQA rows' from the
-GQA serving runs, DINOv2-giant's from its forward), and as the last line
+GQA serving runs, DINOv2-giant's from its forward, the tp rows' from both
+ranks of phase 13), and as the last line
 {"ok": true, "device": {...}}.  Any failed check exits non-zero and prints
 no result; so does a machine without a CUDA device.
 """
@@ -1004,74 +1017,87 @@ def check_flash(torch, gen, timer, card):
                2.5 * 4 * b * h * sq * skv * d)
         del got, want, k2, v2
 
-    # --- #4 and #5: the LLM's causal forward and backward, (2, 32, 2048, 128)
-    cfg = GromaConfig()
-    b, h, s, d = 2, 32, cfg.max_seq_len, 128
-    q, k, v = rand(b, h, s, d), rand(b, h, s, d), rand(b, h, s, d)
-    mask = torch.from_numpy(grounded_kv_mask(grounded_batch(cfg, b, 7),
-                                             [37, 81])).to(dev)
-    case = (f'causal, grounded key mask ({int(mask[0].sum())} and '
-            f'{int(mask[1].sum())} of {s} valid, region-slot gaps + pad tail)')
-    causal_flops = 4 * b * h * s * s * d / 2
-    err, ms, plain_ms, want, wlse = check_fwd('flash_fwd causal (#4)', q,
-                                              k, v, mask, True, case)
-    # the same function through SDPA: causal and key mask as one boolean
-    # mask (SDPA takes one or the other)
-    allowed = torch.ones((s, s), dtype=torch.bool, device=dev).tril()[
-        None, None] & mask[:, None, None, :]
-    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        q, k, v, attn_mask=allowed, scale=d ** -0.5)
-    lib = library_time(torch, timer, 'F.scaled_dot_product_attention (#4, '
-                       'causal & key mask)', sdpa, want, card)
-    print(f'  its kernels: {kernel_names(torch, sdpa)} [{card}]')
-    results['causal'] = (err, ms, plain_ms,
-                         bound(4 * b * h * s * d * 2 + b * s + b * h * s * 4,
-                               causal_flops), lib)
-    _rate('flash_fwd causal (#4)', causal_flops, ms, results['causal'][3],
-          lib, 'SDPA', card)
-    # the bidirectional instantiation at D = 128 (on no path of the model)
-    check_fwd('flash_fwd bidirectional, D=128', q, k, v, mask, False,
-              'grounded key mask')
+    def causal_pair(b, h, tag):
+        """#4 and #5 at (b, h, max_seq_len, 128) under a grounded key mask,
+        each against its plain version and SDPA -> (#4's and #5's
+        result tuples)."""
+        cfg = GromaConfig()
+        s, d = cfg.max_seq_len, 128
+        q, k, v = rand(b, h, s, d), rand(b, h, s, d), rand(b, h, s, d)
+        mask = torch.from_numpy(grounded_kv_mask(
+            grounded_batch(cfg, b, 7), [37, 81])).to(dev)
+        case = (f'causal, grounded key mask ('
+                + ' and '.join(str(int(m.sum())) for m in mask)
+                + f' of {s} valid, region-slot gaps + pad tail){tag}')
+        causal_flops = 4 * b * h * s * s * d / 2
+        err, ms, plain_ms, want, wlse = check_fwd('flash_fwd causal (#4)', q,
+                                                  k, v, mask, True, case)
+        # the same function through SDPA: causal and key mask as one
+        # boolean mask (SDPA takes one or the other)
+        allowed = torch.ones((s, s), dtype=torch.bool, device=dev).tril()[
+            None, None] & mask[:, None, None, :]
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, attn_mask=allowed, scale=d ** -0.5)
+        lib = library_time(torch, timer, 'F.scaled_dot_product_attention '
+                           f'(#4, causal & key mask{tag})', sdpa, want, card)
+        print(f'  its kernels: {kernel_names(torch, sdpa)} [{card}]')
+        fwd = (err, ms, plain_ms,
+               bound(4 * b * h * s * d * 2 + b * s + b * h * s * 4,
+                     causal_flops), lib)
+        _rate(f'flash_fwd causal (#4){tag}', causal_flops, ms, fwd[3], lib,
+              'SDPA', card)
+        if not tag:
+            # the bidirectional instantiation at D = 128 (on no path of
+            # the model)
+            check_fwd('flash_fwd bidirectional, D=128', q, k, v, mask, False,
+                      'grounded key mask')
 
-    # the backward on one set of inputs: the plain forward's out and lse
-    out = want.to(torch.bfloat16)
-    lse = wlse
-    do = rand(b, h, s, d)
-    del want
-    dq, dk, dv = flash_bwd(q, k, v, mask, out, lse, do, True, d ** -0.5)
-    wq, wk, wv = flash_attention_bwd_reference(
-        q.float(), k.float(), v.float(), mask, out.float(), lse, do.float(),
-        True, d ** -0.5)
-    worst, ref_max, ok = _grad_errors(torch, (dq, dk, dv), (wq, wk, wv), card)
-    _bwd_repeat(torch, 'flash_bwd causal (#5)',
-                lambda: flash_bwd(q, k, v, mask, out, lse, do, True,
-                                  d ** -0.5), (dq, dk, dv), (wq, wk, wv),
-                card)
-    # SDPA's autograd backward, from its own forward
-    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=allowed,
-                                              scale=d ** -0.5)
-    sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
-        sdpa_out, leaves, do, retain_graph=True)
-    lib = library_time(torch, timer, 'F.scaled_dot_product_attention '
-                       'backward (#5)', sdpa_bwd, (wq, wk, wv), card,
-                       rel_tol=3e-2)
-    print(f'  its kernels: {kernel_names(torch, sdpa_bwd)} [{card}]')
-    del dq, dk, dv, wq, wk, wv, sdpa_out, leaves
-    ms = timer(lambda: flash_bwd(q, k, v, mask, out, lse, do, True,
-                                 d ** -0.5))
-    plain_ms = timer(lambda: flash_attention_bwd_reference(
-        q, k, v, mask, out, lse, do, True, d ** -0.5))
-    report('flash_bwd causal (#5)', (b, h, s, d), case, worst, ref_max,
-           '2^-6*|plain| + 2^-8*max|plain| per gradient', ok, ms, plain_ms,
-           2.5 * causal_flops)
-    results['backward'] = (
-        worst, ms, plain_ms,
-        bound(8 * b * h * s * d * 2 + b * h * s * 4 + b * s,
-              2.5 * causal_flops), lib)
-    _rate('flash_bwd causal (#5)', 2.5 * causal_flops, ms,
-          results['backward'][3], lib, 'SDPA backward', card)
-    del q, k, v, out, lse, do
+        # the backward on one set of inputs: the plain forward's out, lse
+        out = want.to(torch.bfloat16)
+        lse = wlse
+        do = rand(b, h, s, d)
+        del want
+        dq, dk, dv = flash_bwd(q, k, v, mask, out, lse, do, True, d ** -0.5)
+        wq, wk, wv = flash_attention_bwd_reference(
+            q.float(), k.float(), v.float(), mask, out.float(), lse,
+            do.float(), True, d ** -0.5)
+        worst, ref_max, ok = _grad_errors(torch, (dq, dk, dv), (wq, wk, wv),
+                                          card)
+        _bwd_repeat(torch, f'flash_bwd causal (#5){tag}',
+                    lambda: flash_bwd(q, k, v, mask, out, lse, do, True,
+                                      d ** -0.5), (dq, dk, dv),
+                    (wq, wk, wv), card)
+        # SDPA's autograd backward, from its own forward
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=allowed,
+                                                  scale=d ** -0.5)
+        sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
+            sdpa_out, leaves, do, retain_graph=True)
+        lib = library_time(torch, timer, 'F.scaled_dot_product_attention '
+                           f'backward (#5{tag})', sdpa_bwd, (wq, wk, wv),
+                           card, rel_tol=3e-2)
+        print(f'  its kernels: {kernel_names(torch, sdpa_bwd)} [{card}]')
+        del dq, dk, dv, wq, wk, wv, sdpa_out, leaves
+        ms = timer(lambda: flash_bwd(q, k, v, mask, out, lse, do, True,
+                                     d ** -0.5))
+        plain_ms = timer(lambda: flash_attention_bwd_reference(
+            q, k, v, mask, out, lse, do, True, d ** -0.5))
+        report('flash_bwd causal (#5)', (b, h, s, d), case, worst, ref_max,
+               '2^-6*|plain| + 2^-8*max|plain| per gradient', ok, ms,
+               plain_ms, 2.5 * causal_flops)
+        bwd = (worst, ms, plain_ms,
+               bound(8 * b * h * s * d * 2 + b * h * s * 4 + b * s,
+                     2.5 * causal_flops), lib)
+        _rate(f'flash_bwd causal (#5){tag}', 2.5 * causal_flops, ms, bwd[3],
+              lib, 'SDPA backward', card)
+        return fwd, bwd
+
+    # --- #4 and #5: the LLM's causal forward and backward, (2, 32, 2048,
+    # 128), and at one tp rank's local heads (phase 13: tp = 2)
+    results['causal'], results['backward'] = causal_pair(2, 32, '')
+    results['causal_tp'], results['backward_tp'] = causal_pair(
+        1, 32 // TP, f', tp={TP} local heads')
+    b, h, d = 2, 32, 128
 
     # #5 at S = 1500, ragged against both the 64-query and 128-key tiles,
     # under a grounded key mask, from the plain forward
@@ -5745,6 +5771,146 @@ def _step_departure(run, ref, start, trained) -> dict:
             'update_all': math.sqrt(sq[2] / sq[3])}
 
 
+def _stage3_two_layers(torch, seed: int):
+    """check_stage3's step at full width and 2 LLM layers: (cfg, its B=1
+    batch on the card, the stage-3 freeze predicate)."""
+    from groma_tpu_torch.models.groma import GromaConfig
+    from groma_tpu_torch.models.llama import LlamaConfig
+    from groma_tpu_torch.train.optimizer import freeze_predicate
+    from groma_tpu_torch.train.steps import batch_to
+    from groma_tpu_torch.train.synthetic import grounded_batch
+    cfg = GromaConfig(llm=LlamaConfig(num_layers=2))
+    return (cfg, batch_to(grounded_batch(cfg, 1, seed + 5), 'cuda'),
+            freeze_predicate(freeze_perceiver=True, freeze_llm=False))
+
+
+def _vl_step_run(torch, model, batch, frozen, with_start: bool = False,
+                 with_after: bool = True):
+    """One train_vl step of ``model`` (sharded as it is to run; use_flash,
+    one AdamW step at lr 1e-5, no region permutation) -> {'ms', 'n' (the
+    flash launches: bidirectional, causal, causal backward), 'loss',
+    'grads' (as the optimizer reads them), 'trained'[, 'after'][,
+    'start']}, every tensor whole, in f32 on the CPU; a collective where
+    the model is sharded."""
+    from groma_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd
+    from groma_tpu_torch.parallel import mesh as pm
+    from groma_tpu_torch.train.optimizer import make_adamw
+    from groma_tpu_torch.train.steps import make_vl_train_step
+
+    def cpu(tree):
+        return {k: v.to('cpu', torch.float32, copy=True)
+                for k, v in tree.items()}
+    opt = make_adamw(model, 1e-5, frozen_pred=frozen)
+    run = {'start': cpu(pm.full_model_state(model))} if with_start else {}
+    adam_step = opt.opt.step
+
+    def read_grads_then_step(*a, **kw):
+        run['grads'] = cpu(pm.full_grads(model))
+        return adam_step(*a, **kw)
+    opt.opt.step = read_grads_then_step
+    step = make_vl_train_step(model, opt, use_flash=True,
+                              permute_regions=False)
+    for counts in (flash_fwd.launches, flash_bwd.launches):
+        counts.update(dict.fromkeys(counts, 0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = step(batch)
+    torch.cuda.synchronize()
+    run.update(
+        ms=(time.perf_counter() - t0) * 1e3,
+        n=(flash_fwd.launches['bidirectional'], flash_fwd.launches['causal'],
+           flash_bwd.launches['causal']),
+        loss=out['loss'].item(),
+        trained=[k for k, p in model.named_parameters() if p.requires_grad])
+    if with_after:
+        run['after'] = cpu(pm.full_model_state(model))
+    return run
+
+
+def _against_plain(torch, run, plain, again, start, more_controls=None,
+                   loss_controls=None, loss_tol: float = FSDP_LOSS_TOL,
+                   grad_tol: float = FSDP_GRAD_ALL_TOL,
+                   update_tol: float = FSDP_UPDATE_ALL_TOL) -> dict:
+    """A step ``run`` against the step without a group (``plain``, and
+    ``again`` for its noise) from ``start``: the loss within
+    FSDP_LOSS_TOL, the gradients and updates within the FSDP_* limits,
+    (``loss_tol``), the gradients and updates over all leaves within
+    ``grad_tol`` / ``update_tol`` and each leaf's within the FSDP_*_LEAF
+    limits, the frozen leaves bitwise unchanged, the flash
+    launches equal, and
+    every control missing its limit (no update, the update's sign flipped
+    and the gradient halved, made from ``plain``; ``more_controls``,
+    {name: a run whose gradient must miss}; ``loss_controls``, {name: a
+    run whose loss must miss}; a control that is not finite misses) ->
+    {'ok', 'text'}."""
+    trained = plain['trained']
+    runs = [run, plain, again]
+    if not all(r['after'].keys() == start.keys()
+               and r['trained'] == trained
+               and r['grads'].keys() == set(trained) for r in runs):
+        fail('a step\'s parameters are not the plain step\'s')
+    still = [k for k in start if k not in trained]
+    frozen_ok = all(torch.equal(r['after'][k], start[k])
+                    for r in runs for k in still)
+    loss_rel = abs(run['loss'] - plain['loss']) / abs(plain['loss'])
+    got = _step_departure(run, plain, start, trained)
+    noise = _step_departure(again, plain, start, trained)
+    no_update = dict(plain, after=start)
+    flipped = dict(plain, after={k: 2 * start[k] - plain['after'][k]
+                                 for k in trained})
+    halved = dict(plain, grads={k: 0.5 * g for k, g in
+                                plain['grads'].items()})
+    controls = {'no update': _step_departure(no_update, plain, start,
+                                             trained)['update_all'],
+                'sign flipped': _step_departure(flipped, plain, start,
+                                                trained)['update_all'],
+                'gradient halved': _step_departure(halved, plain, start,
+                                                   trained)['grad_all']}
+    limits = {'no update': update_tol, 'sign flipped': update_tol,
+              'gradient halved': grad_tol}
+    for name, control in (more_controls or {}).items():
+        if control['grads'].keys() != set(trained):
+            fail(f'the control {name} trains other leaves')
+        controls[name] = math.sqrt(
+            sum((control['grads'][k] - plain['grads'][k]).norm().item() ** 2
+                for k in trained)
+            / sum(plain['grads'][k].norm().item() ** 2 for k in trained))
+        limits[name] = grad_tol
+    for name, control in (loss_controls or {}).items():
+        controls[name + ', loss'] = (abs(control['loss'] - plain['loss'])
+                                     / abs(plain['loss']))
+        limits[name + ', loss'] = loss_tol
+    controls_miss = all(not controls[c] <= limits[c] for c in limits)
+    within = (got['grad_leaf'][1] <= FSDP_GRAD_LEAF_TOL
+              and got['update_leaf'][1] <= FSDP_UPDATE_LEAF_TOL
+              and got['grad_all'] <= grad_tol
+              and got['update_all'] <= update_tol)
+
+    def said(d):
+        return (f'gradients {d["grad_all"]:.2e} over all, worst leaf '
+                f'{d["grad_leaf"][1]:.2e} ({d["grad_leaf"][0]}); updates '
+                f'{d["update_all"]:.2e} over all, worst leaf '
+                f'{d["update_leaf"][1]:.2e} ({d["update_leaf"][0]})')
+    ok = (frozen_ok and loss_rel <= loss_tol and within
+          and controls_miss and run['n'] == plain['n'] and all(run['n'])
+          and math.isfinite(run['loss']))
+    text = (f'loss {run["loss"]:.6f} against {plain["loss"]:.6f} without '
+            f'the group (rel {loss_rel:.2e}, tol {loss_tol}); '
+            f'{len(trained)} trained leaves, relative Frobenius against the '
+            f'step without the group: {said(got)} (tol {grad_tol:.3g} '
+            f'/ {FSDP_GRAD_LEAF_TOL} and {update_tol:.3g} / '
+            f'{FSDP_UPDATE_LEAF_TOL}); that step again, the noise: '
+            f'{said(noise)}; {len(still)} frozen leaves unchanged '
+            f'{frozen_ok}; controls over all leaves '
+            + ', '.join(f'{c} {v:.4g} (limit {limits[c]:.3g})'
+                        for c, v in controls.items())
+            + f' {"all miss" if controls_miss else "ONE PASSES"}; flash '
+            f'launches {run["n"]} (without the group {plain["n"]}); step '
+            f'{run["ms"]:.1f} ms against {plain["ms"]:.1f} and '
+            f'{again["ms"]:.1f} ms, all cold')
+    return {'ok': ok, 'text': text}
+
+
 def train_vl_fsdp_one_rank(torch, seed: int, card: str):
     """train_vl's step under a 1-rank NCCL process group (init_method a
     file) with FSDP over a (1, 1) mesh (parallel/mesh.shard_model: each
@@ -5764,21 +5930,8 @@ def train_vl_fsdp_one_rank(torch, seed: int, card: str):
     import torch.distributed as dist
 
     from groma_tpu_torch.checkpoint.loader import random_groma_full
-    from groma_tpu_torch.models.groma import GromaConfig
-    from groma_tpu_torch.models.llama import LlamaConfig
-    from groma_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd
     from groma_tpu_torch.parallel import mesh as pm
-    from groma_tpu_torch.train.optimizer import freeze_predicate, make_adamw
-    from groma_tpu_torch.train.steps import batch_to, make_vl_train_step
-    from groma_tpu_torch.train.synthetic import grounded_batch
-    cfg = GromaConfig(llm=LlamaConfig(num_layers=2))
-    batch = batch_to(grounded_batch(cfg, 1, seed + 5), 'cuda')
-    frozen = freeze_predicate(freeze_perceiver=True, freeze_llm=False)
-
-    def whole(v):
-        return (v.full_tensor() if hasattr(v, 'full_tensor') else v
-                ).to('cpu', torch.float32, copy=True)
-
+    cfg, batch, frozen = _stage3_two_layers(torch, seed)
     runs, start = {}, None
     with tempfile.TemporaryDirectory() as root:
         for name in ('fsdp', 'plain', 'plain again'):
@@ -5793,102 +5946,484 @@ def train_vl_fsdp_one_rank(torch, seed: int, card: str):
                 sharded = sum(hasattr(p, 'placements')
                               for p in model.parameters())
                 n_params = sum(1 for _ in model.parameters())
-            opt = make_adamw(model, 1e-5, frozen_pred=frozen)
-            if start is None:
-                start = {k: whole(v) for k, v in
-                         pm.full_model_state(model).items()}
-            grads = {}
-            adam_step = opt.opt.step
-
-            def read_grads_then_step(*a, **kw):
-                grads.update({k: whole(p.grad) for k, p in
-                              model.named_parameters() if p.requires_grad})
-                return adam_step(*a, **kw)
-            opt.opt.step = read_grads_then_step
-            step = make_vl_train_step(model, opt, use_flash=True,
-                                      permute_regions=False)
-            for counts in (flash_fwd.launches, flash_bwd.launches):
-                counts.update(dict.fromkeys(counts, 0))
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = step(batch)
-            torch.cuda.synchronize()
-            runs[name] = {
-                'ms': (time.perf_counter() - t0) * 1e3,
-                'n': (flash_fwd.launches['bidirectional'],
-                      flash_fwd.launches['causal'],
-                      flash_bwd.launches['causal']),
-                'loss': out['loss'].item(), 'grads': grads,
-                'trained': [k for k, p in model.named_parameters()
-                            if p.requires_grad],
-                'after': {k: whole(v) for k, v in
-                          pm.full_model_state(model).items()}}
+            runs[name] = _vl_step_run(torch, model, batch, frozen,
+                                      with_start=start is None)
+            start = start or runs[name].pop('start')
             if name == 'fsdp':
                 dist.destroy_process_group()
-            del model, opt, step, out
+            del model
             gc.collect()
             torch.cuda.empty_cache()
-    fsdp, plain, again = runs['fsdp'], runs['plain'], runs['plain again']
-    trained = plain['trained']
-    same_keys = all(r['after'].keys() == start.keys()
-                    and r['trained'] == trained
-                    and r['grads'].keys() == set(trained)
-                    for r in runs.values())
-    still = [k for k in start if k not in trained]
-    frozen_ok = same_keys and all(torch.equal(r['after'][k], start[k])
-                                  for r in runs.values() for k in still)
-    if not same_keys:
-        fail('the FSDP step\'s parameters are not the plain step\'s')
-    loss_rel = abs(fsdp['loss'] - plain['loss']) / abs(plain['loss'])
-    got = _step_departure(fsdp, plain, start, trained)
-    noise = _step_departure(again, plain, start, trained)
-    no_update = dict(plain, after=start)
-    flipped = dict(plain, after={k: 2 * start[k] - plain['after'][k]
-                                 for k in trained})
-    halved = dict(plain, grads={k: 0.5 * g for k, g in
-                                plain['grads'].items()})
-    controls = {'no update': _step_departure(no_update, plain, start,
-                                             trained)['update_all'],
-                'sign flipped': _step_departure(flipped, plain, start,
-                                                trained)['update_all'],
-                'gradient halved': _step_departure(halved, plain, start,
-                                                   trained)['grad_all']}
-    limits = {'no update': FSDP_UPDATE_ALL_TOL,
-              'sign flipped': FSDP_UPDATE_ALL_TOL,
-              'gradient halved': FSDP_GRAD_ALL_TOL}
-    controls_miss = all(controls[c] > limits[c] for c in limits)
-    within = (got['grad_leaf'][1] <= FSDP_GRAD_LEAF_TOL
-              and got['update_leaf'][1] <= FSDP_UPDATE_LEAF_TOL
-              and got['grad_all'] <= FSDP_GRAD_ALL_TOL
-              and got['update_all'] <= FSDP_UPDATE_ALL_TOL)
-
-    def said(d):
-        return (f'gradients {d["grad_all"]:.2e} over all, worst leaf '
-                f'{d["grad_leaf"][1]:.2e} ({d["grad_leaf"][0]}); updates '
-                f'{d["update_all"]:.2e} over all, worst leaf '
-                f'{d["update_leaf"][1]:.2e} ({d["update_leaf"][0]})')
-    ok = (frozen_ok and loss_rel <= FSDP_LOSS_TOL and within
-          and controls_miss and fsdp['n'] == plain['n'] and all(fsdp['n'])
-          and sharded == n_params and math.isfinite(fsdp['loss']))
+    fsdp = runs['fsdp']
+    j = _against_plain(torch, fsdp, runs['plain'], runs['plain again'],
+                       start)
+    ok = j['ok'] and sharded == n_params
     print(f'train_vl step under a 1-rank NCCL group, FSDP over a (1, 1) '
           f'mesh (stage 3, full width, 2 LLM layers, B=1): {sharded} '
-          f'DTensor parameters; loss {fsdp["loss"]:.6f} against '
-          f'{plain["loss"]:.6f} without the group (rel {loss_rel:.2e}, tol '
-          f'{FSDP_LOSS_TOL}); {len(trained)} trained leaves, relative '
-          f'Frobenius against the step without the group: {said(got)} '
-          f'(tol {FSDP_GRAD_ALL_TOL} / {FSDP_GRAD_LEAF_TOL} and '
-          f'{FSDP_UPDATE_ALL_TOL} / {FSDP_UPDATE_LEAF_TOL}); that step '
-          f'again, the noise: {said(noise)}; {len(still)} frozen leaves '
-          f'unchanged {frozen_ok}; controls over all leaves '
-          + ', '.join(f'{c} {v:.3f}' for c, v in controls.items())
-          + f' {"all miss" if controls_miss else "ONE PASSES"}; flash '
-          f'launches {fsdp["n"]} (without the group {plain["n"]}); step '
-          f'{fsdp["ms"]:.1f} ms against {plain["ms"]:.1f} and '
-          f'{again["ms"]:.1f} ms, all cold {"ok" if ok else "FAIL"} '
+          f'DTensor parameters; {j["text"]} {"ok" if ok else "FAIL"} '
           f'[{card}]')
     if not ok:
         fail('the FSDP step disagrees with the step without a group')
     return fsdp['n']
+
+
+# phase 13: tensor parallelism on the one card.  NCCL refuses two ranks on
+# one device, so two spawned processes share cuda:0 under a gloo group (the
+# tp operators are all-reduces, which gloo carries for CUDA tensors).
+# Every time of it is one card time-shared by two ranks over gloo, not a
+# multi-card time.
+TP = 2
+TP_MAX_NEW = 8             # new tokens of the served request (cut from 32)
+# Phase 13's limits, fixed from readings on an H100 (80GB HBM3, 700 W),
+# each between what the tp run gives and what a fault gives (PERF.md §6
+# keeps both readings of each).  A tp run rounds as one process does (each
+# product once to bf16, the row-parallel sums in f32), but sums in another
+# order, so it parts from the run without a group by more than that run's
+# own noise (phase 12's FSDP_* limits), as far as the same step with the
+# LLM in f32 shows bf16's rounding itself moves a step (printed beside).
+# The forward control leaves reduce-from-tp's all-reduce out (every
+# row-parallel product and vocab lookup a rank's partial sum) and must
+# miss the loss and prefill limits; the backward control leaves
+# copy-to-tp's all-reduce out and must miss the gradient limit.
+# The prefill, relative to max|.| of the run without a group: read 1.84e-2
+# to 2.05e-2 (last hidden) and 1.62e-2 to 1.81e-2 (first logits); the
+# forward control 1.18 to 1.25 and 1.08
+TP_HIDDEN_TOL = 0.1
+TP_LOGITS_TOL = 0.1
+# the step's loss, relative: read 2.0e-5 to 3.19e-5, the forward control
+# 1.45e-4 (at random weights the logits are near uniform, so no fault
+# moves the loss far: the gradient limits carry the step's check)
+TP_LOSS_TOL = 7e-5
+# gradients and updates over all trained leaves, relative Frobenius: read
+# 8.8e-3 to 1.07e-2 and 9.0e-2 to 9.5e-2 (the controls: the gradient
+# halved 0.5, copy-to-tp's all-reduce left out 0.88, the forward control
+# 2.22; no update 1.0, the update's sign flipped 2.0); each leaf is held
+# to phase 12's limits
+TP_GRAD_ALL_TOL = 2e-2
+TP_UPDATE_ALL_TOL = 0.2
+TP_JOIN_TIMEOUT = 600      # seconds the two ranks may take
+
+
+def _tp_rank(rank, world, init, job, seed, payload, out_dir):
+    """One rank of phase 13, a process spawned on cuda:0: joins the gloo
+    group, lays a (1, 1, world) mesh and runs ``job`` ('serve' or
+    'train'); writes its result to ``out_dir``/rank{rank}.pt."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from groma_tpu_torch.ops import cuda_lib
+    from groma_tpu_torch.parallel import mesh as pm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuda_lib.library()          # the parent's build, loaded
+    pm.init_distributed('cuda', init_method=init, num_processes=world,
+                        process_id=rank, backend='gloo')
+    mesh = pm.make_mesh(dp=1, tp=world, device_type='cuda')
+    torch.cuda.reset_peak_memory_stats()
+    out = (_tp_serve_rank if job == 'serve' else _tp_train_rank)(
+        torch, mesh, seed, payload, rank)
+    out['peak_gib'] = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.save(out, os.path.join(out_dir, f'rank{rank}.pt'))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _tp_spawn(torch, job: str, seed: int, payload) -> list:
+    """Phase 13's ``job`` on TP spawned ranks -> each rank's result; a rank
+    that fails or outlives TP_JOIN_TIMEOUT fails the phase."""
+    import multiprocessing
+    import os
+    import tempfile
+    ctx = multiprocessing.get_context('spawn')
+    with tempfile.TemporaryDirectory() as root:
+        init = 'file://' + os.path.join(root, 'group')
+        procs = [ctx.Process(target=_tp_rank, args=(r, TP, init, job, seed,
+                                                    payload, root))
+                 for r in range(TP)]
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(TP_JOIN_TIMEOUT)
+            if any(p.is_alive() for p in procs):
+                fail(f'tp {job}: a rank still runs after {TP_JOIN_TIMEOUT} s')
+            if [p.exitcode for p in procs] != [0] * TP:
+                fail(f'tp {job}: the ranks exited with '
+                     f'{[p.exitcode for p in procs]}')
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+        return [torch.load(os.path.join(root, f'rank{r}.pt'),
+                           weights_only=False) for r in range(TP)]
+
+
+def _tp_request(np, seed: int):
+    """The served request of phase 13 at GromaConfig() widths: a grounded
+    stream of max_seq_len (2048) slots, so that the LLM prefill reaches
+    FLASH_MIN_SEQ, as phase 6's."""
+    from groma_tpu_torch.data.datasets.base import VLDataSpec
+    from groma_tpu_torch.data.tokenizer import StableStubTokenizer
+    from groma_tpu_torch.models.groma import GromaConfig
+    from groma_tpu_torch.serve.worker import expand_request
+    cfg = GromaConfig()
+    tok = StableStubTokenizer(cfg.llm.vocab_size, cfg.max_seq_len)
+    spec = VLDataSpec(num_image_tokens=cfg.num_image_tokens,
+                      max_region_num=cfg.max_region_num,
+                      max_seq_len=cfg.max_seq_len,
+                      image_size=cfg.perceiver.image_size)
+    t = expand_request(tok, spec, {'prompt': SERVED_PROMPTS[0]})
+    image = random_image(np, seed + 1, cfg.perceiver.image_size)
+    return (image[None], t['input_ids'][None], t['region_slot'][None],
+            t['valid'][None])
+
+
+def _tp_generate(torch, model, args) -> dict:
+    """``Generator(use_flash=True).generate`` of TP_MAX_NEW greedy tokens
+    on ``model`` (cut for tp or not), its logits kept at every call of the
+    heads (a LogitRecorder: replays record too) and the hidden state the
+    prefill's call took -> the tokens, logits, hidden, flash launches,
+    the causal flash kernel's q shapes, times and decode mode."""
+    from groma_tpu_torch.eval.generate import Generator
+    from groma_tpu_torch.models import llama
+    from groma_tpu_torch.ops.flash_attention import flash_fwd
+    rec = LogitRecorder(torch, TP_MAX_NEW)
+    heads, first = model.logits, {}
+
+    def logits(hidden):
+        if not first:               # the prefill's call, eager
+            first['hidden'] = hidden.float().cpu()
+        return rec.wrap(heads)(hidden)
+    model.logits = logits
+    shapes, flash = [], llama.flash_attention
+
+    def seen(q, *a, **kw):
+        shapes.append(tuple(q.shape))
+        return flash(q, *a, **kw)
+    llama.flash_attention = seen
+    gen = Generator(model, max_len=args[1].shape[1] + TP_MAX_NEW,
+                    use_flash=True)
+    flash_fwd.launches.update(bidirectional=0, causal=0)
+    try:
+        toks, _ = gen.generate(*args, max_new_tokens=TP_MAX_NEW)
+        torch.cuda.synchronize()
+    finally:
+        llama.flash_attention = flash
+        del model.logits
+    st = gen.last_stats
+    return {'tokens': [int(t) for t in toks[0]],
+            'logits': rec.buf[:, 0].float().cpu(),
+            'calls': int(rec.calls), 'hidden': first['hidden'][0],
+            'flash': dict(flash_fwd.launches), 'shapes': sorted(set(shapes)),
+            'prefill_ms': st['prefill_ms'],
+            'decode_ms': st['decode_ms_per_token'],
+            'decode_mode': st['decode_mode'],
+            'finite': st['logits_finite']}
+
+
+def _tp_prefill_without_reduce(torch, model, args) -> dict:
+    """The forward control of phase 13's serving: the prefill alone
+    (use_flash) of ``args`` with reduce-from-tp's all-reduce left out ->
+    the last hidden state the heads take and the first logits, as
+    ``_tp_generate`` keeps them."""
+    from groma_tpu_torch.parallel import tensor_parallel
+    heads, seen = model.logits, {}
+
+    def logits(hidden):
+        seen['hidden'] = hidden.float().cpu()
+        return heads(hidden)
+    model.logits = logits
+    forward = tensor_parallel._ReduceFromTP.forward
+    tensor_parallel._ReduceFromTP.forward = staticmethod(
+        lambda ctx, x, group: x.clone())
+    images, ids, slots, valid = args
+    try:
+        with torch.no_grad():
+            lg, *_ = model.prefill(
+                torch.as_tensor(images, dtype=torch.float32, device='cuda'),
+                torch.as_tensor(ids, dtype=torch.int64, device='cuda'),
+                torch.as_tensor(slots, dtype=torch.int64, device='cuda'),
+                torch.as_tensor(valid, dtype=torch.bool, device='cuda'),
+                ids.shape[1] + 1, use_flash=True)
+            torch.cuda.synchronize()
+    finally:
+        tensor_parallel._ReduceFromTP.forward = forward
+        del model.logits
+    return {'hidden': seen['hidden'][0], 'logits': lg[0].float().cpu()}
+
+
+def _tp_serve_rank(torch, mesh, seed: int, args, rank: int) -> dict:
+    """A rank's half of Groma-7B (random weights of ``seed``, the LLM trunk
+    in bf16), cut over the tp group, generating for ``args``."""
+    from groma_tpu_torch.checkpoint.loader import random_groma_unquantized
+    from groma_tpu_torch.models.groma import GromaConfig
+    from groma_tpu_torch.parallel import mesh as pm
+    model = random_groma_unquantized(GromaConfig(), seed=seed, device='cuda')
+    pm.shard_model(model, mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = _tp_generate(torch, model, args)
+    out['control'] = _tp_prefill_without_reduce(torch, model, args)
+    out['cut'] = len(model.tp_plan)
+    c = model.cfg.llm
+    out['q_heads'] = model.llm.model.layers[0].self_attn.q_proj.weight \
+        .shape[0] // (c.hidden_size // c.num_heads)
+    return out
+
+
+def _tp_train_rank(torch, mesh, seed: int, _, rank: int) -> dict:
+    """The stage-3 step (2 LLM layers, full width) cut over the tp group,
+    then the two controls (their loss and gradients only): the step with
+    copy-to-tp's backward all-reduce left out, and with reduce-from-tp's
+    forward one left out; each from the random weights of ``seed``.  Rank
+    0 returns the three runs; every rank the gradients of the trained
+    leaves it holds whole ('replicated'), as the optimizer read them:
+    averaged over the tp group, so bitwise the same on both."""
+    from groma_tpu_torch.checkpoint.loader import random_groma_full
+    from groma_tpu_torch.parallel import mesh as pm
+    from groma_tpu_torch.parallel import tensor_parallel as tpo
+    cfg, batch, frozen = _stage3_two_layers(torch, seed)
+    out = {}
+    backward, forward = tpo._CopyToTP.backward, tpo._ReduceFromTP.forward
+    for name in ('tp', 'backward control', 'forward control'):
+        if name == 'backward control':
+            tpo._CopyToTP.backward = staticmethod(lambda ctx, g: (g, None))
+        if name == 'forward control':
+            tpo._ReduceFromTP.forward = staticmethod(
+                lambda ctx, x, group: x.clone())
+        model = random_groma_full(cfg, seed=seed, device='cuda')
+        pm.shard_model(model, mesh)
+        try:
+            run = _vl_step_run(torch, model, batch, frozen,
+                               with_after=name == 'tp')
+        finally:
+            tpo._CopyToTP.backward = backward
+            tpo._ReduceFromTP.forward = forward
+        run['cut'] = len(model.tp_plan)
+        if name == 'tp':
+            out['n'] = run['n']
+            out['replicated'] = {k: g for k, g in run['grads'].items()
+                                 if k not in model.tp_plan}
+        if rank == 0:
+            out[name] = run
+        del model, run
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+# the row-parallel product against the f32 GEMM of the same bf16 values,
+# relative to max|.|: both sum exact products in f32, in another order
+TP_ROW_PRODUCT_TOL = 1e-4
+
+
+def row_parallel_product(torch, seed: int, card: str):
+    """One tp rank's row-parallel ``down_proj`` of the tp prefill (2048 x
+    5504 by 5504 -> 4096, bf16, the output f32) as
+    ``layers.cast_linear(..., out_dtype=float32)`` runs it on the card
+    (one bf16 GEMM that writes f32) against the f32 GEMM of the same
+    values (TF32 off): the device times and their difference, within
+    TP_ROW_PRODUCT_TOL of max|.|."""
+    import torch.nn.functional as F
+
+    from groma_tpu_torch.models.layers import cast_linear
+    from groma_tpu_torch.utils.profiling import Timer
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    x = torch.randn(2048, 5504, generator=gen, device='cuda') \
+        .to(torch.bfloat16)
+    w = (0.02 * torch.randn(4096, 5504, generator=gen, device='cuda')) \
+        .to(torch.bfloat16)
+    wide = cast_linear(x, w, out_dtype=torch.float32)
+    full = F.linear(x.float(), w.float())
+    err = ((wide - full).abs().max() / full.abs().max()).item()
+    timer = Timer('cuda')
+    ms = timer(lambda: cast_linear(x, w, out_dtype=torch.float32))
+    f32_ms = timer(lambda: F.linear(x.float(), w.float()))
+    ok = wide.dtype == torch.float32 and err <= TP_ROW_PRODUCT_TOL
+    print(f'tp row-parallel product (2048 x 5504 -> 4096, bf16 in, f32 '
+          f'out): one bf16 GEMM writing f32 {ms:.4f} ms, the f32 GEMM of '
+          f'the same values {f32_ms:.4f} ms (with the casts); rel '
+          f'difference {err:.3e} (tol {TP_ROW_PRODUCT_TOL}) '
+          f'{"ok" if ok else "FAIL"} [{card}]')
+    if not ok:
+        fail('the row-parallel product disagrees with its f32 GEMM')
+
+
+def tensor_parallel_one_card(torch, np, seed: int, card: str) -> dict:
+    """Phase 13: tensor parallelism at tp = 2 on two ranks sharing the card
+    over gloo.  Serving: Groma-7B at full width (DINOv2-L at 448, 32 LLaMA
+    layers, bf16 trunk), unquantized, ``Generator(use_flash=True)``, 8
+    greedy tokens of one 2048-slot request, each rank on its 16 query
+    heads and half the vocabulary, against the same weights without a
+    group: the prefill's last hidden and first logits within
+    TP_HIDDEN_TOL / TP_LOGITS_TOL of max|.|, the tokens equal up to a first
+    parting at a near tie; each rank 24 launches of #3 and 32 of #4 at (1,
+    16, 2048, 128), its decode eager (gloo); the forward control's prefill
+    (reduce-from-tp's all-reduce left out) outside both limits.
+    Training: the stage-3 step at 2 LLM layers cut over tp (dp = fsdp =
+    1) against the step without a group, run twice, and beside the same
+    step with the LLM in f32 (what bf16's rounding moves, printed): the
+    loss within TP_LOSS_TOL, gradients and updates over all leaves within
+    TP_GRAD_ALL_TOL / TP_UPDATE_ALL_TOL and each leaf within phase 12's
+    limits, the frozen leaves bitwise, the replicated leaves' gradients
+    bitwise equal on both ranks, and five controls missing: phase 12's
+    three, the backward control (copy-to-tp's all-reduce left out) the
+    gradient limit, the forward control both the loss and the gradient
+    limits.  Returns the launches of the ranks' main runs, summed:
+    {'bidirectional', 'causal', 'causal backward'}."""
+    from groma_tpu_torch.checkpoint.loader import (random_groma_full,
+                                                   random_groma_unquantized)
+    from groma_tpu_torch.models import llama
+    from groma_tpu_torch.models.groma import GromaConfig
+    from groma_tpu_torch.models.llama import FLASH_MIN_SEQ
+    row_parallel_product(torch, seed, card)
+    args = _tp_request(np, seed)
+    s = args[1].shape[1]
+    if s < FLASH_MIN_SEQ:
+        fail(f'tp serving: a {s}-slot stream runs no causal flash kernel')
+
+    t0 = time.perf_counter()
+    model = random_groma_unquantized(GromaConfig(), seed=seed, device='cuda')
+    ref = _tp_generate(torch, model, args)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    ranks = _tp_spawn(torch, 'serve', seed, args)
+    t2 = time.perf_counter()
+    problems = []
+    for r, got in enumerate(ranks):
+        hid = ((got['hidden'] - ref['hidden']).abs().max()
+               / ref['hidden'].abs().max()).item()
+        first = ((got['logits'][0] - ref['logits'][0]).abs().max()
+                 / ref['logits'][0].abs().max()).item()
+        j = _first_difference(ref['tokens'], got['tokens'])
+        parted = 'none'
+        if j < TP_MAX_NEW:
+            gap, diff, tie = _parted_at_near_tie(
+                ref['logits'][j], got['logits'][j], ref['tokens'][j],
+                got['tokens'][j],
+                TP_LOGITS_TOL * ref['logits'][j].abs().max().item())
+            parted = (f'at token {j}, top-2 gap {gap:.4f} under the logits\' '
+                      f'difference {diff:.4f}: near tie {tie}')
+            if not tie:
+                problems.append(f'rank {r} parted from the tokens without '
+                                f'a group at token {j} off a near tie')
+        launches = (got['flash']['bidirectional'], got['flash']['causal'])
+        print(f'tp serving rank {r} of {TP}: {got["cut"]} parameters cut, '
+              f'{got["q_heads"]} query heads a layer; prefill hidden rel '
+              f'{hid:.3e} (tol {TP_HIDDEN_TOL}), first logits rel '
+              f'{first:.3e} (tol {TP_LOGITS_TOL}) against the same weights '
+              f'without a group; tokens {got["tokens"]} (without the group '
+              f'{ref["tokens"]}), first parting {parted}; flash launches '
+              f'#3 {launches[0]}, #4 {launches[1]} at {got["shapes"]}; '
+              f'decode {got["decode_mode"]}; prefill {got["prefill_ms"]:.1f} '
+              f'ms, decode {got["decode_ms"]:.2f} ms/token, peak '
+              f'{got["peak_gib"]:.2f} GiB (one card time-shared by two '
+              f'ranks over gloo, not a multi-card time) [{card}]')
+        ctl = got['control']
+        ctl_hid = ((ctl['hidden'] - ref['hidden']).abs().max()
+                   / ref['hidden'].abs().max()).item()
+        ctl_first = ((ctl['logits'] - ref['logits'][0]).abs().max()
+                     / ref['logits'][0].abs().max()).item()
+        # a control that is not finite misses
+        ctl_miss = not (ctl_hid <= TP_HIDDEN_TOL
+                        or ctl_first <= TP_LOGITS_TOL)
+        print(f'tp serving rank {r}, the forward control (reduce-from-tp\'s '
+              f'all-reduce left out): prefill hidden rel {ctl_hid:.3e}, '
+              f'first logits rel {ctl_first:.3e}: '
+              f'{"both miss" if ctl_miss else "ONE PASSES"} [{card}]')
+        if hid > TP_HIDDEN_TOL or first > TP_LOGITS_TOL:
+            problems.append(f'rank {r}: prefill outside its limits')
+        if not ctl_miss:
+            problems.append(f'rank {r}: the forward control passes a '
+                            f'prefill limit')
+        if launches != (24, 32) or got['shapes'] != [(1, 32 // TP, s, 128)]:
+            problems.append(f'rank {r}: flash launches {launches} at '
+                            f'{got["shapes"]}')
+        if got['decode_mode'] != 'eager: gloo tp group' or not got['finite'] \
+                or got['calls'] != TP_MAX_NEW:
+            problems.append(f'rank {r}: decode {got["decode_mode"]}, finite '
+                            f'{got["finite"]}, {got["calls"]} head calls')
+        if got['tokens'] != ranks[0]['tokens']:
+            problems.append('the ranks\' tokens differ')
+    print(f'tp serving without a group (Generator, captured decode): '
+          f'prefill {ref["prefill_ms"]:.1f} ms, decode {ref["decode_ms"]:.2f} '
+          f'ms/token, flash launches {ref["flash"]}, peak '
+          f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB of the '
+          f'script; reference {t1 - t0:.1f} s, the two ranks {t2 - t1:.1f} s '
+          f'with their start [{card}]')
+    if problems:
+        fail('tp serving: ' + '; '.join(problems))
+
+    cfg, batch, frozen = _stage3_two_layers(torch, seed)
+    plain = {}
+    for name in ('plain', 'plain again', 'f32'):
+        # 'f32': the LLM in f32 (its attention dense: the flash kernels
+        # take bf16), the yardstick of what bf16's rounding moves
+        model = random_groma_full(
+            cfg.replace(llm=cfg.llm.replace(dtype='float32'))
+            if name == 'f32' else cfg, seed=seed, device='cuda')
+        flash_min = llama.FLASH_MIN_SEQ
+        if name == 'f32':
+            llama.FLASH_MIN_SEQ = 1 << 30
+        try:
+            plain[name] = _vl_step_run(torch, model, batch, frozen,
+                                       with_start=not plain)
+        finally:
+            llama.FLASH_MIN_SEQ = flash_min
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    start = plain['plain'].pop('start')
+    del batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    ranks_t = _tp_spawn(torch, 'train', seed, None)
+    t4 = time.perf_counter()
+    tp = ranks_t[0]['tp']
+    f32 = plain['f32']
+    trained = plain['plain']['trained']
+    bf16 = _step_departure(plain['plain'], f32, start, trained)
+    tp_f32 = _step_departure(tp, f32, start, trained)
+    print(f'tp step beside the step with the LLM in f32 (dense attention): '
+          f'the plain bf16 step parts from it by {bf16["grad_all"]:.3e} '
+          f'(gradients over all) and {bf16["update_all"]:.3e} (updates), '
+          f'the tp step by {tp_f32["grad_all"]:.3e} and '
+          f'{tp_f32["update_all"]:.3e}; its loss {f32["loss"]:.6f} '
+          f'[{card}]')
+    fwd = ranks_t[0]['forward control']
+    j = _against_plain(torch, tp, plain['plain'], plain['plain again'],
+                       start,
+                       {'backward control': ranks_t[0]['backward control'],
+                        'forward control': fwd},
+                       {'forward control': fwd}, loss_tol=TP_LOSS_TOL,
+                       grad_tol=TP_GRAD_ALL_TOL,
+                       update_tol=TP_UPDATE_ALL_TOL)
+    mine, theirs = ranks_t[0]['replicated'], ranks_t[1]['replicated']
+    replica = mine.keys() == theirs.keys() and all(
+        torch.equal(g, theirs[k]) for k, g in mine.items())
+    ok = j['ok'] and tp['cut'] > 0 and replica
+    print(f'train_vl step at tp={TP} on two ranks of the card over gloo '
+          f'(stage 3, full width, 2 LLM layers, B=1): {tp["cut"]} parameters '
+          f'cut; the {len(mine)} trained leaves each rank holds whole: their '
+          f'gradients, averaged over the ranks, bitwise equal on both '
+          f'{replica}; {j["text"]}; '
+          f'peak {", ".join(f"{r["peak_gib"]:.2f}" for r in ranks_t)} GiB a '
+          f'rank (one card time-shared by two ranks over gloo, not a '
+          f'multi-card time); the two ranks {t4 - t3:.1f} s with their '
+          f'start {"ok" if ok else "FAIL"} [{card}]')
+    if not ok:
+        fail('the tp step disagrees with the step without a group')
+    return {'bidirectional': sum(r['flash']['bidirectional'] for r in ranks)
+            + sum(r['n'][0] for r in ranks_t),
+            'causal': sum(r['flash']['causal'] for r in ranks)
+            + sum(r['n'][1] for r in ranks_t),
+            'causal backward': sum(r['n'][2] for r in ranks_t)}
 
 
 def main():
@@ -6006,6 +6541,11 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     train_vl_fsdp_one_rank(torch, args.seed, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_n = tensor_parallel_one_card(torch, np, args.seed, card)
+    if not (tp_n['causal'] and tp_n['causal backward']):
+        fail('a flash kernel of the tp path was never launched')
     if 'jax' in sys.modules or 'flax' in sys.modules:
         fail('jax was imported')
 
@@ -6076,6 +6616,15 @@ def main():
               'groma_tpu/ops/quant4.py:85',
               gqa_n['int4'][1], gqa_mm[('int4', 2048)][0],
               *gqa_mm[('int4', 2048)][1], *gqa_mm[('int4', 2048)][2:]),
+        flash_entry(f'flash_fwd (causal, tp={TP} local heads (1, '
+                    f'{32 // TP}, 2048, 128); launches of both ranks)',
+                    'causal_tp', 'flash_attention_fwd.cu',
+                    'groma_tpu/ops/flash_attention.py:222', tp_n['causal']),
+        flash_entry(f'flash_bwd (causal, tp={TP} local heads (1, '
+                    f'{32 // TP}, 2048, 128); launches of both ranks)',
+                    'backward_tp', 'flash_attention_bwd.cu',
+                    'groma_tpu/ops/flash_attention.py:527',
+                    tp_n['causal backward']),
         entry('flash_fwd (bidirectional, DINOv2-giant (1, 24, 1025, 64))',
               'flash_attention_fwd.cu', 'groma_tpu/ops/flash_attention.py:68',
               giant_n, giant_flash[0], *giant_flash[1], *giant_flash[2:]),

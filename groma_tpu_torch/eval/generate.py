@@ -25,6 +25,13 @@ The two decode loops of the JAX generator:
     step, and the loop stops once every row has emitted EOS; rows are not
     forced to EOS after their own, and not cut.
 
+On a model cut for tensor parallelism (``parallel/mesh.shard_model``)
+every rank of the tp group calls ``generate`` with the same inputs and
+runs the same steps on its own heads; the logits are gathered whole, so
+the tokens are the same on every rank.  Under a gloo tp group the scan's
+steps run eagerly on the card (a gloo collective cannot be captured),
+under NCCL they are captured; ``last_stats['decode_mode']`` says which.
+
 Both run no forward whose logits would go unused (JAX's do, after the
 last token), so a decode of ``max_new_tokens`` needs ``max_new_tokens - 1``
 free cache slots past the stream; one that would not fit raises ValueError
@@ -41,6 +48,7 @@ import torch
 
 from groma_tpu_torch.models.groma import GromaModel
 from groma_tpu_torch.models.llama import make_kv_cache
+from groma_tpu_torch.parallel.tensor_parallel import host_collectives
 from groma_tpu_torch.utils.graphs import StepGraph
 
 
@@ -54,11 +62,13 @@ class DecodeScan:
     cleared, index 0); ``begin`` loads the prefill's results into the
     state."""
 
-    def __init__(self, key, cache: dict, step, generators=()):
+    def __init__(self, key, cache: dict, step, generators=(),
+                 eager: bool = False):
         self.key = key
         self._cache = cache
         self._step = step
         self._generators = generators
+        self._eager = eager
         self.state = None
         self.graph = None
 
@@ -84,7 +94,8 @@ class DecodeScan:
                                     dtype=torch.int64, device=dev),
                 'step': torch.zeros((), dtype=torch.int64, device=dev),
                 'finite': torch.isfinite(logits).all()}
-            self.graph = StepGraph(self._step, self.state, self._generators)
+            self.graph = StepGraph(self._step, self.state, self._generators,
+                                   eager=self._eager)
         else:
             st = self.state
             self._index.fill_(s)
@@ -132,7 +143,9 @@ class Generator:
     After each ``generate`` call, ``last_stats`` holds: decode_forwards,
     prefill_ms, decode_ms_per_token (host clock around synchronized device
     work), logits_finite, the prefill's logits (first_logits, numpy f32),
-    and the tokens, selected_boxes and selected_mask."""
+    the tokens, selected_boxes and selected_mask, and decode_mode: the
+    scan's 'graph' (captured on the card), 'eager' (the CPU) or 'eager:
+    gloo tp group', or the Python 'loop' (``use_scan=False``)."""
 
     def __init__(self, model: GromaModel, max_len: int = 2048,
                  use_flash: bool = False):
@@ -141,6 +154,8 @@ class Generator:
         self.max_len = max_len
         self.use_flash = use_flash
         self.device = model.llm.model.embed_tokens.weight.device
+        # a gloo tp group's collectives run on the host: no capture
+        self.host_tp = host_collectives(getattr(model, 'tp_group', None))
         self.last_stats = None
         self._decode: Optional[DecodeScan] = None
 
@@ -171,9 +186,10 @@ class Generator:
                 st['step'].add_(1)
             self._decode = DecodeScan(
                 key, make_kv_cache(self.cfg.llm, b, self.max_len,
-                                   device=self.device), step,
-                (generator,) if sampled and self.device.type == 'cuda'
-                else ())
+                                   device=self.device,
+                                   kv_heads=self.model.llm.model.kv_heads),
+                step, (generator,) if sampled and self.device.type == 'cuda'
+                else (), eager=self.host_tp)
         return self._decode
 
     @torch.inference_mode()
@@ -265,7 +281,10 @@ class Generator:
             'decode_ms_per_token': (t2 - t1) * 1e3 / max(forwards, 1),
             'logits_finite': bool(finite),
             'first_logits': first_logits.float().cpu().numpy(),
-            'tokens': tokens, **vis_np}
+            'tokens': tokens, **vis_np,
+            'decode_mode': 'loop' if not use_scan else
+            'eager: gloo tp group' if self.host_tp else
+            'graph' if self.device.type == 'cuda' else 'eager'}
         return tokens, vis_np
 
 

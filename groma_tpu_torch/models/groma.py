@@ -38,6 +38,16 @@ Generation: ``prefill`` (vision, surgery and the first LLM pass into a
 fresh KV cache) and ``decode_step``, as the JAX model's;
 ``compact_stream`` gathers a stream's valid tokens to the front of a
 shorter buffer, ``check_stream_capacity`` refuses a row that does not fit.
+
+Under tensor parallelism (``parallel/mesh.shard_model`` sets
+``tp_group``) the embedding tables and the two heads may be cut on their
+vocabulary rows: ``embed`` looks up each table's rows across the ranks,
+``logits`` gathers each head's columns whole (a greedy argmax then breaks
+ties as one process does), and the training loss is the vocab-parallel
+NLL (``ops/fused_ce``; without it, the log-softmax of the gathered
+logits).  A table whose rows tp does not divide (the 114 new-token rows at
+tp = 4) stays whole on every rank, as JAX's fallback leaves it, and every
+rank computes it whole.
 """
 
 from __future__ import annotations
@@ -58,6 +68,8 @@ from groma_tpu_torch.models.region_encoder import RegionEncoder
 from groma_tpu_torch.ops.bbox import box_iou, cxcywh_to_xyxy
 from groma_tpu_torch.ops.fused_ce import fused_nll_sum
 from groma_tpu_torch.ops.nms import nms
+from groma_tpu_torch.parallel.tensor_parallel import (vocab_embedding,
+                                                      vocab_logits)
 
 
 def _ordinal(mask: torch.Tensor) -> torch.Tensor:
@@ -96,6 +108,7 @@ class GromaModel(nn.Module):
                                            device=device)
         self.extra_lm_head = nn.Linear(llm_d, cfg.num_new_token, bias=False,
                                        device=device)
+        self.tp_group = None
 
     @property
     def sp(self) -> SpecialIds:
@@ -105,8 +118,12 @@ class GromaModel(nn.Module):
         """Split-vocabulary embedding lookup."""
         base = self.cfg.llm.vocab_size
         is_new = input_ids >= base
-        e_base = self.llm.model.embed_tokens(torch.where(is_new, 0, input_ids))
-        e_new = self.new_input_embs(torch.where(is_new, input_ids - base, 0))
+        e_base = vocab_embedding(torch.where(is_new, 0, input_ids),
+                                 self.llm.model.embed_tokens.weight, base,
+                                 self.tp_group)
+        e_new = vocab_embedding(torch.where(is_new, input_ids - base, 0),
+                                self.new_input_embs.weight,
+                                self.cfg.num_new_token, self.tp_group)
         return torch.where(is_new[..., None], e_new.to(e_base.dtype), e_base)
 
     def logits(self, hidden):
@@ -115,9 +132,10 @@ class GromaModel(nn.Module):
         logits of a bf16 hidden, as flax computes them)."""
         w = self.llm.lm_head.weight
         hidden = hidden.to(torch.promote_types(hidden.dtype, w.dtype))
-        return torch.cat([F.linear(hidden, w.to(hidden.dtype)),
-                          F.linear(hidden, self.extra_lm_head.weight
-                                   .to(hidden.dtype))], dim=-1)
+        return torch.cat([
+            vocab_logits(hidden, w, self.cfg.llm.vocab_size, self.tp_group),
+            vocab_logits(hidden, self.extra_lm_head.weight,
+                         self.cfg.num_new_token, self.tp_group)], dim=-1)
 
     # ------------------------------------------------------------- vision
 
@@ -298,7 +316,8 @@ class GromaModel(nn.Module):
         position_ids = _ordinal(valid).clamp(min=0)
         if cache is None:
             cache = make_kv_cache(self.cfg.llm, images.shape[0], max_len,
-                                  device=emb.device)
+                                  device=emb.device,
+                                  kv_heads=self.llm.model.kv_heads)
         hidden, cache = self.llm.model(emb, valid, position_ids, cache,
                                        use_flash)
         last = torch.argmax(position_ids, dim=-1)
@@ -359,7 +378,8 @@ class GromaModel(nn.Module):
             nll_sum = fused_nll_sum(
                 _gather_rows(hidden, src),
                 (self.llm.lm_head.weight.T, self.extra_lm_head.weight.T),
-                safe, ok, chunk=512)
+                safe, ok, chunk=512, group=self.tp_group,
+                full_cols=(self.cfg.llm.vocab_size, self.cfg.num_new_token))
         else:
             logp = torch.log_softmax(_gather_rows(out['logits'], src), -1)
             nll = -torch.gather(logp, -1, safe[..., None])[..., 0]

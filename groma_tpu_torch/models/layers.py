@@ -18,36 +18,54 @@ from torch import nn
 from groma_tpu_torch.ops.flash_attention import flash_attention
 
 
+def _wide_linear(x, w, out_dtype):
+    """x @ w.T, both of x's dtype, the products summed and returned in
+    ``out_dtype``: on the card one tensor-core GEMM that writes
+    ``out_dtype`` (``torch.mm``'s ``out_dtype``); elsewhere the product of
+    the values cast up, which is exact for the narrower dtype's values."""
+    if x.is_cuda:
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w.t(), out_dtype=out_dtype)
+        return y.reshape(*x.shape[:-1], w.shape[0])
+    return F.linear(x.to(out_dtype), w.to(out_dtype))
+
+
 class _CastLinear(torch.autograd.Function):
-    """x @ w.T with w cast to x's dtype for the product.  The cast copy is
-    not kept for the backward, which casts again: a frozen 7B LLM would
-    otherwise hold a second, bf16 copy of its weights until the backward.
-    The weight's gradient is rounded to x's dtype first, as the transpose
-    of flax's cast is."""
+    """x @ w.T with w cast to x's dtype for the product, the output in x's
+    dtype or in a wider ``out_dtype`` (the products of x's dtype summed
+    there).  The cast copy is not kept for the backward, which casts
+    again: a frozen 7B LLM would otherwise hold a second, bf16 copy of its
+    weights until the backward.  The gradients are taken in x's dtype,
+    the weight's rounded to x's dtype first, as the transpose of flax's
+    cast is."""
 
     @staticmethod
-    def forward(ctx, x, w):
+    def forward(ctx, x, w, out_dtype=None):
         # x is needed only for w's gradient: a frozen weight does not keep it
         ctx.save_for_backward(x if ctx.needs_input_grad[1] else None, w)
-        return F.linear(x, w.to(x.dtype))
+        ctx.dtype = x.dtype
+        if out_dtype is None or out_dtype == x.dtype:
+            return F.linear(x, w.to(x.dtype))
+        return _wide_linear(x, w.to(x.dtype), out_dtype)
 
     @staticmethod
     def backward(ctx, gy):
         x, w = ctx.saved_tensors
+        gy = gy.to(ctx.dtype)
         gx = gw = None
         if ctx.needs_input_grad[0]:
             gx = gy @ w.to(gy.dtype)
         if ctx.needs_input_grad[1]:
             gw = (gy.reshape(-1, gy.shape[-1]).T
                   @ x.reshape(-1, x.shape[-1])).to(w.dtype)
-        return gx, gw
+        return gx, gw, None
 
 
-def cast_linear(x, w):
-    """Bias-free linear in x's dtype over a weight kept in another."""
-    if w.dtype == x.dtype:
+def cast_linear(x, w, out_dtype=None):
+    """Bias-free linear in x's dtype over a weight kept in another; with
+    ``out_dtype``, the output in that (wider) dtype."""
+    if w.dtype == x.dtype and out_dtype in (None, x.dtype):
         return F.linear(x, w)
-    return _CastLinear.apply(x, w)
+    return _CastLinear.apply(x, w, out_dtype)
 
 
 def linear(m: nn.Linear, x):

@@ -25,6 +25,17 @@ place.  Grouped-query configs repeat k/v over the query heads after the
 cache.  Unlike JAX, whose ``dynamic_update_slice`` clamps, a write past the
 cache end at a host index raises; at an index tensor the caller keeps the
 decode inside the cache (a check would read the index back).
+
+Tensor parallelism (``parallel/mesh.shard_model``): a module whose
+``tp_group`` is set computes on the slices it holds.  Attention takes its
+head counts from its local weights (q/k/v cut at whole heads, or k/v whole
+beside a slice of q heads, each rank then taking its query heads' KV
+heads), its input through ``copy_to_tp`` and ``o_proj`` as a row-parallel
+product (``parallel/tensor_parallel``); the MLP likewise around
+``down_proj``; ``make_kv_cache`` takes the local KV head count
+(``LlamaModel.kv_heads``), and the flash kernels see plain (B, H/tp, S, D)
+tensors.  ``LlamaForCausalLM.forward`` looks up a vocab-cut embedding and
+gathers a vocab-cut head's logits whole.
 """
 
 from __future__ import annotations
@@ -38,6 +49,10 @@ from torch import nn
 from groma_tpu_torch.config import LlamaConfig
 from groma_tpu_torch.models.layers import cast_linear
 from groma_tpu_torch.ops.flash_attention import flash_attention
+from groma_tpu_torch.parallel.tensor_parallel import (copy_to_tp,
+                                                      row_parallel_linear,
+                                                      vocab_embedding,
+                                                      vocab_logits)
 
 # from this many query tokens on, use_flash takes the flash kernels (the
 # JAX package's in-model crossover, kept as its policy)
@@ -75,13 +90,14 @@ def apply_rope(x, cos, sin):
 
 
 def make_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
-                  device=None) -> dict:
+                  device=None, kv_heads: Optional[int] = None) -> dict:
     """Per-layer (B, H, max_len, D) key/value buffers in the model dtype,
     a (B, max_len) validity mask and the write index.  The forward writes
-    into them in place."""
+    into them in place.  ``kv_heads``: H, the KV heads a rank holds under
+    tensor parallelism (default ``cfg.num_kv_heads``)."""
     dtype = torch_dtype(cfg.dtype)
     hd = cfg.hidden_size // cfg.num_heads
-    shape = (batch, cfg.num_kv_heads, max_len, hd)
+    shape = (batch, kv_heads or cfg.num_kv_heads, max_len, hd)
     return {
         'k': [torch.zeros(shape, dtype=dtype, device=device)
               for _ in range(cfg.num_layers)],
@@ -107,6 +123,14 @@ def _linear(i, o, device, dtype=None):
     return nn.Linear(i, o, bias=False, device=device, dtype=dtype)
 
 
+def _column_input(x, tp):
+    """The input the column-parallel products cast from: under tp an f32
+    copy of ``x`` behind ``copy_to_tp``, each product taking its own cast
+    of it, so that their input gradients are summed in f32, all-reduced in
+    f32 and cast once."""
+    return x if tp is None else copy_to_tp(x.to(torch.float32), tp)
+
+
 class LlamaAttention(nn.Module):
     def __init__(self, c: LlamaConfig, device=None, dtype=None):
         super().__init__()
@@ -118,6 +142,7 @@ class LlamaAttention(nn.Module):
         self.v_proj = _linear(c.hidden_size, c.num_kv_heads * hd, device,
                               dtype)
         self.o_proj = _linear(c.num_heads * hd, c.hidden_size, device, dtype)
+        self.tp_group = None
 
     def forward(self, x, cos, sin, kv_mask, use_flash: bool = False,
                 cache_kv=None, cache_index=None):
@@ -128,14 +153,23 @@ class LlamaAttention(nn.Module):
         c = self.cfg
         b, s, _ = x.shape
         hd = c.hidden_size // c.num_heads
+        nq = self.q_proj.weight.shape[0] // hd
+        nkv = self.k_proj.weight.shape[0] // hd
+        tp = self.tp_group if nq < c.num_heads else None
+        wk, wv = self.k_proj.weight, self.v_proj.weight
+        x_in = _column_input(x, tp)
+        if tp is not None and nkv == c.num_kv_heads:
+            # whole k/v beside a slice of q: each rank's gradient of them
+            # covers its own query heads only
+            wk, wv = copy_to_tp(wk, tp), copy_to_tp(wv, tp)
 
-        def heads(proj, n):
-            return cast_linear(x, proj.weight).reshape(b, s, n, hd) \
+        def heads(w, n):
+            return cast_linear(x_in.to(x.dtype), w).reshape(b, s, n, hd) \
                 .transpose(1, 2)
 
-        q = apply_rope(heads(self.q_proj, c.num_heads), cos, sin)
-        k = apply_rope(heads(self.k_proj, c.num_kv_heads), cos, sin)
-        v = heads(self.v_proj, c.num_kv_heads)
+        q = apply_rope(heads(self.q_proj.weight, nq), cos, sin)
+        k = apply_rope(heads(wk, nkv), cos, sin)
+        v = heads(wv, nkv)
         prefill = cache_kv is not None and s > 1
         device_index = cache_kv is not None and torch.is_tensor(cache_index)
         vector = device_index and cache_index.dim() == 1
@@ -158,7 +192,13 @@ class LlamaAttention(nn.Module):
             if not prefill:
                 k, v = ck, cv
         rep = c.num_heads // c.num_kv_heads
-        if rep > 1:
+        if nkv * rep != nq:
+            # this rank's query heads over the whole KV heads
+            first = torch.distributed.get_rank(tp) * nq
+            kv_of = (torch.arange(first, first + nq, device=x.device)
+                     // rep)
+            k, v = k.index_select(1, kv_of), v.index_select(1, kv_of)
+        elif rep > 1:
             k = k.repeat_interleave(rep, dim=1)
             v = v.repeat_interleave(rep, dim=1)
 
@@ -186,7 +226,9 @@ class LlamaAttention(nn.Module):
                 causal = (kj <= qi + cache_index)[None, None]
             p = torch.softmax(torch.where(causal, sc, -1e30), dim=-1)
             out = torch.matmul(p.to(v.dtype).float(), v.float()).to(x.dtype)
-        out = out.transpose(1, 2).reshape(b, s, c.num_heads * hd)
+        out = out.transpose(1, 2).reshape(b, s, nq * hd)
+        if tp is not None:
+            return row_parallel_linear(out, self.o_proj.weight, tp)
         return cast_linear(out, self.o_proj.weight)
 
 
@@ -199,10 +241,18 @@ class LlamaMLP(nn.Module):
                                dtype)
         self.down_proj = _linear(c.intermediate_size, c.hidden_size, device,
                                  dtype)
+        self.intermediate_size = c.intermediate_size
+        self.tp_group = None
 
     def forward(self, h):
-        gate = cast_linear(h, self.gate_proj.weight)
-        up = cast_linear(h, self.up_proj.weight)
+        tp = self.tp_group if self.gate_proj.weight.shape[0] \
+            < self.intermediate_size else None
+        h_in = _column_input(h, tp)
+        gate = cast_linear(h_in.to(h.dtype), self.gate_proj.weight)
+        up = cast_linear(h_in.to(h.dtype), self.up_proj.weight)
+        if tp is not None:
+            return row_parallel_linear(F.silu(gate) * up,
+                                       self.down_proj.weight, tp)
         return cast_linear(F.silu(gate) * up, self.down_proj.weight)
 
 
@@ -235,6 +285,14 @@ class LlamaModel(nn.Module):
         self.layers = nn.ModuleList(LlamaDecoderLayer(c, device, linear_dtype)
                                     for _ in range(c.num_layers))
         self.norm = RMSNorm(c.hidden_size, device, c.rms_norm_eps)
+
+    @property
+    def kv_heads(self) -> int:
+        """The KV heads this rank's layers hold (all of them without tensor
+        parallelism)."""
+        c = self.cfg
+        return self.layers[0].self_attn.k_proj.weight.shape[0] \
+            // (c.hidden_size // c.num_heads)
 
     def forward(self, inputs_embeds, attn_mask, position_ids,
                 cache: Optional[dict] = None, use_flash: bool = False):
@@ -295,3 +353,20 @@ class LlamaForCausalLM(nn.Module):
         super().__init__()
         self.model = LlamaModel(c, device, linear_dtype)
         self.lm_head = _linear(c.hidden_size, c.vocab_size, device)
+        self.tp_group = None
+
+    def forward(self, input_ids, attn_mask=None, position_ids=None,
+                cache: Optional[dict] = None, use_flash: bool = False):
+        """JAX's ``LlamaForCausalLM.__call__``: (B, S) ids -> ((B, S, V)
+        logits in ``cfg.dtype``, the cache); the mask defaults to all
+        valid and the positions to its running count."""
+        c = self.model.cfg
+        if attn_mask is None:
+            attn_mask = torch.ones_like(input_ids, dtype=torch.bool)
+        if position_ids is None:
+            position_ids = torch.cumsum(attn_mask.long(), -1) - 1
+        x = vocab_embedding(input_ids, self.model.embed_tokens.weight,
+                            c.vocab_size, self.tp_group)
+        h, cache = self.model(x, attn_mask, position_ids, cache, use_flash)
+        return vocab_logits(h, self.lm_head.weight, c.vocab_size,
+                            self.tp_group), cache

@@ -8,14 +8,21 @@ at a time (``torch.utils.checkpoint``).  Numerics as in the JAX package:
 the heads are cast to the hidden states' dtype and the logits accumulate in
 f32 (products of bf16 values summed in f32).  The JAX package runs no
 Pallas kernel here, so neither does the port.
+
+Under tensor parallelism (``group``) each head is this rank's columns of
+a head cut on its vocabulary (or the whole head, where tp does not divide
+it), and each chunk's NLL is ``parallel/tensor_parallel.vocab_nll``:
+local logsumexps gathered, the gold logit from the rank that owns it.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from groma_tpu_torch.parallel.tensor_parallel import vocab_nll
 
 
 def _chunk_nll(h, labels, ok, *heads):
@@ -42,16 +49,23 @@ def fused_cross_entropy(hidden: torch.Tensor, heads: Sequence[torch.Tensor],
 
 def fused_nll_sum(hidden: torch.Tensor, heads: Sequence[torch.Tensor],
                   labels: torch.Tensor, ok: torch.Tensor,
-                  chunk: int = 256) -> torch.Tensor:
+                  chunk: int = 256, group=None,
+                  full_cols: Optional[Sequence[int]] = None) -> torch.Tensor:
     """The summed NLL of the ``ok`` positions (``fused_cross_entropy``
-    before its division by their count)."""
+    before its division by their count).  ``group``: the tp group the
+    heads' columns are cut over, ``full_cols`` each head's whole width."""
     labels = torch.where(ok, labels, 0).long()
     total = hidden.new_zeros((), dtype=torch.float32)
+    if group is None:
+        nll = _chunk_nll
+    else:
+        def nll(h, lab, k, *hs):
+            return vocab_nll(h, hs, full_cols, lab, k, group)
     for start in range(0, hidden.shape[1], chunk):
         sl = slice(start, start + chunk)
         args = (hidden[:, sl], labels[:, sl], ok[:, sl], *heads)
         if torch.is_grad_enabled():
-            total = total + checkpoint(_chunk_nll, *args, use_reentrant=False)
+            total = total + checkpoint(nll, *args, use_reentrant=False)
         else:
-            total = total + _chunk_nll(*args)
+            total = total + nll(*args)
     return total

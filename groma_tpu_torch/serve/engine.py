@@ -69,6 +69,24 @@ the vector-index multi-token append, greedy acceptance, per-row counts and
 an exact per-row rewind.  As in JAX, the scheduler loop never calls it:
 the bursts stay sequential.
 
+On a model cut for tensor parallelism (``parallel/mesh.shard_model``:
+``model.tp_group`` set; ``qp=None``, a contiguous cache, one-shot or
+batched admission) every rank of the tp group builds an engine with the
+same arguments, and the ranks must run the same steps in the same order,
+or their collectives would no longer pair.  So rank 0 of the group alone
+takes submissions and schedules; before each admission it broadcasts the
+admitted rows (their slots, ids, region slots, validity, images and
+temperatures) and before each decode burst the slots' state (tokens,
+positions, done flags, the active mask and temperatures), and the other
+ranks' scheduler threads run the same prefill, seating and burst on their
+own heads and emit nothing.  An idle rank 0 sends a heartbeat every few
+seconds, and a STOP when it closes.  The broadcasts are a few small
+tensors on the engine's device, which a gloo group also carries for CUDA
+tensors; the bursts are captured under NCCL and eager under gloo, as
+``eval/generate.Generator``'s scan.  The quantized, paged, chunked and
+speculative modes refuse a tp group (ROADMAP.md §1, "the quantized tree
+under tp").
+
 Unlike JAX, a request taken off the queue stays the engine's until it is
 seated: if its prefill or seating raises, every unseated request of that
 admission group ends with the error (its ``token_stream()`` re-raises)
@@ -86,6 +104,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from groma_tpu_torch.eval.generate_quant import quant_embed, quant_logits
@@ -97,7 +116,12 @@ from groma_tpu_torch.models.llama_quant import (make_quant_kv_cache,
                                                 w8a8_weights)
 from groma_tpu_torch.ops.paged_attention import (PAGE, insert_prefill_pages,
                                                  make_kv_page_pool)
+from groma_tpu_torch.parallel.tensor_parallel import host_collectives
 from groma_tpu_torch.utils.graphs import StepGraph
+
+# rank 0's messages to the other ranks of a tp group
+_STOP, _ADMIT, _BURST, _IDLE = range(4)
+HEARTBEAT_SEC = 5.0
 
 
 class Session:
@@ -173,6 +197,13 @@ class BatchEngine:
         if qp is None and (kv_bits != 16 or paged_kv):
             raise ValueError('the unquantized engine (qp=None) keeps a '
                              'contiguous kv_bits=16 cache')
+        self.tp = getattr(model, 'tp_group', None)
+        if self.tp is not None and qp is not None:
+            raise ValueError('a tp-cut model serves through the unquantized '
+                             'engine (qp=None) only: the quantized, paged, '
+                             'chunked and speculative modes wait for '
+                             'ROADMAP.md §1 item 11c, the quantized tree '
+                             'under tp')
         cfg = model.cfg
         self.model = model
         self.qp = qp
@@ -253,6 +284,11 @@ class BatchEngine:
         self._host_rng = np.random.default_rng(sample_seed)
         self._sessions: list = [None] * max_slots
         self._emitted = np.zeros((max_slots,), np.int64)
+        # tp: rank 0 of the group schedules, the others follow it
+        self._leader = self.tp is None or dist.get_rank(self.tp) == 0
+        self._src = None if self.tp is None \
+            else dist.get_global_rank(self.tp, 0)
+        self._sent = time.time()
 
         # entries (-priority, seq, payload): higher priority admits first
         self._queue: queue.PriorityQueue = queue.PriorityQueue()
@@ -272,7 +308,8 @@ class BatchEngine:
         # serializes submit() against _abort_all(), so that no request can
         # be enqueued after the abort drained the queue
         self._admission_lock = threading.Lock()
-        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread = threading.Thread(
+            target=self._loop if self._leader else self._follow, daemon=True)
         self._thread.start()
         atexit.register(self.close)
 
@@ -280,7 +317,95 @@ class BatchEngine:
         if self._kv_bits == 8:
             return make_quant_kv_cache(self.cfg.llm, batch, length,
                                        device=self.device)
-        return make_kv_cache(self.cfg.llm, batch, length, device=self.device)
+        return make_kv_cache(self.cfg.llm, batch, length, device=self.device,
+                             kv_heads=self.model.llm.model.kv_heads)
+
+    # ------------------------------------------------ tp: rank 0's orders
+
+    def _bcast(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` from rank 0 of the tp group, in place."""
+        dist.broadcast(t, src=self._src, group=self.tp)
+        return t
+
+    def _order(self, op: int, *args: int) -> list:
+        """Rank 0: send one order (an op and up to 7 ints); the others:
+        receive one (the arguments ignored) -> [op, *ints]."""
+        head = torch.zeros(8, dtype=torch.int64, device=self.device)
+        if self._leader:
+            head[:1 + len(args)] = torch.tensor([op, *args])
+            self._sent = time.time()
+        return self._bcast(head).tolist()
+
+    def _share_admission(self, head, slots=(), group=()):
+        """An admission's slots and rows, from rank 0 (``group``: its
+        requests) to the others (who get (slots, requests) back, each
+        request with a session of its temperature)."""
+        _, n, seat, s, h, w, _, _ = head
+        ints = torch.zeros((n * 3 * s + seat,), dtype=torch.int64,
+                           device=self.device)
+        floats = torch.zeros((n * h * w * 3 + seat,), device=self.device)
+        if self._leader:
+            rows = [np.stack([np.asarray(r[k]).reshape(-1) for r in group])
+                    for k in (2, 3, 4)]
+            ints.copy_(torch.as_tensor(np.concatenate(
+                [np.asarray(slots[:seat])] + [r.reshape(-1) for r in rows]
+            ).astype(np.int64)))
+            floats.copy_(torch.as_tensor(np.concatenate(
+                [np.stack([np.asarray(r[1], np.float32) for r in group])
+                 .reshape(-1),
+                 np.asarray([r[0].temperature for r in group[:seat]],
+                            np.float32)])))
+        self._bcast(ints)
+        self._bcast(floats)
+        if self._leader:
+            return slots, group
+        ints, floats = ints.cpu().numpy(), floats.cpu().numpy()
+        ids, rslot, valid = ints[seat:].reshape(3, n, s)
+        images = floats[:n * h * w * 3].reshape(n, h, w, 3)
+        reqs = []
+        for i in range(n):
+            sess = Session()
+            sess.temperature = float(floats[n * h * w * 3 + min(i, seat - 1)])
+            sess.max_new = self.max_new_tokens
+            reqs.append((sess, images[i], ids[i], rslot[i], valid[i] != 0))
+        return [int(x) for x in ints[:seat]], reqs
+
+    def _share_burst(self):
+        """The slots' state before a burst, from rank 0 to the others: the
+        device's tokens, positions and done flags, the host's active mask
+        and temperatures."""
+        st = torch.stack([self._tok.double(), self._pos.double(),
+                          self._done.double(),
+                          torch.as_tensor(self._active, dtype=torch.float64,
+                                          device=self.device),
+                          torch.as_tensor(self._temps, dtype=torch.float64,
+                                          device=self.device)])
+        st = self._bcast(st)
+        if not self._leader:
+            self._tok.copy_(st[0].long())
+            self._pos.copy_(st[1].long())
+            self._done.copy_(st[2] != 0)
+            host = st[3:].cpu().numpy()
+            self._active[:] = host[0] != 0
+            self._temps[:] = host[1]
+
+    def _follow(self):
+        """The scheduler thread of a rank other than 0 of the tp group: run
+        rank 0's orders until its STOP."""
+        with torch.inference_mode():
+            try:
+                while True:
+                    head = self._order(_IDLE)
+                    if head[0] == _STOP:
+                        break
+                    if head[0] == _ADMIT:
+                        slots, reqs = self._share_admission(head)
+                        self._admit_group(slots, reqs, [])
+                    elif head[0] == _BURST:
+                        self._decode_burst()
+            except BaseException as e:  # noqa: BLE001 - recorded, not hung
+                with self._admission_lock:
+                    self._fatal = e
 
     # ------------------------------------------------------------- API
 
@@ -291,6 +416,9 @@ class BatchEngine:
         ``max_new_tokens`` caps this request (bounded by the engine's);
         higher ``priority`` admits first (seated requests are never
         preempted); ``temperature`` > 0 samples this stream."""
+        if not self._leader:
+            raise RuntimeError('rank 0 of the tp group takes the requests; '
+                               'the other ranks follow its schedule')
         sess = Session()
         sess.max_new = min(max_new_tokens or self.max_new_tokens,
                            self.max_new_tokens)
@@ -346,9 +474,11 @@ class BatchEngine:
         return out
 
     def close(self):
+        """Stop the scheduler (on a rank other than 0 of a tp group: wait
+        for rank 0's STOP, which its own ``close`` sends)."""
         self._stop = True
         if self._thread.is_alive():
-            self._thread.join(timeout=30)
+            self._thread.join(timeout=30 if self._leader else None)
         # the exit hook held the engine, and with it its caches and graphs
         atexit.unregister(self.close)
 
@@ -490,37 +620,53 @@ class BatchEngine:
             # a prefill or seat that raises ends each unseated stream
             unseated = [req[0] for req in group]
             try:
-                if len(group) >= 2 and self.admit_batch > 1 \
-                        and not self.prefill_chunk_tokens:
-                    # one padded b=K prefill: the last request is
-                    # repeated, the pad rows are computed and never seated
-                    padded = group + [group[-1]] * (self.admit_batch
-                                                    - len(group))
-                    logits, one, vis, next_pos = self._prefill(padded)
-                    for row, req in enumerate(group):
-                        self._seat(free[row], req[0], logits[row], one, row,
-                                   vis, int(next_pos[row]))
-                        unseated.remove(req[0])
-                else:
-                    for slot, req in zip(free, group):
-                        if self.prefill_chunk_tokens:
-                            logits, one, vis, next_pos = \
-                                self._chunked_prefill(req)
-                        else:
-                            logits, one, vis, next_pos = self._prefill([req])
-                        self._seat(slot, req[0], logits[0], one, 0, vis,
-                                   int(next_pos[0]))
-                        unseated.remove(req[0])
-                        if self.prefill_chunk_tokens \
-                                and not self._queue.empty() \
-                                and self._active.any():
-                            # back-to-back admissions: the live streams
-                            # move between them too
-                            self._decode_burst()
+                if self.tp is not None:
+                    img = np.asarray(group[0][1])
+                    rows = len(group) if len(group) < 2 \
+                        or self.admit_batch < 2 else self.admit_batch
+                    padded = group + [group[-1]] * (rows - len(group))
+                    self._share_admission(
+                        self._order(_ADMIT, rows, len(group),
+                                    np.asarray(group[0][2]).size,
+                                    *img.shape[:2]), free, padded)
+                self._admit_group(free, group, unseated)
             except BaseException as e:
                 for sess in unseated:
                     self._end(sess, e)
                 raise
+
+    def _admit_group(self, free, group, unseated):
+        """Prefill and seat ``group`` in the ``free`` slots (one padded
+        batched prefill, or one prefill each), taking each seated session
+        out of ``unseated``."""
+        if len(group) >= 2 and self.admit_batch > 1 \
+                and not self.prefill_chunk_tokens:
+            # one padded b=K prefill: the last request is repeated, the pad
+            # rows are computed and never seated
+            padded = group[:len(free)] + [group[-1]] * (
+                self.admit_batch - min(len(group), len(free)))
+            group = group[:len(free)]
+            logits, one, vis, next_pos = self._prefill(padded)
+            for row, req in enumerate(group):
+                self._seat(free[row], req[0], logits[row], one, row, vis,
+                           int(next_pos[row]))
+                if req[0] in unseated:
+                    unseated.remove(req[0])
+            return
+        for slot, req in zip(free, group):
+            if self.prefill_chunk_tokens:
+                logits, one, vis, next_pos = self._chunked_prefill(req)
+            else:
+                logits, one, vis, next_pos = self._prefill([req])
+            self._seat(slot, req[0], logits[0], one, 0, vis,
+                       int(next_pos[0]))
+            if req[0] in unseated:
+                unseated.remove(req[0])
+            if self.prefill_chunk_tokens and not self._queue.empty() \
+                    and self._active.any():
+                # back-to-back admissions: the live streams move between
+                # them too
+                self._decode_burst()
 
     def _seat(self, slot, sess, row_logits, one, row, vis, next_pos):
         """Install row ``row`` of a prefill into ``slot`` and emit its
@@ -759,6 +905,12 @@ class BatchEngine:
         to their sessions."""
         if self.paged:
             self._topup_pages()
+        if self.tp is not None:
+            if self._leader:
+                if not self._active.any():
+                    return
+                self._order(_BURST)
+            self._share_burst()
         if not self._active.any():
             return
         t0 = time.perf_counter()
@@ -775,7 +927,8 @@ class BatchEngine:
             graph = self._graphs[sample] = StepGraph(
                 lambda state: self._step(state, sample), st,
                 generators=(self._gen,) if sample
-                and self.device.type == 'cuda' else ())
+                and self.device.type == 'cuda' else (),
+                eager=host_collectives(self.tp))
         graph.run(self.chunk)
         # the burst's one read-back: tokens, positions, done, finite
         back = torch.cat([st['out'], st['pos'][:, None],
@@ -787,7 +940,8 @@ class BatchEngine:
         self._n_nonfinite += int(not back[0, self.chunk + 2])
         self._n_steps += self.chunk
         self._decode_sec += time.perf_counter() - t0
-        self._emit(back[:, :self.chunk])
+        if self._leader:
+            self._emit(back[:, :self.chunk])
 
     def _emit(self, out_np):
         done_np = self._done_np
@@ -819,6 +973,9 @@ class BatchEngine:
                 while not self._stop:
                     self._admit()
                     if not self._active.any():
+                        if self.tp is not None \
+                                and time.time() - self._sent > HEARTBEAT_SEC:
+                            self._order(_IDLE)
                         time.sleep(0.002)
                         continue
                     self._decode_burst()
@@ -830,6 +987,9 @@ class BatchEngine:
                 with self._admission_lock:
                     pass     # no submit() can now slip past the drain
                 self._drain_waiting(None)
+            finally:
+                if self.tp is not None:
+                    self._order(_STOP)
 
     @staticmethod
     def _end(sess: Session, err: Optional[BaseException]):

@@ -22,10 +22,17 @@ state-dict names:
 * optional global-norm clipping over the trainable gradients, and
   gradient accumulation as optax.MultiSteps does it (the mean of
   ``accum_steps`` micro-batch gradients, one update);
-* parameters sharded by FSDP (``parallel/mesh.shard_model``, DTensors):
-  the arithmetic runs on each rank's shards, and the clipping norm sums
-  the shards' squares over the mesh axes they are sharded on, so it is the
-  whole gradient's norm.
+* parameters sharded by FSDP (``parallel/mesh.shard_model``, DTensors)
+  and cut by tensor parallelism (``model.tp_plan``): the arithmetic runs
+  on each rank's shards, and the clipping norm sums each gradient's
+  squares over the mesh axes its FSDP shards lie on and, for a tp-cut
+  parameter, over the tp group; a parameter whole on every tp rank
+  (norms, the vision tower, the region encoder, the bridge) is counted
+  once, so the norm is the whole gradient's.  Such a parameter's gradient
+  is first averaged over the tp group: the ranks compute it each for
+  itself, and on the card kernels that add with atomics give it in
+  another order on each, so without the mean the replicas would drift
+  apart step by step.
 """
 
 from __future__ import annotations
@@ -103,18 +110,29 @@ def _local(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if hasattr(t, 'placements') else t
 
 
-def _sum_of_squares(grads) -> torch.Tensor:
-    """The squared global norm of ``grads``: the sum over this rank's
-    shards, all-reduced over each mesh axis the gradients are sharded on
-    (they share one mesh and placement, ``shard_model``'s)."""
-    total = sum((_local(g).float() ** 2).sum() for g in grads)
-    if grads and hasattr(grads[0], 'placements'):
-        import torch.distributed as dist
-        for dim, placement in enumerate(grads[0].placements):
-            if placement.is_shard():
-                dist.all_reduce(total,
-                                group=grads[0].device_mesh.get_group(dim))
-    return total
+def _sum_of_squares(grads, tp_cut, tp_group) -> torch.Tensor:
+    """The squared global norm of ``grads``: each gradient's squares over
+    this rank's shard, summed over the groups it is sharded over (the
+    mesh axes of its FSDP placement; the tp group where ``tp_cut`` marks
+    it), one partial sum for each set of groups."""
+    import torch.distributed as dist
+    parts = {}
+    for i, g in enumerate(grads):
+        groups = []
+        if hasattr(g, 'placements'):
+            groups = [g.device_mesh.get_group(d)
+                      for d, pl in enumerate(g.placements) if pl.is_shard()]
+        if tp_cut[i]:
+            groups.append(tp_group)
+        parts.setdefault(tuple(id(gr) for gr in groups), (groups, []))[1] \
+            .append((_local(g).float() ** 2).sum())
+
+    def reduced(groups, sqs):
+        part = sum(sqs)
+        for gr in groups:
+            dist.all_reduce(part, group=gr)
+        return part
+    return sum(reduced(*p) for p in parts.values())
 
 
 class AdamW:
@@ -143,10 +161,17 @@ class AdamW:
             p.requires_grad_(True)
             mult = next((m for pred, m in lr_mult_rules if pred(name)), 1.0)
             decay = weight_decay if name not in no_decay else 0.0
-            groups.setdefault((mult, decay), []).append(p)
-        self.params = [p for ps in groups.values() for p in ps]
+            groups.setdefault((mult, decay), []).append((name, p))
+        # the names in the optimizer state's order (checkpoints gather the
+        # tp-cut ones)
+        self.names = [n for ps in groups.values() for n, _ in ps]
+        self.params = [p for ps in groups.values() for _, p in ps]
+        plan = getattr(model, 'tp_plan', {})
+        self.tp_group = getattr(model, 'tp_group', None)
+        self.tp_cut = [n in plan for n in self.names]
         self.opt = torch.optim.AdamW(
-            [{'params': ps, 'mult': mult, 'weight_decay': decay}
+            [{'params': [p for _, p in ps], 'mult': mult,
+              'weight_decay': decay}
              for (mult, decay), ps in groups.items()],
             lr=0.0, betas=(b1, b2), eps=eps)
 
@@ -172,8 +197,16 @@ class AdamW:
         local = [_local(g) for g in grads]
         if self.accum_steps > 1:
             torch._foreach_div_(local, float(self.accum_steps))
+        if self.tp_group is not None:
+            import torch.distributed as dist
+            tp = dist.get_world_size(self.tp_group)
+            for g, cut in zip(local, self.tp_cut):
+                if not cut:
+                    dist.all_reduce(g, group=self.tp_group)
+                    g.div_(tp)
         if self.max_grad_norm:
-            norm = torch.sqrt(_sum_of_squares(grads))
+            norm = torch.sqrt(_sum_of_squares(grads, self.tp_cut,
+                                              self.tp_group))
             # optax.clip_by_global_norm: rescale only at or above the limit
             factor = torch.where(norm < self.max_grad_norm, 1.0,
                                  self.max_grad_norm / norm)

@@ -2,12 +2,16 @@
 (the CE loss of the grounded token stream) and the detection stage's (the
 DDETR losses), each a forward, its backward and the optimizer's step.
 
-Under a process group each rank holds a slice of the global batch
+Under a process group each data rank holds a slice of the global batch
 (``parallel/mesh.RankBatches``) and FSDP averages the gradients over the
-ranks, so a step divides its summed losses by the GLOBAL token or box
-count and scales the backward by the world size: the gradient and the
-reported loss are those of JAX's one program over the whole batch (a
-mean of per-rank means would differ wherever the ranks' counts do)."""
+data ranks, so a step divides its summed losses by the GLOBAL token or box
+count and scales the backward by the data group's size: the gradient and
+the reported loss are those of JAX's one program over the whole batch (a
+mean of per-rank means would differ wherever the ranks' counts do).  The
+tp ranks of one data rank hold the same rows and draw the same region
+permutation (the generator is seeded alike on every rank), so the rank and
+world here are the data group's (``model.data_group``, set by
+``parallel/mesh.shard_model``), never the process group's."""
 
 from __future__ import annotations
 
@@ -36,8 +40,10 @@ def make_vl_train_step(model, optimizer, use_flash: bool = False,
     permutation; each call is one micro-batch of ``optimizer``'s
     accumulation."""
 
+    data = getattr(model, 'data_group', None)
+
     def step(batch: dict, generator=None) -> dict:
-        rank, world = rank_and_world()
+        rank, world = rank_and_world(data)
         b = batch['images'].shape[0]
         out = model(images=batch['images'], input_ids=batch['input_ids'],
                     region_slot=batch['region_slot'],
@@ -49,9 +55,9 @@ def make_vl_train_step(model, optimizer, use_flash: bool = False,
                     generator=generator, permute=permute_regions,
                     use_flash=use_flash,
                     permute_rows=(rank * b, world * b))
-        n = all_reduce_sum(out['n_tokens'].float()).clamp(min=1)
+        n = all_reduce_sum(out['n_tokens'].float(), data).clamp(min=1)
         (out['nll_sum'] * (world / n)).backward()
-        loss = all_reduce_sum(out['nll_sum'].detach() / n)
+        loss = all_reduce_sum(out['nll_sum'].detach() / n, data)
         updated = optimizer.step()
         return {'loss': loss.detach(), 'updated': updated}
 
@@ -78,17 +84,19 @@ def make_det_train_step(perceiver, ddetr_cfg, optimizer, source: str,
     no part in the backward.  Across ranks the losses are normalized by
     the global box count and summed over the ranks (the cardinality
     error, a mean over images, averaged)."""
+    data = getattr(perceiver, 'data_group', None)
+
     def step(batch: dict) -> dict:
-        _, world = rank_and_world()
+        _, world = rank_and_world(data)
         out = perceiver(batch['images'])
         num_boxes = all_reduce_sum(
-            batch['targets']['valid'].sum().to(torch.float32))
+            batch['targets']['valid'].sum().to(torch.float32), data)
         losses = ddetr_loss(out, batch['targets'], ddetr_cfg, source,
                             matcher=matcher, num_boxes=num_boxes)
         (losses['loss'] * world).backward()
         keys = list(losses)
         total = all_reduce_sum(torch.stack(
-            [losses[k].detach() for k in keys]))
+            [losses[k].detach() for k in keys]), data)
         losses = {k: v / world if k.startswith('cardinality_error')
                   else v for k, v in zip(keys, total)}
         updated = optimizer.step()

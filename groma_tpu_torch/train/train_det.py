@@ -25,8 +25,10 @@ Boolean flags take ``True``/``False`` strings.  Training runs on the card;
 (``torchrun --nproc_per_node N``), as in ``train_vl``: FSDP over a (``--dp``,
 the rest) mesh (``parallel/mesh.py``), the ViT's layers as units; the batch
 global, each rank a contiguous 1/N slice of it; the losses normalized by
-the global box count and clipped by the global gradient norm; ``--tp``
-takes 1 only.
+the global box count and clipped by the global gradient norm.  ``--tp``
+is accepted as JAX's is: no detector parameter matches a tp rule, so the
+Perceiver is replicated over the tp ranks of each data rank, which share
+its batch slice, and FSDP shards it over the dp x fsdp data ranks.
 """
 
 from __future__ import annotations
@@ -34,7 +36,6 @@ from __future__ import annotations
 import argparse
 import time
 
-from groma_tpu_torch.parallel.mesh import TP_ITEM
 from groma_tpu_torch.train.train_vl import (export_weights, maybe_resume,
                                             save_checkpoint, str2bool)
 
@@ -75,11 +76,7 @@ def parse_args(argv=None):
     ap.add_argument('--device', default='cuda',
                     help="torch device (default cuda; 'cpu' to train on the "
                          "CPU)")
-    args = ap.parse_args(argv)
-    if args.tp != 1:
-        ap.error(f'--tp {args.tp}: tensor parallelism is not ported; it '
-                 f'waits for {TP_ITEM}')
-    return args
+    return ap.parse_args(argv)
 
 
 def perceiver_config(args):
@@ -144,7 +141,7 @@ def train(args, cfg, device: str) -> dict:
     init_distributed(device)
     mesh = make_mesh(dp=args.dp, tp=args.tp,
                      device_type=torch.device(device).type)
-    rank, world = rank_and_world()
+    rank, world = rank_and_world(getattr(mesh, 'data_group', None))
     model = random_perceiver(cfg, seed=args.seed, device=device)
     if args.vis_encoder:
         load_vis_encoder(model, args.vis_encoder)

@@ -25,14 +25,16 @@ else starts).
 Across processes, as JAX's ``--dp`` / ``--tp`` mesh:
 
     torchrun --nproc_per_node 8 -m groma_tpu_torch.train.train_vl \
-        --dp 2 ...            # 2-way replicas of 4-way FSDP shards
+        --dp 2 --tp 2 ...     # 2 replicas of 2 FSDP shards of 2 tp ranks
 
-``parallel/mesh.py``: FSDP over a (dp, fsdp) mesh, fsdp the rest of the
-ranks, each LLaMA decoder layer and DINOv2 layer a unit;
-``--per_device_train_batch_size`` is the GLOBAL batch, as in JAX, each
-rank taking a contiguous 1/world slice of it; checkpoints hold the whole
-state (written by rank 0) and resume on any number of ranks.  ``--tp``
-takes 1 only.
+``parallel/mesh.py``: the LLaMA trunk's linears, embedding tables and
+heads cut over tp (JAX's ``_TP_RULES`` / ``_VOCAB_RULES``, each rank
+computing on its own heads and columns), then FSDP over the (dp, fsdp)
+sub-mesh, fsdp the rest of the ranks, each LLaMA decoder layer and DINOv2
+layer a unit; ``--per_device_train_batch_size`` is the GLOBAL batch, as in
+JAX, each data rank (dp x fsdp of them; the tp ranks of one share its
+rows) taking a contiguous 1/world slice of it; checkpoints hold the whole
+state (written by rank 0) and resume at any (dp, fsdp, tp).
 """
 
 from __future__ import annotations
@@ -91,18 +93,12 @@ def parse_args(argv=None):
     ap.add_argument('--dp', type=int, default=1,
                     help='data-parallel replicas; the other ranks shard')
     ap.add_argument('--tp', type=int, default=1,
-                    help='tensor parallelism: 1 only (ROADMAP.md §1 item '
-                         '11b)')
+                    help='tensor-parallel ranks of each data rank')
     ap.add_argument('--seed', type=int, default=0)
     ap.add_argument('--device', default='cuda',
                     help="torch device (default cuda; 'cpu' to train on the "
                          "CPU)")
-    args = ap.parse_args(argv)
-    if args.tp != 1:
-        from groma_tpu_torch.parallel.mesh import TP_ITEM
-        ap.error(f'--tp {args.tp}: tensor parallelism is not ported; it '
-                 f'waits for {TP_ITEM}')
-    return args
+    return ap.parse_args(argv)
 
 
 def compose_model(args, device):
@@ -259,7 +255,7 @@ def main(argv=None):
     init_distributed(device)
     mesh = make_mesh(dp=args.dp, tp=args.tp, device_type=torch.device(
         device).type)
-    rank, world = rank_and_world()
+    _, world = rank_and_world()
     torch.manual_seed(args.seed)
     model, cfg = compose_model(args, device)
     cfg = cfg.replace(max_seq_len=args.model_max_length)
@@ -278,7 +274,7 @@ def main(argv=None):
                                    spec=spec)
     sampler = RankBatches(SourceGroupedBatchSampler(
         dataset, args.per_device_train_batch_size, seed=args.seed),
-        rank, world)
+        *rank_and_world(getattr(mesh, 'data_group', None)))
     loader = DataLoader(dataset, sampler, collate_vl,
                         num_workers=args.dataloader_num_workers)
     accum = args.gradient_accumulation_steps

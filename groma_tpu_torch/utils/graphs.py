@@ -19,6 +19,12 @@ kernel library builds with nvcc at first use); the next step is captured
 on that stream and every step from then on is a replay.  A capture that
 fails raises: there is no eager fallback on the card.
 
+A step that runs a gloo collective (tensor parallelism over a gloo group,
+``parallel/tensor_parallel``: gloo moves a CUDA tensor through the host)
+cannot be captured: its owner asks for ``eager=True`` up front, and every
+step then runs eagerly on the card, as on the CPU.  NCCL's collectives are
+captured like any kernel.
+
 Launch counts: a kernel wrapper's counter moves when the wrapper is
 called, eagerly or while a step is captured, never when a graph replays.
 ``StepGraph.delta`` is each counter's move during the capture, the
@@ -83,12 +89,14 @@ class StepGraph:
 
     ``generators``: the CUDA ``torch.Generator`` objects the step draws
     from, registered with the graph so that each replay advances them as
-    an eager step would."""
+    an eager step would.  ``eager``: never capture (a step with a host-side
+    collective)."""
 
     captured: Counter = Counter()   # counter moves at capture, all graphs
     replayed: Counter = Counter()   # delta x replays, all graphs
 
-    def __init__(self, step, state: dict, generators=()):
+    def __init__(self, step, state: dict, generators=(),
+                 eager: bool = False):
         tensor = next(_tensors(state), None)
         if tensor is None:
             raise ValueError('StepGraph: the state holds no tensor')
@@ -96,6 +104,7 @@ class StepGraph:
         self.state = state
         self.device = tensor.device
         self.generators = tuple(generators)
+        self.eager = eager
         self.graph = None
         self.warm = False
         self.delta: dict = {}
@@ -115,7 +124,7 @@ class StepGraph:
 
     def run(self, n: int):
         """Advance the loop ``n`` steps."""
-        if self.device.type != 'cuda':
+        if self.device.type != 'cuda' or self.eager:
             for _ in range(n):
                 self.step(self.state)
             return
