@@ -98,9 +98,17 @@ Phases, each printed before the last line:
     also runs eagerly on a copy of the state (GraphTwin): tokens bitwise
     equal, ms a token, device time and busy share of both, and the
     kernels of a profiled replay against the launches the capture
-    counted.  Then one warm prefill alone and the same request
-    with 9 new tokens under torch.profiler: the prefill's device time by
-    kernel, and the device time a decode token;
+    counted.  Every prefill is a replay of the generator's prefill graph
+    (utils/graphs.CallGraph, one a (B, S)), captured at the first request
+    and never again; on request 0 the replay is held against its eager
+    twin (PrefillTwin: the same body eagerly on the same inputs and a copy
+    of the cache; every output and cache byte bitwise equal, a control
+    fed a mirrored image refused, launches a replay equal to the eager
+    prefill's), with both's host and device ms, the capture's ms, the
+    pool's GiB and the device operations a replay.  Then one warm prefill
+    alone and the same request with 9 new tokens under torch.profiler:
+    the prefill's device time by kernel against its host clock, and the
+    device time a decode token;
  5b. on the same weights, JAX's benchmarked configuration and
     speculation (the W8A8 product and the int8 convs were held bitwise to
     their plain versions in phase 2, and their quantization and rescale to
@@ -110,13 +118,16 @@ Phases, each printed before the last line:
     head's conv over 100 RoIs, beside cuDNN's bf16 conv): JAX's end-to-end
     REC run (bench_e2e.py --w8a8 --int8vision, B=1: a 640-slot REC
     stream, vision with #3 and the int8 convs, check_stream_capacity and
-    compact_stream to 576, the W8A8 prefill, 3 greedy decode steps; ms
+    compact_stream to 576, the W8A8 prefill, 3 greedy decode steps; the
+    prefill one captured graph, its replay against its eager twin; ms
     per image, device time, exact launches); QuantGenerator(kv_bits=8,
     use_flash=True, w8a8_prefill=True) under GromaConfig(vision_int8=True)
     on the three requests (#3 24 and #4 32 launches a request, exact; the
     first logits against the weight-only prefill's, a cosine of at least
-    W8A8_COSINE_MIN), and three warm prefills under torch.profiler (that
-    configuration, flash alone, the served one); QuantGenerator(kv_bits=8,
+    W8A8_COSINE_MIN; request 0's replay against its eager twin), and
+    three warm prefills under torch.profiler (that configuration, flash
+    alone, the served one; host clock against device time);
+    QuantGenerator(kv_bits=8,
     spec_lookahead=4) on the same requests (verify calls, accepted a call,
     ms/token; the tokens equal to the sequential greedy ones, or first
     different at a near-tie: the logits the verify picked its token from,
@@ -136,15 +147,18 @@ Phases, each printed before the last line:
     answers 3 requests through Generator, the third sampled at
     UNQUANT_TEMPERATURE, each checked, none launching a kernel of the port
     (as JAX's default launches no Pallas kernel), the first against the
-    eager step (GraphTwin, as in phase 5); Generator(use_flash=True)
-    on the same weights runs one prefill with exactly one bidirectional
-    flash launch per ViT layer and one causal one per LLM layer, its first
-    logits against the dense prefill's; the prefill's device time by kernel
+    eager step (GraphTwin, as in phase 5) and its prefill graph's replay
+    against the eager twin (PrefillTwin); Generator(use_flash=True)
+    on the same weights runs one prefill, its replay launching exactly one
+    bidirectional flash kernel per ViT layer and one causal one per LLM
+    layer as its eager twin does, its first logits against the dense
+    prefill's; the prefill's device time by kernel
     (dense and flash) and the device time a decode token under
     torch.profiler; then, the model freed, the --engine worker (qp=None,
     UNQUANT_ENGINE_SLOTS slots) answers as many concurrent requests:
     every one finished, aggregate tok/s, TTFT, ms per decode step; then
-    one more request, its first burst against the eager step;
+    one more request, its prefill (a replay of the engine's prefill_one
+    graph) and its first burst against the eager ones;
  7. the production server at full width (--engine --engine-slots 8
     --quant_type int4 --kv-bits 8 --paged-kv, max_len 2432): the port's
     ModelWorker answers ENGINE_REQUESTS requests sent from as many threads
@@ -153,10 +167,11 @@ Phases, each printed before the last line:
     L per decode step, int4 matmul 4L + 1 per prefill and per step, of
     them the prefill tile 4L per prefill), with TTFT per request, each
     prefill's time, aggregate tok/s and ms per decode step (launches
-    counted on the device, as in phase 5); then one more request per
+    counted on the device, as in phase 5; one prefill graph captured, its
+    warm-up counted); then one more request per
     slot, ENGINE_PROFILED_BURSTS of whose bursts with every slot live run
     under torch.profiler (device time a step, the slots' kv lengths); then
-    one more request, its first burst against the eager step;
+    one more request, its prefill and first burst against the eager ones;
  7b. the serving stack on JAX's REC engine cell (bench_engine.py: 8 slots,
     bursts of 24, prefill chunks of 192, 640-slot REC streams, 48 new
     tokens, no EOS) at full width, int8 LLM and KV: the port's worker
@@ -180,7 +195,10 @@ Phases, each printed before the last line:
     896; B = 8, G = 4, teacher-forced greedy drafts): acceptance, the
     written slots against the sequential decode's, a wrong second draft on
     every row that accepted its first, a finished row, replay against
-    eager (bitwise);
+    eager (bitwise); the one-shot engine's prefill_one graph, and the
+    chunked one's prepare_one and last_logits graphs (the control of the
+    last: another position of the chunk), each replay against its eager
+    twin; the warm engines' drives capture no prefill graph;
  8. the decode benchmark's path (bench_decode_quant.measure_megakernel) at
     full depth: the random full-width Vicuna-7B int4 tree from --seed,
     B=8, a 512-token random prompt prefilled per layer into a 1024-slot
@@ -254,7 +272,9 @@ Phases, each printed before the last line:
     Generator(use_flash=True), each rank on its 16 query heads and half
     the vocabulary, against the same weights without a group (the
     prefill's last hidden and first logits, the tokens, #3 and #4's
-    launches and shapes a rank, the eager decode); then train_vl's
+    launches and shapes a rank, the eager decode, and the eager prefill:
+    a gloo group's collectives cannot be captured, and the reference
+    without a group runs eagerly too); then train_vl's
     stage-3 step at 2 LLM layers cut over tp against two steps without a
     group and one with the LLM in f32, with four controls.  In phase 2,
     #4 and #5 also at a rank's local heads, (1, 16, 2048, 128).
@@ -282,6 +302,7 @@ import threading
 import time
 
 try:
+    from groma_tpu_torch.utils.graphs import set_launch_counts
     from groma_tpu_torch.utils.profiling import H100_INT8_OPS, Timer, bound
 except ImportError as e:
     sys.exit(f'chip_smoke FAILED: groma_tpu_torch not importable ({e}): run '
@@ -1851,37 +1872,26 @@ COUNTER_KERNELS = {
 TWIN_PROFILED = 2          # steps of each mode under torch.profiler
 
 
-def _set_counts(counts: dict):
-    """Put every decode-path wrapper's counter back to ``counts``."""
-    from groma_tpu_torch.ops.decode_attention import int8_decode_attention
-    from groma_tpu_torch.ops.decode_megakernel import fused_decode_step
-    from groma_tpu_torch.ops.paged_attention import \
-        paged_int8_decode_attention
-    from groma_tpu_torch.ops.quant import int8_matmul
-    from groma_tpu_torch.ops.quant4 import int4_matmul
-    int8_matmul.launches = counts['int8_matmul']
-    int8_matmul.prefill_launches = counts['int8_matmul.prefill']
-    int4_matmul.launches = counts['int4_matmul']
-    int4_matmul.prefill_launches = counts['int4_matmul.prefill']
-    int8_decode_attention.launches = counts['int8_decode_attention']
-    paged_int8_decode_attention.launches = \
-        counts['paged_int8_decode_attention']
-    fused_decode_step.launches = counts['decode_megakernel']
-
-
 def zero_counts():
-    """Every decode-path counter and the graphs' tallies to 0."""
+    """Every wrapper's counter and the graphs' tallies (the prefill
+    graphs' warm-ups too) to 0."""
     from groma_tpu_torch.utils.graphs import StepGraph, launch_counts
-    _set_counts(dict.fromkeys(launch_counts(), 0))
+    set_launch_counts(dict.fromkeys(launch_counts(), 0))
     StepGraph.reset_tally()
 
 
 def device_launches() -> dict:
     """Launches that ran on the device since ``zero_counts``: the
-    wrappers' counts, without the calls made while a step was captured
-    and with every replay's."""
+    wrappers' counts, without the calls made while a step or a prefill was
+    captured and with every replay's (a prefill graph's warm-up ran)."""
     from groma_tpu_torch.utils.graphs import StepGraph, launch_counts
     return StepGraph.device_launches(launch_counts())
+
+
+def warmups() -> int:
+    """Prefill graphs warmed up (one a capture) since ``zero_counts``."""
+    from groma_tpu_torch.utils.graphs import CallGraph
+    return CallGraph.warmups
 
 
 def _clone_tree(torch, tree):
@@ -1970,7 +1980,7 @@ class GraphTwin:
         p = TWIN_PROFILED
         eager_dev, _ = _profiled(torch, eager(p), p)
         eager_ms = _timed(torch, eager(n - p), n - p)
-        _set_counts(counts)
+        set_launch_counts(counts)
         done, capture_ms = 0, None
         if graph.graph is None:
             orig(graph, 1)                 # the warm-up step
@@ -2018,6 +2028,153 @@ class GraphTwin:
                    'the graph captured earlier; ')
                 + f'a replay launches {r["delta"]} (its profiled kernels '
                 f'agree) [{card}]')
+
+
+# the prefill graphs (utils.graphs.CallGraph): the kernels whose launches
+# a replayed prefill is held to, and the limit of the replay's outputs and
+# cache against the eager twin's, relative to max|eager|: bitwise, as no
+# kernel of a prefill adds in a varying order (#1's split-K head sums its
+# splits in one CTA's fixed order; the flash kernels and the int4 and int8
+# prefill tiles split nothing)
+PREFILL_KERNELS = ('int8_matmul.prefill', 'flash_fwd.bidirectional',
+                   'flash_fwd.causal', 'int4_matmul.prefill')
+PREFILL_TWIN_TOL = 0.0
+PREFILL_REPLAYS = 3        # replays timed on the host clock
+WARM_NOTE = '; its warm-up, capture and the twin included'
+
+
+def flip_images(inputs):
+    """A prefill's inputs with its images mirrored left to right: the
+    control, which the twin's limit must refuse."""
+    return (inputs[0].flip(2),) + tuple(inputs[1:])
+
+
+def _rel_diff(torch, got, want) -> float:
+    """max|got - want| / max|want| (0.0 when bitwise equal)."""
+    if torch.equal(got, want):
+        return 0.0
+    g, w = got.double(), want.double()
+    return ((g - w).abs().max() / w.abs().max().clamp(min=1e-30)).item()
+
+
+def _prefill_key(key) -> str:
+    flags, _, sig = key
+    shapes = ', '.join('x'.join(map(str, t[0])) for t in sig if t)
+    return f'{"/".join(map(str, flags))} ({shapes})'
+
+
+class PrefillTwin:
+    """While armed, the next prefill graph run on the card of each body
+    named in ``controls`` is checked right after its replay, before its
+    owner reads the outputs: the key's graph replayed PREFILL_REPLAYS times
+    on the host clock and once under torch.profiler (device ms, and the
+    device operations a replay runs: its graph's nodes), then the body run
+    eagerly on the same static inputs and a copy of its state (the eager
+    twin; host and device ms; its launches, comparison launches, taken back
+    off the counters).  Every output and state tensor (the KV cache)
+    against the replay's within PREFILL_TWIN_TOL x max|eager|, the control
+    (the body fed ``controls[name](inputs)``) beyond it, and the replay's
+    launches equal to the eager body's."""
+
+    def __init__(self, torch):
+        from groma_tpu_torch.utils import graphs
+        self.torch, self.graphs = torch, graphs
+        self.orig = graphs.CallGraph.run
+        self.results = {}
+
+    def arm(self, controls: dict):
+        self.results = {}
+        pending = dict(controls)
+        twin = self
+
+        def run(cg, fn, state, *inputs, key=()):
+            out = twin.orig(cg, fn, state, *inputs, key=key)
+            name = getattr(fn, '__name__', '')
+            if name in pending and cg.mode == 'captured':
+                twin.results[name] = twin._check(cg, fn, state, inputs, key,
+                                                 out, pending.pop(name))
+            return out
+        self.graphs.CallGraph.run = run
+
+    def disarm(self):
+        self.graphs.CallGraph.run = self.orig
+
+    def _check(self, cg, fn, state, inputs, key, out, control):
+        torch, graphs = self.torch, self.graphs
+        full = (key, id(state), graphs._signature(inputs))
+        entry = cg.entries[full]
+        counts = graphs.launch_counts()
+        n = PREFILL_REPLAYS
+
+        def replays():
+            for _ in range(n):
+                entry.graph.replay()
+        replay_ms = _timed(torch, replays, n)
+        replay_dev, names = _profiled(torch, replays, n)
+        copy = _clone_tree(torch, entry.state)
+        eager = []
+        eager_ms = _timed(torch, lambda: eager.append(
+            fn(copy, *entry.inputs)), 1)
+        moved = {k: v - counts[k] for k, v in graphs.launch_counts().items()
+                 if v != counts[k]}
+        eager_dev, _ = _profiled(torch, lambda: fn(
+            _clone_tree(torch, entry.state), *entry.inputs), 1)
+        pairs = list(zip(graphs._tensors(out), graphs._tensors(eager[0])))
+        pairs += list(zip(graphs._tensors(entry.state),
+                          graphs._tensors(copy)))
+        worst = max(_rel_diff(torch, a, b) for a, b in pairs)
+        ctrl = fn(_clone_tree(torch, entry.state), *control(entry.inputs))
+        ctrl_diff = _rel_diff(torch, next(graphs._tensors(ctrl)),
+                              next(graphs._tensors(out)))
+        set_launch_counts(counts)               # comparison launches
+        return {'key': _prefill_key(full), 'replay_ms': replay_ms,
+                'replay_dev': replay_dev, 'nodes': sum(names.values()),
+                'eager_ms': eager_ms, 'eager_dev': eager_dev,
+                'capture_ms': entry.capture_ms,
+                'pools': [(_prefill_key(k), e.pool_bytes / 2**30)
+                          for k, e in cg.entries.items()],
+                'worst': worst, 'control': ctrl_diff,
+                'delta': dict(entry.delta), 'eager': moved,
+                'tensors': len(pairs)}
+
+    def line(self, name: str, body: str, card: str) -> str:
+        """The check of ``body`` as a printed line; fails the phase if it
+        never ran, or a limit is missed."""
+        r = self.results.get(body)
+        if r is None:
+            fail(f'{name}: no prefill graph of {body} was replayed on the '
+                 f'card')
+        per = {k: r['delta'].get(k, 0) for k in PREFILL_KERNELS}
+        ran = device_launches()
+        problems = []
+        if r['worst'] > PREFILL_TWIN_TOL:
+            problems.append(f'the replay parts from the eager twin by '
+                            f'{r["worst"]:.3e} x max|eager|')
+        if not r['control'] > PREFILL_TWIN_TOL:
+            problems.append(f'the control reads {r["control"]:.3e}, within '
+                            f'the limit')
+        if r['eager'] != r['delta']:
+            problems.append(f'a replay launches {r["delta"]}, the eager '
+                            f'prefill {r["eager"]}')
+        if problems:
+            fail(f'{name}, prefill graph ({body}): ' + '; '.join(problems))
+        pools = ', '.join(f'{k} {g:.3f} GiB' for k, g in r['pools'])
+        return (f'{name}, prefill graph ({body}, key {r["key"]}): replay '
+                f'{r["replay_ms"]:.2f} ms (host clock, synchronized, mean of '
+                f'{PREFILL_REPLAYS}), {r["replay_dev"]:.2f} ms of device time '
+                f'and {r["nodes"]:.0f} device operations a replay '
+                f'(torch.profiler, {PREFILL_REPLAYS} replays)'
+                f'; the eager twin {r["eager_ms"]:.2f} ms, '
+                f'{r["eager_dev"]:.2f} ms of device time; capture '
+                f'{r["capture_ms"]:.1f} ms; pool by key: {pools}; '
+                f'{r["tensors"]} outputs and cache tensors '
+                + ('bitwise equal to the eager twin\'s' if not r['worst']
+                   else f'within {r["worst"]:.3e} x max|eager|')
+                + f' (limit {PREFILL_TWIN_TOL}; the control, fed another '
+                f'input, reads {r["control"]:.3e}); launches a replay '
+                f'{per} (#1 prefill tile, #3, #4, #7 prefill tile; all '
+                f'{r["delta"]}, the eager prefill\'s exactly), over the path '
+                f'so far { {k: ran[k] for k in PREFILL_KERNELS} } [{card}]')
 
 
 def decode_megakernel_path(torch, timer, seed: int, card: str):
@@ -2875,19 +3032,23 @@ def serve_full_width(torch, np, seed: int, card: str):
             last_bias[:] = [mask_bias]
         return int8_decode_attention(q, k8, ks, v8, vs, mask_bias)
     llama_quant.int8_decode_attention = recording
+    ptwin = PrefillTwin(torch)
     for i, prompt in enumerate(prompts):
         image = random_image(np, seed + 1 + i, cfg.perceiver.image_size)
         request = {'image': image, 'prompt': prompt,
                    'max_new_tokens': MAX_NEW_TOKENS}
-        before = counts()
+        before, warm0 = counts(), warmups()
         if i == 0:
             twin.arm('toks')
+            ptwin.arm({'_prefill': flip_images})
         try:
             frames = list(worker.generate_stream(request))
         finally:
             twin.disarm()
+            ptwin.disarm()
         torch.cuda.synchronize()
         mm, pre, att = (a - b for a, b in zip(counts(), before))
+        warm = warmups() - warm0
         final = frames[-1]
         if any(f['error_code'] != 0 for f in frames):
             fail(f'request {i}: error frame {final}')
@@ -2895,13 +3056,17 @@ def serve_full_width(torch, np, seed: int, card: str):
         f_fwd = stats['decode_forwards']
         # the prefill's 4L layer matmuls (M = 2048) on the prefill tile,
         # its head (M = 1) and every decode forward's 4L + 1 on the decode
-        # tile
-        want_pre = 4 * n_layers
-        want_mm = (4 * n_layers + 1) * (1 + f_fwd)
+        # tile; a new prefill graph's warm-up runs the prefill once more
+        want_pre = 4 * n_layers * (1 + warm)
+        want_mm = (4 * n_layers + 1) * (1 + f_fwd + warm)
         want_att = f_fwd * n_layers
         toks = stats['tokens']
         mask = stats['selected_mask'][0]
         problems = _answer_problems(np, frames, stats, vocab)
+        if stats['prefill_mode'] != 'captured' or warm != (i == 0):
+            problems.append(f'prefill {stats["prefill_mode"]}, {warm} new '
+                            f'prefill graphs (want captured, one at the '
+                            f'first request only)')
         if (mm, pre, att) != (want_mm, want_pre, want_att):
             problems.append(f'launches int8_matmul {mm} (want {want_mm}), '
                             f'of them the prefill tile {pre} (want '
@@ -2915,8 +3080,9 @@ def serve_full_width(torch, np, seed: int, card: str):
                 else 'no decode forward')
         print(f'request {i}: error_code 0, {toks.shape[1]} tokens, '
               f'{len(final["boxes"])} boxes in the answer, '
-              f'{int(mask.sum())} regions kept; prefill '
-              f'{stats["prefill_ms"]:.1f} ms, decode '
+              f'{int(mask.sum())} regions kept; prefill (a replay'
+              f'{WARM_NOTE if warm else ""}'
+              f') {stats["prefill_ms"]:.1f} ms, decode '
               f'{stats["decode_ms_per_token"]:.2f} ms/token over '
               f'{f_fwd} forwards (host clock; a new graph\'s warm-up step '
               f'and capture included); launches int8_matmul {mm} (prefill '
@@ -2924,6 +3090,8 @@ def serve_full_width(torch, np, seed: int, card: str):
               f'forward\'s attention read: {kept} of '
               f'{worker.generator.max_len} [{card}]')
         if i == 0:
+            print(ptwin.line('served path (QuantGenerator, int8 + kv8)',
+                             '_prefill', card))
             print(twin.line('served path (QuantGenerator, int8 + kv8)',
                             card))
             if twin.result['delta'] != want_step:
@@ -2946,10 +3114,11 @@ def serve_full_width(torch, np, seed: int, card: str):
     per_token = (f'{(dec_ms - pre_ms) / fwd:.3f} ms of device time a '
                  f'decode token ({fwd} forwards)' if fwd else
                  'no decode forward ran (an early end of sequence)')
-    print(f'served path, warm prefill under torch.profiler: host '
-          f'{pre_stats["prefill_ms"]:.1f} ms, {pre_ms:.2f} ms of device '
-          f'time, of it the int8 prefill tile {tiles:.2f} ms; the longest '
-          f'kernels, ms: {top} [{card}]')
+    print(f'served path, warm prefill ({pre_stats["prefill_mode"]}) under '
+          f'torch.profiler: host {pre_stats["prefill_ms"]:.1f} ms, '
+          f'{pre_ms:.2f} ms of device time (host / device '
+          f'{pre_stats["prefill_ms"] / pre_ms:.3f}), of it the int8 prefill '
+          f'tile {tiles:.2f} ms; the longest kernels, ms: {top} [{card}]')
     print(f'served path, the same request with 9 new tokens: '
           f'{per_token} [{card}]')
     return launched, worker
@@ -3153,15 +3322,15 @@ def int8_vision_model(torch, model):
 
 
 def _counts_now():
-    """The launch counters this phase checks, by name."""
-    from groma_tpu_torch.ops.flash_attention import flash_fwd
-    from groma_tpu_torch.ops.quant import int8_matmul, w8a8_conv, w8a8_matmul
-    return {'flash bidirectional': flash_fwd.launches['bidirectional'],
-            'flash causal': flash_fwd.launches['causal'],
-            'w8a8_matmul': w8a8_matmul.launches,
-            'w8a8_conv': w8a8_conv.launches,
-            'int8_matmul': int8_matmul.launches,
-            'int8 prefill tile': int8_matmul.prefill_launches}
+    """The launches this phase checks, by name: launches that ran on the
+    device (``device_launches``), replays of captured prefills included."""
+    ran = device_launches()
+    return {'flash bidirectional': ran['flash_fwd.bidirectional'],
+            'flash causal': ran['flash_fwd.causal'],
+            'w8a8_matmul': ran['w8a8_matmul'],
+            'w8a8_conv': ran['w8a8_conv'],
+            'int8_matmul': ran['int8_matmul'],
+            'int8 prefill tile': ran['int8_matmul.prefill']}
 
 
 def _moved(before: dict) -> dict:
@@ -3204,6 +3373,7 @@ def rec_e2e_full_width(torch, np, m8, qp, kmajor, seed: int, card: str):
                                               check_stream_capacity)
     from groma_tpu_torch.models.llama import make_kv_cache
     from groma_tpu_torch.models.llama_quant import quant_llama_forward
+    from groma_tpu_torch.utils.graphs import CallGraph
     cfg = m8.cfg
     llm = cfg.llm
     dev = qp['norm'].device
@@ -3219,20 +3389,30 @@ def rec_e2e_full_width(torch, np, m8, qp, kmajor, seed: int, card: str):
     ids, slot, valid0 = (torch.as_tensor(t[k][None], device=dev)
                          for k in ('input_ids', 'region_slot', 'valid'))
     ones = torch.ones((1, 1), dtype=torch.bool, device=dev)
+    prefills = CallGraph()
 
-    def e2e():
+    def rec_prefill(_, image, ids, slot, valid0):
+        """bench_e2e's prefill, one captured program: vision (#3, the int8
+        convs), the stream compacted (its capacity checked once, below),
+        the W8A8 prefill into a fresh cache, the first logits."""
         emb, _, valid, vis = m8.prepare_stream(image, ids, slot, valid0,
                                                use_flash=True)
-        # compact_stream's gather: the capacity was checked once, below
         emb, valid = _gather_valid_first(emb, valid, REC_PREFILL_LEN)
         pos = _ordinal(valid).clamp(min=0)
         cache = make_kv_cache(llm, 1, REC_PREFILL_LEN + 8, device=dev)
         hidden, cache = quant_llama_forward(qp, llm, emb, valid, pos, cache,
                                             use_flash=True, w8a8=True,
                                             kmajor=kmajor)
+        # B = 1: index_select, as a 0-d index would be read on the host
         last = torch.argmax(pos, dim=-1)
-        logits = quant_logits(qp, hidden[:, last[0]][:, None])[:, 0]
-        pos0 = pos[:, last[0]][:, None] + 1
+        logits = quant_logits(qp, hidden.index_select(1, last))[:, 0]
+        return logits, pos.index_select(1, last) + 1, cache, \
+            vis['selected_boxes']
+
+    def e2e():
+        logits, pos0, cache, boxes = prefills.run(rec_prefill, None, image,
+                                                  ids, slot, valid0)
+        cache['index'] = REC_PREFILL_LEN      # a replay sets no host value
         toks = []
         for i in range(REC_DECODE_STEPS):
             tok = torch.argmax(logits, dim=-1)
@@ -3241,15 +3421,24 @@ def rec_e2e_full_width(torch, np, m8, qp, kmajor, seed: int, card: str):
                 qp, llm, quant_embed(qp, tok[:, None], llm.vocab_size),
                 ones, pos0 + i, cache)
             logits = quant_logits(qp, hidden)[:, -1]
-        return torch.stack(toks, 1), vis['selected_boxes'], logits
+        return torch.stack(toks, 1), boxes, logits
 
+    ptwin = PrefillTwin(torch)
     with torch.inference_mode():
         _, _, valid, _ = m8.prepare_stream(image, ids, slot, valid0,
                                            use_flash=True)
         n_valid = int(valid.sum())
         check_stream_capacity(valid, REC_PREFILL_LEN)
+        t0 = time.perf_counter()
+        e2e()                  # the warm-up run: the prefill's capture
+        _sync(torch)
+        first_ms = (time.perf_counter() - t0) * 1e3
         before = _counts_now()
-        toks, boxes, logits = e2e()                  # the warm-up run
+        ptwin.arm({'rec_prefill': flip_images})
+        try:
+            toks, boxes, logits = e2e()          # its first replay
+        finally:
+            ptwin.disarm()
         _sync(torch)
         moved = _moved(before)
         n_layers = llm.num_layers
@@ -3265,6 +3454,7 @@ def rec_e2e_full_width(torch, np, m8, qp, kmajor, seed: int, card: str):
             _sync(torch)
         ms = (time.perf_counter() - t0) * 1e3 / REC_RUNS
         (toks, boxes, logits), dev_ms, top = _device_ms(torch, e2e)
+    print(ptwin.line('REC end to end', 'rec_prefill', card))
     toks_np = toks.cpu().numpy()
     boxes_np = boxes.float().cpu().numpy()
     ok = (moved == want and np.isfinite(boxes_np).all()
@@ -3273,9 +3463,11 @@ def rec_e2e_full_width(torch, np, m8, qp, kmajor, seed: int, card: str):
     print(f'REC end to end (bench_e2e --w8a8 --int8vision, B=1): '
           f'{n_valid} valid tokens of {REC_SEQ_LEN} compacted to '
           f'{REC_PREFILL_LEN}; {ms:.1f} ms per image (host clock, '
-          f'{REC_RUNS} synchronized runs; {1e3 / ms:.2f} images/s), '
+          f'{REC_RUNS} synchronized runs; {1e3 / ms:.2f} images/s; the '
+          f'prefill a replay, the {REC_DECODE_STEPS} decode steps eager; '
+          f'the first run, with the capture, {first_ms:.1f} ms), '
           f'{dev_ms:.2f} ms of device time (torch.profiler, one run); the '
-          f'longest kernels, ms: {top}; launches {moved} '
+          f'longest kernels, ms: {top}; launches of a run {moved} '
           f'({"exact" if moved == want else f"want {want}"}); tokens '
           f'{toks_np[0].tolist()}, selected boxes '
           f'{"finite" if np.isfinite(boxes_np).all() else "NOT finite"} '
@@ -3309,6 +3501,7 @@ def serve_w8a8_full_width(torch, np, worker, gen8, seed: int, card: str):
             'w8a8_conv': cfg.region_num_fuse * 9 + 1,
             'int8 prefill tile': 0}
     requests = []
+    ptwin = PrefillTwin(torch)
     for i, prompt in enumerate(SERVED_PROMPTS):
         t = expand_request(worker.tokenizer, worker.spec, {'prompt': prompt})
         image = random_image(np, seed + 1 + i, cfg.perceiver.image_size)
@@ -3317,19 +3510,30 @@ def serve_w8a8_full_width(torch, np, worker, gen8, seed: int, card: str):
         requests.append(args)
         base.generate(*args, max_new_tokens=1, eos_id=eos)
         ref = base.last_stats['first_logits']
-        before = _counts_now()
-        tokens, vis = gen8.generate(*args, max_new_tokens=MAX_NEW_TOKENS,
-                                    eos_id=eos)
+        before, warm0 = _counts_now(), warmups()
+        if i == 0:
+            ptwin.arm({'_prefill': flip_images})
+        try:
+            tokens, vis = gen8.generate(*args, max_new_tokens=MAX_NEW_TOKENS,
+                                        eos_id=eos)
+        finally:
+            ptwin.disarm()
         _sync(torch)
         moved = _moved(before)
+        # a new prefill graph's warm-up runs the prefill once more
+        warm = warmups() - warm0
         st = gen8.last_stats
         first = st['first_logits']
         cos = _cosine(np, first, ref)
         agree = float(np.mean(first.argmax(-1) == ref.argmax(-1)))
         problems = []
         got = {k: moved[k] for k in want}
-        if got != want:
-            problems.append(f'launches {got}, want {want}')
+        if got != {k: v * (1 + warm) for k, v in want.items()}:
+            problems.append(f'launches {got}, want {want} x {1 + warm}')
+        if st['prefill_mode'] != 'captured' or warm != (i == 0):
+            problems.append(f'prefill {st["prefill_mode"]}, {warm} new '
+                            f'prefill graphs (want captured, one at the '
+                            f'first request only)')
         if not (st['logits_finite'] and np.isfinite(first).all()):
             problems.append('non-finite logits')
         if not cos >= W8A8_COSINE_MIN:
@@ -3346,10 +3550,14 @@ def serve_w8a8_full_width(torch, np, worker, gen8, seed: int, card: str):
               f'{st["decode_forwards"]} forwards (host clock); first logits '
               f'against the weight-only prefill\'s: cosine {cos:.5f}, argmax '
               f'{"agrees" if agree == 1.0 else "differs"}; launches {got} '
-              f'({"exact" if not problems or got == want else "WRONG"}), '
-              f'decode tile {moved["int8_matmul"]} [{card}]')
+              f'({"exact" if not problems else "WRONG"}'
+              f'{", with the warm-up" if warm else ""}), decode tile '
+              f'{moved["int8_matmul"]} [{card}]')
         if problems:
             fail(f'W8A8 request {i}: ' + '; '.join(problems))
+        if i == 0:
+            print(ptwin.line('W8A8 + flash + vision_int8 (QuantGenerator)',
+                             '_prefill', card))
     # warm prefills under torch.profiler, the same request: W8A8 + flash +
     # int8 vision, flash alone (weight-only, float vision), the served one
     flash = QuantGenerator(base.model, base.qp, max_len=base.max_len,
@@ -3357,12 +3565,16 @@ def serve_w8a8_full_width(torch, np, worker, gen8, seed: int, card: str):
     for name, g in (('w8a8_prefill + use_flash + vision_int8', gen8),
                     ('use_flash (weight-only, float vision)', flash),
                     ('weight-only, dense (the served path)', base)):
+        # the key's capture first: the profiled prefill is a replay
+        g.generate(*requests[0], max_new_tokens=1, eos_id=eos)
         _, dev_ms, top = _device_ms(
             torch, lambda: g.generate(*requests[0], max_new_tokens=1,
                                       eos_id=eos))
+        host = g.last_stats['prefill_ms']
         print(f'prefill {name}, warm, under torch.profiler: host '
-              f'{g.last_stats["prefill_ms"]:.1f} ms, {dev_ms:.2f} ms of '
-              f'device time; the longest kernels, ms: {top} [{card}]')
+              f'{host:.1f} ms, {dev_ms:.2f} ms of device time (host / device '
+              f'{host / dev_ms:.3f}; {g.last_stats["prefill_mode"]}); the '
+              f'longest kernels, ms: {top} [{card}]')
     del flash
     return requests
 
@@ -3779,34 +3991,46 @@ def serve_unquantized_full_width(torch, np, seed: int, card: str):
     vocab = cfg.vocab_size
     flash_fwd.launches.update(bidirectional=0, causal=0)
     int8_matmul.launches = 0
-    twin = GraphTwin(torch)
+    twin, ptwin = GraphTwin(torch), PrefillTwin(torch)
     for i, prompt in enumerate(SERVED_PROMPTS):
         temperature = UNQUANT_TEMPERATURE if i == 2 else 0.0
         image = random_image(np, seed + 1 + i, cfg.perceiver.image_size)
+        warm0 = warmups()
         if i == 0:
             twin.arm('toks')
+            ptwin.arm({'_prefill': flip_images})
         try:
             frames = list(worker.generate_stream({
                 'image': image, 'prompt': prompt, 'temperature': temperature,
                 'max_new_tokens': MAX_NEW_TOKENS}))
         finally:
             twin.disarm()
+            ptwin.disarm()
         torch.cuda.synchronize()
         if any(f['error_code'] != 0 for f in frames):
             fail(f'unquantized request {i}: error frame {frames[-1]}')
         stats = gen.last_stats
         problems = _answer_problems(np, frames, stats, vocab)
+        warm = warmups() - warm0
+        if stats['prefill_mode'] != 'captured' or warm != (i == 0):
+            problems.append(f'prefill {stats["prefill_mode"]}, {warm} new '
+                            f'prefill graphs (want captured, one at the '
+                            f'first request only)')
         if problems:
             fail(f'unquantized request {i}: ' + '; '.join(problems))
         print(f'unquantized request {i} (temperature {temperature}): '
               f'error_code 0, {stats["tokens"].shape[1]} tokens, '
               f'{len(frames[-1]["boxes"])} boxes in the answer, '
               f'{int(stats["selected_mask"].sum())} regions kept; prefill '
-              f'(TTFT) {stats["prefill_ms"]:.1f} ms, decode '
+              f'(TTFT; a replay'
+              f'{WARM_NOTE if warm else ""}'
+              f') {stats["prefill_ms"]:.1f} ms, decode '
               f'{stats["decode_ms_per_token"]:.2f} ms/token over '
               f'{stats["decode_forwards"]} forwards (host clock; a new '
               f'graph\'s warm-up step and capture included) [{card}]')
         if i == 0:
+            print(ptwin.line('unquantized path (Generator, use_scan=True)',
+                             '_prefill', card))
             print(twin.line('unquantized path (Generator, use_scan=True)',
                             card))
     if any(flash_fwd.launches.values()) or int8_matmul.launches:
@@ -3822,11 +4046,19 @@ def serve_unquantized_full_width(torch, np, seed: int, card: str):
     gen.generate(*args, max_new_tokens=1)
     dense = dict(gen.last_stats)
     flash_gen = Generator(gen.model, max_len=gen.max_len, use_flash=True)
-    flash_fwd.launches.update(bidirectional=0, causal=0)
-    flash_gen.generate(*args, max_new_tokens=1)
+    # its first prefill: warm-up, capture, replay; the twin holds the
+    # replay's flash launches to the eager prefill's
+    ptwin.arm({'_prefill': flip_images})
+    try:
+        flash_gen.generate(*args, max_new_tokens=1)
+    finally:
+        ptwin.disarm()
     torch.cuda.synchronize()
-    flash_n = (flash_fwd.launches['bidirectional'],
-               flash_fwd.launches['causal'])
+    print(ptwin.line('unquantized path, Generator(use_flash=True)',
+                     '_prefill', card))
+    per_replay = ptwin.results['_prefill']['delta']
+    flash_n = (per_replay.get('flash_fwd.bidirectional', 0),
+               per_replay.get('flash_fwd.causal', 0))
     want_n = (cfg.perceiver.vit.num_layers, cfg.llm.num_layers)
     fl = flash_gen.last_stats
     err = np.abs(fl['first_logits'] - dense['first_logits']).max() \
@@ -3846,14 +4078,15 @@ def serve_unquantized_full_width(torch, np, seed: int, card: str):
              f'{UNQUANT_LLM_FLASH_TOL})')
     print(f'Generator(use_flash=True) prefill: {flash_n[0]} launches of '
           f'flash_fwd (bidirectional, the ViT) and {flash_n[1]} (causal, the '
-          f'LLM at S = {cfg.max_seq_len}); its first logits within '
+          f'LLM at S = {cfg.max_seq_len}) a replay; its first logits within '
           f'{err:.3e} x max|logits| of the dense prefill (tol '
           f'{UNQUANT_FLASH_TOL}; {kept[0]} regions kept by both, '
           f'{in_place:.0%} of the pool\'s slots holding the same box); the '
           f'LLM alone on the flash stream, flash against dense, within '
           f'{llm_err:.3e} x max|hidden| (tol {UNQUANT_LLM_FLASH_TOL}); host '
-          f'{fl["prefill_ms"]:.1f} ms against {dense["prefill_ms"]:.1f} '
-          f'[{card}]')
+          f'{fl["prefill_ms"]:.1f} ms (the first call: warm-up, capture, '
+          f'replay and the twin) against the dense replay\'s '
+          f'{dense["prefill_ms"]:.1f} [{card}]')
 
     # device time: a prefill alone, dense and flash, then the dense
     # request with 9 tokens; the difference is the decode's
@@ -3865,10 +4098,11 @@ def serve_unquantized_full_width(torch, np, seed: int, card: str):
         stats, ms, by_name = pre[name]
         top = ', '.join(f'{k[:56]} {v:.2f}' for k, v in sorted(
             by_name.items(), key=lambda kv: -kv[1])[:8])
-        print(f'unquantized path ({name}), warm prefill under '
-              f'torch.profiler: host {stats["prefill_ms"]:.1f} ms, '
-              f'{ms:.2f} ms of device time; the longest kernels, ms: {top} '
-              f'[{card}]')
+        print(f'unquantized path ({name}), warm prefill '
+              f'({stats["prefill_mode"]}) under torch.profiler: host '
+              f'{stats["prefill_ms"]:.1f} ms, {ms:.2f} ms of device time '
+              f'(host / device {stats["prefill_ms"] / ms:.3f}); the longest '
+              f'kernels, ms: {top} [{card}]')
     dec_stats, dec_ms, dec_names = served_device_profile(
         torch, worker, image, SERVED_PROMPTS[0], 9)
     _, pre_ms, pre_names = pre['dense']
@@ -3926,10 +4160,11 @@ def serve_unquantized_full_width(torch, np, seed: int, card: str):
            if r is None or any(f['error_code'] != 0 for f in r)
            or 'boxes' not in r[-1]]
     if bad or st['finished'] != UNQUANT_ENGINE_SLOTS \
-            or st['nonfinite_logits']:
+            or st['nonfinite_logits'] or st['prefill_mode'] != 'captured':
         fail(f'unquantized engine: requests {bad} failed; finished '
              f'{st["finished"]} of {UNQUANT_ENGINE_SLOTS}, '
-             f'{st["nonfinite_logits"]} with non-finite logits')
+             f'{st["nonfinite_logits"]} with non-finite logits, prefill '
+             f'{st["prefill_mode"]}')
     tokens = st['tokens_emitted']
     print(f'unquantized engine: {UNQUANT_ENGINE_SLOTS} concurrent requests '
           f'finished in {wall:.2f} s: {tokens} tokens, {tokens / wall:.1f} '
@@ -3944,10 +4179,13 @@ def serve_unquantized_full_width(torch, np, seed: int, card: str):
 
 
 def engine_twin(torch, np, worker, seed: int, name: str, card: str):
-    """One more request through a warm engine, its first burst checked
-    against the eager step (GraphTwin) after the timed run."""
-    twin = GraphTwin(torch)
+    """One more request through a warm engine, its prefill checked against
+    the eager prefill (PrefillTwin) and its first burst against the eager
+    step (GraphTwin) after the timed run."""
+    twin, ptwin = GraphTwin(torch), PrefillTwin(torch)
     twin.arm('out')
+    ptwin.arm({'_prefill_one': flip_images})
+    warm0 = warmups()
     try:
         frames = list(worker.generate_stream({
             'image': random_image(np, seed, worker.cfg.perceiver.image_size),
@@ -3955,8 +4193,12 @@ def engine_twin(torch, np, worker, seed: int, name: str, card: str):
             'stream_chunk': 1}))
     finally:
         twin.disarm()
+        ptwin.disarm()
     if any(f['error_code'] != 0 for f in frames):
         fail(f'{name}: error frame {frames[-1]}')
+    if warmups() != warm0:
+        fail(f'{name}: a warm engine captured a new prefill graph')
+    print(ptwin.line(name, '_prefill_one', card))
     print(twin.line(f'{name}, one burst', card))
 
 
@@ -4061,8 +4303,13 @@ def serve_engine_full_width(torch, np, seed: int, card: str):
               f'regions kept; TTFT {ttft * 1e3:.1f} ms (client clock, queue '
               f'wait included), engine TTFT {sess.ttft * 1e3:.1f} ms [{card}]')
     steps = att // n_layers
-    want_mm = (ENGINE_REQUESTS + steps) * (4 * n_layers + 1)
+    # a new prefill graph's warm-up runs the prefill once more
+    warm = warmups()
+    want_mm = (ENGINE_REQUESTS + steps + warm) * (4 * n_layers + 1)
     problems = []
+    if st['prefill_mode'] != 'captured' or warm != 1:
+        problems.append(f'prefill {st["prefill_mode"]}, {warm} prefill '
+                        f'graphs captured (want one, b = 1)')
     if st['finished'] != ENGINE_REQUESTS or st['truncated'] != 0:
         problems.append(f'finished {st["finished"]}, truncated '
                         f'{st["truncated"]}')
@@ -4074,11 +4321,12 @@ def serve_engine_full_width(torch, np, seed: int, card: str):
                         f'non-finite logits')
     # every prompt is packed into the fixed max_seq_len layout, so each
     # prefill runs its 4 L layer matmuls at M = 2048 (the prefill tile)
-    want_prefill = ENGINE_REQUESTS * 4 * n_layers
+    want_prefill = (ENGINE_REQUESTS + warm) * 4 * n_layers
     if att % n_layers or steps != st['decode_steps'] or mm != want_mm \
             or mm_prefill != want_prefill:
         problems.append(f'launches int4_matmul {mm} (want {want_mm} = '
-                        f'({ENGINE_REQUESTS} prefills + {steps} steps) x '
+                        f'({ENGINE_REQUESTS} prefills + {warm} warm-up + '
+                        f'{steps} steps) x '
                         f'{4 * n_layers + 1}), of them the prefill tile\'s '
                         f'{mm_prefill} (want {want_prefill}), paged attention '
                         f'{att} (want a multiple of {n_layers}, '
@@ -4091,12 +4339,15 @@ def serve_engine_full_width(torch, np, seed: int, card: str):
           f'clock), {st["decode_steps"]} decode steps at '
           f'{st["decode_ms_per_step"]:.2f} ms/step (each step one token for '
           f'every live slot); every page returned; launches int4_matmul {mm} '
-          f'(the prefill tile {mm_prefill}), paged attention {att} [{card}]')
-    pm = sorted(prefill_ms)
-    print(f'engine: {len(pm)} prefills (vision, surgery, the LLM at M = '
-          f'{cfg.max_seq_len}, first logits; host clock), ms: first '
-          f'{prefill_ms[0]:.1f}, median of the rest {pm[len(pm) // 2]:.1f}, '
-          f'min {pm[0]:.1f}, max {pm[-1]:.1f} [{card}]')
+          f'(the prefill tile {mm_prefill}; {warm} prefill graph warm-up), '
+          f'paged attention {att} [{card}]')
+    pm = sorted(prefill_ms[1:])
+    print(f'engine: {len(prefill_ms)} prefills (vision, surgery, the LLM at '
+          f'M = {cfg.max_seq_len}, first logits; host clock, the replay and '
+          f'the read of next positions), ms: the first (warm-up, capture, '
+          f'replay) {prefill_ms[0]:.1f}, the replays: median '
+          f'{pm[len(pm) // 2]:.1f}, min {pm[0]:.1f}, max {pm[-1]:.1f} '
+          f'[{card}]')
     engine_device_per_step(torch, np, worker, card)
     engine_twin(torch, np, worker, seed + 40,
                 'engine (int4 + paged kv8, 8 slots)', card)
@@ -4251,6 +4502,9 @@ def _stack_drive(torch, np, engine, rec, requests, chunked: bool):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     ran = device_launches()
+    if warmups():
+        fail(f'serving stack: the warm {"chunked" if chunked else "one-shot"}'
+             f' engine captured {warmups()} new prefill graphs')
     del engine._seat
     if chunked:
         del graph.run
@@ -4365,7 +4619,7 @@ def chunk_step_twin(torch, engine, args, card: str):
                 state['pos'].copy_(pos[:, ci * c:ci * c + c])
             counts = launch_counts()
             eager_ms += _timed(torch, lambda: graph.step(copy), 1)
-            _set_counts(counts)           # comparison launches
+            set_launch_counts(counts)           # comparison launches
             replay_ms += _timed(torch, lambda: graph.run(1), 1)
             same = same and torch.equal(st['hidden'], copy['hidden'])
         same = same and all(torch.equal(a, b) for a, b in zip(
@@ -4419,7 +4673,7 @@ def verify_on_live_state(torch, np, engine, snap, card: str):
             counts0 = launch_counts()
             for _ in range(G + 1):
                 engine._step(seq, False)
-            _set_counts(counts0)          # comparison launches
+            set_launch_counts(counts0)          # comparison launches
         finally:
             engine_mod.quant_logits = logits_fn
         want = seq['out'][:, :G + 1].cpu().numpy()
@@ -4694,14 +4948,26 @@ def serve_stack_full_width(torch, np, seed: int, card: str):
     # chunked one (warm from the HTTP run), each run's launches exact
     oneshot = BatchEngine(model, qp, **kw)
     one_rec = _record_steps(torch, oneshot)
+    ptwin = PrefillTwin(torch)
     try:
-        warm = oneshot.submit(*requests[0], max_new_tokens=STACK_MAX_NEW)
-        list(warm.token_stream())
+        # the warm request: prefill_one's capture, checked against its
+        # eager twin
+        ptwin.arm({'_prefill_one': flip_images})
+        try:
+            warm = oneshot.submit(*requests[0], max_new_tokens=STACK_MAX_NEW)
+            list(warm.token_stream())
+        finally:
+            ptwin.disarm()
+        print(ptwin.line('serving stack, one-shot engine', '_prefill_one',
+                         card))
         one = _stack_drive(torch, np, oneshot, one_rec, requests,
                            chunked=False)
     finally:
         oneshot.close()
     chk = _stack_drive(torch, np, chunked, chk_rec, requests, chunked=True)
+    if oneshot.stats()['prefill_mode'] != 'captured' \
+            or chunked.stats()['prefill_mode'] != 'captured':
+        fail('serving stack: a prefill ran eagerly on the card')
     n_layers = cfg.llm.num_layers
     n = STACK_REQUESTS
     problems = []
@@ -4748,6 +5014,16 @@ def serve_stack_full_width(torch, np, seed: int, card: str):
               f'{rec["chunks"]} chunk steps; launches '
               f'{ {k: v for k, v in rec["ran"].items() if v} } (exact) '
               f'[{card}]')
+    # one more chunked request: prepare_one and last_logits against their
+    # eager twins (last_logits' control: another position of the chunk)
+    ptwin.arm({'_prepare_one': flip_images,
+               '_last_logits': lambda ins: ((ins[0] + 1) % STACK_CHUNK,)})
+    try:
+        list(chunked.submit(*requests[1], max_new_tokens=2).token_stream())
+    finally:
+        ptwin.disarm()
+    for body in ('_prepare_one', '_last_logits'):
+        print(ptwin.line('serving stack, chunked engine', body, card))
     chunk_step_twin(torch, chunked, requests[1], card)
     chunked.close()
     gc.collect()
@@ -5503,6 +5779,8 @@ def serve_gqa_full_width(torch, np, seed: int, card: str):
         name = f'int{bits}_matmul'
         pre = ran[f'{name}.prefill']
         dec = ran[name] - pre
+        # a new prefill graph's warm-up runs the prefill once more
+        n_prefills += warmups()
         ok = (pre == 4 * n_layers * n_prefills and dec > 0
               and ran['int8_decode_attention'] == 0
               and ran['paged_int8_decode_attention'] == 0
@@ -6106,6 +6384,11 @@ def _tp_generate(torch, model, args) -> dict:
     llama.flash_attention = seen
     gen = Generator(model, max_len=args[1].shape[1] + TP_MAX_NEW,
                     use_flash=True)
+    # a gloo tp group's prefill runs eagerly (its collectives go through
+    # the host); the reference without a group runs as it does, launch for
+    # launch, its hidden state read on the host
+    if getattr(model, 'tp_group', None) is None:
+        gen._prefills.eager = True
     flash_fwd.launches.update(bidirectional=0, causal=0)
     try:
         toks, _ = gen.generate(*args, max_new_tokens=TP_MAX_NEW)
@@ -6121,6 +6404,7 @@ def _tp_generate(torch, model, args) -> dict:
             'prefill_ms': st['prefill_ms'],
             'decode_ms': st['decode_ms_per_token'],
             'decode_mode': st['decode_mode'],
+            'prefill_mode': st['prefill_mode'],
             'finite': st['logits_finite']}
 
 
@@ -6320,8 +6604,9 @@ def tensor_parallel_one_card(torch, np, seed: int, card: str) -> dict:
               f'without a group; tokens {got["tokens"]} (without the group '
               f'{ref["tokens"]}), first parting {parted}; flash launches '
               f'#3 {launches[0]}, #4 {launches[1]} at {got["shapes"]}; '
-              f'decode {got["decode_mode"]}; prefill {got["prefill_ms"]:.1f} '
-              f'ms, decode {got["decode_ms"]:.2f} ms/token, peak '
+              f'decode {got["decode_mode"]}; prefill {got["prefill_mode"]} '
+              f'(a gloo group\'s), {got["prefill_ms"]:.1f} ms, decode '
+              f'{got["decode_ms"]:.2f} ms/token, peak '
               f'{got["peak_gib"]:.2f} GiB (one card time-shared by two '
               f'ranks over gloo, not a multi-card time) [{card}]')
         ctl = got['control']
@@ -6345,13 +6630,16 @@ def tensor_parallel_one_card(torch, np, seed: int, card: str) -> dict:
             problems.append(f'rank {r}: flash launches {launches} at '
                             f'{got["shapes"]}')
         if got['decode_mode'] != 'eager: gloo tp group' or not got['finite'] \
-                or got['calls'] != TP_MAX_NEW:
-            problems.append(f'rank {r}: decode {got["decode_mode"]}, finite '
+                or got['calls'] != TP_MAX_NEW \
+                or got['prefill_mode'] != 'eager':
+            problems.append(f'rank {r}: decode {got["decode_mode"]}, prefill '
+                            f'{got["prefill_mode"]}, finite '
                             f'{got["finite"]}, {got["calls"]} head calls')
         if got['tokens'] != ranks[0]['tokens']:
             problems.append('the ranks\' tokens differ')
     print(f'tp serving without a group (Generator, captured decode): '
-          f'prefill {ref["prefill_ms"]:.1f} ms, decode {ref["decode_ms"]:.2f} '
+          f'prefill ({ref["prefill_mode"]}, as the ranks\') '
+          f'{ref["prefill_ms"]:.1f} ms, decode {ref["decode_ms"]:.2f} '
           f'ms/token, flash launches {ref["flash"]}, peak '
           f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB of the '
           f'script; reference {t1 - t0:.1f} s, the two ranks {t2 - t1:.1f} s '

@@ -32,6 +32,12 @@ the tokens are the same on every rank.  Under a gloo tp group the scan's
 steps run eagerly on the card (a gloo collective cannot be captured),
 under NCCL they are captured; ``last_stats['decode_mode']`` says which.
 
+The prefill (``GromaModel.prefill``: vision, surgery, the LLM prefill
+into the scan's cache, or into a fresh one for the Python loop, and the
+first logits; JAX's jitted prefill) is one ``utils.graphs.CallGraph`` per
+(B, S) and loop: captured on the card, eager on the CPU and under a gloo
+tp group (``last_stats['prefill_mode']``, 'captured' or 'eager').
+
 Both run no forward whose logits would go unused (JAX's do, after the
 last token), so a decode of ``max_new_tokens`` needs ``max_new_tokens - 1``
 free cache slots past the stream; one that would not fit raises ValueError
@@ -47,9 +53,9 @@ import numpy as np
 import torch
 
 from groma_tpu_torch.models.groma import GromaModel
-from groma_tpu_torch.models.llama import make_kv_cache
+from groma_tpu_torch.models.llama import fresh_cache, make_kv_cache
 from groma_tpu_torch.parallel.tensor_parallel import host_collectives
-from groma_tpu_torch.utils.graphs import StepGraph
+from groma_tpu_torch.utils.graphs import CallGraph, StepGraph
 
 
 class DecodeScan:
@@ -58,14 +64,14 @@ class DecodeScan:
     ``max_len`` slots and its 0-d device index, the logits, next positions,
     done mask, tokens, step counter and finite flag) and the StepGraph of
     ``step(state)`` over it, captured at the key's first call and replayed
-    by every later one.  ``cache()`` hands the cache to a prefill (mask
-    cleared, index 0); ``begin`` loads the prefill's results into the
+    by every later one.  ``cache()`` hands the cache ``kv`` to a prefill
+    (mask cleared, index 0); ``begin`` loads the prefill's results into the
     state."""
 
     def __init__(self, key, cache: dict, step, generators=(),
                  eager: bool = False):
         self.key = key
-        self._cache = cache
+        self.kv = cache
         self._step = step
         self._generators = generators
         self._eager = eager
@@ -73,24 +79,22 @@ class DecodeScan:
         self.graph = None
 
     def cache(self) -> dict:
-        self._cache['mask'].zero_()
-        self._cache['index'] = 0
-        return self._cache
+        return fresh_cache(self.kv)
 
     def begin(self, logits, next_pos) -> dict:
         """After the prefill filled ``cache()``: its logits (B, V) and next
         positions (B, 1) into the state, done, step and the index reset."""
-        s = self._cache['index']
+        s = self.kv['index']
         if self.state is None:
             dev = logits.device
             self._index = torch.full((), s, dtype=torch.int64, device=dev)
             self.state = {
-                'logits': logits.clone(), 'cache': self._cache,
+                'logits': logits.clone(), 'cache': self.kv,
                 'next_pos': next_pos.clone(),
                 'done': torch.zeros(logits.shape[0], dtype=torch.bool,
                                     device=dev),
                 'toks': torch.zeros((logits.shape[0],
-                                     self._cache['mask'].shape[1]),
+                                     self.kv['mask'].shape[1]),
                                     dtype=torch.int64, device=dev),
                 'step': torch.zeros((), dtype=torch.int64, device=dev),
                 'finite': torch.isfinite(logits).all()}
@@ -104,7 +108,7 @@ class DecodeScan:
             st['done'].zero_()
             st['step'].zero_()
             st['finite'].copy_(torch.isfinite(logits).all())
-        self._cache['index'] = self._index
+        self.kv['index'] = self._index
         return self.state
 
 
@@ -143,9 +147,11 @@ class Generator:
     After each ``generate`` call, ``last_stats`` holds: decode_forwards,
     prefill_ms, decode_ms_per_token (host clock around synchronized device
     work), logits_finite, the prefill's logits (first_logits, numpy f32),
-    the tokens, selected_boxes and selected_mask, and decode_mode: the
+    the tokens, selected_boxes and selected_mask, decode_mode: the
     scan's 'graph' (captured on the card), 'eager' (the CPU) or 'eager:
-    gloo tp group', or the Python 'loop' (``use_scan=False``)."""
+    gloo tp group', or the Python 'loop' (``use_scan=False``), and
+    prefill_mode: 'captured' (the card) or 'eager' (the CPU, a gloo tp
+    group)."""
 
     def __init__(self, model: GromaModel, max_len: int = 2048,
                  use_flash: bool = False):
@@ -158,6 +164,7 @@ class Generator:
         self.host_tp = host_collectives(getattr(model, 'tp_group', None))
         self.last_stats = None
         self._decode: Optional[DecodeScan] = None
+        self._prefills = CallGraph(eager=self.host_tp)
 
     def _sync(self):
         if self.device.type == 'cuda':
@@ -175,7 +182,12 @@ class Generator:
         key = (b, eos_id, temperature if sampled else 0.0,
                generator if sampled else None)
         if self._decode is None or self._decode.key != key:
-            self._decode = None        # free the old graph and cache first
+            old, self._decode = self._decode, None
+            # a cache of the same batch is kept (and with it the prefill's
+            # graph, which writes it); the old step graph is freed first
+            cache = old.kv if old is not None and old.key[0] == b \
+                else None
+            del old
 
             def step(st):
                 tok = scan_token(st, eos_id, temperature, generator)
@@ -185,12 +197,26 @@ class Generator:
                 st['finite'].logical_and_(torch.isfinite(logits).all())
                 st['step'].add_(1)
             self._decode = DecodeScan(
-                key, make_kv_cache(self.cfg.llm, b, self.max_len,
-                                   device=self.device,
-                                   kv_heads=self.model.llm.model.kv_heads),
+                key, cache or make_kv_cache(
+                    self.cfg.llm, b, self.max_len, device=self.device,
+                    kv_heads=self.model.llm.model.kv_heads),
                 step, (generator,) if sampled and self.device.type == 'cuda'
                 else (), eager=self.host_tp)
         return self._decode
+
+    def _prefill(self, cache, images, input_ids, region_slot, base_valid,
+                 refer_boxes, refer_valid):
+        """JAX's jitted prefill, the body of the prefill graph:
+        ``GromaModel.prefill`` into ``cache`` (the scan's), or into a cache
+        it makes (None) -> (logits (B, V), next positions (B, 1), the
+        selected boxes and mask, the cache it made or None)."""
+        if cache is not None:
+            fresh_cache(cache)  # a capture follows a warm-up that filled it
+        logits, made, vis, next_pos = self.model.prefill(
+            images, input_ids, region_slot, base_valid, self.max_len,
+            refer_boxes, refer_valid, use_flash=self.use_flash, cache=cache)
+        return (logits, next_pos, vis['selected_boxes'],
+                vis['selected_mask'], None if cache is not None else made)
 
     @torch.inference_mode()
     def generate(self, images, input_ids, region_slot, base_valid,
@@ -227,10 +253,12 @@ class Generator:
             if use_scan else None
         self._sync()
         t0 = time.perf_counter()
-        logits, cache, vis, next_pos = self.model.prefill(
-            images, input_ids, region_slot, base_valid, self.max_len,
-            refer_boxes, refer_valid, use_flash=self.use_flash,
-            cache=scan.cache() if use_scan else None)
+        cache = scan.cache() if use_scan else None
+        logits, next_pos, boxes, mask, made = self._prefills.run(
+            self._prefill, cache, images, input_ids, region_slot, base_valid,
+            refer_boxes, refer_valid, key=('scan' if use_scan else 'loop',))
+        cache = cache if use_scan else made
+        cache['index'] = s          # a replay sets no host value
         self._sync()
         t1 = time.perf_counter()
 
@@ -272,9 +300,8 @@ class Generator:
         self._sync()
         t2 = time.perf_counter()
 
-        vis_np = {'selected_boxes':
-                  vis['selected_boxes'].float().cpu().numpy(),
-                  'selected_mask': vis['selected_mask'].cpu().numpy()}
+        vis_np = {'selected_boxes': boxes.float().cpu().numpy(),
+                  'selected_mask': mask.cpu().numpy()}
         self.last_stats = {
             'decode_forwards': forwards,
             'prefill_ms': (t1 - t0) * 1e3,
@@ -284,7 +311,8 @@ class Generator:
             'tokens': tokens, **vis_np,
             'decode_mode': 'loop' if not use_scan else
             'eager: gloo tp group' if self.host_tp else
-            'graph' if self.device.type == 'cuda' else 'eager'}
+            'graph' if self.device.type == 'cuda' else 'eager',
+            'prefill_mode': self._prefills.mode}
         return tokens, vis_np
 
 

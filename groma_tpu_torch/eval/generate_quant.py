@@ -26,6 +26,14 @@ whose logits would go unused at the end; the tokens are those of the JAX
 scan.  A request whose decode would not fit the cache raises ValueError
 (the JAX cache write clamps), with speculation counting every slot a last
 verify could write.
+
+The prefill (vision, surgery, the LLM prefill into the decode's cache or
+the verifier's, the first logits: JAX's jitted prefill program) is one
+``utils.graphs.CallGraph`` per (B, S): on the card the key's first call
+warms up, captures and replays, every later one copies its inputs in and
+replays; on the CPU it runs eagerly (``last_stats['prefill_mode']``,
+'captured' or 'eager').  The cache's index after it is S, set on the
+host after the replay.
 """
 
 from __future__ import annotations
@@ -42,12 +50,13 @@ from groma_tpu_torch.eval.generate import parse_region_tokens  # noqa: F401
 from groma_tpu_torch.eval.speculative import (Verifier,
                                               speculative_greedy_decode)
 from groma_tpu_torch.models.groma import GromaModel
-from groma_tpu_torch.models.llama import make_kv_cache
+from groma_tpu_torch.models.llama import fresh_cache, make_kv_cache
 from groma_tpu_torch.models.llama_quant import (make_quant_kv_cache,
                                                 quant_llama_forward,
                                                 quant_llama_logits,
                                                 quantize_llama_params,
                                                 w8a8_weights)
+from groma_tpu_torch.utils.graphs import CallGraph
 
 # decode steps between two reads of the done mask: the engine's default
 # burst (BatchEngine's chunk)
@@ -91,7 +100,8 @@ class QuantGenerator:
     speculation), prefill_ms, decode_ms_per_token (host clock around
     synchronized device work), logits_finite (the prefill's and the decode
     scan's logits; with speculation the prefill's), first_logits (the
-    prefill's, numpy), and the tokens, selected_boxes and selected_mask;
+    prefill's, numpy), the tokens, selected_boxes and selected_mask, and
+    prefill_mode ('captured' on the card, 'eager' on the CPU);
     ``spec_stats`` the last speculative generation's verify_calls,
     accepted (per call) and tokens_per_call."""
 
@@ -117,6 +127,7 @@ class QuantGenerator:
         self.spec_stats = None
         self._decode: Optional[DecodeScan] = None
         self._verifier: Optional[Verifier] = None
+        self._prefills = CallGraph()
 
     def _make_cache(self, b: int) -> dict:
         make = make_quant_kv_cache if self.kv_bits == 8 else make_kv_cache
@@ -145,7 +156,12 @@ class QuantGenerator:
         when either changes."""
         key = (b, eos_id)
         if self._decode is None or self._decode.key != key:
-            self._decode = None        # free the old graph and cache first
+            old, self._decode = self._decode, None
+            # a cache of the same batch is kept (and with it the prefill's
+            # graph, which writes it); the old step graph is freed first
+            cache = old.kv if old is not None and old.key[0] == b \
+                else None
+            del old
             cfg, dev = self.cfg.llm, self.device
 
             def step(st):
@@ -159,14 +175,35 @@ class QuantGenerator:
                 st['logits'].copy_(logits)
                 st['finite'].logical_and_(torch.isfinite(logits).all())
                 st['step'].add_(1)
-            self._decode = DecodeScan(key, self._make_cache(b), step)
+            self._decode = DecodeScan(key, cache or self._make_cache(b), step)
         return self._decode
+
+    def _prefill(self, cache, images, input_ids, region_slot, base_valid,
+                 refer_boxes, refer_valid):
+        """JAX's jitted prefill, the body of the prefill graph: vision,
+        surgery, the LLM prefill into ``cache`` and the first logits ->
+        (logits (B, V) f32, next positions (B, 1), the selected boxes and
+        mask).  It reads nothing back to the host."""
+        fresh_cache(cache)      # a capture follows a warm-up that filled it
+        emb, _, valid, vis = self.model.prepare_stream(
+            images, input_ids, region_slot, base_valid,
+            refer_boxes=refer_boxes, refer_valid=refer_valid,
+            use_flash=self.use_flash)
+        pos = (torch.cumsum(valid.to(torch.int64), -1) - 1).clamp(min=0)
+        hidden, _ = quant_llama_forward(self.qp, self.cfg.llm, emb, valid,
+                                        pos, cache, use_flash=self.use_flash,
+                                        w8a8=self.w8a8_prefill,
+                                        kmajor=self.kmajor)
+        rows = torch.arange(pos.shape[0], device=pos.device)
+        last = torch.argmax(pos, dim=-1)
+        logits = quant_logits(self.qp, hidden[rows, last][:, None])[:, 0]
+        return (logits, pos[rows, last][:, None] + 1,
+                vis['selected_boxes'], vis['selected_mask'])
 
     @torch.no_grad()
     def generate(self, images, input_ids, region_slot, base_valid,
                  refer_boxes=None, refer_valid=None,
                  max_new_tokens: int = 32, eos_id: int = 2):
-        cfg = self.cfg
         images = self._tensor(images, torch.float32)
         input_ids = self._tensor(input_ids, torch.int64)
         region_slot = self._tensor(region_slot, torch.int64)
@@ -194,20 +231,11 @@ class QuantGenerator:
             holder = self._scan(b, eos_id)
         self._sync()
         t0 = time.perf_counter()
-        emb, _, valid, vis = self.model.prepare_stream(
-            images, input_ids, region_slot, base_valid,
-            refer_boxes=refer_boxes, refer_valid=refer_valid,
-            use_flash=self.use_flash)
-        pos = (torch.cumsum(valid.to(torch.int64), -1) - 1).clamp(min=0)
-        hidden, _ = quant_llama_forward(self.qp, cfg.llm, emb, valid, pos,
-                                        holder.cache(),
-                                        use_flash=self.use_flash,
-                                        w8a8=self.w8a8_prefill,
-                                        kmajor=self.kmajor)
-        rows = torch.arange(b, device=self.device)
-        last = torch.argmax(pos, dim=-1)
-        logits = quant_logits(self.qp, hidden[rows, last][:, None])[:, 0]
-        next_pos = pos[rows, last][:, None] + 1
+        cache = holder.cache()
+        logits, next_pos, boxes, mask = self._prefills.run(
+            self._prefill, cache, images, input_ids, region_slot,
+            base_valid, refer_boxes, refer_valid)
+        cache['index'] = s          # a replay sets no host value
         first = logits.float().cpu().numpy()
         t1 = time.perf_counter()
 
@@ -248,8 +276,8 @@ class QuantGenerator:
         tokens = np.full((b, width), eos_id, toks.dtype)
         for i, r in enumerate(out):
             tokens[i, :len(r)] = r
-        vis_np = {'selected_boxes': vis['selected_boxes'].float().cpu().numpy(),
-                  'selected_mask': vis['selected_mask'].cpu().numpy()}
+        vis_np = {'selected_boxes': boxes.float().cpu().numpy(),
+                  'selected_mask': mask.cpu().numpy()}
         self.last_stats = {
             'decode_forwards': forwards,
             'prefill_ms': (t1 - t0) * 1e3,
@@ -257,5 +285,6 @@ class QuantGenerator:
             / max(tokens.shape[1] - 1 if spec else forwards, 1),
             'logits_finite': finite,
             'first_logits': first,
-            'tokens': tokens, **vis_np}
+            'tokens': tokens, **vis_np,
+            'prefill_mode': self._prefills.mode}
         return tokens, vis_np

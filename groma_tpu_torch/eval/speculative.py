@@ -29,6 +29,7 @@ from typing import List, Sequence
 
 import torch
 
+from groma_tpu_torch.models.llama import fresh_cache
 from groma_tpu_torch.models.llama_quant import quant_llama_forward
 from groma_tpu_torch.utils.graphs import StepGraph
 
@@ -102,9 +103,7 @@ class Verifier:
             self.state)
 
     def cache(self) -> dict:
-        self._cache['mask'].zero_()
-        self._cache['index'] = 0
-        return self._cache
+        return fresh_cache(self._cache)
 
     def begin(self, cur: int, pos0: int):
         """After the prefill filled ``cache()``: its index onto the device

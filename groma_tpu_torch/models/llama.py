@@ -109,6 +109,14 @@ def make_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
     }
 
 
+def fresh_cache(cache: dict) -> dict:
+    """A kept cache made ready for a prefill, in place: its mask cleared
+    and its index the host int 0."""
+    cache['mask'].zero_()
+    cache['index'] = 0
+    return cache
+
+
 class RMSNorm(nn.Module):
     def __init__(self, dim: int, device=None, eps: float = 1e-5):
         super().__init__()

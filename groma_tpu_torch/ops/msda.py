@@ -116,8 +116,11 @@ def sampling_locations_from_reference(reference_points: torch.Tensor,
     """reference_points (B, Q, L, 2 or 4) normalized, offsets
     (B, Q, nh, L, P, 2) -> sampling locations (B, Q, nh, L, P, 2)."""
     if reference_points.shape[-1] == 2:
-        normalizer = torch.tensor([[w, h] for h, w in spatial_shapes],
-                                  dtype=offsets.dtype, device=offsets.device)
+        # filled on the device (a captured prefill copies no host data)
+        normalizer = offsets.new_empty((len(spatial_shapes), 2))
+        for lvl, (h, w) in enumerate(spatial_shapes):
+            normalizer[lvl, 0].fill_(w)
+            normalizer[lvl, 1].fill_(h)
         return (reference_points[:, :, None, :, None, :]
                 + offsets / normalizer[None, None, None, :, None, :])
     if reference_points.shape[-1] == 4:

@@ -42,6 +42,19 @@ each from pinned memory before a burst, and reads the tokens, positions,
 done flags and finite flag back in one copy after it.  On the CPU the same
 step runs eagerly.
 
+The prefills are JAX's jitted programs as ``utils.graphs.CallGraph``
+graphs, one per input shape, in one memory pool: ``prefill_one`` at b=1
+and at b=``admit_batch`` (vision, surgery, the LLM prefill into a fresh
+cache as long as the stream, the first logits), and for the chunked
+prefill ``prepare_one`` (vision and surgery) and ``last_logits`` (the
+first logits from the last chunk's hidden states at a device index).  On
+the card a shape's first prefill warms up, captures and replays, later
+ones replay; on the CPU and under a gloo tp group they run eagerly
+(``stats()['prefill_mode']``).  A prefill's outputs belong to its graph:
+``_seat`` copies the prefill cache into the slot's cache or pages before
+the next admission replays it.  The host reads the next positions, the
+stream's validity (chunked) and the finite flag after the replay.
+
 ``w8a8_prefill`` (int8 trees) runs the one-shot, batched and chunked
 prefills' layer matmuls as int8 x int8 products, as JAX's does.
 
@@ -117,7 +130,7 @@ from groma_tpu_torch.models.llama_quant import (make_quant_kv_cache,
 from groma_tpu_torch.ops.paged_attention import (PAGE, insert_prefill_pages,
                                                  make_kv_page_pool)
 from groma_tpu_torch.parallel.tensor_parallel import host_collectives
-from groma_tpu_torch.utils.graphs import StepGraph
+from groma_tpu_torch.utils.graphs import CallGraph, StepGraph
 
 # rank 0's messages to the other ranks of a tp group
 _STOP, _ADMIT, _BURST, _IDLE = range(4)
@@ -279,6 +292,9 @@ class BatchEngine:
             self._state['cache'] = self._cache
         self._graphs: dict = {}    # sampled -> the burst step's StepGraph
         self._chunk = None         # the chunked prefill's state and graph
+        # the prefill programs: prefill_one at b = 1 and b = admit_batch,
+        # or the chunked prefill's prepare_one and last_logits
+        self._prefills = CallGraph(keep=2, eager=host_collectives(self.tp))
         self._gen = torch.Generator(device=dev)
         self._gen.manual_seed(sample_seed)
         self._host_rng = np.random.default_rng(sample_seed)
@@ -465,6 +481,7 @@ class BatchEngine:
                                         / self._n_steps, 3)
             if self._n_steps else None,
             'nonfinite_logits': self._n_nonfinite,
+            'prefill_mode': self._prefills.mode,
         }
         if self.paged:
             out['free_pages'] = len(self._free_pages)
@@ -488,33 +505,58 @@ class BatchEngine:
         return torch.as_tensor(np.stack([np.asarray(r) for r in rows]),
                                dtype=dtype, device=self.device)
 
-    def _prefill(self, reqs):
-        """Requests -> (first-token logits (B, V), prefill cache, vis,
-        next positions (B,) on the host)."""
-        images = self._tensor([r[1] for r in reqs], torch.float32)
-        ids = self._tensor([r[2] for r in reqs], torch.int64)
-        rslot = self._tensor([r[3] for r in reqs], torch.int64)
-        valid = self._tensor([r[4] for r in reqs], torch.bool)
+    def _prefill_one(self, _, images, ids, rslot, valid):
+        """JAX's jitted ``prefill_one``, the body of the prefill graphs:
+        vision, surgery, the LLM prefill into a fresh cache as long as the
+        stream, the first logits -> (logits (B, V), the cache, next
+        positions (B,), the selected boxes and mask)."""
         if self.qp is None:
             logits, cache, vis, next_pos = self.model.prefill(
                 images, ids, rslot, valid, max_len=ids.shape[1])
-            next_pos = next_pos[:, 0].cpu().numpy()
-            self._n_nonfinite += int(not torch.isfinite(logits).all())
-            return logits, cache, vis, next_pos
-        emb, _, valid, vis = self.model.prepare_stream(images, ids, rslot,
-                                                       valid)
-        pos = (torch.cumsum(valid.to(torch.int64), -1) - 1).clamp(min=0)
-        cache = self._fresh_cache(len(reqs), emb.shape[1])
+            return (logits, cache, next_pos[:, 0], vis['selected_boxes'],
+                    vis['selected_mask'])
+        emb, valid, pos, boxes, mask = self._prepare_one(None, images, ids,
+                                                         rslot, valid)
+        cache = self._fresh_cache(ids.shape[0], emb.shape[1])
         hidden, cache = quant_llama_forward(self.qp, self.cfg.llm, emb,
                                             valid, pos, cache,
                                             w8a8=self.w8a8_prefill,
                                             kmajor=self.kmajor)
-        rows = torch.arange(len(reqs), device=self.device)
+        rows = torch.arange(ids.shape[0], device=self.device)
         last = torch.argmax(pos, dim=-1)
         logits = quant_logits(self.qp, hidden[rows, last][:, None])[:, 0]
-        next_pos = (pos[rows, last] + 1).cpu().numpy()
+        return logits, cache, pos[rows, last] + 1, boxes, mask
+
+    def _prepare_one(self, _, images, ids, rslot, valid):
+        """JAX's jitted ``prepare_one``: vision and surgery -> (embeddings,
+        validity, rope positions, the selected boxes and mask)."""
+        emb, _, valid, vis = self.model.prepare_stream(images, ids, rslot,
+                                                       valid)
+        pos = (torch.cumsum(valid.to(torch.int64), -1) - 1).clamp(min=0)
+        return emb, valid, pos, vis['selected_boxes'], vis['selected_mask']
+
+    def _last_logits(self, st, local):
+        """JAX's jitted ``last_logits``: the first logits from the chunk
+        state's hidden states at the device index ``local`` (1,)."""
+        return quant_logits(self.qp, st['hidden'].index_select(1, local))[
+            :, 0]
+
+    def _prefill(self, reqs):
+        """Requests -> (first-token logits (B, V), prefill cache, vis,
+        next positions (B,) on the host): one replay of the prefill graph
+        of this batch's shape."""
+        images = self._tensor([r[1] for r in reqs], torch.float32)
+        ids = self._tensor([r[2] for r in reqs], torch.int64)
+        rslot = self._tensor([r[3] for r in reqs], torch.int64)
+        valid = self._tensor([r[4] for r in reqs], torch.bool)
+        logits, cache, next_pos, boxes, mask = self._prefills.run(
+            self._prefill_one, None, images, ids, rslot, valid,
+            key=('prefill_one',))
+        cache['index'] = ids.shape[1]     # a replay sets no host value
         self._n_nonfinite += int(not torch.isfinite(logits).all())
-        return logits, cache, vis, next_pos
+        return (logits, cache, {'selected_boxes': boxes,
+                                'selected_mask': mask},
+                next_pos.cpu().numpy())
 
     def _chunk_step(self, st):
         """One (1, c) chunk appended to the chunk cache at its index."""
@@ -555,9 +597,9 @@ class BatchEngine:
         ids = self._tensor([req[2]], torch.int64)
         rslot = self._tensor([req[3]], torch.int64)
         valid = self._tensor([req[4]], torch.bool)
-        emb, _, valid, vis = self.model.prepare_stream(images, ids, rslot,
-                                                       valid)
-        pos = (torch.cumsum(valid.to(torch.int64), -1) - 1).clamp(min=0)
+        emb, valid, pos, boxes, mask = self._prefills.run(
+            self._prepare_one, None, images, ids, rslot, valid,
+            key=('prepare_one',))
         valid_np = valid[0].cpu().numpy()
         last_idx = int(np.nonzero(valid_np)[0][-1])
         n_chunks = last_idx // c + 1    # trailing all-pad chunks skipped
@@ -581,8 +623,10 @@ class BatchEngine:
             graph.run(1)
             if ci + 1 < n_chunks and self._active.any():
                 self._decode_burst()     # keep the live streams moving
-        local = last_idx - (n_chunks - 1) * c
-        logits = quant_logits(self.qp, st['hidden'][:, local:local + 1])[:, 0]
+        local = torch.full((1,), last_idx - (n_chunks - 1) * c,
+                           dtype=torch.int64, device=self.device)
+        logits = self._prefills.run(self._last_logits, st, local,
+                                    key=('last_logits',))
         self._n_nonfinite += int(not torch.isfinite(logits).all())
         # decode writes at last_idx + 1, not at the chunks' end: the slots
         # between are mask-False padding; the first max_len slots seat
@@ -592,7 +636,8 @@ class BatchEngine:
         one['mask'] = cache['mask'][:, :n]
         one['index'] = last_idx + 1
         next_pos = np.asarray([int(valid_np.sum())])
-        return logits, one, vis, next_pos
+        return logits, one, {'selected_boxes': boxes,
+                             'selected_mask': mask}, next_pos
 
     def _admit(self):
         while not self._queue.empty():
@@ -681,9 +726,11 @@ class BatchEngine:
             tok0 = int(self._host_rng.choice(len(pz), p=pz))
         else:
             tok0 = int(torch.argmax(row_logits))
+        # copies: the prefill's graph owns vis, and its next replay
+        # overwrites it
         sess.vis = {'selected_boxes':
-                    vis['selected_boxes'][row].float().cpu().numpy(),
-                    'selected_mask': vis['selected_mask'][row].cpu().numpy()}
+                    np.array(vis['selected_boxes'][row].float().cpu()),
+                    'selected_mask': np.array(vis['selected_mask'][row].cpu())}
         if self.paged:
             # exactly the pages the compacted stream occupies; the unused
             # page ids of the prefill point at the trash page
