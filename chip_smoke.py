@@ -2828,13 +2828,17 @@ def check_probes(torch, timer, seed: int, card: str):
             fail(f'{name} disagrees with its plain version')
         return err.max().item()
 
-    # #10: f32 sums in another order (split rows added with atomics); the
+    # #10: f32 sums in another order (the splits added in split order by
+    # the last CTA of each column tile, so two calls are bitwise equal); the
     # library yardstick is tinygemm with a scale of 1 and a zero of 8, which
     # takes the unsigned nibbles as they are (the output rounded to bf16)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for shape, (kh, n) in unpack.SHAPES.items():
         x, p = unpack.make_inputs(kh, n, 'cuda', seed)
         want = unpack.unpack_matmul_reference(x, p)
         plain_ms = timer(lambda: unpack.unpack_matmul_reference(x, p))
+        print(f'  #10 {shape}: plan {unpack.unpack_plan(kh, n, sms)} '
+              f'[{card}]')
         try:
             fn = _tinygemm(torch, x, p, torch.ones(
                 (2 * kh // 256, n), device='cuda'), zero=8.0)
@@ -2846,15 +2850,20 @@ def check_probes(torch, timer, seed: int, card: str):
         lib = fn and library_time(
             torch, timer, f'torch._weight_int4pack_mm (#10) {shape}, scale 1, '
             f'zero 8', fn, want, card)
+        bnd = unpack.unpack_bound(kh, n)
         for v in unpack.VARIANTS:
+            got = unpack.unpack_matmul(x, p, v)
             err = held(f'int4 unpack probe (#10) {v} {shape} KH={kh} N={n}',
-                       unpack.unpack_matmul(x, p, v), want,
-                       1e-5 * want.abs().max(), '1e-5*max|plain|')
+                       got, want, 1e-5 * want.abs().max(), '1e-5*max|plain|')
+            same = torch.equal(got, unpack.unpack_matmul(x, p, v))
+            print(f'  two calls bitwise equal: {same} [{card}]')
+            if not same:
+                fail(f'int4 unpack probe {v} {shape}: two calls differ')
             ms = timer(lambda: unpack.unpack_matmul(x, p, v))
-            bnd = unpack.unpack_bound(kh, n)
             print(f'  kernel {ms * 1e3:.1f} us ({kh * n / ms / 1e6:.0f} GB/s '
-                  f'packed), plain {plain_ms * 1e3:.1f} us, bound '
-                  f'{bnd[0] * 1e3:.1f} us ({bnd[1]}) [{card}]')
+                  f'packed, {bnd[0] / ms * 100:.1f} % of the bound), plain '
+                  f'{plain_ms * 1e3:.1f} us, bound {bnd[0] * 1e3:.1f} us '
+                  f'({bnd[1]}) [{card}]')
             if shape == 'down_proj':
                 res[f'_kern_{v.lower()}'] = (err, ms, plain_ms, bnd, lib)
         del x, p, want, fn
@@ -2932,8 +2941,9 @@ def check_probes(torch, timer, seed: int, card: str):
             plain = attn.plain_version(body, sblk)
             plain_ms = timer(lambda: plain(*layer(0)))
             bnd = attn.layer_bound()
-            print(f'  kernel {ms:.4f} ms per layer, plain {plain_ms:.4f} ms, '
-                  f'bound {bnd[0]:.4f} ms ({bnd[1]}) [{card}]')
+            print(f'  kernel {ms:.4f} ms per layer ({bnd[0] / ms * 100:.1f} % '
+                  f'of the bound), plain {plain_ms:.4f} ms, bound '
+                  f'{bnd[0]:.4f} ms ({bnd[1]}) [{card}]')
             res[timed[name]] = (err, ms, plain_ms, bnd, None)
     return res
 

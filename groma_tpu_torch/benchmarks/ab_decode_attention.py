@@ -1,11 +1,9 @@
 """Two trees of the port on the decode-attention kernels, on one card.
 
-    python3 groma_tpu_torch/benchmarks/ab_decode_attention.py \\
+    python3 -m groma_tpu_torch.benchmarks.ab_decode_attention \\
         --trees OLD NEW NEW OLD [--fence NEW]
 
-Each tree (a checkout's root) runs in its own process, with that tree's
-``groma_tpu_torch`` first on the path and its kernels built there, in the
-order given (give the two trees in turns: old, new, new, old).  Each run
+Each tree runs in its own process, through ``trees.run_trees``.  Each run
 measures, at full Groma-7B width with random inputs and weights from
 ``--seed``:
 
@@ -36,46 +34,21 @@ tile at M = 2048) and #9 (the decode megakernel at full width, 2 layers,
 B=8), with the tree's kernels and with a copy of them built without
 ``fence.proxy.async`` before ring stages are released, in turns.
 
-Each run prints one JSON line; the parent prints them all and a table.
-Needs a CUDA device: without one the child raises.
+Device times from ``utils/profiling.Timer`` (median of 20).  Needs a CUDA
+device: without one the child raises.
 """
 
 from __future__ import annotations
 
 import argparse
 import inspect
-import json
-import os
-import statistics
 import subprocess
-import sys
 
 PROMPT = 'Locate the dog on the left in the image.'
 PAGED_LENGTHS = (2432, 2301, 1900, 1500, 1024, 700, 129, 0)
 ENGINE_LENGTHS = (400, 430, 460, 490, 520, 550, 580, 600)
 LAYERS4 = {'qkv_proj': (4096, 12288), 'o_proj': (4096, 4096),
            'gate_up_proj': (4096, 22016), 'down_proj': (11008, 4096)}
-
-
-def _time(torch, fn, flush, iters: int = 20) -> float:
-    """Median ms of ``fn`` between CUDA events, behind a sleep kernel (the
-    host's enqueue not counted), the L2 overwritten first when ``flush``
-    is a tensor."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        if flush is not None:
-            flush.zero_()
-        torch.cuda._sleep(2_000_000)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def _image(seed: int, size: int):
@@ -121,7 +94,7 @@ def _served_valid(torch, s: int, decoded: int):
     return valid
 
 
-def _attention(torch, gen, flush, out):
+def _attention(torch, gen, timer, out):
     from groma_tpu_torch.models.llama_quant import _quantize_tokens
     from groma_tpu_torch.ops.decode_attention import int8_decode_attention
     from groma_tpu_torch.ops.paged_attention import (
@@ -144,8 +117,8 @@ def _attention(torch, gen, flush, out):
                                               device=dev))
         bias = torch.where(valid, 0.0, -1e30)[:, None, None, :].to(dev)
         args = (q, k8, ks, v8, vs, bias.contiguous())
-        out[name] = [_time(torch, lambda: int8_decode_attention(*args), f)
-                     for f in (flush, None)]
+        out[name] = [timer(lambda: int8_decode_attention(*args), 20, f)
+                     for f in (True, False)]
         out[name + ' kept'] = int(valid.sum())
         if 'served' in name:
             out[name + ' host us/call'] = _host_us(
@@ -157,9 +130,9 @@ def _attention(torch, gen, flush, out):
                 b, h, s, torch.cuda.get_device_properties(0)
                 .multi_processor_count)[1]
             for c in (1, 2, 4, 8):
-                out[f'{name} C={c}'] = [_time(
-                    torch, lambda: int8_decode_attention(
-                        *args, plan=(c, stages)), f) for f in (flush, None)]
+                out[f'{name} C={c}'] = [timer(
+                    lambda: int8_decode_attention(*args, plan=(c, stages)),
+                    20, f) for f in (True, False)]
     pool = 160
     for name, lengths, np_ in (('#8 chip_smoke lengths', PAGED_LENGTHS, 19),
                                ('#8 engine lengths', ENGINE_LENGTHS, 19)):
@@ -180,19 +153,18 @@ def _attention(torch, gen, flush, out):
         q = torch.randn((b, h, 1, d), generator=gen, device=dev)
         args = (q, k8, ks, v8, vs, table.to(dev),
                 torch.tensor(lengths, dtype=torch.int32, device=dev))
-        out[name] = [_time(torch,
-                           lambda: paged_int8_decode_attention(*args), f)
-                     for f in (flush, None)]
+        out[name] = [timer(lambda: paged_int8_decode_attention(*args), 20,
+                           f) for f in (True, False)]
         if lengths == ENGINE_LENGTHS:
             out[name + ' host us/call'] = _host_us(
                 torch, lambda: paged_int8_decode_attention(*args))
         if sweep and lengths == PAGED_LENGTHS:
             for c in (1, 2, 4, 8):
-                out[f'{name} C={c}'] = [_time(
-                    torch, lambda: paged_int8_decode_attention(
-                        *args, cluster=c), f) for f in (flush, None)]
+                out[f'{name} C={c}'] = [timer(
+                    lambda: paged_int8_decode_attention(*args, cluster=c),
+                    20, f) for f in (True, False)]
     one = torch.zeros(1, device=dev)
-    out['timer floor'] = [_time(torch, one.zero_, f) for f in (flush, None)]
+    out['timer floor'] = [timer(one.zero_, 20, f) for f in (True, False)]
 
 
 def _device_ms(torch, fn):
@@ -276,7 +248,7 @@ def _engine(torch, seed, out):
     del worker
 
 
-def _fence(torch, gen, flush, out):
+def _fence(torch, gen, timer, out):
     """#7's tiles and #9 with the tree's kernels and without the fence."""
     import ctypes
     import shutil
@@ -350,24 +322,33 @@ def _fence(torch, gen, flush, out):
             row = []
             for key in ('fence', 'no fence', 'no fence', 'fence'):
                 cuda_lib._lib = libs[key]
-                row.append([key, _time(torch, fn, flush)])
+                row.append([key, timer(fn, 20)])
             out[name] = row
     cuda_lib._lib = fenced
 
 
-def child(seed: int, fence: bool) -> dict:
+def parser():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument('--trees', nargs='+', help='checkout roots, in turns')
+    ap.add_argument('--seed', type=int, default=0)
+    ap.add_argument('--fence', metavar='TREE',
+                    help='time #7 and #9 with and without the stage fence '
+                         "in this tree's first run")
+    return ap
+
+
+def child(timer, args) -> dict:
     import torch
-    if not torch.cuda.is_available():
+    if timer is None:
         raise RuntimeError('ab_decode_attention measures on a CUDA device')
     torch.backends.cuda.matmul.allow_tf32 = False
-    out = {'tree': os.getcwd(), 'device': torch.cuda.get_device_name(0)}
+    seed = args.seed
+    out = {'device': torch.cuda.get_device_name(0)}
     gen = torch.Generator(device='cuda')
     gen.manual_seed(seed)
-    flush = torch.empty(128 << 20, dtype=torch.uint8, device='cuda')
-    _attention(torch, gen, flush, out)
-    if fence:
-        _fence(torch, gen, flush, out)
-    del flush
+    _attention(torch, gen, timer, out)
+    if args.fence:
+        _fence(torch, gen, timer, out)
     torch.cuda.empty_cache()
     _served(torch, seed, out)
     torch.cuda.empty_cache()
@@ -375,40 +356,22 @@ def child(seed: int, fence: bool) -> dict:
     return out
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument('--trees', nargs='+', help='checkout roots, in turns')
-    ap.add_argument('--seed', type=int, default=0)
-    ap.add_argument('--fence', metavar='TREE',
-                    help='time #7 and #9 with and without the stage fence '
-                         "in this tree's first run")
-    ap.add_argument('--child', action='store_true', help=argparse.SUPPRESS)
-    args = ap.parse_args()
-    if args.child:
-        print(json.dumps(child(args.seed, bool(args.fence))), flush=True)
-        return
-    card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                           '--format=csv,noheader'], capture_output=True,
-                          text=True).stdout.strip()
+def main(argv=None):
+    import os
+    from groma_tpu_torch.benchmarks.trees import card as card_name
+    from groma_tpu_torch.benchmarks.trees import run_trees
+    args = parser().parse_args(argv)
+    card = card_name()
     print(card)
-    results = []
-    fence = os.path.abspath(args.fence) if args.fence else None
-    for tree in args.trees:
-        root = os.path.abspath(tree)
-        proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), '--child', '--seed',
-             str(args.seed), *(['--fence', root] if root == fence else [])],
-            cwd=root, env=dict(os.environ, PYTHONPATH=root),
-            capture_output=True, text=True)
-        if proc.returncode != 0:
-            sys.exit(f'ab_decode_attention: the run of {tree} failed:\n'
-                     f'{proc.stdout[-4000:]}{proc.stderr[-4000:]}')
-        res = json.loads(proc.stdout.strip().splitlines()[-1])
-        res['tree'] = tree
-        results.append(res)
-        print(json.dumps(res), flush=True)
-        if root == fence:
-            fence = None
+    fence = [os.path.abspath(args.fence)] if args.fence else []
+
+    def argv_for(root):
+        first = root in fence          # the fence tree's first run only
+        if first:
+            fence.remove(root)
+        return ['--seed', str(args.seed), *(['--fence', root] if first
+                                            else [])]
+    results = run_trees(__file__, args.trees, argv_for)
     for r in results:
         times = ', '.join(f'{k} {v[0]:.4f} ({v[1]:.4f} warm)'
                           for k, v in r.items()

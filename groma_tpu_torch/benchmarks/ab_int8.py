@@ -1,10 +1,8 @@
 """Two trees of the port on the int8 served path, in one run on one card.
 
-    python3 groma_tpu_torch/benchmarks/ab_int8.py --trees OLD NEW NEW OLD
+    python3 -m groma_tpu_torch.benchmarks.ab_int8 --trees OLD NEW NEW OLD
 
-Each tree (a checkout's root) runs in its own process, with that tree's
-``groma_tpu_torch`` first on the path and its kernels built there, in the
-order given (give the two trees in turns: old, new, new, old).  Each run
+Each tree runs in its own process, through ``trees.run_trees``.  Each run
 measures, at full Groma-7B width with random weights from ``--seed``:
 
 * #1, ``int8_matmul``, the four layer matmuls at M = 1, 8 and 2048
@@ -16,17 +14,12 @@ measures, at full Groma-7B width with random weights from ``--seed``:
   tokens under torch.profiler: the prefill's device time and its longest
   kernels, and the device time a decode token.
 
-Each run prints one JSON line; the parent prints them all and a table.
 Needs a CUDA device: without one the child raises.
 """
 
 from __future__ import annotations
 
 import argparse
-import json
-import os
-import subprocess
-import sys
 
 LAYERS = {'qkv_proj': (4096, 12288), 'o_proj': (4096, 4096),
           'gate_up_proj': (4096, 22016), 'down_proj': (11008, 4096)}
@@ -58,16 +51,23 @@ def _profiled(torch, worker, image, prompt, new):
     return dict(worker.generator.last_stats), by_name
 
 
-def child(seed: int, requests: int) -> dict:
+def parser():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument('--trees', nargs='+', help='checkout roots, in turns')
+    ap.add_argument('--seed', type=int, default=0)
+    ap.add_argument('--requests', type=int, default=3)
+    return ap
+
+
+def child(timer, args) -> dict:
     import torch
-    if not torch.cuda.is_available():
+    if timer is None:
         raise RuntimeError('ab_int8 measures on a CUDA device')
     from groma_tpu_torch.ops.quant import int8_matmul
     from groma_tpu_torch.serve.worker import ModelWorker
-    from groma_tpu_torch.utils.profiling import Timer
     torch.backends.cuda.matmul.allow_tf32 = False
-    out = {'tree': os.getcwd(), 'device': torch.cuda.get_device_name(0)}
-    timer = Timer('cuda')
+    seed, requests = args.seed, args.requests
+    out = {'device': torch.cuda.get_device_name(0)}
     gen = torch.Generator(device='cuda')
     gen.manual_seed(seed)
     for m in (1, 8, 2048):
@@ -81,7 +81,6 @@ def child(seed: int, requests: int) -> dict:
                 + 1e-4
             total += timer(lambda: int8_matmul(x, w, scale))
         out[f'four_matmuls_ms_m{m}'] = total
-    del timer
     torch.cuda.empty_cache()
 
     worker = ModelWorker('random', seed=seed, quant_type='int8', kv_bits=8,
@@ -116,35 +115,14 @@ def child(seed: int, requests: int) -> dict:
     return out
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument('--trees', nargs='+', help='checkout roots, in turns')
-    ap.add_argument('--seed', type=int, default=0)
-    ap.add_argument('--requests', type=int, default=3)
-    ap.add_argument('--child', action='store_true', help=argparse.SUPPRESS)
-    args = ap.parse_args()
-    if args.child:
-        print(json.dumps(child(args.seed, args.requests)), flush=True)
-        return
-    card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                           '--format=csv,noheader'], capture_output=True,
-                          text=True).stdout.strip()
+def main(argv=None):
+    from groma_tpu_torch.benchmarks.trees import card as card_name
+    from groma_tpu_torch.benchmarks.trees import run_trees
+    args = parser().parse_args(argv)
+    card = card_name()
     print(card)
-    results = []
-    for tree in args.trees:
-        root = os.path.abspath(tree)
-        proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), '--child', '--seed',
-             str(args.seed), '--requests', str(args.requests)],
-            cwd=root, env=dict(os.environ, PYTHONPATH=root),
-            capture_output=True, text=True)
-        if proc.returncode != 0:
-            sys.exit(f'ab_int8: the run of {tree} failed:\n'
-                     f'{proc.stdout[-4000:]}{proc.stderr[-4000:]}')
-        res = json.loads(proc.stdout.strip().splitlines()[-1])
-        res['tree'] = tree
-        results.append(res)
-        print(json.dumps(res), flush=True)
+    results = run_trees(__file__, args.trees, [
+        '--seed', str(args.seed), '--requests', str(args.requests)])
     for r in results:
         print(f"{r['tree']:>24}: four matmuls M=1 "
               f"{r['four_matmuls_ms_m1']:.4f} ms, M=8 "

@@ -13,19 +13,26 @@ template (``csrc/probe_decode_attn.cu``) over three bodies:
                     own max, denominator and requantized p, run in parallel
                     and combined by a second kernel
 
-and four structures: ``hbN``, N heads a block of 256 threads, one after
-another (hb1 is #2's grid, one block per (b, head)); ``sbN``; ``Lstack``,
-one launch over all L layers (independent layers: a bound on what fewer
-launches are worth, not a drop-in).  ``mxu (shipped)`` launches the port's
-#2 kernel (one 1024-thread block per (b, head)); ``plain (torch)`` is its
-plain version on the card.  Times are per 32-layer step, measured over L
-layers (``--layers``, default 8: about 0.55 GB of KV on the card).
+and four structures: ``hbN``, N heads a block of eight warps, one after
+another (hb1 is #2's first grid, one block per (b, head)); ``sbN``;
+``Lstack``, one launch over all L layers (independent layers: a bound on
+what fewer launches are worth, not a drop-in).  Every variant is fed as
+#2's kernel is fed: each (b, h) row's K and then V stream through a ring
+of 64-row stages filled by 1-d bulk copies, which one producer thread
+keeps in flight across the block's heads, with the row's scales and the
+bias in bulk copies of their own (so S and the S blocks are multiples of
+4); a variant's time is its grid and body, not its loads.  ``mxu (shipped)`` launches the port's #2 kernel (a cluster of
+CTAs per (b, head)); ``plain (torch)`` is its plain version on the card.
+Times are per 32-layer step, measured over L layers (``--layers``,
+default 8: about 0.55 GB of KV on the card).
 
 * ``floor_reference``, ``int8_decode_attention_reference`` (#2's) and
   ``mxu_sblk_reference`` are the plain PyTorch versions, on any device.
 * ``probe_decode_attention(..., body, hb, sblk)`` takes them only for CPU
   tensors; on CUDA tensors it launches the kernel or raises;
   ``probe_decode_attention.launches`` counts launches per body.
+* ``ring_plan`` sizes a block's ring and scale buffers, and ``ring_items``
+  lists the stages a block streams, in the kernel's order.
 
 Run on the card:
 ``python -m groma_tpu_torch.benchmarks.exp_decode_attn_variants``
@@ -51,6 +58,49 @@ BODIES = ('floor', 'mxu', 'mxu_sblk')
 HEADS_A_BLOCK = (1, 8, 16, 32)
 MAX_SBLK = 4096
 PARITY_TOL = 2e-2       # the TPU probe's allclose(atol, rtol) gate
+STAGE_ROWS = 64         # KV rows of one ring stage (8 KB)
+MAX_STAGES = 4          # deeper rings were no faster (PERF.md §6, PR 21)
+SM_SMEM = 228 * 1024     # an SM's, of which each block's runtime takes 1 KB
+STATIC_SMEM = 5 * 1024   # the kernel's static shared memory, at most
+
+
+def _pad(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def ring_smem(body: str, sblk: int, stages: int, nbuf: int) -> int:
+    """Dynamic shared memory of one block, as the kernel lays it out: the
+    ring; ``nbuf`` x (ks, vs) of the S block; for the mxu bodies the bias,
+    the scores and p8."""
+    mxu = 8 * _pad(sblk, 4) + _pad(sblk, 16) if body != 'floor' else 0
+    return stages * STAGE_ROWS * HD + nbuf * 8 * _pad(sblk, 4) + mxu
+
+
+def ring_plan(body: str, sblk: int, hb: int) -> tuple:
+    """(stages, nbuf) of a block over S blocks of ``sblk`` positions and
+    ``hb`` heads: two blocks to an SM, two scale buffers where more than
+    one head shares the block and they leave at least four stages, else
+    one, and as many 8 KB stages as then fit, 2 to 4."""
+    budget = SM_SMEM // 2 - 1024 - STATIC_SMEM
+    for nbuf in ((2, 1) if hb > 1 else (1,)):
+        room = budget - ring_smem(body, sblk, 0, nbuf)
+        stages = min(MAX_STAGES, room // (STAGE_ROWS * HD))
+        if stages >= (4 if nbuf == 2 else 2):
+            return stages, nbuf
+    raise ValueError(f'no ring fits two blocks an SM at sblk {sblk}')
+
+
+def ring_items(s: int, sblk: int, hb: int) -> list:
+    """Per S block, the ring items of a block of ``hb`` heads in the order
+    the producer issues them: for each head, its K stages and then its V
+    stages, as (head, 'k' or 'v', first position, rows)."""
+    out = []
+    for s0 in range(0, s, sblk):
+        n = min(s, s0 + sblk) - s0
+        out.append([(h, kv, s0 + r, min(STAGE_ROWS, n - r))
+                    for h in range(hb) for kv in 'kv'
+                    for r in range(0, n, STAGE_ROWS)])
+    return out
 
 
 def floor_reference(q, k8, ks, v8, vs, bias):
@@ -126,9 +176,10 @@ def probe_decode_attention(q, k8, ks, v8, vs, bias, body: str = 'mxu',
     bias (B, 1, 1, S) f32 -> (B, H, 1, D) or (L, B, H, 1, D) f32.
 
     CPU tensors: the plain version of ``body``.  CUDA tensors: q f32,
-    D = 128, all contiguous, hb in (1, 8, 16, 32) dividing H; ``sblk`` only
-    for 'mxu_sblk' (S blocks of that many positions, at most 4096), and
-    whole-S bodies take S <= 4096."""
+    D = 128, all contiguous and 16-byte aligned, hb in (1, 8, 16, 32)
+    dividing H, S a multiple of 4; ``sblk`` only for 'mxu_sblk' (S blocks
+    of that many positions, a multiple of 4, at most 4096), and whole-S
+    bodies take S <= 4096.  The ring is ``ring_plan``'s."""
     if body not in BODIES or (sblk is None) != (body != 'mxu_sblk'):
         raise ValueError(f'probe_decode_attention: body {body!r} with sblk '
                          f'{sblk}: sblk is for mxu_sblk alone')
@@ -139,9 +190,6 @@ def probe_decode_attention(q, k8, ks, v8, vs, bias, body: str = 'mxu',
             return fn(q, k8, ks, v8, vs, bias)
         return torch.stack([fn(q, k8[i], ks[i], v8[i], vs[i], bias)
                             for i in range(k8.shape[0])])
-    if q.device.type != 'cuda':
-        raise ValueError(f'probe_decode_attention: unsupported device '
-                         f'{q.device}')
     lyr = k8.shape[0] if stacked else 1
     b, h, one, d = q.shape
     s = k8.shape[-2]
@@ -150,7 +198,7 @@ def probe_decode_attention(q, k8, ks, v8, vs, bias, body: str = 'mxu',
     if (one != 1 or d != HD or k8.shape != kv_shape or v8.shape != kv_shape
             or ks.shape != kv_shape[:-1] or vs.shape != kv_shape[:-1]
             or bias.shape != (b, 1, 1, s) or hb not in HEADS_A_BLOCK
-            or h % hb or not 1 <= sb <= MAX_SBLK):
+            or h % hb or not 1 <= sb <= MAX_SBLK or s % 4 or sb % 4):
         raise ValueError(f'probe_decode_attention: q {tuple(q.shape)}, k8 '
                          f'{tuple(k8.shape)}, ks {tuple(ks.shape)}, bias '
                          f'{tuple(bias.shape)}, hb {hb}, sblk {sblk}')
@@ -158,10 +206,14 @@ def probe_decode_attention(q, k8, ks, v8, vs, bias, body: str = 'mxu',
     if (q.dtype, k8.dtype, v8.dtype, ks.dtype, vs.dtype, bias.dtype) != (
             torch.float32, torch.int8, torch.int8, torch.float32,
             torch.float32, torch.float32) or not all(
-            t.device == q.device and t.is_contiguous() for t in tensors):
+            t.device == q.device and t.is_contiguous()
+            and t.data_ptr() % 16 == 0 for t in tensors):
         raise ValueError('probe_decode_attention: the kernel takes '
-                         'contiguous q/ks/vs/bias f32 and k8/v8 int8 on one '
-                         'device')
+                         'contiguous, 16-byte aligned q/ks/vs/bias f32 and '
+                         'k8/v8 int8 on one device')
+    if q.device.type != 'cuda':
+        raise ValueError(f'probe_decode_attention: unsupported device '
+                         f'{q.device}')
     from groma_tpu_torch.ops.cuda_lib import check, probe_library, stream_ptr
     out = torch.empty(kv_shape[:-2] + (1, d), dtype=torch.float32,
                       device=q.device)
@@ -173,10 +225,11 @@ def probe_decode_attention(q, k8, ks, v8, vs, bias, body: str = 'mxu',
         op = torch.empty((lyr, b, h, nsb, d), dtype=torch.float32,
                          device=q.device)
         parts = [mdp[0].data_ptr(), mdp[1].data_ptr(), op.data_ptr()]
+    stages, nbuf = ring_plan(body, sb, hb)
     status = probe_library().groma_probe_decode_attn(
         q.data_ptr(), k8.data_ptr(), ks.data_ptr(), v8.data_ptr(),
         vs.data_ptr(), bias.data_ptr(), out.data_ptr(), *parts, lyr, b, h, s,
-        d, BODIES.index(body), hb, sb, stream_ptr(q))
+        d, BODIES.index(body), hb, sb, stages, nbuf, stream_ptr(q))
     check(status, f'probe_decode_attention ({body})')
     probe_decode_attention.launches[body] += 1
     return out
@@ -285,7 +338,8 @@ def main(argv=None):
                                                   vs[i], bias))))
     for name, fn in timed:
         dt = timer(fn) * 1e-3 * L_STEP / n_layers
-        share = f'{dt / roof:.2f}x roofline' if on_card else 'host clock'
+        share = (f'{dt / roof:.2f}x roofline, {roof / dt * 100:5.1f} % of the '
+                 f'bound' if on_card else 'host clock')
         print(f'{name:18s}: {dt * 1e3:7.2f} ms/{L_STEP}-layer step ({share})',
               flush=True)
     return bad

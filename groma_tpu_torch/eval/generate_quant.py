@@ -111,6 +111,12 @@ class QuantGenerator:
                  spec_ngram: int = 2):
         if kv_bits not in (8, 16):
             raise ValueError('kv_bits must be 8 or 16')
+        if getattr(model, 'tp_group', None) is not None:
+            raise ValueError('a tp-cut model serves through the unquantized '
+                             'Generator or engine (qp=None) only: the '
+                             'quantized forward has no tp all-reduce, so '
+                             'QuantGenerator waits for ROADMAP.md §1 item '
+                             '11c, the quantized tree under tp')
         self.model = model
         self.cfg = model.cfg
         self.qp = qp

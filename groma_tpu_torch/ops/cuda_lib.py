@@ -97,11 +97,11 @@ def _declare(lib):
 
 def _declare_probes(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.groma_probe_int4_unpack.argtypes = [p, p, p, i, i, i, i, i, p]
+    lib.groma_probe_int4_unpack.argtypes = [p] * 5 + [i] * 5 + [p]
     lib.groma_probe_int4_unpack.restype = i
     lib.groma_probe_m8_matmul.argtypes = [p] * 8 + [i] * 5 + [p]
     lib.groma_probe_m8_matmul.restype = i
-    lib.groma_probe_decode_attn.argtypes = [p] * 10 + [i] * 8 + [p]
+    lib.groma_probe_decode_attn.argtypes = [p] * 10 + [i] * 10 + [p]
     lib.groma_probe_decode_attn.restype = i
 
 

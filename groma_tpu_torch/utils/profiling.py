@@ -41,14 +41,20 @@ class Timer:
         self.flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8,
                                  device=device)
 
-    def __call__(self, fn, iters: int = 10, flush: bool = True) -> float:
+    def __call__(self, fn, iters: int = 10, flush: bool = True,
+                 clean: bool = False) -> float:
         """Median milliseconds per call of ``fn`` (warmed up once first);
-        ``flush=False`` leaves in the L2 cache what the last call left."""
+        ``flush=False`` leaves in the L2 cache what the last call left.
+        The flush writes its buffer, so the call also writes back the dirty
+        lines it evicts (up to the L2's 50 MB); ``clean=True`` flushes by
+        reading it instead, and the call finds clean lines."""
         fn()
         torch.cuda.synchronize()
         times = []
         for _ in range(iters):
-            if flush:
+            if flush and clean:
+                self.flush.sum()
+            elif flush:
                 self.flush.zero_()
             torch.cuda._sleep(2_000_000)
             start = torch.cuda.Event(enable_timing=True)

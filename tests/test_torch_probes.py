@@ -292,3 +292,181 @@ def test_probe_main_refuses_the_cpu_without_device_cpu(monkeypatch, probe):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='--device cpu'):
         probe.main([])
+
+
+# ------------------------------------------- the card kernels' plans (CPU)
+
+@pytest.mark.parametrize('sms', [132, 114, 78])
+@pytest.mark.parametrize('kh,n', [(2048, 512), (5504, 4096), (5568, 4096),
+                                  (64, 64)])
+def test_int4_unpack_plan_covers_every_packed_row_once(kh, n, sms):
+    """#10's launch: #7's decode split of the packed rows (``decode_plan(2
+    KH, N, sms)``) where it gives two tiles a split or more, else two,
+    whole 64-row tiles, every packed row in exactly one tile of one split,
+    the last split shorter where KH asks for it, and two CTAs an SM within
+    the shared memory."""
+    from groma_tpu_torch.ops.quant4 import decode_plan
+    plan = t_unpack.unpack_plan(kh, n, sms)
+    rows, splits = decode_plan(2 * kh, n, sms)
+    if rows >= 128 or kh < 128:
+        assert (plan['split_rows'], plan['splits']) == (rows, splits)
+    else:
+        assert plan['split_rows'] == 128 and plan['splits'] == -(-kh // 128)
+    assert plan['col_tiles'] == -(-n // 128)
+    stages = t_unpack.unpack_stages(kh, n, sms)
+    assert len(stages) == plan['splits'] and all(stages)
+    rows = [r for split in stages for r in split]
+    assert all(r % 64 == 0 for r in rows)
+    covered = np.zeros(kh, np.int64)
+    for r in rows:
+        covered[r:r + 64] += 1
+    assert (covered == 1).all()
+    for z, split in enumerate(stages):
+        assert split[0] == z * plan['split_rows']
+        assert len(split) * 64 <= plan['split_rows']
+        if z < len(stages) - 1:
+            assert len(split) >= min(2, kh // 64)
+    assert plan['smem'] <= 227 * 1024
+    assert 2 * (plan['smem'] + 1024) <= 228 * 1024
+
+
+def test_int4_unpack_plan_at_down_proj_is_sevens():
+    """At down_proj on 132 SMs: 32 column tiles x 8 splits of 11 tiles, the
+    last split 9 tiles; a KH of 87 tiles leaves a last split of 10."""
+    plan = t_unpack.unpack_plan(5504, 4096, 132)
+    assert (plan['col_tiles'], plan['splits'], plan['split_rows']) == (
+        32, 8, 704)
+    assert [len(s) for s in t_unpack.unpack_stages(5504, 4096, 132)] == \
+        [11] * 7 + [9]
+    assert [len(s) for s in t_unpack.unpack_stages(5568, 4096, 132)] == \
+        [11] * 7 + [10]
+
+
+@pytest.mark.parametrize('sms', [132, 114, 78])
+def test_int4_unpack_plan_at_the_strip_takes_two_tiles_a_split(sms):
+    """At the TPU probe's strip (KH=2048, N=512) #7's split gives 32
+    one-tile splits; the probe takes 16 of two tiles, 4 column tiles each."""
+    plan = t_unpack.unpack_plan(2048, 512, sms)
+    assert (plan['col_tiles'], plan['splits'], plan['split_rows']) == (
+        4, 16, 128)
+    assert [len(s) for s in t_unpack.unpack_stages(2048, 512, sms)] == \
+        [2] * 16
+
+
+@pytest.mark.parametrize('hb', [1, 8])
+@pytest.mark.parametrize('sblk', [256, 512, 1000, 1024, 2048, 4096])
+@pytest.mark.parametrize('body', ['floor', 'mxu', 'mxu_sblk'])
+def test_decode_attn_ring_plan_fits_two_blocks_an_sm(body, sblk, hb):
+    """#12's ring: 2 to 4 stages of 64 rows, two scale buffers only where
+    heads share a block, and two blocks of it (with the kernel's static
+    shared memory and the runtime's 1 KB each) on one SM; every block under
+    227 KB up to S = 4096."""
+    stages, nbuf = t_attn.ring_plan(body, sblk, hb)
+    assert 2 <= stages <= t_attn.MAX_STAGES == 4
+    assert nbuf in ((1, 2) if hb > 1 else (1,))
+    smem = t_attn.ring_smem(body, sblk, stages, nbuf)
+    assert smem <= 227 * 1024
+    assert 2 * (smem + t_attn.STATIC_SMEM + 1024) <= t_attn.SM_SMEM
+    # the kernel's layout: the ring, nbuf x (ks, vs), and for the mxu
+    # bodies the bias, the scores and p8
+    pad4 = -(-sblk // 4) * 4
+    want = stages * 64 * 128 + nbuf * 8 * pad4
+    if body != 'floor':
+        want += 8 * pad4 + -(-sblk // 16) * 16
+    assert smem == want
+
+
+@pytest.mark.parametrize('s,sblk,hb', [(1024, None, 1), (1024, None, 8),
+                                       (1024, 256, 1), (1024, 256, 32),
+                                       (1000, None, 1), (1000, 256, 8),
+                                       (1000, 100, 1), (4096, None, 16)])
+def test_decode_attn_ring_items_cover_every_position_once(s, sblk, hb):
+    """Per S block, the producer's items: for each head in order its K
+    stages and then its V stages, each stage 64 rows from the block's
+    start (the last shorter), every position of the block in exactly one K
+    and one V stage of each head."""
+    blocks = t_attn.ring_items(s, sblk or s, hb)
+    assert len(blocks) == -(-s // (sblk or s))
+    for i, items in enumerate(blocks):
+        s0 = i * (sblk or s)
+        n = min(s, s0 + (sblk or s)) - s0
+        nst = -(-n // 64)
+        assert len(items) == 2 * hb * nst
+        assert [(h, kv) for h, kv, _, _ in items] == [
+            (h, kv) for h in range(hb) for kv in 'kv' for _ in range(nst)]
+        for h in range(hb):
+            for kv in 'kv':
+                mine = [(r, rows) for hh, k, r, rows in items
+                        if (hh, k) == (h, kv)]
+                assert all((r - s0) % 64 == 0 for r, _ in mine)
+                covered = np.zeros(s, np.int64)
+                for r, rows in mine:
+                    assert 1 <= rows <= 64
+                    covered[r:r + rows] += 1
+                assert (covered[s0:s0 + n] == 1).all()
+                assert covered.sum() == n
+
+
+def _meta(shape, dtype=torch.float32):
+    return torch.zeros(shape, dtype=dtype, device='meta')
+
+
+@pytest.mark.parametrize('x,p,variant', [
+    ((8, 192), (96, 64), 'A'),        # KH not a multiple of 64
+    ((8, 256), (128, 96), 'B'),       # N not a multiple of 64
+    ((4, 256), (128, 64), 'C'),       # x not 8 rows
+    ((8, 200), (128, 64), 'A'),       # x not 2 KH columns
+    ((8, 256), (128, 64), 'D'),       # no such variant
+])
+def test_unpack_wrapper_refuses_shapes_it_does_not_take(x, p, variant):
+    with pytest.raises(ValueError, match='the kernels take'):
+        t_unpack.unpack_matmul(_meta(x, torch.bfloat16),
+                               _meta(p, torch.uint8), variant)
+
+
+def test_unpack_wrapper_refuses_other_types():
+    with pytest.raises(ValueError, match='the kernels take'):
+        t_unpack.unpack_matmul(_meta((8, 256)), _meta((128, 64), torch.uint8))
+    with pytest.raises(ValueError, match='the kernels take'):
+        t_unpack.unpack_matmul(_meta((8, 256), torch.bfloat16),
+                               _meta((128, 64), torch.int8))
+
+
+@pytest.mark.parametrize('case', ['hb3', 'hb_not_dividing', 'd64', 's_long',
+                                  'sblk_long', 'kv_shape', 'bias_shape',
+                                  'q_bf16', 'k_uint8', 's_not_4',
+                                  'sblk_not_4'])
+def test_decode_attn_wrapper_refuses_what_the_kernel_does_not_take(case):
+    b, h, s, d = 1, 8, 16, 128
+    hb, sblk, body = 1, None, 'mxu'
+    q, kv, sc = (b, h, 1, d), (b, h, s, d), (b, h, s)
+    bias, qt, kt = (b, 1, 1, s), torch.float32, torch.int8
+    if case == 'hb3':
+        hb = 3
+    elif case == 'hb_not_dividing':
+        hb = 16
+    elif case == 'd64':
+        q, kv = (b, h, 1, 64), (b, h, s, 64)
+    elif case == 's_long':
+        s = 5000
+        kv, sc, bias = (b, h, s, d), (b, h, s), (b, 1, 1, s)
+    elif case == 'sblk_long':
+        body, sblk = 'mxu_sblk', 5000
+    elif case == 's_not_4':        # the scales' bulk copies take 16 bytes
+        s = 18
+        kv, sc, bias = (b, h, s, d), (b, h, s), (b, 1, 1, s)
+    elif case == 'sblk_not_4':
+        body, sblk = 'mxu_sblk', 10
+    elif case == 'kv_shape':
+        kv = (b, h, s + 1, d)
+    elif case == 'bias_shape':
+        bias = (b, 1, 1, s + 1)
+    elif case == 'q_bf16':
+        qt = torch.bfloat16
+    else:
+        kt = torch.uint8
+    args = (_meta(q, qt), _meta(kv, kt), _meta(sc), _meta(kv, kt),
+            _meta(sc), _meta(bias))
+    with pytest.raises(ValueError, match='probe_decode_attention') as e:
+        t_attn.probe_decode_attention(*args, body, hb, sblk)
+    assert 'unsupported device' not in str(e.value)

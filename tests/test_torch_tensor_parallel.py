@@ -403,6 +403,7 @@ def _serve_ranks(rank, world, init, ref, out_dir):
     replicas."""
     from groma_tpu_torch.checkpoint.loader import from_state_dict
     from groma_tpu_torch.config import tiny_groma_config as t_tiny
+    from groma_tpu_torch.eval.generate_quant import QuantGenerator
     from groma_tpu_torch.parallel import mesh as pm
     from groma_tpu_torch.serve.engine import BatchEngine
     _join(rank, world, init)
@@ -436,6 +437,10 @@ def _serve_ranks(rank, world, init, ref, out_dir):
         BatchEngine(groma, {'layers': []}, kv_bits=8)
     except ValueError as e:
         out['quantized_refused'] = str(e)
+    try:
+        QuantGenerator(groma, {'layers': []}, kv_bits=8)
+    except ValueError as e:
+        out['quant_generator_refused'] = str(e)
     engine = BatchEngine(groma, None, max_slots=2,
                          max_len=CFG.max_seq_len + ENGINE_MAX_NEW + 8,
                          eos_id=eos, chunk=2, max_new_tokens=ENGINE_MAX_NEW)
@@ -531,6 +536,16 @@ def test_engine_refuses_the_quantized_modes_on_a_tp_cut_model(serving):
     _, ranks = serving
     for res in ranks:
         assert 'item 11c' in res['quantized_refused']
+
+
+def test_quant_generator_refuses_a_tp_cut_model(serving):
+    """The quantized forward has no tp all-reduce: on a tp-cut Groma it
+    would give wrong logits silently, so ``QuantGenerator`` refuses it on
+    every rank, as the engine does."""
+    _, ranks = serving
+    for res in ranks:
+        assert 'item 11c' in res['quant_generator_refused']
+        assert 'QuantGenerator' in res['quant_generator_refused']
 
 
 def test_engine_followers_refuse_requests_and_stop_with_rank_0(serving):
