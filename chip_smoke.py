@@ -57,7 +57,10 @@ Phases, each printed before the last line:
     Sq != Skv; causal at the LLM's and at S=1500; each called twice, dk and
     dv bitwise equal, and #5 and #6 with their TFLOP/s, share of the bound
     and ratio to SDPA's backward), the probes' kernels (#10-#12, every
-    variant at the probes' shapes), and the all-layer decode
+    variant at the probes' shapes, each called twice and bitwise equal;
+    #11's w8a8 bitwise equal to its plain version, and each #11 kernel's
+    four layer matmuls under torch.profiler: quantizer and product device
+    time, two launches a call), and the all-layer decode
     megakernel at full width and 2 layers (B=8, a 1024-slot cache written
     at slot 700, a ragged mask and a fully masked row: the hidden state,
     the written column within one int8 unit, every other cache byte
@@ -2807,8 +2810,9 @@ def check_probes(torch, timer, seed: int, card: str):
     """The H100 probes #10-#12 against their plain versions on the card at
     the probes' shapes, every kernel variant.  Returns {TPU kernel name:
     (max_abs_err, ms, plain_ms, (bound ms, bound by), library ms)}: #10 at
-    down_proj, #11 summed over the four layer matmuls, #12 per layer
-    (floor hb1, mxu hb1, mxu hb1 sb256)."""
+    down_proj, #11 summed over the four layer matmuls (w8a8 held bitwise,
+    its library time torch._int_mm's alone), #12 per layer (floor hb1,
+    mxu hb1, mxu hb1 sb256)."""
     from groma_tpu_torch.benchmarks import (exp_decode_attn_variants as attn,
                                             exp_decode_matmul_m8 as m8,
                                             exp_int4_unpack as unpack)
@@ -2868,22 +2872,42 @@ def check_probes(torch, timer, seed: int, card: str):
                 res[f'_kern_{v.lower()}'] = (err, ms, plain_ms, bnd, lib)
         del x, p, want, fn
 
-    # #11: integer dots exact, the same f32 epilogue; int4-a8's per-chunk
-    # f32 sums in another order
+    # #11: w8a8's integer sums are exact and its epilogue keeps the plain
+    # version's order of operations, so it is held bitwise; int4-a8 folds
+    # per (plane, scale block) a split holds and sums the splits in f32 in
+    # another order than the plain version (1e-5 x max|plain|).  The last
+    # CTA of a column tile adds the splits in split order, so two calls of
+    # either are bitwise equal.  Each kernel's four calls once more under
+    # torch.profiler: the quantizer's and the product's device time and the
+    # launches a call
     xs, _, forms = m8.make_inputs('cuda', seed)
     for key, fn, plain, form in (
             ('_w8a8_kernel', m8.w8a8_matmul, m8.w8a8_reference, 'int8'),
             ('_int4_a8_kernel', m8.int4_a8_matmul, m8.int4_a8_reference,
              'int4')):
-        worst, ms, plain_ms, lib = 0.0, 0.0, 0.0, 0.0
+        worst, ms, plain_ms, lib, whole = 0.0, 0.0, 0.0, 0.0, 0.0
         for k, kd, n in m8.SHAPES:
             x, w = xs[k], forms[form][k]
+            plan = m8.m8_plan('w8a8' if form == 'int8' else 'int4', kd, n,
+                              sms)
+            print(f'  #11 {key} {k}: plan {plan} [{card}]')
             want = plain(x, *w)
-            worst = max(worst, held(
-                f'M=8 probe (#11) {key} {k} K={kd} N={n}', fn(x, *w), want,
-                1e-5 * want.abs().max(), '1e-5*max|plain|'))
+            got = fn(x, *w)
+            if form == 'int8':
+                err = held(f'M=8 probe (#11) {key} {k} K={kd} N={n}', got,
+                           want, 0.0, 'bitwise')
+            else:
+                err = held(f'M=8 probe (#11) {key} {k} K={kd} N={n}', got,
+                           want, 1e-5 * want.abs().max(), '1e-5*max|plain|')
+            worst = max(worst, err)
+            same = torch.equal(got, fn(x, *w))
+            print(f'  two calls bitwise equal: {same} [{card}]')
+            if not same:
+                fail(f'M=8 probe {key} {k}: two calls differ')
             ms += timer(lambda: fn(x, *w))
             plain_ms += timer(lambda: plain(x, *w))
+            if form == 'int8':
+                whole += timer(lambda: m8.w8a8_library(x, *w))
             if form == 'int8' and lib is not None:
                 xq = m8.act_quant(x)[0]
                 xp = torch.nn.functional.pad(
@@ -2895,9 +2919,23 @@ def check_probes(torch, timer, seed: int, card: str):
                                  rel_tol=0.0)
                 lib = None if t is None else lib + t
         bnd = m8.layer_bound(form)
-        print(f'  {key}, the four layer matmuls: kernel {ms:.4f} ms, plain '
+        print(f'  {key}, the four layer matmuls: kernel {ms:.4f} ms '
+              f'({bnd[0] / ms * 100:.1f} % of the bound), plain '
               f'{plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), '
               f'{m8.layer_bytes(form) / ms / 1e6:.0f} GB/s weights [{card}]')
+        if form == 'int8':
+            print(f'  w8a8_library whole (the plain quantizer, torch._int_mm '
+                  f'on x padded to 32 rows, the scales), the four: '
+                  f'{whole:.4f} ms [{card}]')
+        split = timer.split(lambda f=fn, w=forms[form]: [
+            f(xs[k], *w[k]) for k, _, _ in m8.SHAPES], per=len(m8.SHAPES))
+        print(f'  {key}, the four under torch.profiler (L2 flushed by '
+              f'writing): quantizer {split["quantizer"]:.4f} ms, product '
+              f'{split["product"]:.4f} ms, other {split["other"]:.4f} ms of '
+              f'device time; {split["launches"]:g} launches a call [{card}]')
+        if split['launches'] != 2:
+            fail(f'M=8 probe {key}: {split["launches"]:g} device operations '
+                 f'a call, not the quantizer and the product')
         res[key] = (worst, ms, plain_ms, bnd,
                     lib if form == 'int8' else None)
     del xs, forms

@@ -19,6 +19,7 @@ L2_FLUSH_BYTES = 128 << 20      # more than the H100's 50 MB L2
 H100_BYTES_PER_S = 3.35e12
 H100_BF16_FLOPS = 989e12
 H100_INT8_OPS = 1979e12
+PROFILED_CALLS = 5              # calls a ``Timer.split`` profiles
 
 
 def bound(nbytes: float, ops: float, peak: float = H100_BF16_FLOPS):
@@ -65,6 +66,45 @@ class Timer:
             end.synchronize()
             times.append(start.elapsed_time(end))
         return statistics.median(times)
+
+    def split(self, fn, per: int) -> dict:
+        """``fn``'s device time by kernel, from torch.profiler over
+        ``PROFILED_CALLS`` calls, each after the writing flush: ms a call of
+        the kernels whose names say 'quant' ('quantizer'), of those whose
+        names say 'm8_' or 'mma' and not 'epilogue' ('product'), and of the
+        rest ('other': a memset, an epilogue kernel); and 'launches', the
+        device operations (kernels and memsets) of each of the ``per``
+        wrapper calls that one call of ``fn`` makes.  The flush's own
+        kernels are not counted."""
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            self.flush.zero_()
+            torch.cuda.synchronize()
+        flush_names = {e.name for e in prof.events()
+                       if e.device_type.name == 'CUDA'}
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILED_CALLS):
+                self.flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        split = {'quantizer': 0.0, 'product': 0.0, 'other': 0.0,
+                 'launches': 0}
+        for e in prof.events():
+            if e.device_type.name != 'CUDA' or e.name in flush_names:
+                continue
+            low = e.name.lower()
+            if 'quant' in low:
+                kind = 'quantizer'
+            elif ('m8_' in low or 'mma' in low) and 'epilogue' not in low:
+                kind = 'product'
+            else:
+                kind = 'other'
+            split[kind] += e.device_time / 1e3 / PROFILED_CALLS
+            split['launches'] += 1
+        split['launches'] /= PROFILED_CALLS * per
+        return split
 
 
 def host_timer(fn, iters: int = 3) -> float:

@@ -470,3 +470,186 @@ def test_decode_attn_wrapper_refuses_what_the_kernel_does_not_take(case):
     with pytest.raises(ValueError, match='probe_decode_attention') as e:
         t_attn.probe_decode_attention(*args, body, hb, sblk)
     assert 'unsupported device' not in str(e.value)
+
+
+# ------------------------------------------- #11's plan and layout (CPU)
+
+_M8_SHAPES = [(k, n) for _, k, n in t_mm.SHAPES]
+
+
+@pytest.mark.parametrize('sms', [132, 114, 78])
+@pytest.mark.parametrize('k,n', _M8_SHAPES)
+@pytest.mark.parametrize('form', t_mm.FORMS)
+def test_m8_plan_covers_every_weight_row_once(form, k, n, sms):
+    """#11's launch: w8a8 takes #1's decode split, int4-a8 #7's with at
+    least two stages a split (as #10); whole stages, every weight row
+    (packed row for int4) in exactly one stage of one split, the splits in
+    order, the last shorter where K asks for it, and two CTAs an SM within
+    the shared memory."""
+    from groma_tpu_torch.ops import quant, quant4
+    plan = t_mm.m8_plan(form, k, n, sms)
+    rows = k // 2 if form == 'int4' else k
+    tile = plan['stage_rows']
+    assert tile == (64 if form == 'int4' else 128)
+    if form == 'w8a8':
+        assert (plan['split_rows'], plan['splits']) == quant.decode_plan(
+            8, k, n, sms)
+    else:
+        split_rows, splits = quant4.decode_plan(k, n, sms)
+        if split_rows >= 2 * tile:
+            assert (plan['split_rows'], plan['splits']) == (split_rows,
+                                                            splits)
+        else:
+            assert plan['split_rows'] == 2 * tile
+    assert plan['col_tiles'] == -(-n // 128)
+    stages = t_mm.m8_stages(form, k, n, sms)
+    assert len(stages) == plan['splits'] and all(stages)
+    covered = np.zeros(rows, np.int64)
+    for z, split in enumerate(stages):
+        assert split[0] == z * plan['split_rows']
+        assert split == sorted(split)
+        assert len(split) * tile <= plan['split_rows']
+        for r in split:
+            assert r % tile == 0
+            covered[r:r + tile] += 1
+        if form == 'int4' and z < len(stages) - 1:
+            assert len(split) >= 2
+    assert (covered == 1).all()
+    assert plan['smem'] <= 227 * 1024
+    assert 2 * (plan['smem'] + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize('sms', [132, 114, 78])
+@pytest.mark.parametrize('k,n', _M8_SHAPES)
+def test_int4_a8_folds_stay_in_one_scale_block_and_plane(k, n, sms):
+    """Every int4-a8 fold lies in one 256-row scale block of one nibble
+    plane, the folds of each split follow its stages, and together they
+    cover K once: at down_proj, scale block 21 (5376..5631) straddles
+    K/2 = 5504 and is two folds."""
+    kh = k // 2
+    folds = t_mm.m8_folds(k, n, sms)
+    stages = t_mm.m8_stages('int4', k, n, sms)
+    assert len(folds) == len(stages)
+    covered = np.zeros(k, np.int64)
+    for split, fs in zip(stages, folds):
+        lo = [(a, b) for p, a, b in fs if p == 0]
+        hi = [(a, b) for p, a, b in fs if p == 1]
+        end = split[-1] + 64
+        assert lo[0][0] == split[0] and lo[-1][1] == end
+        assert hi[0][0] == kh + split[0] and hi[-1][1] == kh + end
+        for plane, a, b in fs:
+            assert a < b and a % 64 == 0 and b % 64 == 0
+            assert (a // 256) == ((b - 1) // 256), (a, b)
+            assert (a < kh) == (b <= kh) and plane == int(a >= kh)
+            covered[a:b] += 1
+        assert all(a == b0 for (_, b0), (a, _) in zip(lo, lo[1:]))
+        assert all(a == b0 for (_, b0), (a, _) in zip(hi, hi[1:]))
+    assert (covered == 1).all()
+    if k == 11008:
+        flat = [(p, a, b) for fs in folds for p, a, b in fs]
+        assert any(p == 0 and b == 5504 and a >= 5376 for p, a, b in flat)
+        assert any(p == 1 and a == 5504 and b <= 5632 for p, a, b in flat)
+
+
+@pytest.mark.parametrize('sms', [132, 114, 78])
+@pytest.mark.parametrize('k,n', _M8_SHAPES)
+def test_int4_a8_product_order_matches_the_plain_version(k, n, sms):
+    """int4-a8's arithmetic in the product's order, on the first 128-column
+    tile of the (K, N) plan: in each split, each fold's exact integer dot
+    (each 64-k stage's dot less 8 times its chunk's xq sum) times its scale
+    row, added in f32 in fold order; the splits added in split order; times
+    s[m].  Held to the plain version at 1e-5 x max|plain|, as on the
+    card."""
+    from groma_tpu_torch.ops.quant4 import quantize_weight_int4
+    x, w = _m8_inputs(k, 128, 13)
+    qd = quantize_weight_int4(_t(w), block=256)
+    packed, scale = qd['q'], qd['scale']
+    xb = _t(x).to(torch.bfloat16)
+    xq, xs = t_mm.act_quant(xb)
+    pi = packed.to(torch.int32)
+    nib = torch.cat([pi & 0xF, pi >> 4]).double()        # (K, 128)
+    xqd = xq.double()
+    acc = torch.zeros((8, 128), dtype=torch.float32)
+    for folds in t_mm.m8_folds(k, n, sms):
+        facc = torch.zeros((8, 128), dtype=torch.float32)
+        for _, a, b in folds:
+            dot = torch.zeros((8, 128), dtype=torch.float64)
+            for c in range(a, b, 64):
+                dot += (xqd[:, c:c + 64] @ nib[c:c + 64]
+                        - 8 * xqd[:, c:c + 64].sum(1, keepdim=True))
+            facc = facc + dot.to(torch.float32) * scale[a // 256]
+        acc = acc + facc
+    got = acc * xs[:, None]
+    want = t_mm.int4_a8_reference(xb, packed, scale)
+    err = (got - want).abs().max().item()
+    assert err <= TOL * want.abs().max().item(), err
+
+
+def test_xq_position_is_the_products_k_order():
+    """xq's layout is the product's: in each 64-k box, row m's 16-k groups
+    XORed with (m // 2) % 4, so a B load (lane g = m, t: one 32-bit word of
+    group q) holds k 16 q + 2t + i % 2 + 8 (i // 2) in byte i, the rows the
+    A transpose takes, and the 32 lanes' words of one load lie on 32
+    distinct banks."""
+    k = 256
+    for m in range(8):
+        pos = [t_mm.xq_position(m, kk) for kk in range(k)]
+        assert sorted(pos) == list(range(k))
+        assert all(p // 64 == kk // 64 for kk, p in enumerate(pos))
+    inverse = {(m, t_mm.xq_position(m, kk)): kk
+               for m in range(8) for kk in range(k)}
+    for box in range(k // 64):
+        for q in range(4):
+            banks = set()
+            for g in range(8):
+                for t in range(4):
+                    word = 64 * g + 16 * (q ^ (g // 2 % 4)) + 4 * t
+                    banks.add(word // 4 % 32)
+                    got = [inverse[(g, 64 * box + word % 64 + i)]
+                           for i in range(4)]
+                    assert got == [64 * box + 16 * q + 2 * t + i % 2
+                                   + 8 * (i // 2) for i in range(4)]
+            assert len(banks) == 32
+
+
+@pytest.mark.parametrize('wrapper,x,w,scale,wt', [
+    ('w8a8', (8, 300), (300, 64), (64,), torch.int8),       # K % 256
+    ('w8a8', (8, 256), (256, 40), (40,), torch.int8),       # N % 16
+    ('w8a8', (4, 256), (256, 64), (64,), torch.int8),       # not 8 rows
+    ('w8a8', (8, 256), (512, 64), (64,), torch.int8),       # K mismatch
+    ('w8a8', (8, 256), (256, 64), (32,), torch.int8),       # scale shape
+    ('w8a8', (8, 33024), (33024, 64), (64,), torch.int8),   # K > 32768
+    ('int4', (8, 512), (512, 64), (2, 64), torch.uint8),    # not K/2 rows
+    ('int4', (8, 512), (256, 64), (1, 64), torch.uint8),    # scale rows
+    ('int4', (8, 512), (256, 24), (2, 24), torch.uint8),    # N % 16
+])
+def test_m8_wrappers_refuse_shapes_the_kernels_do_not_take(wrapper, x, w,
+                                                           scale, wt):
+    fn = t_mm.w8a8_matmul if wrapper == 'w8a8' else t_mm.int4_a8_matmul
+    with pytest.raises(ValueError, match='the kernel takes'):
+        fn(_meta(x, torch.bfloat16), _meta(w, wt), _meta(scale))
+
+
+@pytest.mark.parametrize('case', ['x_f32', 'w_uint8', 'w4_int8',
+                                  'scale_f64', 'w_on_cpu'])
+def test_m8_wrappers_refuse_types_and_devices_the_kernels_do_not_take(case):
+    xt, wt, st, w4t = torch.bfloat16, torch.int8, torch.float32, torch.uint8
+    wdev = 'meta'
+    if case == 'x_f32':
+        xt = torch.float32
+    elif case == 'w_uint8':
+        wt = torch.uint8
+    elif case == 'w4_int8':
+        w4t = torch.int8
+    elif case == 'scale_f64':
+        st = torch.float64
+    else:
+        wdev = 'cpu'
+    x = _meta((8, 256), xt)
+    w8 = torch.zeros((256, 64), dtype=wt, device=wdev)
+    w4 = torch.zeros((128, 64), dtype=w4t, device=wdev)
+    with pytest.raises(ValueError, match='the kernel takes'):
+        if case == 'w4_int8':
+            t_mm.int4_a8_matmul(x, w4, _meta((1, 64), st))
+        else:
+            t_mm.w8a8_matmul(x, w8, _meta((64,), st))
