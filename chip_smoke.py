@@ -67,7 +67,13 @@ Phases, each printed before the last line:
     unchanged, two calls on copies of the cache bitwise equal; ptxas's
     registers and spills, a failure if it spills; the same on plans of 114
     and 78 CTAs, two attention pairs a CTA, at slot 64 beside a fully
-    masked row; a misaligned mask refused); then the int8 LLaMA path
+    masked row; a misaligned mask refused); #1 and #7 at a tp = 2 rank's
+    7B shapes (the int8 tree's even cut, the int4 tree's MLP at whole
+    scale blocks: down_proj K = 5504, 5376 and 5632) at M = 1 (and 8 for
+    #7) and 2048, with both stores, bf16 and the row-parallel f32, each
+    against its plain version, twice bitwise, the f32 store rounded to
+    bf16 bitwise the bf16 store; #2 and #8 at a rank's 16 heads; then the
+    int8 LLaMA path
     and the int4 + paged one (prefill, page compaction, paged decode) at
     full width and two layers on the card against the same weights and
     inputs through the plain versions on the CPU;
@@ -277,18 +283,27 @@ Phases, each printed before the last line:
     prefill's last hidden and first logits, the tokens, #3 and #4's
     launches and shapes a rank, the eager decode, and the eager prefill:
     a gloo group's collectives cannot be captured, and the reference
-    without a group runs eagerly too); then train_vl's
+    without a group runs eagerly too); then Groma-7B's quantized trees,
+    each rank building the whole tree from the same random weights and
+    cutting it (load_quantized(group=)): the int8 tree through
+    QuantGenerator(kv_bits=8, use_flash=True), one 2048-slot request of
+    8 tokens, and the int4 tree through the paged kv8 engine, 8 slots and
+    4 requests of 8 tokens, each against the same weights without a
+    group (the same limits, a control with the row-parallel all-reduce
+    left out; the f32 stores exactly 2 a layer a forward, #1, #2, #7 and
+    #8 at the local shapes, every page returned); then train_vl's
     stage-3 step at 2 LLM layers cut over tp against two steps without a
     group and one with the LLM in f32, with four controls.  In phase 2,
     #4 and #5 also at a rank's local heads, (1, 16, 2048, 128).
-Then one JSON line with the twenty-six kernel rows, the int8 and the int4
+Then one JSON line with the thirty-two kernel rows, the int8 and the int4
 matmuls' two tiles apart (launches: the training
 path's for the forward flash kernels and the causal backward, the DINOv2-L
 phase's for the bidirectional backward, the served path's for the int8
 ones, the engine's for the int4 and paged ones, the decode path's for the
 megakernel, the probes' entry points' for theirs; the GQA rows' from the
 GQA serving runs, DINOv2-giant's from its forward, the tp rows' from both
-ranks of phase 13), and as the last line
+ranks of phase 13: the flash rows' unquantized, #1, #2, #7 and #8's
+quantized), and as the last line
 {"ok": true, "device": {...}}.  Any failed check exits non-zero and prints
 no result; so does a machine without a CUDA device.
 """
@@ -1425,12 +1440,12 @@ def _tinygemm(torch, x, packed, scale, zero: float = 0.0):
     return lambda: torch._weight_int4pack_mm(x, w, 256, sz)
 
 
-def _paged_case(torch, gen, dev, lengths, np_: int):
+def _paged_case(torch, gen, dev, lengths, np_: int, heads: int = 32):
     """The engine's paged shapes: shuffled pages, repeat-last table tails,
     a frozen row (length 0) on the trash page, ``np_``-page table rows."""
     from groma_tpu_torch.models.llama_quant import _quantize_tokens
     from groma_tpu_torch.ops.paged_attention import PAGE
-    h, d = 32, 128
+    h, d = heads, 128
     b = len(lengths)
     k8, ks = _quantize_tokens(torch.randn(
         (PAGED_POOL_PAGES, h, PAGE, d), generator=gen, device=dev))
@@ -6348,8 +6363,8 @@ def _tp_rank(rank, world, init, job, seed, payload, out_dir):
                         process_id=rank, backend='gloo')
     mesh = pm.make_mesh(dp=1, tp=world, device_type='cuda')
     torch.cuda.reset_peak_memory_stats()
-    out = (_tp_serve_rank if job == 'serve' else _tp_train_rank)(
-        torch, mesh, seed, payload, rank)
+    out = {'serve': _tp_serve_rank, 'train': _tp_train_rank,
+           'quant': _tp_quant_rank}[job](torch, mesh, seed, payload, rank)
     out['peak_gib'] = torch.cuda.max_memory_allocated() / 2 ** 30
     torch.save(out, os.path.join(out_dir, f'rank{rank}.pt'))
     dist.barrier()
@@ -6584,6 +6599,602 @@ def row_parallel_product(torch, seed: int, card: str):
         fail('the row-parallel product disagrees with its f32 GEMM')
 
 
+# phase 13's quantized tree cut over tp: QuantGenerator's int8 + kv8 request
+# (TP_MAX_NEW tokens, the limits above) and the int4 + paged kv8 engine
+TP_ENGINE_SLOTS = 8
+TP_ENGINE_REQUESTS = 4
+TP_ENGINE_MAX_NEW = 8
+
+
+def _tp_requests(np, seed: int, n: int) -> list:
+    """``n`` engine requests at GromaConfig() widths, each a grounded
+    stream of max_seq_len slots: (image, ids, region slots, validity)."""
+    from groma_tpu_torch.data.datasets.base import VLDataSpec
+    from groma_tpu_torch.data.tokenizer import StableStubTokenizer
+    from groma_tpu_torch.models.groma import GromaConfig
+    from groma_tpu_torch.serve.worker import expand_request
+    cfg = GromaConfig()
+    tok = StableStubTokenizer(cfg.llm.vocab_size, cfg.max_seq_len)
+    spec = VLDataSpec(num_image_tokens=cfg.num_image_tokens,
+                      max_region_num=cfg.max_region_num,
+                      max_seq_len=cfg.max_seq_len,
+                      image_size=cfg.perceiver.image_size)
+    out = []
+    for i in range(n):
+        t = expand_request(tok, spec, {
+            'prompt': SERVED_PROMPTS[i % len(SERVED_PROMPTS)]})
+        out.append((random_image(np, seed + 10 + i,
+                                 cfg.perceiver.image_size),
+                     t['input_ids'], t['region_slot'], t['valid']))
+    return out
+
+
+def _quant_counts() -> dict:
+    """The launch counters of the quantized path's kernels, with the
+    row-parallel products' f32 stores."""
+    from groma_tpu_torch.ops.quant import int8_matmul
+    from groma_tpu_torch.ops.quant4 import int4_matmul
+    from groma_tpu_torch.utils.graphs import launch_counts
+    return {**launch_counts(), 'int8_matmul.f32': int8_matmul.f32_launches,
+            'int4_matmul.f32': int4_matmul.f32_launches}
+
+
+def _quant_moved(before: dict) -> dict:
+    return {k: v - before[k] for k, v in _quant_counts().items()}
+
+
+def _shapes_seen(torch, module, names) -> tuple:
+    """Wrap the kernel wrappers ``names`` of ``module`` so that each call
+    records its first argument's shape -> (the shapes by name, undo)."""
+    seen = {n: set() for n in names}
+    real = {n: getattr(module, n) for n in names}
+
+    def wrap(n):
+        def recording(x, *a, **kw):
+            seen[n].add(tuple(x.shape))
+            return real[n](x, *a, **kw)
+        return recording
+    for n in names:
+        setattr(module, n, wrap(n))
+
+    def undo():
+        for n in names:
+            setattr(module, n, real[n])
+    return seen, undo
+
+
+def _tp_quant_generate(torch, model, qp, args) -> dict:
+    """QuantGenerator(kv_bits=8, use_flash=True) on ``qp`` (cut for tp or
+    not): TP_MAX_NEW greedy tokens of ``args``, the logits of every call of
+    the heads (a LogitRecorder: replays record too) and the hidden state
+    the prefill's call took, then the prefill alone with the row-parallel
+    all-reduce left out (the control, on a cut tree) -> tokens, logits,
+    hidden, launches by kernel, the shapes #1 and #2 saw, times, modes."""
+    from groma_tpu_torch.eval import generate_quant as gq
+    from groma_tpu_torch.models import llama_quant as lq
+    rec = LogitRecorder(torch, TP_MAX_NEW)
+    heads, first = gq.quant_logits, {}
+
+    def logits(tree, hidden):
+        out = heads(tree, hidden)
+        if not first:               # the prefill's call, eager
+            first['hidden'] = hidden.float().cpu()
+        rec.record(out)
+        return out
+    gen = gq.QuantGenerator(model, qp, max_len=args[1].shape[1] + TP_MAX_NEW,
+                            kv_bits=8, use_flash=True)
+    if 'tp' not in qp:
+        # the ranks' prefill runs eagerly (a gloo group's collectives go
+        # through the host): so does the reference's, its hidden state
+        # read on the host
+        gen._prefills.eager = True
+    gq.quant_logits = logits
+    seen, undo = _shapes_seen(torch, lq, ('int8_matmul',
+                                          'int8_decode_attention'))
+    zero_counts()
+    before = _quant_counts()
+    try:
+        toks, _ = gen.generate(*args, max_new_tokens=TP_MAX_NEW)
+        torch.cuda.synchronize()
+        counts = _quant_moved(before)
+        st = gen.last_stats
+        out = {'tokens': [int(t) for t in toks[0]],
+               'logits': rec.buf[:, 0].float().cpu(),
+               'calls': int(rec.calls), 'hidden': first['hidden'][0],
+               'counts': counts, 'forwards': st['decode_forwards'] + 1,
+               'shapes': {n: sorted(v) for n, v in seen.items()},
+               'prefill_ms': st['prefill_ms'],
+               'decode_ms': st['decode_ms_per_token'],
+               'decode_mode': st['decode_mode'],
+               'prefill_mode': st['prefill_mode'],
+               'finite': st['logits_finite']}
+        if 'tp' in qp:
+            first.clear()
+            real = lq.row_parallel_quant
+            lq.row_parallel_quant = lambda x, qw, g, product: product(
+                x, qw, out_dtype=torch.float32).to(x.dtype)
+            try:
+                gen.generate(*args, max_new_tokens=1)
+                torch.cuda.synchronize()
+            finally:
+                lq.row_parallel_quant = real
+            out['control'] = {'hidden': first['hidden'][0],
+                              'logits': gen.last_stats['first_logits'][0]}
+    finally:
+        gq.quant_logits = heads
+        undo()
+    return out
+
+
+def _tp_quant_engine(torch, model, qp, requests, leader: bool) -> dict:
+    """The int4 + paged kv8 engine (TP_ENGINE_SLOTS slots) on ``qp`` (cut
+    for tp or not): ``requests`` submitted while the scheduler admits
+    nothing, so that every run seats them in order in slots 0.., each of
+    TP_ENGINE_MAX_NEW tokens; its first logits at seating and every decode
+    step's (slots, vocabulary) logits kept -> tokens, logits, stats,
+    launches, the shapes #7 and #8 saw, the engine's wall seconds."""
+    from groma_tpu_torch.models import llama_quant as lq
+    from groma_tpu_torch.serve.engine import BatchEngine
+    engine = BatchEngine(model, qp, max_slots=TP_ENGINE_SLOTS,
+                         max_new_tokens=TP_ENGINE_MAX_NEW, kv_bits=8,
+                         paged_kv=True)
+    # every decode step's logits (one burst of 8 steps serves the
+    # TP_ENGINE_MAX_NEW tokens), recorded by eager steps and replays alike
+    rec, pick = LogitRecorder(torch, 2 * TP_ENGINE_MAX_NEW), engine._pick
+
+    def recording_pick(logits, temps, sample):
+        rec.record(logits)
+        return pick(logits, temps, sample)
+    engine._pick = recording_pick
+    firsts, seat = {}, engine._seat
+
+    def seating(slot, sess, row_logits, *a):
+        firsts[slot] = row_logits.float().cpu()
+        return seat(slot, sess, row_logits, *a)
+    engine._seat = seating
+    seen, undo = _shapes_seen(torch, lq, ('int4_matmul',
+                                          'paged_int8_decode_attention'))
+    zero_counts()
+    before = _quant_counts()
+    t0 = time.perf_counter()
+    try:
+        tokens = None
+        if leader:
+            engine._admit = lambda: None        # hold the queue
+            sessions = [engine.submit(*r) for r in requests]
+            del engine._admit
+            tokens = [list(sess.token_stream()) for sess in sessions]
+            stats = engine.stats()
+        engine.close()
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    wall = time.perf_counter() - t0
+    fatal = engine._fatal
+    if fatal is not None:
+        fail(f'tp engine: {fatal!r}')
+    steps = engine._n_steps
+    out = {'tokens': tokens, 'firsts': firsts, 'steps': steps,
+           'logits': rec.buf[:steps].float().cpu() if steps else None,
+           'counts': _quant_moved(before),
+           'shapes': {n: sorted(v) for n, v in seen.items()},
+           'seconds': wall, 'kv_heads': engine._pools['k'][0].shape[1]}
+    if leader:
+        out['stats'] = stats
+    del engine
+    return out
+
+
+def _tp_quant_rank(torch, mesh, seed: int, payload, rank: int) -> dict:
+    """A rank's cut of Groma-7B's quantized trees (random weights of
+    ``seed``: ``load_quantized`` builds the whole model and tree, cuts
+    both and frees the whole tree): the int8 tree through QuantGenerator,
+    then the int4 tree through the paged engine."""
+    from groma_tpu_torch.checkpoint.loader import load_quantized
+    out = {}
+    for bits in (8, 4):
+        model, qp, cfg = load_quantized('random', 'cuda', seed, bits=bits,
+                                        group=mesh.tp_group)
+        gc.collect()
+        torch.cuda.empty_cache()
+        lp = qp['layers'][0]
+        out[f'tree{bits}'] = {k: tuple(lp[k]['q'].shape) for k in
+                              LAYER_MATMULS}
+        out['layers'] = cfg.llm.num_layers
+        if bits == 8:
+            out['int8'] = _tp_quant_generate(torch, model, qp,
+                                             payload['generate'])
+        else:
+            out['int4'] = _tp_quant_engine(torch, model, qp,
+                                           payload['requests'], rank == 0)
+        del model, qp
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _parting(ref_tokens, got_tokens, ref_logits, got_logits, problems,
+             who: str) -> str:
+    """Where two token streams first part, and whether at a near tie of
+    the logits that picked them (``*_logits(j)``: token j's); a parting
+    off a near tie is a problem."""
+    j = _first_difference(ref_tokens, got_tokens)
+    if j >= min(len(ref_tokens), len(got_tokens)):
+        return 'none'
+    want, got = ref_logits(j), got_logits(j)
+    gap, diff, tie = _parted_at_near_tie(
+        want, got, ref_tokens[j], got_tokens[j],
+        TP_LOGITS_TOL * want.abs().max().item())
+    if not tie:
+        problems.append(f'{who} parted from the tokens without a group at '
+                        f'token {j} off a near tie')
+    return (f'at token {j}, top-2 gap {gap:.4f} under the logits\' '
+            f'difference {diff:.4f}: near tie {tie}')
+
+
+def tensor_parallel_quant(torch, np, seed: int, card: str) -> dict:
+    """Phase 13's quantized trees cut over tp = 2 on two gloo ranks of the
+    card, Groma-7B at GromaConfig() widths from the random weights of
+    ``seed`` (``load_quantized(..., group=)``: each rank builds the whole
+    tree, cuts it and frees it), each against the same weights without a
+    group: the int8 tree through QuantGenerator(kv_bits=8, use_flash=True),
+    one 2048-slot request, TP_MAX_NEW greedy tokens (the prefill's last
+    hidden and first logits within TP_HIDDEN_TOL / TP_LOGITS_TOL of max|.|,
+    the tokens equal up to a first parting at a near tie, the control with
+    the row-parallel all-reduce left out outside both limits); then the
+    int4 + paged kv8 engine, TP_ENGINE_SLOTS slots, TP_ENGINE_REQUESTS
+    requests of TP_ENGINE_MAX_NEW tokens (each request's first logits
+    within TP_LOGITS_TOL, its tokens up to a near-tie parting, every page
+    returned).  Per rank: the f32-store launches exactly 2 a layer a
+    forward, #1, #2, #7 and #8 at the local shapes (16 heads, the cut
+    leaves).  Returns the launches of both ranks by kernel row."""
+    from groma_tpu_torch.checkpoint.loader import load_quantized
+    args = _tp_request(np, seed)
+    requests = _tp_requests(np, seed, TP_ENGINE_REQUESTS)
+    t0 = time.perf_counter()
+    ref = {}
+    for bits in (8, 4):
+        model, qp, cfg = load_quantized('random', 'cuda', seed, bits=bits)
+        if bits == 8:
+            ref['int8'] = _tp_quant_generate(torch, model, qp, args)
+        else:
+            ref['int4'] = _tp_quant_engine(torch, model, qp, requests, True)
+        del model, qp
+        gc.collect()
+        torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    ranks = _tp_spawn(torch, 'quant', seed, {'generate': args,
+                                             'requests': requests})
+    t2 = time.perf_counter()
+    layers, heads = ranks[0]['layers'], 32 // TP
+    problems = []
+    want = ref['int8']
+    for r, res in enumerate(ranks):
+        got = res['int8']
+        hid = _rel_diff(torch, got['hidden'], want['hidden'])
+        first = _rel_diff(torch, got['logits'][0], want['logits'][0])
+        parted = _parting(want['tokens'], got['tokens'],
+                          lambda j: want['logits'][j],
+                          lambda j: got['logits'][j], problems,
+                          f'int8 rank {r}')
+        ctl = got['control']
+        ctl_hid = _rel_diff(torch, ctl['hidden'], want['hidden'])
+        ctl_first = _rel_diff(torch, torch.as_tensor(ctl['logits']),
+                         want['logits'][0])
+        ctl_miss = not (ctl_hid <= TP_HIDDEN_TOL or ctl_first <= TP_LOGITS_TOL)
+        c = got['counts']
+        f32_want = 2 * layers * got['forwards']
+        print(f'tp quantized serving, int8 tree, rank {r} of {TP}: cut '
+              f'leaves {res["tree8"]}; QuantGenerator(kv_bits=8, '
+              f'use_flash=True): prefill hidden rel {hid:.3e} (tol '
+              f'{TP_HIDDEN_TOL}), first logits rel {first:.3e} (tol '
+              f'{TP_LOGITS_TOL}) against the same weights without a group; '
+              f'tokens {got["tokens"]} (without the group {want["tokens"]}), '
+              f'first parting {parted}; the control (row-parallel all-reduce '
+              f'left out): hidden rel {ctl_hid:.3e}, first logits rel '
+              f'{ctl_first:.3e}, {"both miss" if ctl_miss else "ONE PASSES"}; '
+              f'launches over {got["forwards"]} forwards: #1 '
+              f'{c["int8_matmul"]} ({c["int8_matmul.prefill"]} on the '
+              f'prefill tile) at x {got["shapes"]["int8_matmul"]}, its f32 '
+              f'store {c["int8_matmul.f32"]} (want {f32_want}: 2 a layer a '
+              f'forward), #2 {c["int8_decode_attention"]} at q '
+              f'{got["shapes"]["int8_decode_attention"]}, #4 '
+              f'{c["flash_fwd.causal"]}; decode {got["decode_mode"]}, '
+              f'prefill {got["prefill_mode"]}, {got["prefill_ms"]:.1f} ms, '
+              f'decode {got["decode_ms"]:.2f} ms/token, peak '
+              f'{res["peak_gib"]:.2f} GiB (one card time-shared by two ranks '
+              f'over gloo, not a multi-card time) [{card}]')
+        if hid > TP_HIDDEN_TOL or first > TP_LOGITS_TOL:
+            problems.append(f'int8 rank {r}: prefill outside its limits')
+        if not ctl_miss:
+            problems.append(f'int8 rank {r}: the control passes a limit')
+        if c['int8_matmul.f32'] != f32_want \
+                or not c['int8_decode_attention'] \
+                or got['shapes']['int8_decode_attention'] != [
+                    (1, heads, 1, 128)] or not c['flash_fwd.causal'] \
+                or not c['int8_matmul.prefill']:
+            problems.append(f'int8 rank {r}: launches {c} at '
+                            f'{got["shapes"]}')
+        if got['decode_mode'] != 'eager: gloo tp group' \
+                or got['prefill_mode'] != 'eager' or not got['finite'] \
+                or got['calls'] != TP_MAX_NEW:
+            problems.append(f'int8 rank {r}: decode {got["decode_mode"]}, '
+                            f'prefill {got["prefill_mode"]}, finite '
+                            f'{got["finite"]}, {got["calls"]} head calls')
+        if got['tokens'] != ranks[0]['int8']['tokens']:
+            problems.append('the int8 ranks\' tokens differ')
+    print(f'tp quantized serving without a group, int8 (QuantGenerator, '
+          f'captured decode, eager prefill as the ranks\'): prefill '
+          f'{want["prefill_ms"]:.1f} ms, decode {want["decode_ms"]:.2f} '
+          f'ms/token [{card}]')
+
+    want, lead = ref['int4'], ranks[0]['int4']
+    firsts = [_rel_diff(torch, lead['firsts'][i], want['firsts'][i])
+              for i in range(TP_ENGINE_REQUESTS)]
+    partings = [_parting(
+        want['tokens'][i], lead['tokens'][i],
+        lambda j, i=i: want['firsts'][i] if j == 0
+        else want['logits'][j - 1][i],
+        lambda j, i=i: lead['firsts'][i] if j == 0
+        else lead['logits'][j - 1][i], problems, f'int4 request {i}')
+        for i in range(TP_ENGINE_REQUESTS)]
+    st = lead['stats']
+    pages_back = st['free_pages'] == st['total_pages'] \
+        and st['truncated'] == 0
+    print(f'tp quantized serving, int4 tree + paged kv8 engine '
+          f'({TP_ENGINE_SLOTS} slots, {TP_ENGINE_REQUESTS} requests of '
+          f'{TP_ENGINE_MAX_NEW} tokens): first logits rel '
+          f'{", ".join(f"{x:.3e}" for x in firsts)} (tol {TP_LOGITS_TOL}); '
+          f'tokens {lead["tokens"]} (without the group {want["tokens"]}), '
+          f'first partings {partings}; {st["finished"]} finished, pages '
+          f'{st["free_pages"]} of {st["total_pages"]} free after: every '
+          f'page returned {pages_back}; the engine {lead["seconds"]:.1f} s '
+          f'(without the group {want["seconds"]:.1f} s, its bursts '
+          f'captured; one card time-shared by two ranks) [{card}]')
+    if max(firsts) > TP_LOGITS_TOL:
+        problems.append('int4: first logits outside their limit')
+    if not pages_back or st['finished'] != TP_ENGINE_REQUESTS:
+        problems.append(f'int4: stats {st}')
+    for r, res in enumerate(ranks):
+        got = res['int4']
+        c = got['counts']
+        f32_want = 2 * layers * (TP_ENGINE_REQUESTS + got['steps'])
+        print(f'tp quantized serving, int4 engine rank {r}: cut leaves '
+              f'{res["tree4"]}, pools of {got["kv_heads"]} KV heads; '
+              f'{got["steps"]} decode steps; launches: #7 '
+              f'{c["int4_matmul"]} ({c["int4_matmul.prefill"]} on the '
+              f'prefill tile) at x {got["shapes"]["int4_matmul"]}, its f32 '
+              f'store {c["int4_matmul.f32"]} (want {f32_want}: 2 a layer a '
+              f'forward), #8 {c["paged_int8_decode_attention"]} at q '
+              f'{got["shapes"]["paged_int8_decode_attention"]}; peak '
+              f'{res["peak_gib"]:.2f} GiB [{card}]')
+        if c['int4_matmul.f32'] != f32_want or got['kv_heads'] != heads \
+                or c['paged_int8_decode_attention'] != layers * got['steps'] \
+                or got['shapes']['paged_int8_decode_attention'] != [
+                    (TP_ENGINE_SLOTS, heads, 1, 128)] \
+                or not c['int4_matmul.prefill']:
+            problems.append(f'int4 rank {r}: launches {c} at '
+                            f'{got["shapes"]}')
+    print(f'tp quantized serving: references without a group '
+          f'{t1 - t0:.1f} s, the two ranks {t2 - t1:.1f} s with their start '
+          f'[{card}]')
+    if problems:
+        fail('tp quantized serving: ' + '; '.join(problems))
+
+    def total(job, key):
+        return sum(res[job]['counts'][key] for res in ranks)
+    return {'int8 decode': total('int8', 'int8_matmul')
+            - total('int8', 'int8_matmul.prefill'),
+            'int8 prefill': total('int8', 'int8_matmul.prefill'),
+            'decode attention': total('int8', 'int8_decode_attention'),
+            'int4 decode': total('int4', 'int4_matmul')
+            - total('int4', 'int4_matmul.prefill'),
+            'int4 prefill': total('int4', 'int4_matmul.prefill'),
+            'paged': total('int4', 'paged_int8_decode_attention')}
+
+
+# (K, N) of a tp = 2 rank's matmuls at 7B width: the int8 tree's even cut,
+# and the int4 tree's, whose MLP is cut at whole 256-row scale blocks (21
+# and 22 of 43: gate_up's N and down_proj's K a rank)
+TP_INT8_SHAPES = {'qkv_proj': (4096, 6144), 'o_proj': (2048, 4096),
+                  'gate_up_proj': (4096, 11008), 'down_proj': (5504, 4096),
+                  'lm_head': (4096, 16128)}
+TP_INT4_SHAPES = {'qkv_proj': (4096, 6144), 'o_proj': (2048, 4096),
+                  'gate_up_proj rank 0': (4096, 10752),
+                  'gate_up_proj rank 1': (4096, 11264),
+                  'down_proj rank 0': (5376, 4096),
+                  'down_proj rank 1': (5632, 4096),
+                  'lm_head': (4096, 16128)}
+# the rows of a tp rank's matmuls: QuantGenerator's decode (M = 1), the
+# engine's 8 slots, a 2048-token prefill
+TP_INT8_ROWS = (1, 2048)
+TP_INT4_ROWS = (1, 8, 2048)
+# the timed shape of each JSON row: a row-parallel leaf's f32 store
+TP_TIMED = {'int8': 'down_proj', 'int4': 'down_proj rank 1'}
+TP_HEADS = 32 // 2          # a tp = 2 rank's attention heads at 7B
+
+
+def check_tp_rank_matmuls(torch, gen, timer, card) -> dict:
+    """#1 and #7 at a tp = 2 rank's 7B shapes (TP_INT8_SHAPES at M = 1 and
+    2048, TP_INT4_SHAPES at M = 1, 8 and 2048: the decode and prefill
+    tiles), each with both stores: the bf16 store against its plain
+    version (2^-7 |plain| + 1e-4 max|plain|), the f32 store against the
+    plain version's f32 (1e-4 max|plain|: the same products summed in
+    another order), called twice (bitwise equal), and the f32 store
+    rounded to bf16 bitwise the bf16 store.  The f32 store of each
+    TP_TIMED leaf timed beside its plain version, its bound and the
+    library call (torch._weight_int8pack_mm, tinygemm; both write bf16).
+    Returns {(wrapper, tile): (max_abs_err over the tile's cases and
+    stores, [kernel ms, plain ms], (bound ms, bound by), library ms)},
+    tile 'decode' or 'prefill'."""
+    from groma_tpu_torch.ops.quant import (DENSE_MIN_ROWS, int8_matmul,
+                                           int8_matmul_dense_reference,
+                                           int8_matmul_reference)
+    from groma_tpu_torch.ops.quant4 import int4_matmul, int4_matmul_reference
+    dev, f32 = 'cuda', torch.float32
+    out, worst = {}, {}
+    cases = [('int8', m, name, k, n) for m in TP_INT8_ROWS
+             for name, (k, n) in TP_INT8_SHAPES.items()]
+    cases += [('int4', m, name, k, n) for m in TP_INT4_ROWS
+              for name, (k, n) in TP_INT4_SHAPES.items()]
+    for wrapper, m, name, k, n in cases:
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        if wrapper == 'int8':
+            tile = 'prefill' if m >= DENSE_MIN_ROWS else 'decode'
+            w = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
+                              dtype=torch.int8)
+            scale = torch.rand((n,), generator=gen, device=dev) * 1e-3 \
+                + 1e-4
+            plain = int8_matmul_dense_reference if tile == 'prefill' \
+                else int8_matmul_reference
+            nbytes = k * n + 4 * n
+
+            def call(dt=None):
+                return int8_matmul(x, w, scale, out_dtype=dt)
+
+            def plain_call(dt=None):
+                return plain(x, w, scale, out_dtype=dt)
+        else:
+            tile = 'prefill' if m > 8 else 'decode'
+            w = torch.randint(0, 256, (k // 2, n), generator=gen, device=dev,
+                              dtype=torch.uint8)
+            scale = torch.rand((k // 256, n), generator=gen, device=dev) \
+                * 1e-3 + 1e-4
+            nbytes = k * n // 2 + (k // 256) * n * 4
+
+            def call(dt=None):
+                return int4_matmul(x, w, scale, out_dtype=dt)
+
+            def plain_call(dt=None):
+                return int4_matmul_reference(x, w, scale, out_dtype=dt)
+        b16, wide, again = call(), call(f32), call(f32)
+        want16, want32 = plain_call().float(), plain_call(f32)
+        rounded = torch.equal(wide.to(torch.bfloat16), b16)
+        stable = torch.equal(wide, again)
+        err16 = (b16.float() - want16).abs()
+        err32 = (wide - want32).abs()
+        ref_max = want32.abs().max().item()
+        ok = (wide.dtype == f32 and rounded and stable
+              and bool((err16 <= 2.0 ** -7 * want16.abs()
+                        + 1e-4 * ref_max).all())
+              and bool((err32 <= 1e-4 * ref_max).all())
+              and bool(torch.isfinite(wide).all()))
+        max_err = max(err16.max().item(), err32.max().item())
+        key = (wrapper, tile)
+        worst[key] = max(worst.get(key, 0.0), max_err)
+        timed = ''
+        if name == TP_TIMED[wrapper] and m in (1 if wrapper == 'int8' else 8,
+                                               2048):
+            ms = timer(lambda: call(f32))
+            bf16_ms = timer(lambda: call())
+            plain_ms = timer(lambda: plain_call(f32))
+            bnd = bound(nbytes + 2 * m * k + 4 * m * n, 2 * m * k * n)
+            if wrapper == 'int8':
+                w_t = w.T.contiguous()
+                lib = library_time(
+                    torch, timer, f'torch._weight_int8pack_mm M={m} tp '
+                    f'{name}', lambda: torch._weight_int8pack_mm(
+                        x, w_t, scale.to(torch.bfloat16)), want16, card)
+                del w_t
+            else:
+                try:
+                    fn = _tinygemm(torch, x, w, scale)
+                except (RuntimeError, TypeError, AttributeError) as e:
+                    print(f'  library torch._weight_int4pack_mm: none (the '
+                          f'repacking failed: {type(e).__name__}) [{card}]')
+                    fn = None
+                lib = fn and library_time(
+                    torch, timer, f'torch._weight_int4pack_mm M={m} tp '
+                    f'{name}', fn, want16, card)
+            out[key] = ([ms, plain_ms], bnd, lib)
+            timed = (f'; the f32 store {ms:.4f} ms, the bf16 store '
+                     f'{bf16_ms:.4f} ms, plain (f32) {plain_ms:.4f} ms, '
+                     f'bound {bnd[0]:.4f} ms ({bnd[1]}), '
+                     f'{100 * bnd[0] / ms:.1f} % of the bound')
+        print(f'{wrapper}_matmul {tile} tile at a tp=2 rank\'s shape M={m} '
+              f'{name} K={k} N={n}: max_abs_err bf16 store '
+              f'{err16.max().item():.3e}, f32 store '
+              f'{err32.max().item():.3e} of max|plain| {ref_max:.3e}; the '
+              f'f32 store rounded to bf16 bitwise the bf16 store {rounded}, '
+              f'two calls bitwise equal {stable} '
+              f'{"ok" if ok else "FAIL"}{timed} [{card}]')
+        if not ok:
+            fail(f'{wrapper}_matmul at a tp rank\'s shape M={m} {name}: a '
+                 f'store disagrees with its plain version, with the other '
+                 f'store or with itself')
+        del x, w, scale, b16, wide, again, want16, want32
+    return {key: (worst[key], *out[key][:2], out[key][2]) for key in out}
+
+
+def check_tp_rank_attention(torch, gen, timer, card) -> dict:
+    """#2 and #8 at a tp = 2 rank's TP_HEADS heads: #2 at B = 1 over the
+    served stream's mask at S = 2112 (QuantGenerator's decode), #8 at the
+    engine's lengths over its 19-page tables; each against its plain
+    version (two p8 units + 1e-5 max|plain|, as phase 2's), twice
+    (bitwise equal), timed.  Returns {'decode', 'paged'}: (max_abs_err,
+    kernel ms, plain ms, (bound ms, bound by))."""
+    from groma_tpu_torch.models.llama_quant import _quantize_tokens
+    from groma_tpu_torch.ops.decode_attention import (
+        int8_decode_attention, int8_decode_attention_reference, p8_step)
+    from groma_tpu_torch.ops.paged_attention import (
+        PAGE, paged_int8_decode_attention, paged_int8_decode_attention_plain)
+    dev, h, d = 'cuda', TP_HEADS, 128
+    valid = _served_valid(torch, 2112, MAX_NEW_TOKENS)[None]
+    s = valid.shape[1]
+    q = torch.randn((1, h, 1, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    k8, ks = _quantize_tokens(torch.randn((1, h, s, d), generator=gen,
+                                          device=dev))
+    v8, vs = _quantize_tokens(torch.randn((1, h, s, d), generator=gen,
+                                          device=dev))
+    bias = torch.where(valid, 0.0, -1e30)[:, None, None, :].to(dev)
+    args = (q, k8, ks, v8, vs, bias.contiguous())
+    rows = sum(_read_rows(bias))
+    paged = _paged_case(torch, gen, dev, ENGINE_PAGED_LENGTHS,
+                        ENGINE_TABLE_PAGES, heads=h)
+    pages = sum(-(-n // PAGE) if n else ENGINE_TABLE_PAGES
+                for n in ENGINE_PAGED_LENGTHS)
+    out = {}
+    for name, fn, plain, a, step, bnd in (
+            ('decode', int8_decode_attention,
+             int8_decode_attention_reference, args,
+             p8_step(q, k8, ks, vs, args[-1]),
+             bound(2 * rows * h * (d + 4) + s * 4 + h * d * 6,
+                   4 * rows * h * d, H100_INT8_OPS)),
+            ('paged', paged_int8_decode_attention,
+             lambda *x: paged_int8_decode_attention_plain(
+                 *x, with_step=True), paged, None,
+             bound(pages * h * 2 * PAGE * (d + 4)
+                   + 2 * len(ENGINE_PAGED_LENGTHS) * h * d * 4
+                   + paged[5].numel() * 4, 4 * sum(ENGINE_PAGED_LENGTHS)
+                   * h * d, H100_INT8_OPS))):
+        got, again = fn(*a), fn(*a)
+        torch.cuda.synchronize()
+        want = plain(*a)
+        if step is None:
+            want, step = want
+        err = (got - want).abs()
+        tol = 2 * step + 1e-5 * want.abs().max()
+        ok = bool((err <= tol).all()) and bool(torch.isfinite(got).all()) \
+            and torch.equal(got, again)
+        ms = timer(lambda: fn(*a))
+        plain_ms = timer(lambda: plain(*a))
+        out[name] = (err.max().item(), ms, plain_ms, bnd)
+        case = ('B=1, S=2112, the served mask' if name == 'decode'
+                else 'the engine\'s lengths')
+        print(f'{fn.__name__} at a tp=2 rank\'s {h} heads ({case}): '
+              f'max_abs_err {err.max().item():.3e}, '
+              f'{(err / step).max().item():.3f} p8 units (tol 2 + '
+              f'1e-5*max|plain|), two calls bitwise equal '
+              f'{"ok" if ok else "FAIL"}; kernel {ms:.4f} ms, plain '
+              f'{plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), '
+              f'{100 * bnd[0] / ms:.1f} % of the bound [{card}]')
+        if not ok:
+            fail(f'{fn.__name__} at {h} heads disagrees with its plain '
+                 f'version or with itself')
+    return out
+
+
 def tensor_parallel_one_card(torch, np, seed: int, card: str) -> dict:
     """Phase 13: tensor parallelism at tp = 2 on two ranks sharing the card
     over gloo.  Serving: Groma-7B at full width (DINOv2-L at 448, 32 LLaMA
@@ -6694,6 +7305,7 @@ def tensor_parallel_one_card(torch, np, seed: int, card: str) -> dict:
           f'with their start [{card}]')
     if problems:
         fail('tp serving: ' + '; '.join(problems))
+    quant = tensor_parallel_quant(torch, np, seed, card)
 
     cfg, batch, frozen = _stage3_two_layers(torch, seed)
     plain = {}
@@ -6759,7 +7371,7 @@ def tensor_parallel_one_card(torch, np, seed: int, card: str) -> dict:
             + sum(r['n'][0] for r in ranks_t),
             'causal': sum(r['flash']['causal'] for r in ranks)
             + sum(r['n'][1] for r in ranks_t),
-            'causal backward': sum(r['n'][2] for r in ranks_t)}
+            'causal backward': sum(r['n'][2] for r in ranks_t), **quant}
 
 
 def main():
@@ -6779,6 +7391,14 @@ def main():
     card = device_line()
     print(card)
     t0 = time.perf_counter()
+    marks = [t0]
+
+    def lap(label: str):
+        """The seconds since the last lap, and since the start."""
+        now = time.perf_counter()
+        print(f'{label}: {now - marks[-1]:.1f} s, {now - t0:.1f} s since the '
+              f'start [{card}]')
+        marks.append(now)
     # the production library and the probes' own, built side by side
     probe_build = threading.Thread(target=cuda_lib.probe_library)
     probe_build.start()
@@ -6786,6 +7406,7 @@ def main():
     probe_build.join()
     cuda_lib.probe_library()        # raises here if its build failed
     print(f'kernels built in {time.perf_counter() - t0:.1f} s')
+    lap('build')
     for info in (cuda_lib.build_info, cuda_lib.probe_build_info):
         print(f'  nvcc {info["seconds"]:.1f} s -> {info["path"]}')
         for line in info['log'].splitlines():
@@ -6797,38 +7418,52 @@ def main():
     timer = Timer('cuda')
     int8_decode, _, int8_prefill = check_int8_matmul(torch, gen, timer,
                                                      card)
+    lap('phase 2, #1')
     check_w8a8_matmul(torch, gen, timer, card)
     check_w8a8_conv(torch, gen, timer, card)
+    lap('phase 2, W8A8')
     att_err, att_ms, att_bound = check_decode_attention(torch, gen, timer,
                                                         card)
+    lap('phase 2, #2')
     int4_decode, int4_prefill = check_int4_matmul(torch, gen, timer, card)
+    lap('phase 2, #7')
     gqa_mm = check_gqa_qkv_matmuls(torch, gen, timer, card)
+    tp_mm = check_tp_rank_matmuls(torch, gen, timer, card)
+    tp_att = check_tp_rank_attention(torch, gen, timer, card)
+    lap('phase 2, GQA and tp shapes')
     paged_err, paged_ms, paged_plain_ms, paged_bound = check_paged_attention(
         torch, gen, timer, card)
     flash = check_flash(torch, gen, timer, card)
+    lap('phase 2, #8 and flash')
     check_decode_megakernel(torch, gen, timer, args.seed, card)
     probes = check_probes(torch, timer, args.seed, card)
+    lap('phase 2, #9 and the probes')
     del timer
     check_llm_path(torch, args.seed, card)
     check_int4_paged_path(torch, args.seed, card)
     check_gqa_llm_path(torch, args.seed, card)
     gc.collect()
     torch.cuda.empty_cache()
+    lap('check_llm_path, check_int4_paged_path, check_gqa_llm_path')
 
     check_stage3(torch, args.seed, card)
     gc.collect()
     torch.cuda.empty_cache()
+    lap('check_stage3')
     flash_n = train_full_width(torch, np, args.seed, card)
     gc.collect()
     torch.cuda.empty_cache()
+    lap('train_full_width')
     if not all(flash_n):
         fail('a flash kernel of the training path was never launched')
     vit_bwd_n = vit_backward_full_width(torch, args.seed, card)
     gc.collect()
     torch.cuda.empty_cache()
+    lap('vit_backward_full_width')
     giant_n, giant_flash = dinov2_giant_forward(torch, args.seed, card)
     gc.collect()
     torch.cuda.empty_cache()
+    lap('dinov2_giant_forward')
 
     (mm_n, mm_pre_n, att_n), worker = serve_full_width(torch, np, args.seed,
                                                         card)
@@ -6838,48 +7473,61 @@ def main():
     del worker
     gc.collect()
     torch.cuda.empty_cache()
+    lap('serve_full_width, serve_w8a8_and_speculation')
     check_bf16_llm_path(torch, args.seed, card)
     gc.collect()
     torch.cuda.empty_cache()
+    lap('check_bf16_llm_path')
     if not all(serve_unquantized_full_width(torch, np, args.seed, card)):
         fail('a flash kernel of the unquantized prefill was never launched')
     gc.collect()
     torch.cuda.empty_cache()
+    lap('serve_unquantized_full_width')
     int4_n, paged_n, int4_prefill_n = serve_engine_full_width(
         torch, np, args.seed, card)
     if not (int4_n and paged_n and int4_prefill_n):
         fail('a kernel of the engine path was never launched')
     gc.collect()
     torch.cuda.empty_cache()
+    lap('serve_engine_full_width')
     gqa_n = serve_gqa_full_width(torch, np, args.seed, card)
     gc.collect()
     torch.cuda.empty_cache()
+    lap('serve_gqa_full_width')
     if not all(serve_stack_full_width(torch, np, args.seed, card)):
         fail('a kernel of the serving stack was never launched')
     gc.collect()
     torch.cuda.empty_cache()
+    lap('serve_stack_full_width')
     mk_n, mk_times = decode_megakernel_path(torch, Timer('cuda'),
                                             args.seed, card)
     if not mk_n:
         fail('the decode megakernel was never launched on its path')
     gc.collect()
     torch.cuda.empty_cache()
+    lap('decode_megakernel_path')
     probe_n = probes_main_path(card)
     gc.collect()
     torch.cuda.empty_cache()
+    lap('probes_main_path')
     train_det_full_width(torch, np, args.seed, card)
     gc.collect()
     torch.cuda.empty_cache()
+    lap('train_det_full_width')
     region_caption_full_width(torch, np, args.seed, card)
     gc.collect()
     torch.cuda.empty_cache()
+    lap('region_caption_full_width')
     llava_bench_full_width(torch, np, args.seed, card)
     gc.collect()
     torch.cuda.empty_cache()
+    lap('llava_bench_full_width')
     train_vl_fsdp_one_rank(torch, args.seed, card)
     gc.collect()
     torch.cuda.empty_cache()
+    lap('train_vl_fsdp_one_rank')
     tp_n = tensor_parallel_one_card(torch, np, args.seed, card)
+    lap('tensor_parallel_one_card')
     if not (tp_n['causal'] and tp_n['causal backward']):
         fail('a flash kernel of the tp path was never launched')
     if 'jax' in sys.modules or 'flax' in sys.modules:
@@ -6893,6 +7541,17 @@ def main():
                 'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
                 'bound_ms': bnd[0], 'bound_by': bnd[1],
                 'library_ms': library}
+
+    def tp_matmul_entry(wrapper, tile):
+        err, times, bnd, library = tp_mm[(wrapper, tile)]
+        m = 2048 if tile == 'prefill' else 8 if wrapper == 'int4' else 1
+        return entry(f'{wrapper}_matmul ({tile} tile at a tp={TP} rank\'s '
+                     f'shapes, both stores; timed at the f32 store of '
+                     f'{TP_TIMED[wrapper]}, M={m}; launches of both ranks '
+                     f'of phase 13)', f'{wrapper}_matmul.cu',
+                     'groma_tpu/ops/quant.py:52' if wrapper == 'int8'
+                     else 'groma_tpu/ops/quant4.py:85',
+                     tp_n[f'{wrapper} {tile}'], err, *times, bnd, library)
 
     def flash_entry(name, key, source, replaces, n):
         err, ms, plain_ms, bnd, library = flash[key]
@@ -6961,6 +7620,18 @@ def main():
                     'backward_tp', 'flash_attention_bwd.cu',
                     'groma_tpu/ops/flash_attention.py:527',
                     tp_n['causal backward']),
+        *[tp_matmul_entry(wrapper, tile) for wrapper in ('int8', 'int4')
+          for tile in ('decode', 'prefill')],
+        entry(f'int8_decode_attention (a tp={TP} rank\'s {TP_HEADS} heads; '
+              f'launches of both ranks of phase 13)', 'decode_attention.cu',
+              'groma_tpu/ops/decode_attention.py:32',
+              tp_n['decode attention'], tp_att['decode'][0],
+              *tp_att['decode'][1:3], tp_att['decode'][3], None),
+        entry(f'paged_int8_decode_attention (a tp={TP} rank\'s {TP_HEADS} '
+              f'heads; launches of both ranks of phase 13)',
+              'paged_attention.cu', 'groma_tpu/ops/paged_attention.py:51',
+              tp_n['paged'], tp_att['paged'][0], *tp_att['paged'][1:3],
+              tp_att['paged'][3], None),
         entry('flash_fwd (bidirectional, DINOv2-giant (1, 24, 1025, 64))',
               'flash_attention_fwd.cu', 'groma_tpu/ops/flash_attention.py:68',
               giant_n, giant_flash[0], *giant_flash[1], *giant_flash[2:]),

@@ -291,19 +291,26 @@ def load_unquantized(model_dir: str, device=None, seed: int = 0):
 
 
 def load_quantized(model_dir: str, device=None, seed: int = 0,
-                   bits: int = 8):
+                   bits: int = 8, group=None):
     """'tiny' (random tiny config), 'random' (random full-width
     GromaConfig) or a checkpoint directory -> (GromaModel, qp, cfg), the
     LLM quantized with ``bits`` (8, 4 or 16), on ``device`` (None: the
-    card; see ``resolve_device``)."""
+    card; see ``resolve_device``).  With a tp ``group`` every rank builds
+    the whole model and tree, then cuts both for its rank
+    (``mesh.cut_tp``, ``mesh.cut_quant_tree``) and frees the whole tree."""
     from groma_tpu_torch.eval.generate_quant import quantize_groma_llm
+    from groma_tpu_torch.parallel import mesh
     device = resolve_device(device)
     if model_dir in ('tiny', 'random'):
         cfg = tiny_groma_config() if model_dir == 'tiny' else GromaConfig()
         model, qp = random_groma(cfg, seed=seed, device=device, bits=bits)
+    else:
+        model, cfg = load_groma(model_dir, device)
+        qp = quantize_groma_llm(model, cfg, bits)
+    if group is None:
         return model, qp, cfg
-    model, cfg = load_groma(model_dir, device)
-    return model, quantize_groma_llm(model, cfg, bits), cfg
+    mesh.cut_tp(model, group)
+    return model, mesh.cut_quant_tree(qp, cfg.llm, group), cfg
 
 
 @torch.no_grad()

@@ -160,7 +160,7 @@ __global__ void __launch_bounds__(kDecodeThreads, 2)
 int4_decode_kernel(const __grid_constant__ CUtensorMap tm_w,
                    const __grid_constant__ CUtensorMap tm_x,
                    const __grid_constant__ CUtensorMap tm_s,
-                   bf16* __restrict__ out,
+                   void* __restrict__ out, int out_f32,
                    float* __restrict__ partial, int* __restrict__ counters,
                    int M, int K, int N, int split_rows) {
   extern __shared__ uint8_t smem_raw[];
@@ -276,7 +276,7 @@ int4_decode_kernel(const __grid_constant__ CUtensorMap tm_w,
     const float sum = ((v[0] + v[kBatch * 64]) + v[2 * kBatch * 64])
                       + v[3 * kBatch * 64];
     if (splits == 1)
-      out[(size_t)m * N + col] = __float2bfloat16(sum);
+      sm90::store_out(out, (size_t)m * N + col, sum, out_f32);
     else
       partial[((size_t)split * M + m) * N + col] = sum;
   }
@@ -298,14 +298,15 @@ int4_decode_kernel(const __grid_constant__ CUtensorMap tm_w,
 #pragma unroll 8
     for (int z = 0; z < splits; ++z)
       sum += __ldcg(partial + ((size_t)z * M + m) * N + col);
-    out[(size_t)m * N + col] = __float2bfloat16(sum);
+    sm90::store_out(out, (size_t)m * N + col, sum, out_f32);
   }
   if (tid == 0) counters[blockIdx.x] = 0;     // ready for the next call
 }
 
 int launch_decode(const void* x, const void* w, const void* scale, void* out,
-                  void* partial, void* counters, int M, int K, int N,
-                  int split_rows, int splits, cudaStream_t stream) {
+                  int out_f32, void* partial, void* counters, int M,
+                  int K, int N, int split_rows, int splits,
+                  cudaStream_t stream) {
   const int kh = K / 2;
   if (M > kBatch || split_rows <= 0 || split_rows % kTileRows || splits < 1
       || (long long)split_rows * splits < kh
@@ -325,7 +326,7 @@ int launch_decode(const void* x, const void* w, const void* scale, void* out,
     return (int)cudaErrorInvalidValue;
   const dim3 grid((N + kTileCols - 1) / kTileCols, splits);
   int4_decode_kernel<<<grid, kDecodeThreads, kDecodeSmem, stream>>>(
-      tw, tx, ts, static_cast<bf16*>(out),
+      tw, tx, ts, out, out_f32,
       static_cast<float*>(partial), static_cast<int*>(counters), M, K, N,
       split_rows);
   return (int)cudaGetLastError();
@@ -367,7 +368,7 @@ __global__ void __launch_bounds__(kPThreads, 1)
 int4_prefill_kernel(const __grid_constant__ CUtensorMap tm_w,
                     const __grid_constant__ CUtensorMap tm_x,
                     const __grid_constant__ CUtensorMap tm_s,
-                    bf16* __restrict__ out, int M, int K, int N) {
+                    void* __restrict__ out, int out_f32, int M, int K, int N) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ring =
       smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
@@ -495,18 +496,18 @@ int4_prefill_kernel(const __grid_constant__ CUtensorMap tm_w,
       for (int j = 0; j < 16; ++j) {
         const int tok = tok0 + 8 * j + 2 * t;
         if (tok < M)
-          *reinterpret_cast<uint32_t*>(out + (size_t)tok * N + col) =
-              sm90::pack_bf16(acc[4 * j], acc[4 * j + 2]);
+          sm90::store_out2(out, (size_t)tok * N + col, acc[4 * j],
+                           acc[4 * j + 2], out_f32);
         if (tok + 1 < M)
-          *reinterpret_cast<uint32_t*>(out + (size_t)(tok + 1) * N + col) =
-              sm90::pack_bf16(acc[4 * j + 1], acc[4 * j + 3]);
+          sm90::store_out2(out, (size_t)(tok + 1) * N + col, acc[4 * j + 1],
+                           acc[4 * j + 3], out_f32);
       }
     }
   }
 }
 
 int launch_prefill(const void* x, const void* w, const void* scale,
-                   void* out, int M, int K, int N, int ctas,
+                   void* out, int out_f32, int M, int K, int N, int ctas,
                    cudaStream_t stream) {
   if (ctas < 1) return (int)cudaErrorInvalidValue;
   // setmaxnreg moves registers within the CTA's launch allocation: refuse
@@ -529,14 +530,15 @@ int launch_prefill(const void* x, const void* w, const void* scale,
                             false))
     return (int)cudaErrorInvalidValue;
   int4_prefill_kernel<<<ctas, kPThreads, kPrefillSmem, stream>>>(
-      tw, tx, ts, static_cast<bf16*>(out), M, K, N);
+      tw, tx, ts, out, out_f32, M, K, N);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x (M, K) bf16, w (K/2, N) uint8, scale (K/256, N) f32, out (M, N) bf16,
-// all contiguous, x, w and scale 16-byte aligned.  split_rows = 0 runs the
+// x (M, K) bf16, w (K/2, N) uint8, scale (K/256, N) f32, out (M, N) bf16
+// (f32 where out_f32 is nonzero: the sums the bf16 store rounds), all
+// contiguous, x, w and scale 16-byte aligned.  split_rows = 0 runs the
 // prefill tile (any M) on a persistent grid of `splits` CTAs; else the
 // decode tile (M <= 8) over `splits` ranges of split_rows packed rows (a
 // multiple of 64, at most 1024) that cover K/2, the last one not empty.
@@ -547,12 +549,13 @@ int launch_prefill(const void* x, const void* w, const void* scale,
 extern "C" int groma_int4_matmul(const void* x, const void* w,
                                  const void* scale, void* out, void* partial,
                                  void* counters, int M, int K, int N,
-                                 int split_rows, int splits, void* stream) {
+                                 int split_rows, int splits, int out_f32,
+                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M < 1 || K < kScaleBlock || K % kScaleBlock || N < 64 || N % 64)
     return (int)cudaErrorInvalidValue;
   if (split_rows > 0)
-    return launch_decode(x, w, scale, out, partial, counters, M, K, N,
-                         split_rows, splits, s);
-  return launch_prefill(x, w, scale, out, M, K, N, splits, s);
+    return launch_decode(x, w, scale, out, out_f32, partial, counters, M,
+                         K, N, split_rows, splits, s);
+  return launch_prefill(x, w, scale, out, out_f32, M, K, N, splits, s);
 }

@@ -180,7 +180,8 @@ __device__ __forceinline__ void step(const uint8_t* tile, int r0, int c0,
 __global__ void __launch_bounds__(kDecodeThreads, 2)
 int8_decode_kernel(const __grid_constant__ CUtensorMap tm_w,
                    const __grid_constant__ CUtensorMap tm_x,
-                   const float* __restrict__ scale, bf16* __restrict__ out,
+                   const float* __restrict__ scale,
+                   void* __restrict__ out, int out_f32,
                    float* __restrict__ partial, int* __restrict__ counters,
                    int M, int K, int N, int split_rows) {
   extern __shared__ uint8_t smem_raw[];
@@ -279,7 +280,8 @@ int8_decode_kernel(const __grid_constant__ CUtensorMap tm_w,
 #pragma unroll
     for (int q = 1; q < kKSlots; ++q) sum += v[q * kBatch * 64];
     if (splits == 1)
-      out[(size_t)row * N + col] = __float2bfloat16(sum * scale[col]);
+      sm90::store_out(out, (size_t)row * N + col, sum * scale[col],
+                      out_f32);
     else
       partial[((size_t)split * M + row) * N + col] = sum;
   }
@@ -302,14 +304,16 @@ int8_decode_kernel(const __grid_constant__ CUtensorMap tm_w,
 #pragma unroll 8
     for (int z = 0; z < splits; ++z)
       sum += __ldcg(partial + ((size_t)z * M + row) * N + col);
-    out[(size_t)row * N + col] = __float2bfloat16(sum * scale[col]);
+    sm90::store_out(out, (size_t)row * N + col, sum * scale[col],
+                      out_f32);
   }
   if (tid == 0) counters[tile] = 0;           // ready for the next call
 }
 
 int launch_decode(const void* x, const void* w, const void* scale, void* out,
-                  void* partial, void* counters, int M, int K, int N,
-                  int split_rows, int splits, cudaStream_t stream) {
+                  int out_f32, void* partial, void* counters, int M,
+                  int K, int N, int split_rows, int splits,
+                  cudaStream_t stream) {
   if (split_rows <= 0 || split_rows % kBoxRows || splits < 1
       || (long long)split_rows * splits < K
       || (long long)split_rows * (splits - 1) >= K
@@ -327,7 +331,7 @@ int launch_decode(const void* x, const void* w, const void* scale, void* out,
   const dim3 grid((N + kTileCols - 1) / kTileCols, splits,
                   (M + kBatch - 1) / kBatch);
   int8_decode_kernel<<<grid, kDecodeThreads, kDecodeSmem, stream>>>(
-      tw, tx, static_cast<const float*>(scale), static_cast<bf16*>(out),
+      tw, tx, static_cast<const float*>(scale), out, out_f32,
       static_cast<float*>(partial), static_cast<int*>(counters), M, K, N,
       split_rows);
   return (int)cudaGetLastError();
@@ -385,7 +389,8 @@ __device__ __forceinline__ void wgmma_a(uint32_t* a, uint32_t v0,
 __global__ void __launch_bounds__(kPThreads, 1)
 int8_prefill_kernel(const __grid_constant__ CUtensorMap tm_w,
                     const __grid_constant__ CUtensorMap tm_x,
-                    const float* __restrict__ scale, bf16* __restrict__ out,
+                    const float* __restrict__ scale,
+                   void* __restrict__ out, int out_f32,
                     int M, int K, int N) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ring =
@@ -492,18 +497,18 @@ int8_prefill_kernel(const __grid_constant__ CUtensorMap tm_w,
       for (int j = 0; j < kPTok / 8; ++j) {
         const int tok = tok0 + 8 * j + 2 * t;
         if (tok < M)
-          *reinterpret_cast<uint32_t*>(out + (size_t)tok * N + col) =
-              sm90::pack_bf16(acc[4 * j], acc[4 * j + 2]);
+          sm90::store_out2(out, (size_t)tok * N + col, acc[4 * j],
+                           acc[4 * j + 2], out_f32);
         if (tok + 1 < M)
-          *reinterpret_cast<uint32_t*>(out + (size_t)(tok + 1) * N + col) =
-              sm90::pack_bf16(acc[4 * j + 1], acc[4 * j + 3]);
+          sm90::store_out2(out, (size_t)(tok + 1) * N + col, acc[4 * j + 1],
+                           acc[4 * j + 3], out_f32);
       }
     }
   }
 }
 
 int launch_prefill(const void* x, const void* w, const void* scale,
-                   void* out, int M, int K, int N, int ctas,
+                   void* out, int out_f32, int M, int K, int N, int ctas,
                    cudaStream_t stream) {
   if (ctas < 1) return (int)cudaErrorInvalidValue;
   // setmaxnreg moves registers within the CTA's launch allocation: refuse
@@ -524,14 +529,15 @@ int launch_prefill(const void* x, const void* w, const void* scale,
       || !sm90::make_map(&tx, x, K, M, 1, kPTok))
     return (int)cudaErrorInvalidValue;
   int8_prefill_kernel<<<ctas, kPThreads, kPrefillSmem, stream>>>(
-      tw, tx, static_cast<const float*>(scale), static_cast<bf16*>(out), M,
+      tw, tx, static_cast<const float*>(scale), out, out_f32, M,
       K, N);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x (M, K) bf16, w (K, N) int8, scale (N,) f32, out (M, N) bf16, all
+// x (M, K) bf16, w (K, N) int8, scale (N,) f32, out (M, N) bf16 (f32
+// where out_f32 is nonzero: the values the bf16 store rounds), all
 // contiguous, x and w 16-byte aligned, K a multiple of 8 and N of 16 (the
 // tensor maps' row pitches).  split_rows = 0 runs the prefill tile on a
 // persistent grid of `splits` CTAs; else the decode tile over `splits`
@@ -544,12 +550,13 @@ int launch_prefill(const void* x, const void* w, const void* scale,
 extern "C" int groma_int8_matmul(const void* x, const void* w,
                                  const void* scale, void* out, void* partial,
                                  void* counters, int M, int K, int N,
-                                 int split_rows, int splits, void* stream) {
+                                 int split_rows, int splits, int out_f32,
+                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M < 1 || K < 8 || K % 8 || N < 16 || N % 16)
     return (int)cudaErrorInvalidValue;
   if (split_rows > 0)
-    return launch_decode(x, w, scale, out, partial, counters, M, K, N,
-                         split_rows, splits, s);
-  return launch_prefill(x, w, scale, out, M, K, N, splits, s);
+    return launch_decode(x, w, scale, out, out_f32, partial, counters, M,
+                         K, N, split_rows, splits, s);
+  return launch_prefill(x, w, scale, out, out_f32, M, K, N, splits, s);
 }

@@ -456,6 +456,30 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// A matmul's output element i: bf16 (round to nearest even) or, with
+// `f32`, the f32 itself (a row-parallel product's partial sum, reduced
+// before the one rounding).  The bf16 store is bitwise the f32 one
+// rounded.
+__device__ __forceinline__ void store_out(void* out, size_t i, float v,
+                                          bool f32) {
+  if (f32)
+    static_cast<float*>(out)[i] = v;
+  else
+    static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16_rn(v);
+}
+
+// Output elements i and i + 1 (i even, the row pitch even): one 32-bit
+// bf16 pair or one 64-bit f32 pair.
+__device__ __forceinline__ void store_out2(void* out, size_t i, float lo,
+                                           float hi, bool f32) {
+  if (f32)
+    *reinterpret_cast<float2*>(static_cast<float*>(out) + i) =
+        make_float2(lo, hi);
+  else
+    *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(out) + i) =
+        pack_bf16(lo, hi);
+}
+
 // 2^x (the SFU's approximation, subnormals flushed: 2^-1e29 is +0).
 __device__ __forceinline__ float ex2(float x) {
   float y;

@@ -27,6 +27,12 @@ scan.  A request whose decode would not fit the cache raises ValueError
 (the JAX cache write clamps), with speculation counting every slot a last
 verify could write.
 
+On a tree cut for tensor parallelism (``quantize_groma_llm`` on a
+tp-cut model, or ``parallel/mesh.cut_quant_tree``) every rank of the tp
+group runs the generator with the same inputs; under a gloo group the
+prefill, the scan and the verify run eagerly (``last_stats``'
+``prefill_mode`` and ``decode_mode``).
+
 The prefill (vision, surgery, the LLM prefill into the decode's cache or
 the verifier's, the first logits: JAX's jitted prefill program) is one
 ``utils.graphs.CallGraph`` per (B, S): on the card the key's first call
@@ -51,11 +57,13 @@ from groma_tpu_torch.eval.speculative import (Verifier,
                                               speculative_greedy_decode)
 from groma_tpu_torch.models.groma import GromaModel
 from groma_tpu_torch.models.llama import fresh_cache, make_kv_cache
-from groma_tpu_torch.models.llama_quant import (make_quant_kv_cache,
+from groma_tpu_torch.models.llama_quant import (W8A8_UNDER_TP, local_heads,
+                                                make_quant_kv_cache,
                                                 quant_llama_forward,
                                                 quant_llama_logits,
                                                 quantize_llama_params,
                                                 w8a8_weights)
+from groma_tpu_torch.parallel.tensor_parallel import host_collectives
 from groma_tpu_torch.utils.graphs import CallGraph
 
 # decode steps between two reads of the done mask: the engine's default
@@ -67,11 +75,45 @@ def quantize_groma_llm(model: GromaModel, cfg: GromaConfig,
                        bits: int = 8) -> dict:
     """The LLM branch of a GromaModel -> the quantized tree (``bits`` 8, 4
     or 16, see ``quantize_llama_params``); embeddings and the small extra
-    head are kept in bf16."""
-    qp = quantize_llama_params(model.llm.state_dict(), cfg.llm, bits=bits)
-    qp['new_input_embs'] = model.new_input_embs.weight.to(torch.bfloat16)
-    qp['extra_lm_head'] = model.extra_lm_head.weight.T.to(torch.bfloat16)
-    return qp
+    head are kept in bf16.  On a model cut for tensor parallelism
+    (``mesh.cut_tp``: ``model.tp_group`` set) the whole tree is quantized
+    from the whole weights, gathered over the group (a collective: every
+    rank calls it), and this rank's tree is cut from it
+    (``mesh.cut_quant_tree``)."""
+    from groma_tpu_torch.parallel import mesh
+    group = getattr(model, 'tp_group', None)
+    plan = getattr(model, 'tp_plan', {})
+
+    def whole(name, t):
+        return mesh._full(t, plan.get(name), group) if group is not None \
+            else t
+    sd = {k: whole('llm.' + k, v) for k, v in model.llm.state_dict().items()}
+    qp = quantize_llama_params(sd, cfg.llm, bits=bits)
+    del sd
+    qp['new_input_embs'] = whole('new_input_embs.weight',
+                                 model.new_input_embs.weight).to(
+                                     torch.bfloat16)
+    qp['extra_lm_head'] = whole('extra_lm_head.weight',
+                                model.extra_lm_head.weight).T.to(
+                                    torch.bfloat16)
+    if group is None:
+        return qp
+    return mesh.cut_quant_tree(qp, cfg.llm, group)
+
+
+def tree_tp_group(model: GromaModel, qp: dict, w8a8_prefill: bool = False):
+    """The tp group the LLM of ``model`` and ``qp`` computes over: the cut
+    tree's (``mesh.cut_quant_tree``), or None.  A tp-cut model needs a
+    cut tree (``quantize_groma_llm`` cuts one); a cut tree refuses the
+    W8A8 prefill."""
+    tp = qp.get('tp')
+    if getattr(model, 'tp_group', None) is not None and tp is None:
+        raise ValueError('a tp-cut model takes a tp-cut quantized tree: '
+                         'quantize_groma_llm cuts one, mesh.cut_quant_tree '
+                         'cuts a whole one')
+    if tp is not None and w8a8_prefill:
+        raise ValueError(W8A8_UNDER_TP)
+    return None if tp is None else tp['group']
 
 
 def quant_logits(qp: dict, hidden) -> torch.Tensor:
@@ -111,12 +153,7 @@ class QuantGenerator:
                  spec_ngram: int = 2):
         if kv_bits not in (8, 16):
             raise ValueError('kv_bits must be 8 or 16')
-        if getattr(model, 'tp_group', None) is not None:
-            raise ValueError('a tp-cut model serves through the unquantized '
-                             'Generator or engine (qp=None) only: the '
-                             'quantized forward has no tp all-reduce, so '
-                             'QuantGenerator waits for ROADMAP.md §1 item '
-                             '11c, the quantized tree under tp')
+        self.tp = tree_tp_group(model, qp, w8a8_prefill)
         self.model = model
         self.cfg = model.cfg
         self.qp = qp
@@ -133,11 +170,14 @@ class QuantGenerator:
         self.spec_stats = None
         self._decode: Optional[DecodeScan] = None
         self._verifier: Optional[Verifier] = None
-        self._prefills = CallGraph()
+        # a gloo tp group's collectives run on the host: nothing captured
+        self.host_tp = host_collectives(self.tp)
+        self._prefills = CallGraph(eager=self.host_tp)
 
     def _make_cache(self, b: int) -> dict:
         make = make_quant_kv_cache if self.kv_bits == 8 else make_kv_cache
-        return make(self.cfg.llm, b, self.max_len, device=self.device)
+        return make(self.cfg.llm, b, self.max_len, device=self.device,
+                    kv_heads=local_heads(self.qp, self.cfg.llm)[1])
 
     def verifier(self) -> Verifier:
         """The speculative verify step, made at the first call and kept."""
@@ -146,7 +186,8 @@ class QuantGenerator:
             self._verifier = Verifier(
                 self.qp, self.cfg.llm, self._make_cache(1),
                 self.spec_lookahead,
-                lambda qp, ids: quant_embed(qp, ids, vocab), quant_logits)
+                lambda qp, ids: quant_embed(qp, ids, vocab), quant_logits,
+                eager=self.host_tp)
         return self._verifier
 
     def _sync(self):
@@ -181,7 +222,8 @@ class QuantGenerator:
                 st['logits'].copy_(logits)
                 st['finite'].logical_and_(torch.isfinite(logits).all())
                 st['step'].add_(1)
-            self._decode = DecodeScan(key, cache or self._make_cache(b), step)
+            self._decode = DecodeScan(key, cache or self._make_cache(b), step,
+                                      eager=self.host_tp)
         return self._decode
 
     def _prefill(self, cache, images, input_ids, region_slot, base_valid,
@@ -292,5 +334,7 @@ class QuantGenerator:
             'logits_finite': finite,
             'first_logits': first,
             'tokens': tokens, **vis_np,
-            'prefill_mode': self._prefills.mode}
+            'prefill_mode': self._prefills.mode,
+            'decode_mode': 'eager: gloo tp group' if self.host_tp else
+            'graph' if self.device.type == 'cuda' else 'eager'}
         return tokens, vis_np

@@ -83,10 +83,12 @@ class Verifier:
     ``cur`` (1,), ``draft`` (G,), ``pos0`` (1,), and the outputs
     ``emitted`` (G+1,) and ``n_accept`` (0-d).  ``cache()`` hands the cache
     to a prefill (mask cleared, index 0), ``begin`` loads the prefill's
-    first token and position, and each call verifies one draft."""
+    first token and position, and each call verifies one draft.
+    ``eager``: never capture the step (a tree cut over a gloo tp group,
+    whose collectives run on the host)."""
 
     def __init__(self, qp: dict, cfg_llm, cache: dict, G: int, embed_fn,
-                 logits_fn):
+                 logits_fn, eager: bool = False):
         self.G = G
         self._cache = cache
         dev = cache['mask'].device
@@ -100,7 +102,7 @@ class Verifier:
             'n_accept': torch.zeros((), dtype=torch.int64, device=dev)}
         self.graph = StepGraph(
             lambda st: verify_step(st, qp, cfg_llm, G, embed_fn, logits_fn),
-            self.state)
+            self.state, eager=eager)
 
     def cache(self) -> dict:
         return fresh_cache(self._cache)

@@ -37,6 +37,14 @@ clamps a write past the cache end and whose scatter drops one, a
 host-index write that does not fit raises; an index tensor must keep
 every write inside the cache (a CUDA scatter out of range is a device
 assert: the caller checks, and the engine does not advance idle rows).
+
+A tree cut for tensor parallelism (``parallel/mesh.cut_quant_tree``,
+its record under ``qp['tp']``) runs every mode but the W8A8 prefill and
+the megakernel on this rank's heads and columns: ``_project_qkv`` splits
+its local q | k | v heads (``local_heads``), ``o_proj`` and
+``down_proj`` are row-parallel (``_row_qmm``: the partial sums written
+in f32, all-reduced, cast once), the caches and pools hold the local KV
+heads, and the head's vocabulary columns are gathered.
 """
 
 from __future__ import annotations
@@ -47,6 +55,7 @@ import torch
 import torch.nn.functional as F
 
 from groma_tpu_torch.config import LlamaConfig
+from groma_tpu_torch.models.layers import cast_linear
 from groma_tpu_torch.models.llama import (FLASH_MIN_SEQ, apply_rope,
                                           rms_norm, rope_tables, torch_dtype)
 from groma_tpu_torch.ops.decode_attention import int8_decode_attention
@@ -58,6 +67,8 @@ from groma_tpu_torch.ops.quant import (DENSE_MIN_ROWS, int8_matmul,
                                        w8a8_matmul, w8a8_weight)
 from groma_tpu_torch.ops.quant4 import (INT4_BLOCK, int4_matmul,
                                         quantize_weight_int4)
+from groma_tpu_torch.parallel.tensor_parallel import (row_parallel_quant,
+                                                      vocab_parallel_logits)
 
 NEG_INF = -1e30
 
@@ -127,6 +138,9 @@ def quantize_llama_params(sd, cfg: LlamaConfig, bits: int = 8) -> dict:
 
 
 W8A8_MATMULS = ('qkv_proj', 'o_proj', 'gate_up_proj', 'down_proj')
+W8A8_UNDER_TP = ('the W8A8 prefill does not run on a tp-cut tree (its '
+                 'activation scales are maxima over the whole K): '
+                 'ROADMAP.md §1 item 11f')
 
 
 def w8a8_weights(qp: dict) -> Optional[list]:
@@ -142,37 +156,77 @@ def w8a8_weights(qp: dict) -> Optional[list]:
     return out if any(out) else None
 
 
-def _qmm(x, qw, a8: bool = False, kmajor=None):
+def _qmm(x, qw, a8: bool = False, kmajor=None, out_dtype=None):
     """(..., K) @ quantized (K, N): uint8 storage is packed int4, int8
     per-column int8, bf16 the unquantized tree (a bf16 product with f32
     sums, in x's dtype).  ``a8``: int8 weights with at least 256 rows take
     the W8A8 product (``w8a8_matmul``), on ``kmajor`` (the same weights
     K-major, ``w8a8_weights``) where given, else on the stored ones; int4
-    and bf16 trees ignore it."""
+    and bf16 trees ignore it.  ``out_dtype=torch.float32``: the
+    weight-only products' sums in f32, unrounded (a row-parallel partial
+    sum; W8A8 is refused under tensor parallelism)."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     q = qw['q']
     if q.dtype == torch.bfloat16:
         # JAX's bf16 dot with f32 sums, cast to x's dtype
-        y = x2 @ q if x2.dtype == torch.bfloat16 else \
-            (x2.to(torch.bfloat16).float() @ q.float()).to(x2.dtype)
+        if out_dtype == torch.float32:
+            y = cast_linear(x2.to(torch.bfloat16), q.t(), torch.float32)
+        elif x2.dtype == torch.bfloat16:
+            y = x2 @ q
+        else:
+            y = (x2.to(torch.bfloat16).float() @ q.float()).to(x2.dtype)
     elif q.dtype == torch.uint8:
-        y = int4_matmul(x2, q, qw['scale'])
+        y = int4_matmul(x2, q, qw['scale'], out_dtype=out_dtype)
     elif a8 and x2.shape[0] >= DENSE_MIN_ROWS:
         y = w8a8_matmul(x2, q if kmajor is None else kmajor, qw['scale'])
     else:
-        y = int8_matmul(x2, q, qw['scale'])
+        y = int8_matmul(x2, q, qw['scale'], out_dtype=out_dtype)
     return y.reshape(*lead, -1)
+
+
+def _row_qmm(x, qw, tp, a8: bool = False, kmajor=None):
+    """A row-parallel leaf's product (``o_proj``, ``down_proj``): ``_qmm``
+    without a tp cut; on a cut tree (``tp``, the tree's ``'tp'`` record)
+    this rank's rows' partial sum in f32, all-reduced over the group and
+    cast once to x's dtype."""
+    if tp is None:
+        return _qmm(x, qw, a8, kmajor)
+    return row_parallel_quant(x, qw, tp['group'], _qmm)
+
+
+def local_heads(qp: dict, cfg: LlamaConfig) -> tuple:
+    """(query heads, KV heads) a tree computes on: its tp rank's
+    (``mesh.cut_quant_tree``) or the config's."""
+    tp = qp.get('tp')
+    if tp is None:
+        return cfg.num_heads, cfg.num_kv_heads
+    return tp['heads'], tp['kv_heads']
+
+
+def _kv_of_queries(qp: dict, cfg: LlamaConfig, device):
+    """The KV head of each local query head where a cut tree keeps the KV
+    heads whole beside a slice of the query heads (GQA with fewer KV
+    heads than tp: an index into the whole KV heads), else None (the
+    local heads repeat as the whole ones do)."""
+    tp = qp.get('tp')
+    if tp is None or tp['kv_heads'] * tp['size'] == cfg.num_kv_heads:
+        return None
+    rep = cfg.num_heads // cfg.num_kv_heads
+    first = tp['q_first']
+    return torch.arange(first, first + tp['heads'], device=device) // rep
 
 
 # --------------------------------------------------------- int8 KV cache
 
 def make_quant_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
-                        device=None) -> dict:
+                        device=None, kv_heads: Optional[int] = None) -> dict:
     """int8 KV cache with per-(batch, head, position) f32 scales, one
-    buffer per layer, written in place by quant_llama_forward."""
+    buffer per layer, written in place by quant_llama_forward.
+    ``kv_heads``: the KV heads a cut tree's rank holds (``local_heads``;
+    default ``cfg.num_kv_heads``)."""
     hd = cfg.hidden_size // cfg.num_heads
-    shape = (batch, cfg.num_kv_heads, max_len, hd)
+    shape = (batch, kv_heads or cfg.num_kv_heads, max_len, hd)
     nl = cfg.num_layers
     return {
         'k': [torch.zeros(shape, dtype=torch.int8, device=device)
@@ -217,14 +271,15 @@ def _int8_cache_attention(q, k_q, k_s, v_q, v_s, mask_bias):
 
 
 def _project_qkv(x, lp, cfg: LlamaConfig, cos, sin, a8: bool = False,
-                 kmajor=None):
+                 kmajor=None, heads: Optional[tuple] = None):
     """A layer's input norm and fused qkv -> roped q, k and v
     (B, H, S, hd) in the model dtype (``a8``, ``kmajor``: ``_qmm``'s, the
-    layer's dict of K-major copies)."""
+    layer's dict of K-major copies; ``heads``: the (query, KV) heads of
+    the qkv columns, ``local_heads``, default the config's)."""
     dtype = torch_dtype(cfg.dtype)
     b, s, _ = x.shape
-    nh, nkv = cfg.num_heads, cfg.num_kv_heads
-    hd = cfg.hidden_size // nh
+    nh, nkv = heads or (cfg.num_heads, cfg.num_kv_heads)
+    hd = cfg.hidden_size // cfg.num_heads
     h = rms_norm(x, lp['input_layernorm'], cfg.rms_norm_eps)
     qkv = _qmm(h, lp['qkv_proj'], a8, (kmajor or {}).get('qkv_proj'))
     q, k, v = (t.reshape(b, s, n, hd).transpose(1, 2) for t, n in zip(
@@ -234,18 +289,21 @@ def _project_qkv(x, lp, cfg: LlamaConfig, cos, sin, a8: bool = False,
 
 
 def _finish_layer(x, attn, lp, cfg: LlamaConfig, a8: bool = False,
-                  kmajor=None):
-    """Attention output projection and the MLP, both residual."""
+                  kmajor=None, tp: Optional[dict] = None):
+    """Attention output projection and the MLP, both residual; on a cut
+    tree (``tp``, its ``'tp'`` record) ``o_proj`` and ``down_proj`` are
+    row-parallel (``_row_qmm``)."""
     dtype = torch_dtype(cfg.dtype)
     b, s, _ = x.shape
     kmajor = kmajor or {}
     attn = attn.to(dtype).transpose(1, 2).reshape(b, s, -1)
-    x = x + _qmm(attn, lp['o_proj'], a8, kmajor.get('o_proj')).to(dtype)
+    x = x + _row_qmm(attn, lp['o_proj'], tp, a8,
+                     kmajor.get('o_proj')).to(dtype)
     h = rms_norm(x, lp['post_attention_layernorm'], cfg.rms_norm_eps)
     gate, up = _qmm(h, lp['gate_up_proj'], a8,
                     kmajor.get('gate_up_proj')).chunk(2, dim=-1)
-    return x + _qmm((F.silu(gate) * up).to(dtype), lp['down_proj'], a8,
-                    kmajor.get('down_proj')).to(dtype)
+    return x + _row_qmm((F.silu(gate) * up).to(dtype), lp['down_proj'], tp,
+                        a8, kmajor.get('down_proj')).to(dtype)
 
 
 def _write(buf, at, t):
@@ -310,6 +368,11 @@ def quant_llama_forward(qp: dict, cfg: LlamaConfig, inputs_embeds,
     x = inputs_embeds.to(dtype)
     b, s, _ = x.shape
     dev = x.device
+    tp = qp.get('tp')
+    heads = local_heads(qp, cfg)
+    kv_of = _kv_of_queries(qp, cfg, dev)
+    if w8a8 and tp is not None and s > 1:
+        raise ValueError(W8A8_UNDER_TP)
     append = chunked and s > 1 and cache is not None
     prefill = s > 1 and not append
     a8 = w8a8 and s > 1
@@ -369,7 +432,7 @@ def quant_llama_forward(qp: dict, cfg: LlamaConfig, inputs_embeds,
 
     for i, lp in enumerate(qp['layers']):
         lk = kmajor[i] if kmajor is not None else None
-        q, k, v = _project_qkv(x, lp, cfg, cos, sin, a8, lk)
+        q, k, v = _project_qkv(x, lp, cfg, cos, sin, a8, lk, heads)
         if cache is not None:
             if quant_kv:
                 kq8, ksc = _quantize_tokens(k)
@@ -389,7 +452,10 @@ def quant_llama_forward(qp: dict, cfg: LlamaConfig, inputs_embeds,
                 if not prefill:
                     k, v = cache['k'][i], cache['v'][i]
 
-        if rep > 1:
+        if kv_of is not None:
+            # this rank's query heads over the whole KV heads
+            k, v = k.index_select(1, kv_of), v.index_select(1, kv_of)
+        elif rep > 1:
             k = k.repeat_interleave(rep, dim=1)
             v = v.repeat_interleave(rep, dim=1)
         if quant_kv and not prefill and s == 1 and rep == 1:
@@ -409,7 +475,7 @@ def quant_llama_forward(qp: dict, cfg: LlamaConfig, inputs_embeds,
             sc = sc + mask_bias.to(score_dtype)
             p = torch.softmax(sc.to(torch.float32), dim=-1)
             attn = torch.matmul(p.to(v.dtype), v)
-        x = _finish_layer(x, attn, lp, cfg, a8, lk)
+        x = _finish_layer(x, attn, lp, cfg, a8, lk, tp)
 
     x = rms_norm(x, qp['norm'], cfg.rms_norm_eps)
     if device_index:
@@ -456,6 +522,9 @@ def quant_llama_decode_megakernel(qp: dict, sp: dict, cfg: LlamaConfig,
     at a host index raises, and a caller of the device word checks its run
     once.  Returns (hidden (B, 1, D), cache)."""
     from groma_tpu_torch.ops.decode_megakernel import fused_decode_step
+    if 'tp' in qp:
+        raise ValueError('the decode megakernel does not run on a tp-cut '
+                         'quantized tree: ROADMAP.md §1 item 11g')
     dtype = torch_dtype(cfg.dtype)
     if inputs_embeds.shape[1] != 1:
         raise ValueError('megakernel decode takes one token a row')
@@ -490,11 +559,13 @@ def quant_llama_decode_paged(qp: dict, cfg: LlamaConfig, inputs_embeds,
     average over its pages, finite and discarded).  Frozen rows of the
     engine all write into the trash page 0, possibly at one offset: the
     scatter takes duplicate indices, and that page's content is garbage by
-    design.  MHA only, as in JAX: the paged kernel has no head repeat.  The
-    pools are updated in place; returns (hidden (B, 1, D), pools)."""
+    design.  MHA only, as in JAX: the paged kernel has no head repeat.  On
+    a cut tree the pools hold this rank's KV heads.  The pools are updated
+    in place; returns (hidden (B, 1, D), pools)."""
     hd = cfg.hidden_size // cfg.num_heads
     if cfg.num_kv_heads != cfg.num_heads:
         raise ValueError('paged decode requires MHA')
+    tp, heads = qp.get('tp'), local_heads(qp, cfg)
     b, s, _ = inputs_embeds.shape
     if s != 1:
         raise ValueError('paged decode takes one token a row')
@@ -505,7 +576,7 @@ def quant_llama_decode_paged(qp: dict, cfg: LlamaConfig, inputs_embeds,
     at = (table[rows, pos // PAGE].long(), slice(None), pos % PAGE)
 
     for i, lp in enumerate(qp['layers']):
-        q, k, v = _project_qkv(x, lp, cfg, cos, sin)
+        q, k, v = _project_qkv(x, lp, cfg, cos, sin, heads=heads)
         kq8, ksc = _quantize_tokens(k)
         vq8, vsc = _quantize_tokens(v)
         pools['k'][i][at] = kq8[:, :, 0]
@@ -515,13 +586,17 @@ def quant_llama_decode_paged(qp: dict, cfg: LlamaConfig, inputs_embeds,
         attn = paged_int8_decode_attention(
             q, pools['k'][i], pools['k_scale'][i], pools['v'][i],
             pools['v_scale'][i], table, lengths)
-        x = _finish_layer(x, attn, lp, cfg)
+        x = _finish_layer(x, attn, lp, cfg, tp=tp)
 
     return rms_norm(x, qp['norm'], cfg.rms_norm_eps), pools
 
 
 def quant_llama_logits(qp: dict, hidden):
     """Base-vocabulary logits through the tree's head (int8, int4 or the
-    bits=16 bf16 one), its pad columns dropped."""
+    bits=16 bf16 one), its pad columns dropped; a head cut on its
+    vocabulary gives each rank's columns, gathered."""
     logits = _qmm(hidden, qp['lm_head'])
+    tp = qp.get('tp')
+    if tp is not None and tp['vocab'] is not None:
+        logits = vocab_parallel_logits(logits, tp['group'])
     return logits[..., :qp['embed_tokens'].shape[0]]

@@ -74,7 +74,7 @@ def _nvcc() -> str:
 
 def _declare(lib):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.groma_int8_matmul.argtypes = [p] * 6 + [i] * 5 + [p]
+    lib.groma_int8_matmul.argtypes = [p] * 6 + [i] * 6 + [p]
     lib.groma_int8_matmul.restype = i
     lib.groma_int8_decode_attention.argtypes = [p, p, p, p, p, p, p,
                                                 i, i, i, i, i, i, p]
@@ -84,7 +84,7 @@ def _declare(lib):
     lib.groma_flash_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p,
                                     i, i, i, i, i, f, i, p]
     lib.groma_flash_bwd.restype = i
-    lib.groma_int4_matmul.argtypes = [p] * 6 + [i] * 5 + [p]
+    lib.groma_int4_matmul.argtypes = [p] * 6 + [i] * 6 + [p]
     lib.groma_int4_matmul.restype = i
     lib.groma_paged_attention.argtypes = [p, p, p, p, p, p, p, p,
                                           i, i, i, i, i, p]

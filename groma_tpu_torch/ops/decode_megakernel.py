@@ -101,6 +101,9 @@ def stack_decode_params(qp: dict, ctas: int | None = None) -> dict:
     table of the weights' addresses, their TMA maps (``maps``, L x 4 x 128
     bytes) and the kernel's work plan (``plan``, ``megakernel_plan`` as
     int32) over ``ctas`` CTAs, by default one per SM of the card."""
+    if 'tp' in qp:
+        raise ValueError('the decode megakernel does not run on a tp-cut '
+                         'quantized tree: ROADMAP.md §1 item 11g')
     layers = qp['layers']
     for lp in layers:
         for _, _, name in _MATMULS:

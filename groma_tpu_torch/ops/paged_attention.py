@@ -198,11 +198,13 @@ def paged_int8_decode_attention(q, kpool, ks, vpool, vs, table, lengths,
 paged_int8_decode_attention.launches = 0
 
 
-def make_kv_page_pool(cfg, num_pages: int, device=None) -> dict:
+def make_kv_page_pool(cfg, num_pages: int, device=None,
+                      kv_heads: int | None = None) -> dict:
     """Per-layer int8 page pools and their f32 scales, zeroed; page 0 is
-    the trash page."""
+    the trash page.  ``kv_heads``: the KV heads a tensor-parallel rank
+    holds (default ``cfg.num_kv_heads``)."""
     hd = cfg.hidden_size // cfg.num_heads
-    shape = (num_pages, cfg.num_kv_heads, PAGE, hd)
+    shape = (num_pages, kv_heads or cfg.num_kv_heads, PAGE, hd)
     nl = cfg.num_layers
     return {
         'k': [torch.zeros(shape, dtype=torch.int8, device=device)

@@ -90,20 +90,24 @@ def dequantize_weight(q: torch.Tensor, scale: torch.Tensor,
 
 
 def int8_matmul_reference(x: torch.Tensor, w_q: torch.Tensor,
-                          scale: torch.Tensor) -> torch.Tensor:
+                          scale: torch.Tensor,
+                          out_dtype=None) -> torch.Tensor:
     """x (M, K) @ int8 (K, N) * scale (N,): f32 dot, scale after the dot,
-    result in x.dtype."""
+    result in x.dtype (or ``out_dtype``)."""
     acc = x.to(torch.float32) @ w_q.to(torch.float32)
-    return (acc * scale.to(torch.float32)).to(x.dtype)
+    return (acc * scale.to(torch.float32)).to(out_dtype or x.dtype)
 
 
 def int8_matmul_dense_reference(x: torch.Tensor, w_q: torch.Tensor,
-                                scale: torch.Tensor) -> torch.Tensor:
+                                scale: torch.Tensor,
+                                out_dtype=None) -> torch.Tensor:
     """x (M, K) in bf16 @ bf16(int8 (K, N) * scale (N,)): the f32 product
     with the weights dequantized first, rounded to bf16 (the prefill
-    tile's arithmetic, and JAX's route from 256 rows on)."""
+    tile's arithmetic, and JAX's route from 256 rows on), or kept in
+    ``out_dtype``."""
     w = dequantize_weight(w_q, scale).to(torch.float32)
-    return (x.to(torch.bfloat16).to(torch.float32) @ w).to(torch.bfloat16)
+    return (x.to(torch.bfloat16).to(torch.float32) @ w).to(
+        out_dtype or torch.bfloat16)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -181,11 +185,11 @@ def _decode_buffers(device, partial: int, counters: int) -> tuple:
     return ws, cnt
 
 
-def _launch(x, w_q, scale):
+def _launch(x, w_q, scale, out_dtype):
     from groma_tpu_torch.ops.cuda_lib import check, library, stream_ptr
     m, k = x.shape
     n = w_q.shape[1]
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     partial = counters = None
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     if m >= DENSE_MIN_ROWS:
@@ -200,28 +204,38 @@ def _launch(x, w_q, scale):
         x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
         partial.data_ptr() if partial is not None else None,
         counters.data_ptr() if counters is not None else None,
-        m, k, n, split_rows, splits, stream_ptr(x))
+        m, k, n, split_rows, splits, int(out_dtype == torch.float32),
+        stream_ptr(x))
     check(status, 'int8_matmul')
     int8_matmul.launches += 1
     if split_rows == 0:
         int8_matmul.prefill_launches += 1
+    if out_dtype == torch.float32:
+        int8_matmul.f32_launches += 1
     return out
 
 
 def int8_matmul(x: torch.Tensor, w_q: torch.Tensor,
-                scale: torch.Tensor) -> torch.Tensor:
+                scale: torch.Tensor, out_dtype=None) -> torch.Tensor:
     """x (M, K) @ int8 weights (K, N) with per-column scales -> (M, N).
 
-    CPU tensors: the plain version.  CUDA tensors: x bf16, w_q int8, scale
-    f32 (N,), all contiguous, x and w_q 16-byte aligned; the decode tile
-    for M < 256 (the scale after the dot), the prefill tile from 256 rows
-    on (the weights dequantized to bf16 first), the result in bf16.  K not
-    a multiple of 8 or N not of 16 is zero-padded per call (copies of x
-    and the weights), as JAX's wrapper pads."""
+    CPU tensors: the plain version, in x's dtype or ``out_dtype``.  CUDA
+    tensors: x bf16, w_q int8, scale f32 (N,), all contiguous, x and w_q
+    16-byte aligned; the decode tile for M < 256 (the scale after the dot),
+    the prefill tile from 256 rows on (the weights dequantized to bf16
+    first), the result in bf16, or with ``out_dtype=torch.float32`` the
+    f32 each tile rounds to bf16 otherwise (a row-parallel product's
+    partial sum; ``int8_matmul.f32_launches`` counts them).  K not a
+    multiple of 8 or N not of 16 is zero-padded per call (copies of x and
+    the weights), as JAX's wrapper pads."""
     if x.device.type == 'cpu':
-        return int8_matmul_reference(x, w_q, scale)
+        return int8_matmul_reference(x, w_q, scale, out_dtype)
     if x.device.type != 'cuda':
         raise ValueError(f'int8_matmul: unsupported device {x.device}')
+    out_dtype = out_dtype or torch.bfloat16
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f'int8_matmul: out_dtype {out_dtype}; the kernel '
+                         f'writes bf16 or f32')
     m, k = x.shape
     if (w_q.dim() != 2 or w_q.shape[0] != k or m < 1
             or scale.shape != (w_q.shape[1],)):
@@ -244,12 +258,13 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor,
         x = torch.nn.functional.pad(x, (0, pad_k))
         w_q = torch.nn.functional.pad(w_q, (0, pad_n, 0, pad_k))
         scale = torch.nn.functional.pad(scale, (0, pad_n))
-        return _launch(x, w_q, scale)[:, :n]
-    return _launch(x, w_q, scale)
+        return _launch(x, w_q, scale, out_dtype)[:, :n]
+    return _launch(x, w_q, scale, out_dtype)
 
 
 int8_matmul.launches = 0
 int8_matmul.prefill_launches = 0
+int8_matmul.f32_launches = 0
 
 
 # ------------------------------------------------------------------ W8A8

@@ -79,12 +79,13 @@ def dequantize_weight_int4(qd: dict, dtype=torch.float32) -> torch.Tensor:
 
 
 def int4_matmul_reference(x: torch.Tensor, packed: torch.Tensor,
-                          scale: torch.Tensor,
-                          block: int = INT4_BLOCK) -> torch.Tensor:
+                          scale: torch.Tensor, block: int = INT4_BLOCK,
+                          out_dtype=None) -> torch.Tensor:
     """x (M, K) @ packed int4 (K/2, N) with (K/block, N) scales: the f32
-    dot against the dequantized weights, result in x.dtype."""
+    dot against the dequantized weights, result in x.dtype (or
+    ``out_dtype``)."""
     w = dequantize_weight_int4({'q': packed, 'scale': scale, 'block': block})
-    return (x.to(torch.float32) @ w).to(x.dtype)
+    return (x.to(torch.float32) @ w).to(out_dtype or x.dtype)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -172,11 +173,11 @@ def _tile_counters(device, col_tiles: int) -> torch.Tensor:
     return buf
 
 
-def _launch(x, packed, scale):
+def _launch(x, packed, scale, out_dtype):
     from groma_tpu_torch.ops.cuda_lib import check, library, stream_ptr
     m, k = x.shape
     n = packed.shape[1]
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     partial = counters = None
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     if m > DECODE_MAX_ROWS:
@@ -191,26 +192,36 @@ def _launch(x, packed, scale):
         x.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
         partial.data_ptr() if partial is not None else None,
         counters.data_ptr() if counters is not None else None,
-        m, k, n, split_rows, splits, stream_ptr(x))
+        m, k, n, split_rows, splits, int(out_dtype == torch.float32),
+        stream_ptr(x))
     check(status, 'int4_matmul')
     int4_matmul.launches += 1
     if split_rows == 0:
         int4_matmul.prefill_launches += 1
+    if out_dtype == torch.float32:
+        int4_matmul.f32_launches += 1
     return out
 
 
 def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
-                block: int = INT4_BLOCK) -> torch.Tensor:
+                block: int = INT4_BLOCK, out_dtype=None) -> torch.Tensor:
     """x (M, K) @ packed int4 weights (K/2, N), per-(block, column) scales
     -> (M, N).
 
-    CPU tensors: the plain version.  CUDA tensors: x bf16, packed uint8,
-    scale f32, all contiguous, block 256, K a multiple of 256 and N of 64;
-    the hand-written kernel at every M, the result in bf16."""
+    CPU tensors: the plain version, in x's dtype or ``out_dtype``.  CUDA
+    tensors: x bf16, packed uint8, scale f32, all contiguous, block 256, K
+    a multiple of 256 and N of 64; the hand-written kernel at every M, the
+    result in bf16, or with ``out_dtype=torch.float32`` the f32 it rounds
+    to bf16 otherwise (a row-parallel product's partial sum;
+    ``int4_matmul.f32_launches`` counts them)."""
     if x.device.type == 'cpu':
-        return int4_matmul_reference(x, packed, scale, block)
+        return int4_matmul_reference(x, packed, scale, block, out_dtype)
     if x.device.type != 'cuda':
         raise ValueError(f'int4_matmul: unsupported device {x.device}')
+    out_dtype = out_dtype or torch.bfloat16
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f'int4_matmul: out_dtype {out_dtype}; the kernel '
+                         f'writes bf16 or f32')
     m, k = x.shape
     n = packed.shape[1] if packed.dim() == 2 else -1
     if (packed.dim() != 2 or packed.shape[0] * 2 != k or block != INT4_BLOCK
@@ -231,11 +242,12 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
             or x.data_ptr() % 16 or scale.data_ptr() % 16:
         raise ValueError('int4_matmul: the kernel takes contiguous tensors '
                          'with 16-byte-aligned x, weights and scales')
-    return _launch(x, packed, scale)
+    return _launch(x, packed, scale, out_dtype)
 
 
 int4_matmul.launches = 0
 int4_matmul.prefill_launches = 0
+int4_matmul.f32_launches = 0
 
 
 # -------------------------------------------------------------------- nf4

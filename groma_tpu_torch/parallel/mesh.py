@@ -48,7 +48,9 @@ and FSDP.  Here:
   tp = 1 every parameter becomes a DTensor, on one rank too; at tp > 1 a
   data group of one rank shards nothing and the parameters stay plain.
   A served model whose data ranks are replicas is cut by ``cut_tp``
-  alone;
+  alone, and its quantized tree by ``cut_quant_tree`` (the compute cut,
+  not JAX's storage placement: fused columns per part, an int4 MLP at
+  whole scale blocks);
 * data: JAX's batch is global (its sampler yields the whole batch and the
   mesh splits it over (dp, fsdp)), so ``RankBatches`` hands each data rank
   a contiguous 1/world slice of every global batch, and a batch that does
@@ -74,6 +76,8 @@ from typing import Iterable, Optional
 
 import torch
 import torch.distributed as dist
+
+from groma_tpu_torch.ops.quant4 import INT4_BLOCK
 
 # Megatron-style tensor-parallel rules for the LLM, on JAX's parameter
 # paths (copied from the JAX package).  Column-parallel kernels shard the
@@ -298,6 +302,131 @@ def cut_tp(model: torch.nn.Module, group) -> dict:
     model.tp_group = group
     model.tp_plan = plan
     return plan
+
+
+def _nibbles(packed: torch.Tensor) -> torch.Tensor:
+    """A packed int4 leaf (K/2, N) -> its (K, N) stored nibbles (q + 8):
+    row k < K/2 is byte k's low nibble, row K/2 + k its high one."""
+    return torch.cat([packed & 0xF, packed >> 4], dim=0)
+
+
+def _pack(nibbles: torch.Tensor) -> torch.Tensor:
+    """(K, N) nibbles -> the packed (K/2, N) bytes of a K-row leaf."""
+    kh = nibbles.shape[0] // 2
+    return (nibbles[:kh] | (nibbles[kh:] << 4)).contiguous()
+
+
+def _quant_cols(leaf: dict, ranges) -> dict:
+    """A quantized leaf's columns ``ranges`` ((start, stop) pairs), side
+    by side in order: ``q`` on dim 1, a scale on its last dim (int8's
+    (N,), int4's (K/256, N))."""
+    def take(t, dim):
+        return torch.cat([t.narrow(dim, a, b - a) for a, b in ranges],
+                         dim).contiguous()
+    out = {'q': take(leaf['q'], 1)}
+    if 'scale' in leaf:
+        out['scale'] = take(leaf['scale'], leaf['scale'].dim() - 1)
+    return out
+
+
+def _quant_rows(leaf: dict, k0: int, k1: int) -> dict:
+    """A quantized leaf's rows [k0, k1) as a leaf of k1 - k0 rows, with
+    the whole leaf's values and scales: int8 and bf16 rows sliced (the
+    per-column int8 scale whole); int4 rows unpacked from both nibble
+    halves and packed again as a (k1 - k0)-row leaf, with their 256-row
+    blocks' scales (k0 and k1 on block boundaries)."""
+    q = leaf['q']
+    if q.dtype != torch.uint8:
+        return {**leaf, 'q': q[k0:k1].contiguous()}
+    if k0 % INT4_BLOCK or k1 % INT4_BLOCK:
+        raise ValueError(f'int4 rows [{k0}, {k1}) are not whole '
+                         f'{INT4_BLOCK}-row scale blocks')
+    return {'q': _pack(_nibbles(q)[k0:k1]),
+            'scale': leaf['scale'][k0 // INT4_BLOCK:
+                                   k1 // INT4_BLOCK].contiguous()}
+
+
+def mlp_share(intermediate: int, tp: int, rank: int, int4: bool) -> tuple:
+    """The MLP intermediate's rows [start, stop) that ``rank`` of ``tp``
+    computes: an even cut, or for an int4 ``down_proj`` whole 256-row
+    scale blocks, rank r taking blocks [floor(nb r / tp), floor(nb (r + 1)
+    / tp)) of the nb (7B's 43 at tp = 2: 21 and 22 blocks)."""
+    if int4:
+        nb = intermediate // INT4_BLOCK
+        a, b = nb * rank // tp, nb * (rank + 1) // tp
+        if a == b:
+            raise ValueError(f'{nb} int4 scale blocks of the MLP leave tp '
+                             f'rank {rank} of {tp} none')
+        return a * INT4_BLOCK, b * INT4_BLOCK
+    if intermediate % tp:
+        raise ValueError(f'an intermediate of {intermediate} does not divide '
+                         f'over tp {tp}')
+    n = intermediate // tp
+    return rank * n, (rank + 1) * n
+
+
+def cut_quant_tree(qp: dict, cfg, group) -> dict:
+    """This rank's tree of a whole quantized LLaMA tree
+    (``quantize_llama_params``, which every rank builds from the whole
+    weights: a row-parallel leaf's per-column int8 scale is a maximum over
+    the whole K) -> a new tree; free the whole one after.
+
+    Rank r of ``group`` keeps, per layer: ``qkv_proj``'s columns [its
+    query heads | its KV heads of k | of v] (heads whole; where tp does
+    not divide the KV heads, k and v whole), ``o_proj``'s rows of its
+    query heads, ``gate_up_proj``'s columns [its gate share | its up
+    share] and ``down_proj``'s rows of that share (``mlp_share``: even for
+    int8, whole scale blocks for int4, whose rows are packed again as a
+    tree of their own, with the whole tree's values and scales); the head
+    ``lm_head`` cut on its padded vocabulary columns where tp divides
+    them.  ``embed_tokens``, ``new_input_embs``, ``extra_lm_head`` and the
+    norms stay whole.  The tree records the cut under ``'tp'`` (the
+    group, rank and size, the local query and KV heads, the first of
+    each, the MLP share, the whole padded vocabulary or None where the
+    head stays whole), which ``models.llama_quant`` reads."""
+    if 'tp' in qp:
+        raise ValueError('the tree is already cut')
+    tp, r = dist.get_world_size(group), dist.get_rank(group)
+    hd = cfg.hidden_size // cfg.num_heads
+    nh, nkv = cfg.num_heads, cfg.num_kv_heads
+    if nh % tp:
+        raise ValueError(f'{nh} query heads do not divide over tp {tp}')
+    nq = nh // tp
+    kv_cut = nkv % tp == 0
+    nkv_l = nkv // tp if kv_cut else nkv
+    kv0 = r * nkv_l if kv_cut else 0
+    q0, k0 = r * nq * hd, kv0 * hd
+    qkv = [(q0, q0 + nq * hd),
+           (nh * hd + k0, nh * hd + k0 + nkv_l * hd),
+           ((nh + nkv) * hd + k0, (nh + nkv) * hd + k0 + nkv_l * hd)]
+    first = qp['layers'][0] if qp['layers'] else {}
+    if first and first['o_proj']['q'].dtype == torch.uint8 \
+            and (nq * hd) % INT4_BLOCK:
+        raise ValueError(
+            f'an int4 o_proj at tp {tp} gives a rank {nq * hd} rows, not '
+            f'whole {INT4_BLOCK}-row scale blocks: ROADMAP.md §1 item 11h')
+    inter = cfg.intermediate_size
+    m0, m1 = mlp_share(inter, tp, r, bool(first) and
+                       first['down_proj']['q'].dtype == torch.uint8)
+    layers = []
+    for lp in qp['layers']:
+        layers.append({
+            **lp,
+            'qkv_proj': _quant_cols(lp['qkv_proj'], qkv),
+            'o_proj': _quant_rows(lp['o_proj'], q0, q0 + nq * hd),
+            'gate_up_proj': _quant_cols(lp['gate_up_proj'],
+                                        [(m0, m1), (inter + m0, inter + m1)]),
+            'down_proj': _quant_rows(lp['down_proj'], m0, m1)})
+    out = {**qp, 'layers': layers}
+    vocab = None
+    if 'lm_head' in qp and qp['lm_head']['q'].shape[1] % tp == 0:
+        vocab = qp['lm_head']['q'].shape[1]
+        n = vocab // tp
+        out['lm_head'] = _quant_cols(qp['lm_head'], [(r * n, (r + 1) * n)])
+    out['tp'] = {'group': group, 'rank': r, 'size': tp, 'heads': nq,
+                 'kv_heads': nkv_l, 'q_first': r * nq, 'kv_first': kv0,
+                 'mlp': (m0, m1), 'vocab': vocab}
+    return out
 
 
 def shard_model(model: torch.nn.Module, mesh) -> torch.nn.Module:

@@ -22,6 +22,11 @@ would:
 * ``vocab_logits``: a head's whole logits from each rank's columns
   (zero-padded and summed, exact), for the greedy argmax, which then
   breaks ties as a single process does;
+* ``row_parallel_quant`` and ``vocab_parallel_logits``: the same two
+  for the quantized tree (``mesh.cut_quant_tree``): a quantized product's
+  partial sum written in f32 (``ops.quant.int8_matmul`` /
+  ``ops.quant4.int4_matmul``'s ``out_dtype``), reduced in f32 and cast
+  once; the cut head's logits gathered;
 * ``vocab_nll``: the summed NLL of labels under a softmax over vocabulary
   columns cut over the ranks: each rank's logsumexp over its columns,
   gathered and combined, and the gold logit from the rank that owns it.
@@ -127,6 +132,24 @@ def row_parallel_linear(x: torch.Tensor, w: torch.Tensor,
     x's dtype."""
     return reduce_from_tp(cast_linear(x, w, out_dtype=torch.float32),
                           group).to(x.dtype)
+
+
+def row_parallel_quant(x: torch.Tensor, qw: dict, group,
+                       product) -> torch.Tensor:
+    """A row-parallel quantized product: ``product(x, qw,
+    out_dtype=torch.float32)``, x (..., K/tp) times this rank's rows of a
+    quantized (K, N) leaf, its partial sum in f32, summed over ``group``
+    in f32 and cast once to x's dtype, as ``row_parallel_linear`` does
+    (no gradient: the quantized tree serves only)."""
+    return _all_reduce_f32(product(x, qw, out_dtype=torch.float32),
+                           group).to(x.dtype)
+
+
+def vocab_parallel_logits(local: torch.Tensor, group) -> torch.Tensor:
+    """A head's whole logits from this rank's (..., V'/tp) columns of a
+    head cut on its vocabulary: the ranks' columns side by side in rank
+    order, gathered in f32 (exact) and returned in ``local``'s dtype."""
+    return gather_last(local.float(), group).to(local.dtype)
 
 
 def _cut(local_rows: int, full_rows: int, group) -> Optional[int]:

@@ -83,22 +83,26 @@ an exact per-row rewind.  As in JAX, the scheduler loop never calls it:
 the bursts stay sequential.
 
 On a model cut for tensor parallelism (``parallel/mesh.shard_model``:
-``model.tp_group`` set; ``qp=None``, a contiguous cache, one-shot or
-batched admission) every rank of the tp group builds an engine with the
-same arguments, and the ranks must run the same steps in the same order,
+``model.tp_group`` set, and ``qp`` None or a tree cut for the same
+group, ``mesh.cut_quant_tree``; or a whole model beside a cut tree), in
+the contiguous, paged and chunked modes with one-shot or batched
+admission, every rank of the tp group builds an engine with the same
+arguments, and the ranks must run the same steps in the same order,
 or their collectives would no longer pair.  So rank 0 of the group alone
 takes submissions and schedules; before each admission it broadcasts the
 admitted rows (their slots, ids, region slots, validity, images and
 temperatures) and before each decode burst the slots' state (tokens,
-positions, done flags, the active mask and temperatures), and the other
+positions, done flags, the active mask and temperatures), with the paged
+mode's page bookkeeping before both (the free list, page counts and
+table: rank 0 alone ends streams and tops pages up), and the other
 ranks' scheduler threads run the same prefill, seating and burst on their
-own heads and emit nothing.  An idle rank 0 sends a heartbeat every few
+own heads and emit nothing; between two prefill chunks rank 0 orders a
+burst or none.  An idle rank 0 sends a heartbeat every few
 seconds, and a STOP when it closes.  The broadcasts are a few small
 tensors on the engine's device, which a gloo group also carries for CUDA
 tensors; the bursts are captured under NCCL and eager under gloo, as
-``eval/generate.Generator``'s scan.  The quantized, paged, chunked and
-speculative modes refuse a tp group (ROADMAP.md §1, "the quantized tree
-under tp").
+``eval/generate.Generator``'s scan.  The speculative mode refuses a tp
+group (ROADMAP.md §1 item 11e), and so does the W8A8 prefill (item 11f).
 
 Unlike JAX, a request taken off the queue stays the engine's until it is
 seated: if its prefill or seating raises, every unseated request of that
@@ -120,10 +124,12 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from groma_tpu_torch.eval.generate_quant import quant_embed, quant_logits
+from groma_tpu_torch.eval.generate_quant import (quant_embed, quant_logits,
+                                                 tree_tp_group)
 from groma_tpu_torch.models.groma import GromaModel
 from groma_tpu_torch.models.llama import make_kv_cache, torch_dtype
-from groma_tpu_torch.models.llama_quant import (make_quant_kv_cache,
+from groma_tpu_torch.models.llama_quant import (local_heads,
+                                                make_quant_kv_cache,
                                                 quant_llama_decode_paged,
                                                 quant_llama_forward,
                                                 w8a8_weights)
@@ -211,12 +217,11 @@ class BatchEngine:
             raise ValueError('the unquantized engine (qp=None) keeps a '
                              'contiguous kv_bits=16 cache')
         self.tp = getattr(model, 'tp_group', None)
-        if self.tp is not None and qp is not None:
-            raise ValueError('a tp-cut model serves through the unquantized '
-                             'engine (qp=None) only: the quantized, paged, '
-                             'chunked and speculative modes wait for '
-                             'ROADMAP.md §1 item 11c, the quantized tree '
-                             'under tp')
+        if qp is not None:
+            self.tp = tree_tp_group(model, qp, w8a8_prefill)
+        if self.tp is not None and spec_lookahead > 0:
+            raise ValueError('the speculative mode does not run on a tp '
+                             'group: ROADMAP.md §1 item 11e')
         cfg = model.cfg
         self.model = model
         self.qp = qp
@@ -227,6 +232,9 @@ class BatchEngine:
         self.kmajor = (w8a8_weights(qp) if w8a8_prefill and qp is not None
                        else None)
         self.device = model.llm.model.embed_tokens.weight.device
+        # the KV heads this rank's caches hold
+        self._kv_heads = model.llm.model.kv_heads if qp is None \
+            else local_heads(qp, cfg.llm)[1]
         self.eos_id = eos_id
         self.chunk = chunk
         self.max_new_tokens = max_new_tokens
@@ -254,7 +262,8 @@ class BatchEngine:
             self._num_pages = pool_tokens // PAGE + 1
             self._free_pages = list(range(self._num_pages - 1, 0, -1))
             self._slot_pages = [[] for _ in range(max_slots)]
-            self._pools = make_kv_page_pool(cfg.llm, self._num_pages, dev)
+            self._pools = make_kv_page_pool(cfg.llm, self._num_pages, dev,
+                                            kv_heads=self._kv_heads)
             self._cache = None
         else:
             self._cache = self._fresh_cache(max_slots, self.max_len)
@@ -305,6 +314,7 @@ class BatchEngine:
         self._src = None if self.tp is None \
             else dist.get_global_rank(self.tp, 0)
         self._sent = time.time()
+        self._burst_ordered = False
 
         # entries (-priority, seq, payload): higher priority admits first
         self._queue: queue.PriorityQueue = queue.PriorityQueue()
@@ -330,11 +340,9 @@ class BatchEngine:
         atexit.register(self.close)
 
     def _fresh_cache(self, batch: int, length: int) -> dict:
-        if self._kv_bits == 8:
-            return make_quant_kv_cache(self.cfg.llm, batch, length,
-                                       device=self.device)
-        return make_kv_cache(self.cfg.llm, batch, length, device=self.device,
-                             kv_heads=self.model.llm.model.kv_heads)
+        make = make_quant_kv_cache if self._kv_bits == 8 else make_kv_cache
+        return make(self.cfg.llm, batch, length, device=self.device,
+                    kv_heads=self._kv_heads)
 
     # ------------------------------------------------ tp: rank 0's orders
 
@@ -373,6 +381,8 @@ class BatchEngine:
                             np.float32)])))
         self._bcast(ints)
         self._bcast(floats)
+        if self.paged:
+            self._share_pages()
         if self._leader:
             return slots, group
         ints, floats = ints.cpu().numpy(), floats.cpu().numpy()
@@ -404,6 +414,28 @@ class BatchEngine:
             host = st[3:].cpu().numpy()
             self._active[:] = host[0] != 0
             self._temps[:] = host[1]
+
+    def _share_pages(self):
+        """The page pool's bookkeeping, from rank 0 to the others: the free
+        list in its order, each slot's page count and the page table.  Rank
+        0 alone ends streams and tops pages up, so the others take its
+        pages before each admission and burst, and seat and write into
+        the same pages."""
+        n, slots, width = self._num_pages, self.max_slots, self._np_max
+        flat = torch.full((n + slots * (width + 1),), -1, dtype=torch.int64)
+        if self._leader:
+            flat[:len(self._free_pages)] = torch.as_tensor(
+                self._free_pages, dtype=torch.int64)
+            flat[n:n + slots] = torch.as_tensor(
+                [len(p) for p in self._slot_pages])
+            flat[n + slots:] = torch.as_tensor(self._table_np.reshape(-1))
+        flat = self._bcast(flat.to(self.device)).cpu().numpy()
+        if self._leader:
+            return
+        self._free_pages = [int(p) for p in flat[:n] if p >= 0]
+        self._table_np[:] = flat[n + slots:].reshape(slots, width)
+        self._slot_pages = [[int(p) for p in self._table_np[s, :k]]
+                            for s, k in enumerate(flat[n:n + slots])]
 
     def _follow(self):
         """The scheduler thread of a rank other than 0 of the tp group: run
@@ -585,7 +617,8 @@ class BatchEngine:
                   'hidden': emb.new_zeros((1, c, emb.shape[2]),
                                           dtype=torch_dtype(
                                               self.cfg.llm.dtype))}
-            self._chunk = StepGraph(self._chunk_step, st)
+            self._chunk = StepGraph(self._chunk_step, st,
+                                    eager=host_collectives(self.tp))
         return self._chunk
 
     def _chunked_prefill(self, req):
@@ -621,8 +654,8 @@ class BatchEngine:
             st['valid'].copy_(valid[:, lo:lo + c])
             st['pos'].copy_(pos[:, lo:lo + c])
             graph.run(1)
-            if ci + 1 < n_chunks and self._active.any():
-                self._decode_burst()     # keep the live streams moving
+            # keep the live streams moving
+            self._burst_between(ci + 1 < n_chunks and self._active.any())
         local = torch.full((1,), last_idx - (n_chunks - 1) * c,
                            dtype=torch.int64, device=self.device)
         logits = self._prefills.run(self._last_logits, st, local,
@@ -707,11 +740,11 @@ class BatchEngine:
                        int(next_pos[0]))
             if req[0] in unseated:
                 unseated.remove(req[0])
-            if self.prefill_chunk_tokens and not self._queue.empty() \
-                    and self._active.any():
+            if self.prefill_chunk_tokens:
                 # back-to-back admissions: the live streams move between
                 # them too
-                self._decode_burst()
+                self._burst_between(not self._queue.empty()
+                                    and self._active.any())
 
     def _seat(self, slot, sess, row_logits, one, row, vis, next_pos):
         """Install row ``row`` of a prefill into ``slot`` and emit its
@@ -947,17 +980,32 @@ class BatchEngine:
         out['active'].copy_(self._host['active'])
         return out
 
+    def _burst_between(self, want: bool):
+        """A decode burst between two prefill chunks, or two chunked
+        admissions, where rank 0 wants one (``want``: under tp rank 0's
+        decides, sent as an order the other ranks wait for there)."""
+        if self.tp is not None:
+            want = self._order(_BURST if want else _IDLE)[0] == _BURST
+            self._burst_ordered = want
+        if want:
+            self._decode_burst()
+
     def _decode_burst(self):
         """``chunk`` decode steps over all slots, then the emitted tokens go
         to their sessions."""
-        if self.paged:
+        # under tp, whether rank 0 sent this burst's order already
+        ordered, self._burst_ordered = self._burst_ordered, False
+        if self.paged and self._leader:
             self._topup_pages()
         if self.tp is not None:
             if self._leader:
                 if not self._active.any():
                     return
-                self._order(_BURST)
+                if not ordered:
+                    self._order(_BURST)
             self._share_burst()
+            if self.paged:
+                self._share_pages()
         if not self._active.any():
             return
         t0 = time.perf_counter()

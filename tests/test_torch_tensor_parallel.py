@@ -403,7 +403,8 @@ def _serve_ranks(rank, world, init, ref, out_dir):
     replicas."""
     from groma_tpu_torch.checkpoint.loader import from_state_dict
     from groma_tpu_torch.config import tiny_groma_config as t_tiny
-    from groma_tpu_torch.eval.generate_quant import QuantGenerator
+    from groma_tpu_torch.eval.generate_quant import (QuantGenerator,
+                                                     quantize_groma_llm)
     from groma_tpu_torch.parallel import mesh as pm
     from groma_tpu_torch.serve.engine import BatchEngine
     _join(rank, world, init)
@@ -433,14 +434,21 @@ def _serve_ranks(rank, world, init, ref, out_dir):
     groma = from_state_dict(ref['groma'], t_tiny())
     pm.cut_tp(groma, grid.tp_group)
     eos, reqs = _engine_requests()
+    # the whole weights gathered over the tp pair, the tree cut from them
+    qp = quantize_groma_llm(groma, t_tiny())
     try:
-        BatchEngine(groma, {'layers': []}, kv_bits=8)
+        BatchEngine(groma, qp, kv_bits=8, spec_lookahead=2)
     except ValueError as e:
         out['quantized_refused'] = str(e)
     try:
-        QuantGenerator(groma, {'layers': []}, kv_bits=8)
+        QuantGenerator(groma, qp, kv_bits=8, w8a8_prefill=True)
     except ValueError as e:
         out['quant_generator_refused'] = str(e)
+    try:
+        QuantGenerator(groma, {'layers': []}, kv_bits=8)
+    except ValueError as e:
+        out['whole_tree_refused'] = str(e)
+    del qp
     engine = BatchEngine(groma, None, max_slots=2,
                          max_len=CFG.max_seq_len + ENGINE_MAX_NEW + 8,
                          eos_id=eos, chunk=2, max_new_tokens=ENGINE_MAX_NEW)
@@ -533,19 +541,25 @@ def test_engine_on_a_tp_cut_groma_serves_jaxs_tokens(serving):
 
 
 def test_engine_refuses_the_quantized_modes_on_a_tp_cut_model(serving):
+    """Of the engine's quantized modes on a tp-cut Groma and tree, the
+    speculative one stays out (``tests/test_torch_tp_quant.py`` serves
+    the others)."""
     _, ranks = serving
     for res in ranks:
-        assert 'item 11c' in res['quantized_refused']
+        assert 'item 11e' in res['quantized_refused']
+        assert 'speculative' in res['quantized_refused']
 
 
 def test_quant_generator_refuses_a_tp_cut_model(serving):
-    """The quantized forward has no tp all-reduce: on a tp-cut Groma it
-    would give wrong logits silently, so ``QuantGenerator`` refuses it on
-    every rank, as the engine does."""
+    """``QuantGenerator`` serves a tp-cut Groma on a cut tree, but not
+    its W8A8 prefill (the activation scales are maxima over the whole K),
+    and not beside a whole tree, which a tp-cut model's own weights cannot
+    have made: both refused on every rank."""
     _, ranks = serving
     for res in ranks:
-        assert 'item 11c' in res['quant_generator_refused']
-        assert 'QuantGenerator' in res['quant_generator_refused']
+        assert 'item 11f' in res['quant_generator_refused']
+        assert 'W8A8' in res['quant_generator_refused']
+        assert 'tp-cut quantized tree' in res['whole_tree_refused']
 
 
 def test_engine_followers_refuse_requests_and_stop_with_rank_0(serving):
