@@ -85,15 +85,24 @@ Phases, each printed before the last line:
     frozen) at full Groma-7B width and depth (GromaConfig defaults), random
     f32 weights from --seed, B=2 (reduced from 16 for memory), S=2048, a
     synthetic grounded batch (train/synthetic.py: the data pipeline's
-    expand_template + collate_vl, ground boxes, labels) through the port's
-    train_vl functions (random_groma_full,
-    make_adamw on the warmup-cosine schedule, make_vl_train_step):
-    TRAIN_STEPS steps, each printing loss, ms and peak memory and adding
-    exactly one bidirectional forward launch per ViT layer and one causal
-    forward and backward launch per LLM layer; frozen parameters must stay
-    bitwise unchanged and every trainable one must change; then two more
-    steps under torch.profiler: device busy share and the kernels that
-    take the most device time;
+    expand_template + collate_vl, ground boxes, labels) as host tensors
+    through the port's train_vl functions (random_groma_full, make_adamw
+    on the warmup-cosine schedule, make_vl_train_step): TRAIN_STEPS eager
+    steps (run A), then the same steps as a captured CUDA graph
+    (utils/graphs.TrainGraph: the first step the warm-up, then the capture
+    and replays), ms a step and peak memory printed; each captured step
+    from run A's state before it (the trained leaves, Adam's moments, the
+    count and the generator put back) against run A's step, within the
+    TWIN_* limit that a second eager step from the same state sets (the
+    loss, every trained leaf's update and Adam's moments; #5's dq atomics
+    make no two steps bitwise), and two controls refused by the same
+    comparison at every step (the step one short, and the count frozen
+    one behind); the replays launch exactly 24
+    of #3, 32 of #4 and 32 of #5 a step (StepGraph.device_launches); the
+    graph's capture ms and pool GiB; two steps of each mode under
+    torch.profiler (host and device ms a step, busy share, the kernels
+    that take the most device time); frozen parameters bitwise unchanged
+    and every trainable one changed;
  5. the served path at full Groma-7B width (DINOv2-L at 448, DDETR with
     300 queries, 100 region slots, Vicuna-7B width, int8 LLM, int8 KV
     cache, max_len = max_seq_len + 64) with random weights from --seed: the
@@ -241,13 +250,24 @@ Phases, each printed before the last line:
     level), random f32 weights from --seed, B=8 (the script's 64 cut for
     memory and time) on seeded synthetic 640x480 PNGs with 10 to 50 boxes
     each from a coco_box and an sa1b_box source: train_det through its
-    entry point for an epoch (4 steps) and a resume for one more (losses
-    finite, the ViT bitwise unchanged, every other tensor moved, peak
-    memory), its step function's warm ms/step and, under torch.profiler,
-    device busy share and top kernels, both matchers' ms per step at these
-    shapes, evaluate_detector's COCO summary on 8 images and run_ddetr on
-    the export; then a twin at 2 ViT and 2+2 DDETR layers: one step on the
-    card against the CPU (the same matches, every loss, every trainable
+    entry point for an epoch (4 steps) and a resume for one more (each
+    head's step_mode captured, losses finite, the ViT bitwise unchanged,
+    every other tensor moved, peak memory), its step function's warm
+    ms/step and, under torch.profiler, device busy share and top kernels;
+    for each matcher, DET_GRAPH_STEPS steps alternating the sources,
+    eager and captured (parts A and C around the
+    matcher, utils/graphs.TrainGraph; the auction's rounds a graph of
+    their own), held step by step by phase 4's TWIN_* rule and controls
+    (bitwise where the eager pairs are), with each mode's host ms a step,
+    the matcher's share and, under torch.profiler, device ms a step; both
+    matchers' ms per step at these shapes, evaluate_detector's COCO
+    summary on 8 images twice with the forward a replayed CUDA graph
+    (eval/det_eval.forward_graph: the perceiver keeps it, so the second
+    evaluation replays only) against eager (the summary equal, the outputs
+    bitwise; the image count past which the capture pays for itself) and
+    run_ddetr on the export;
+    then a twin at 2 ViT and 2+2 DDETR layers: one step on the card
+    against the CPU (the same matches, every loss, every trainable
     gradient, within the DET_TWIN limits).  No kernel runs on this path.
  12. GQA, DINOv2-giant, the evaluation kits and FSDP.  In phase 2, #1
     and #7 at the GQA qkv width
@@ -2126,7 +2146,8 @@ class PrefillTwin:
 
         def replays():
             for _ in range(n):
-                entry.graph.replay()
+                for graph in entry.graphs:
+                    graph.replay()
         replay_ms = _timed(torch, replays, n)
         replay_dev, names = _profiled(torch, replays, n)
         copy = _clone_tree(torch, entry.state)
@@ -2543,8 +2564,9 @@ def check_stage3(torch, seed: int, card: str):
         t0 = time.perf_counter()
         out = model(**_train_args(batch_to(batch, dev)), use_flash=True)
         out['loss'].backward()
-        grads = {k: p.grad.float().cpu() for k, p in model.named_parameters()
-                 if p.grad is not None}
+        # copies: the update zeroes the gradients in place
+        grads = {k: p.grad.to('cpu', torch.float32, copy=True)
+                 for k, p in model.named_parameters() if p.grad is not None}
         opt.step()
         if dev == 'cuda':
             torch.cuda.synchronize()
@@ -2593,13 +2615,191 @@ def check_stage3(torch, seed: int, card: str):
     del card_model, cpu_model, results, g_grads, c_grads, vit_states
 
 
+# the captured training steps against their eager twins (phases 4 and 11),
+# step by step: before each compared step the trained leaves, Adam's two
+# moments, the update count and the generator are put back to the eager
+# run's state there (S_i), so that each comparison holds one step's
+# noise, not the drift of the steps before it (Adam divides a gradient by
+# its own size, so two runs part further at every step).  Eager run A
+# steps from S_i to S_i+1; a second eager step from S_i (B) gives the
+# spread; the captured step from S_i is held to TWIN_SPREAD_FACTOR times
+# the largest spread over the steps plus one f32 unit (0 where every eager
+# pair is bitwise), in the worst relative error of a loss and, over every
+# trained leaf, the relative Frobenius error of the step's update (after -
+# S_i) and of Adam's moments.  Two controls go through the same
+# comparison and must be refused at every step they run: the step one
+# short (S_i itself, as if a replay had skipped its update) and the count
+# frozen (the eager step from S_i with the count one behind, as if a
+# replay had not advanced it: the learning rate and Adam's bias
+# corrections of the step before).  #5 adds dq with red.global.add
+# (csrc/flash_attention_bwd.cu) and grid_sample's backward adds with
+# atomics, so no two eager steps of either stage are bitwise.
+TWIN_SPREAD_FACTOR = 4.0
+F32_UNIT = 2.0 ** -23
+TWIN_QUANTITIES = ('loss', 'update', 'exp_avg', 'exp_avg_sq')
+TWIN_MOMENTS = ('exp_avg', 'exp_avg_sq')
+
+
+def _twin_state(params: dict, opt, gen=None, to=None) -> dict:
+    """The trained leaves ``params``, Adam's two moments, the update count,
+    the micro-batch count and the generator's state: the live tensors
+    (``to`` None) or copies on ``to``."""
+    def take(t):
+        return t.detach() if to is None else t.detach().to(to, copy=True)
+    state = {'param': {k: take(p) for k, p in params.items()}}
+    for q in TWIN_MOMENTS:
+        state[q] = {k: take(opt.opt.state[p][q]) for k, p in params.items()}
+    state['count'] = take(opt.opt.count)
+    state['micro'] = opt.micro
+    state['gen'] = None if gen is None or to is None else gen.get_state()
+    return state
+
+
+def _twin_restore(torch, params: dict, opt, gen, state: dict):
+    """Put ``state`` (a ``_twin_state`` copy) back in place."""
+    live = _twin_state(params, opt)
+    with torch.no_grad():
+        for q in ('param',) + TWIN_MOMENTS:
+            for k, t in live[q].items():
+                t.copy_(state[q][k])
+        opt.opt.count.copy_(state['count'])
+    opt.micro = state['micro']
+    if gen is not None:
+        gen.set_state(state['gen'])
+
+
+def _twin_errors(torch, got: dict, start: dict, want: dict, loss,
+                 want_loss, device) -> dict:
+    """One step from ``start``: the state ``got`` and its losses against
+    ``want`` and ``want_loss`` (the eager step's from the same start), on
+    ``device`` leaf by leaf."""
+    sums = {q: [0.0, 0.0] for q in TWIN_QUANTITIES[1:]}
+    for k in want['param']:
+        s = start['param'][k].to(device)
+        pairs = {'update': (got['param'][k].to(device) - s,
+                            want['param'][k].to(device) - s)}
+        for q in TWIN_MOMENTS:
+            pairs[q] = (got[q][k].to(device), want[q][k].to(device))
+        for q, (g, w) in pairs.items():
+            sums[q][0] += float(((g.double() - w.double()) ** 2).sum())
+            sums[q][1] += float((w.double() ** 2).sum())
+    out = {'loss': max(abs(g - w) / max(abs(w), 1e-12)
+                       for g, w in zip(loss, want_loss))}
+    for q, (num, den) in sums.items():
+        out[q] = math.sqrt(num / den) if den else (0.0 if num == 0
+                                                   else math.inf)
+    return out
+
+
+def _timed_step(torch, step, mode: str, i: int):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = step(mode, i)
+    torch.cuda.synchronize()
+    return losses, time.perf_counter() - t0
+
+
+def _twin_eager(torch, params: dict, opt, gen, n: int, step,
+                device='cuda'):
+    """The eager half of the twin: ``n`` steps of eager run A, each from
+    S_i with run B's step and both controls beside it.  ``step(mode, i)``
+    runs step i (``mode`` 'eager run A', 'eager run B', 'count frozen' or
+    'captured') and returns its losses as floats.  -> (S_0 .. S_n on the
+    host, each step's record, run A's host seconds a step)."""
+    opt.prepare()
+    start = _twin_state(params, opt, gen, to=device)
+    series = [_twin_state(params, opt, gen, to='cpu')]
+    live = _twin_state(params, opt)
+    records, seconds = [], []
+    for i in range(n):
+        loss, dt = _timed_step(torch, step, 'eager run A', i)
+        seconds.append(dt)
+        want = _twin_state(params, opt, gen, to=device)
+        series.append(_twin_state(params, opt, gen, to='cpu'))
+        rec = {'loss': loss, 'short': _twin_errors(
+            torch, start, start, want, loss, loss, device)}
+        _twin_restore(torch, params, opt, gen, start)
+        rec['spread'] = _twin_errors(torch, live, start, want,
+                                     step('eager run B', i), loss, device)
+        if i:
+            _twin_restore(torch, params, opt, gen, start)
+            opt.opt.count.sub_(1)
+            rec['frozen'] = _twin_errors(torch, live, start, want,
+                                         step('count frozen', i), loss,
+                                         device)
+        _twin_restore(torch, params, opt, gen, want)
+        start = want
+        records.append(rec)
+    return series, records, seconds
+
+
+def _twin_captured(torch, params: dict, opt, gen, series, records, step,
+                   device='cuda') -> list:
+    """The captured half: step i from S_i (the first call of each key its
+    warm-up and capture, then replays) against run A's, into each record's
+    'got'.  -> the host seconds a step."""
+    live = _twin_state(params, opt)
+    seconds = []
+    for i, rec in enumerate(records):
+        _twin_restore(torch, params, opt, gen, series[i])
+        loss, dt = _timed_step(torch, step, 'captured', i)
+        seconds.append(dt)
+        rec['got'] = _twin_errors(torch, live, series[i], series[i + 1],
+                                  loss, rec['loss'], device)
+    return seconds
+
+
+def _twin_verdict(name: str, records: list, card: str) -> str:
+    """The limits from the eager spread, the captured steps' errors and
+    the controls, through one comparison; fails the phase where a captured
+    step passes its limit or a control is not refused at a step."""
+    spread = {q: max(r['spread'][q] for r in records)
+              for q in TWIN_QUANTITIES}
+    bitwise = not any(spread.values())
+    limit = {q: 0.0 if bitwise else TWIN_SPREAD_FACTOR * v + F32_UNIT
+             for q, v in spread.items()}
+
+    def over(e: dict) -> dict:
+        """Each error as a multiple of its limit."""
+        return {q: e[q] / limit[q] if limit[q] else
+                (math.inf if e[q] else 0.0) for q in e}
+    got = {q: max(r['got'][q] for r in records) for q in TWIN_QUANTITIES}
+    controls = {'one step short': [r['short'] for r in records],
+                'count frozen': [r['frozen'] for r in records
+                                 if 'frozen' in r]}
+    ok = max(over(got).values()) <= 1.0
+    parts = []
+    for c, errs in controls.items():
+        nearest = min((max(over(e).items(), key=lambda kv: kv[1])
+                       for e in errs), key=lambda kv: kv[1])
+        refused = sum(max(over(e).values()) > 1.0 for e in errs)
+        ok = ok and refused == len(errs)
+        parts.append(f'{c} refused at {refused} of {len(errs)} steps, the '
+                     f'nearest {nearest[1]:.3g} x its limit '
+                     f'({nearest[0]})')
+    line = (f'{name}: each captured step from the eager run\'s state '
+            f'against the eager step from it, over {len(records)} steps, '
+            + ('every eager pair bitwise, so the limit is 0: ' if bitwise
+               else 'limit = {:g} x the largest spread of two eager steps '
+               '+ 2^-23: '.format(TWIN_SPREAD_FACTOR))
+            + ', '.join(f'{q} {got[q]:.3e} (spread {spread[q]:.3e}, limit '
+                        f'{limit[q]:.3e})' for q in TWIN_QUANTITIES)
+            + '; controls: ' + '; '.join(parts) + ' '
+            + ('ok' if ok else 'FAIL') + f' [{card}]')
+    print(line)
+    if not ok:
+        fail(f'{name}: a captured step is outside its twin limit, or a '
+             f'control was not refused')
+    return line
+
+
 def train_full_width(torch, np, seed: int, card: str):
     """Stage 2 (vl_pretrain.sh: perceiver and LLM frozen) at full Groma-7B
-    through the port's train_vl functions.  Returns the flash kernels'
-    launches over the checked steps."""
+    through the port's train_vl functions, the step captured
+    (TrainGraph) and held against its eager twin.  Returns the flash
+    kernels' launches in the captured run (warm-up and replays)."""
     from groma_tpu_torch.checkpoint.loader import random_groma_full
     from groma_tpu_torch.models.groma import GromaConfig
-    from groma_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd
     from groma_tpu_torch.train.optimizer import (cosine_schedule,
                                                  freeze_predicate, make_adamw)
     from groma_tpu_torch.train.steps import batch_to, make_vl_train_step
@@ -2608,15 +2808,19 @@ def train_full_width(torch, np, seed: int, card: str):
     b, steps = TRAIN_BATCH, TRAIN_STEPS
     t0 = time.perf_counter()
     model = random_groma_full(cfg, seed=seed, device='cuda')
-    opt = make_adamw(model, cosine_schedule(1e-4, steps, warmup_ratio=0.03),
-                     frozen_pred=freeze_predicate(freeze_perceiver=True,
-                                                  freeze_llm=True))
-    step_fn = make_vl_train_step(model, opt, use_flash=True)
+    frozen_pred = freeze_predicate(freeze_perceiver=True, freeze_llm=True)
     gen = torch.Generator(device='cuda')
     gen.manual_seed(seed)
-    batch = batch_to(grounded_batch(cfg, b, seed + 5), 'cuda')
-    trainable = {k: p.detach().clone() for k, p in model.named_parameters()
-                 if p.requires_grad}
+    gen_start = gen.get_state()
+    # host tensors, as the entry point's loader gives them, a batch of its
+    # own each step: the step copies them in (the captured one through
+    # pinned staging buffers into its static inputs)
+    batches = [batch_to(grounded_batch(cfg, b, seed + 5 + i), 'cpu')
+               for i in range(steps)]
+    batch = batches[0]
+    for k, p in model.named_parameters():
+        p.requires_grad_(not frozen_pred(k))
+    trained = [k for k, p in model.named_parameters() if p.requires_grad]
     frozen = [(k, p) for k, p in model.named_parameters()
               if not p.requires_grad]
 
@@ -2631,68 +2835,103 @@ def train_full_width(torch, np, seed: int, card: str):
     n_valid = int(batch['valid'].sum())
     print(f'stage 2 training: random full-width Groma-7B (f32 master '
           f'weights) built in {time.perf_counter() - t0:.1f} s; '
-          f'{sum(v.numel() for v in trainable.values())} of '
+          f'{sum(model.get_parameter(k).numel() for k in trained)} of '
           f'{sum(p.numel() for p in model.parameters())} parameters train; '
           f'B={b} S={cfg.max_seq_len} ({n_valid} valid stream slots); '
           f'device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB '
           f'[{card}]')
+    per_step = {'flash_fwd.bidirectional': cfg.perceiver.vit.num_layers,
+                'flash_fwd.causal': cfg.llm.num_layers,
+                'flash_bwd.causal': cfg.llm.num_layers}
 
-    def counts():
-        return (flash_fwd.launches['bidirectional'],
-                flash_fwd.launches['causal'], flash_bwd.launches['causal'])
-    flash_fwd.launches.update(bidirectional=0, causal=0)
-    flash_bwd.launches.update(bidirectional=0, causal=0)
-    per_step = (cfg.perceiver.vit.num_layers, cfg.llm.num_layers,
-                cfg.llm.num_layers)
-    times = []
-    for i in range(steps):
-        before = counts()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        metrics = step_fn(batch, gen)
-        loss = metrics['loss'].item()
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        times.append(dt)
-        got = tuple(c - n for c, n in zip(counts(), before))
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        print(f'  step {i}: loss {loss:.5f}, {dt * 1e3:.1f} ms, '
-              f'{b * cfg.max_seq_len / dt:.0f} stream slots/s, peak '
-              f'{peak:.2f} GiB, lr {opt.schedule(i):.3e}; launches '
-              f'bidirectional fwd {got[0]}, causal fwd {got[1]}, causal bwd '
-              f'{got[2]} '
-              f'[{card}]')
-        if got != per_step:
-            fail(f'training step {i}: flash launches {got}, want {per_step} '
-                 f'(one per ViT layer, one fwd + one bwd per LLM layer)')
+    opt = make_adamw(model, cosine_schedule(1e-4, steps, warmup_ratio=0.03),
+                     frozen_pred=frozen_pred)
+    params = {k: model.get_parameter(k) for k in trained}
+    fns = {'eager': make_vl_train_step(model, opt, use_flash=True,
+                                       eager=True)}
+
+    def step(mode: str, i: int) -> list:
+        fn = fns['captured' if mode == 'captured' else 'eager']
+        loss = fn(batches[i], gen)['loss'].item()
         if not np.isfinite(loss):
-            fail(f'training step {i}: loss {loss}')
-    launches = counts()
+            fail(f'stage 2 {mode} step {i}: loss {loss}')
+        return [loss]
 
+    def warm_ms(seconds) -> float:
+        return sorted(seconds[1:])[(steps - 1) // 2] * 1e3
+
+    gen.set_state(gen_start)
+    torch.cuda.reset_peak_memory_stats()
+    series, records, eager_s = _twin_eager(torch, params, opt, gen, steps,
+                                           step)
+    eager_ms = warm_ms(eager_s)
+    print(f'  eager run A ({fns["eager"].mode}): losses '
+          + ', '.join(f'{r["loss"][0]:.5f}' for r in records)
+          + f'; {eager_s[0] * 1e3:.1f} ms the first step, {eager_ms:.1f} ms '
+          f'a warm step (median of {steps - 1}, host clock, synchronized, '
+          f'the batch copied in from the host); run B and the count-frozen '
+          f'control stepped from each of its states; peak '
+          f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, two '
+          f'copies of the trained state included [{card}]')
+    eager_wall, eager_dev = profile_steps(torch, fns.pop('eager'), batch,
+                                          gen, b * cfg.max_seq_len, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_counts()
+    step_fn = fns['captured'] = make_vl_train_step(model, opt,
+                                                   use_flash=True)
+    torch.cuda.reset_peak_memory_stats()
+    graph_s = _twin_captured(torch, params, opt, gen, series, records, step)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    graph_ms = warm_ms(graph_s)
+    ran = device_launches()
+    still = [k for k, p in params.items()
+             if torch.equal(p.detach().cpu(), series[0]['param'][k])]
+    del series
+    report = step_fn.graph.report()
+    (delta,) = report['launches'].values()
+    want = {k: v * steps for k, v in per_step.items()}
+    got = {k: ran[k] for k in want}
+    print(f'  captured run ({step_fn.mode}): {graph_s[0] * 1e3:.1f} ms the '
+          f'first step (its warm-up and capture), {graph_ms:.1f} ms a warm '
+          f'step (median of {steps - 1} replays, as above); one graph '
+          f'(accumulation 1: every step updates), capture '
+          f'{report["capture_ms"]:.1f} ms, pool {report["pool_gib"]:.2f} '
+          f'GiB, {report["replays"]} replays; a replay launches {delta}; '
+          f'launches that ran in the {steps} steps (the warm-up step and '
+          f'the replays): {got}, want {want} [{card}]')
+    if step_fn.mode != 'captured' or delta != per_step or got != want:
+        fail(f'stage 2: the step was not replayed with {per_step} flash '
+             f'launches a step')
+    _twin_verdict('stage 2 twin', records, card)
+    graph_wall, graph_dev = profile_steps(torch, step_fn, batch, gen,
+                                          b * cfg.max_seq_len, card)
+    print(f'stage 2 step, captured against eager: host clock '
+          f'{graph_ms:.1f} against {eager_ms:.1f} ms a warm step; profiled '
+          f'wall {graph_wall:.1f} against {eager_wall:.1f} ms, device '
+          f'{graph_dev:.1f} against {eager_dev:.1f} ms a step; capture '
+          f'{report["capture_ms"]:.1f} ms, pool {report["pool_gib"]:.2f} '
+          f'GiB, peak {peak:.2f} GiB of the captured run [{card}]')
     changed_bits = [k for k, p in frozen if bits(p) != frozen_bits[k]]
     changed_copy = [k for k, v in frozen_copy.items()
                     if not torch.equal(model.get_parameter(k).cpu(), v)]
     if changed_bits or changed_copy:
         fail(f'frozen parameters changed: {(changed_bits + changed_copy)[:5]}')
-    still = [k for k, v in trainable.items()
-             if torch.equal(model.get_parameter(k), v)]
     if still:
         fail(f'trainable parameters unchanged after {steps} steps: '
              f'{still[:5]}')
-    warm = sorted(times[1:])
     print(f'stage 2 checks passed: {len(frozen)} frozen tensors bitwise '
-          f'unchanged, all {len(trainable)} trainable tensors changed; warm '
-          f'steps {warm[len(warm) // 2] * 1e3:.1f} ms median of '
-          f'{len(warm)} [{card}]')
-    profile_steps(torch, step_fn, batch, gen, b * cfg.max_seq_len, card)
-    del model, opt, step_fn, trainable, batch
-    return launches
+          f'unchanged, all {len(trained)} trainable tensors changed '
+          f'[{card}]')
+    del model, step_fn, batch, batches, records, params, opt
+    return (got['flash_fwd.bidirectional'], got['flash_fwd.causal'],
+            got['flash_bwd.causal'])
 
 
 def profile_steps(torch, step_fn, batch, gen, slots: int, card: str,
                   n: int = 2):
     """``n`` steps under torch.profiler: device busy share and the kernels
-    with the most device time."""
+    with the most device time -> (wall ms, device ms) a step."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     torch.cuda.synchronize()
     with tprofile(activities=[ProfilerActivity.CPU,
@@ -2715,6 +2954,7 @@ def profile_steps(torch, step_fn, batch, gen, slots: int, card: str,
           f'{slots * n / wall:.0f} stream slots/s [{card}]')
     for name, ms in top:
         print(f'  {ms / n:9.2f} ms/step  {name[:100]} [{card}]')
+    return wall * 1e3 / n, device_ms / n
 
 
 def random_image(np, seed: int, size: int):
@@ -5197,6 +5437,7 @@ DET_PROFILED_STEPS = 2
 DET_MATCHER_RUNS = 3
 DET_EVAL_IMAGES = 8
 DET_TWIN_BATCH = 2
+DET_GRAPH_STEPS = 6        # alternating: each head a warm-up, 2 replays
 # the reduced-depth twin (2 ViT layers, 2+2 DDETR layers): one step's
 # losses and trainable gradients on the card against the CPU, both in f32
 # after the ViT (the CPU takes the card's DDETR features).  Measured on an
@@ -5268,7 +5509,9 @@ def train_det_full_width(torch, np, seed: int, card: str):
     from groma_tpu_torch.data.build import build_multi_datasets, collate_det
     from groma_tpu_torch.data.image_pipeline import normalize, resize
     from groma_tpu_torch.eval import run_ddetr
-    from groma_tpu_torch.eval.det_eval import evaluate_detector
+    from groma_tpu_torch.eval.det_eval import (detector_forward,
+                                               evaluate_detector,
+                                               forward_graph)
     from groma_tpu_torch.models import ddetr_loss as dl
     from groma_tpu_torch.ops import matcher
     from groma_tpu_torch.train import train_det
@@ -5299,6 +5542,9 @@ def train_det_full_width(torch, np, seed: int, card: str):
         second = train_det.main(argv + ['--num_train_epochs',
                                         str((n + 1) / n)])
         second_s = time.perf_counter() - t0
+        modes = {**first['step_modes'], **second['step_modes']}
+        if set(modes.values()) != {'captured'}:
+            fail(f'train_det: the steps ran {modes}, not captured')
         if second['step'] != n + 1 or len(second['losses']) != 1:
             fail(f'train_det resumed to step {second["step"]} with '
                  f'{len(second["losses"])} new steps, want {n + 1} and 1')
@@ -5328,9 +5574,9 @@ def train_det_full_width(torch, np, seed: int, card: str):
               f'written), losses '
               + ', '.join(f'{v:.3f}' for v in losses)
               + f'; {entry[len(entry) // 2] * 1e3:.1f} ms a step (median '
-              f'after the first, host clock, synchronized); peak '
-              f'{peak:.2f} GiB at B={DET_BATCH}; the ViT bitwise unchanged, '
-              f'every other tensor moved [{card}]')
+              f'after the first, host clock, synchronized); step_mode '
+              f'{modes}; peak {peak:.2f} GiB at B={DET_BATCH}; the ViT '
+              f'bitwise unchanged, every other tensor moved [{card}]')
 
         # steps of the entry point's own step function on one batch of
         # each source, timed and then profiled
@@ -5379,6 +5625,13 @@ def train_det_full_width(torch, np, seed: int, card: str):
               f'{100 * device_ms / (wall * 1e3):.1f} % [{card}]')
         for name, ms in top:
             print(f'  {ms / k:9.2f} ms/step  {name[:100]} [{card}]')
+        del steps, opt
+        det_graph_twin(torch, model, cfg, {
+            src: [det_batch_to(collate_det(
+                [ds[int(ds.offsets[i]) + k * DET_BATCH + j]
+                 for j in range(DET_BATCH)]), 'cpu')
+                for k in range(DET_IMAGES[src] // DET_BATCH)]
+            for i, src in enumerate(DET_IMAGES)}, card)
 
         # both matchers at these shapes, on one forward's outputs
         with torch.no_grad():
@@ -5419,13 +5672,50 @@ def train_det_full_width(torch, np, seed: int, card: str):
             samples.append({'images': normalize(sized), 'image_id': i,
                             'ori_shape': img.shape[:2],
                             'gt': [(0, b) for b in boxes]})
+        model.eval()
+        ev_s = []
+        for _ in range(2):          # the first at this shape captures
+            t0 = time.perf_counter()
+            summary = evaluate_detector(model, samples)
+            ev_s.append(time.perf_counter() - t0)
+            if not all(math.isfinite(v) for v in summary.values()):
+                fail(f'evaluate_detector: {summary}')
+        graph = forward_graph(model)
+        graph.eager = True          # the eager twin
         t0 = time.perf_counter()
-        summary = evaluate_detector(model.eval(), samples)
-        ev_s = time.perf_counter() - t0
-        if not all(math.isfinite(v) for v in summary.values()):
-            fail(f'evaluate_detector: {summary}')
-        print(f'evaluate_detector on {len(samples)} images in {ev_s:.1f} s: '
-              f'{json.dumps(summary)} [{card}]')
+        eager_summary = evaluate_detector(model, samples)
+        eager_s = time.perf_counter() - t0
+        graph.eager = False
+        # the forward's outputs, replayed against eager, image by image
+        worst = 0.0
+        with torch.no_grad():
+            for smp in samples:
+                x = torch.as_tensor(smp['images'][None], device='cuda')
+                got = graph.run(lambda _, im: detector_forward(model, im),
+                                None, x, key=(model.training,))
+                want = detector_forward(model, x)
+                worst = max(worst, *((got[k] - want[k]).abs().max().item()
+                                     for k in want))
+        (entry,) = graph.entries.values()
+        n = len(samples)
+        saved = (eager_s - ev_s[1]) / n
+        print(f'evaluate_detector on {n} images, the forward a CUDA graph '
+              f'({graph.mode}) replayed per image: {json.dumps(summary)}; '
+              f'{ev_s[0]:.2f} s the first evaluation (its warm-up and '
+              f'capture, {entry.capture_ms:.1f} ms of capture), '
+              f'{ev_s[1]:.2f} s the second (replays only: the perceiver '
+              f'keeps its graph), {eager_s:.2f} s eager; the capture pays '
+              f'for itself after '
+              + (f'{(ev_s[0] - ev_s[1]) / saved:.1f} images' if saved > 0
+                 else 'no number of images')
+              + ' (host clock); the summary '
+              + ('equal' if summary == eager_summary else 'DIFFERENT')
+              + f'; the replayed outputs at most {worst:.3e} from eager '
+              f'(limit 0) [{card}]')
+        if summary != eager_summary or worst or graph.mode != 'captured' \
+                or entry.replays != 3 * n:
+            fail('evaluate_detector: the replayed forward disagrees with '
+                 'the eager one, or the graph was not kept')
         t0 = time.perf_counter()
         kept = run_ddetr.main(['--model-dir', out, '--image-file',
                                os.path.join(root, 'coco0.png'),
@@ -5434,8 +5724,107 @@ def train_det_full_width(torch, np, seed: int, card: str):
             fail(f'run_ddetr: kept boxes {kept!r}')
         print(f'run_ddetr on the export: {len(kept)} boxes kept, '
               f'{time.perf_counter() - t0:.1f} s with the load [{card}]')
-        del model, opt, steps, batches, outs, second
+        del model, batches, outs, second
         return check_det_twin(torch, np, made, cfg_file, seed, card)
+
+
+def det_graph_twin(torch, model, cfg, batches, card: str):
+    """The detection step's captured parts against the eager step, both
+    matchers: DET_GRAPH_STEPS steps alternating the sources from the same
+    start, each captured step from the eager run's state (the TWIN_* rule
+    of phase 4), then each mode's host ms a step, the matcher's share of
+    it and, under torch.profiler, its device ms a step.  ``batches``: each
+    source's host batches, taken in turn."""
+    from groma_tpu_torch.models import ddetr_loss as dl
+    from groma_tpu_torch.train.optimizer import (det_lr_mult_rules,
+                                                 freeze_predicate, make_adamw)
+    from groma_tpu_torch.train.steps import make_det_train_step
+    sources = [('coco', 'sa1b')[i % 2] for i in range(DET_GRAPH_STEPS)]
+    start = {k: p.detach().clone() for k, p in model.named_parameters()
+             if not k.startswith('vis_encoder.')}
+    params = {k: model.get_parameter(k) for k in start}
+    for kind in ('hungarian', 'auction'):
+        real, matcher_s, now = dl.MATCHERS[kind], {}, [None]
+
+        def timed(c, v, _real=real):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            a = _real(c, v)
+            torch.cuda.synchronize()
+            matcher_s[now[0]] += time.perf_counter() - t
+            return a
+
+        with torch.no_grad():
+            for k, v in start.items():
+                params[k].copy_(v)
+        opt = make_adamw(model, 2e-4, weight_decay=1e-4, max_grad_norm=1.0,
+                         lr_mult_rules=det_lr_mult_rules(0.1),
+                         frozen_pred=freeze_predicate(
+                             freeze_vis_encoder=True))
+        fns = {mode: {src: make_det_train_step(
+            model, cfg.ddetr, opt, src, matcher=kind,
+            eager=mode == 'eager') for src in set(sources)}
+            for mode in ('eager', 'captured')}
+
+        def step(mode: str, i: int) -> list:
+            src = sources[i]
+            now[0] = (mode, i)
+            matcher_s[now[0]] = 0.0
+            out = fns['captured' if mode == 'captured' else 'eager'][src](
+                batches[src][i // 2 % len(batches[src])])
+            out.pop('updated')
+            losses = torch.stack(list(out.values())).tolist()
+            if not all(math.isfinite(v) for v in losses):
+                fail(f'det graph twin ({kind}, {mode}): a loss is not '
+                     f'finite')
+            return losses
+
+        def medians(mode: str, seconds: list):
+            """The steps after each head's first (its warm-up and
+            capture): host ms, the matcher's ms and its share."""
+            mid = (len(sources) - 2) // 2
+            m = [matcher_s[(mode, i)] for i in range(len(sources))]
+            return (sorted(seconds[2:])[mid] * 1e3,
+                    sorted(m[2:])[mid] * 1e3,
+                    sorted(a / t for a, t in zip(m[2:], seconds[2:]))[mid])
+
+        dl.MATCHERS[kind] = timed
+        try:
+            series, records, a_s = _twin_eager(torch, params, opt, None,
+                                               len(sources), step)
+            c_s = _twin_captured(torch, params, opt, None, series, records,
+                                 step)
+        finally:
+            dl.MATCHERS[kind] = real
+        del series
+        (a_ms, a_match, a_share) = medians('eager run A', a_s)
+        (c_ms, c_match, c_share) = medians('captured', c_s)
+        modes = {src: st.mode for src, st in fns['captured'].items()}
+        if set(modes.values()) != {'captured'}:
+            fail(f'det graph twin ({kind}): the steps ran {modes}')
+        _twin_verdict(f'det step twin ({kind})', records, card)
+        dev = {}
+        for mode, st in fns.items():
+            dev[mode] = device_per_step(
+                torch, lambda: st['coco'](batches['coco'][0])['loss'].item(),
+                DET_PROFILED_STEPS)
+        rep = {src: st.graph.report() for src, st in fns['captured'].items()}
+        print(f'det step ({kind}), B={DET_BATCH}, captured against eager: '
+              f'host clock {c_ms:.1f} against {a_ms:.1f} ms a step (median '
+              f'of the {DET_GRAPH_STEPS - 2} after each head\'s first, '
+              f'synchronized, the batch copied in from the host), of it the '
+              f'matcher {c_match:.1f} against {a_match:.1f} ms (median '
+              f'share {100 * c_share:.1f} % against {100 * a_share:.1f} %); '
+              f'profiled coco steps: device {dev["captured"][0]:.1f} against '
+              f'{dev["eager"][0]:.1f} ms, wall {dev["captured"][2]:.1f} '
+              f'against {dev["eager"][2]:.1f} ms, device operations '
+              f'{dev["captured"][1]:.0f} against {dev["eager"][1]:.0f} a '
+              f'step; captures '
+              + ', '.join(f'{src} {r["capture_ms"]:.1f} ms, pool '
+                          f'{r["pool_gib"]:.3f} GiB'
+                          for src, r in sorted(rep.items()))
+              + f' [{card}]')
+        del fns, opt, records
 
 
 def check_det_twin(torch, np, made, cfg_file, seed: int, card: str):
@@ -5502,16 +5891,18 @@ def check_det_twin(torch, np, made, cfg_file, seed: int, card: str):
                          lr_mult_rules=det_lr_mult_rules(0.1),
                          frozen_pred=freeze_predicate(freeze_vis_encoder=True))
         grads = {}
-        real_step = opt.step
+        real_update = opt.update
 
-        def keep_grads(_model=model, _grads=grads, _step=real_step):
+        def keep_grads(_model=model, _grads=grads, _update=real_update):
             _grads.update({k: p.grad.float().cpu().clone() for k, p in
                            _model.named_parameters() if p.grad is not None})
-            return _step()
-        opt.step = keep_grads
+            return _update()
+        opt.update = keep_grads
         t0 = time.perf_counter()
         try:
-            losses = make_det_train_step(model, cfg.ddetr, opt, 'coco')(
+            # eager: the gradients are read on the host before the update
+            losses = make_det_train_step(model, cfg.ddetr, opt, 'coco',
+                                         eager=True)(
                 det_batch_to(batch, dev))
         finally:
             dl.MATCHERS['hungarian'] = real
@@ -6149,8 +6540,9 @@ def _vl_step_run(torch, model, batch, frozen, with_start: bool = False,
         run['grads'] = cpu(pm.full_grads(model))
         return adam_step(*a, **kw)
     opt.opt.step = read_grads_then_step
+    # eager: the optimizer's step reads the gradients on the host
     step = make_vl_train_step(model, opt, use_flash=True,
-                              permute_regions=False)
+                              permute_regions=False, eager=True)
     for counts in (flash_fwd.launches, flash_bwd.launches):
         counts.update(dict.fromkeys(counts, 0))
     torch.cuda.synchronize()

@@ -5,11 +5,15 @@ loop).
 ``post_process`` as the reference's: sigmoid over the coco logits, one
 top-k over (query, class), cxcywh -> xyxy, rescaled to the original image
 size.  Scores go through the numpy COCO-protocol evaluator
-(``eval/coco_map.py``).
+(``eval/coco_map.py``).  The forward runs as a captured CUDA graph on the
+card, the counterpart of JAX's ``jax.jit`` of it: one graph per image
+shape, kept with the perceiver across evaluations, as ``jax.jit`` keeps
+its compiled forward.
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import Iterable
 
 import numpy as np
@@ -17,6 +21,12 @@ import torch
 
 from groma_tpu_torch.eval.coco_map import DetectionEvaluator
 from groma_tpu_torch.ops.bbox import cxcywh_to_xyxy
+from groma_tpu_torch.utils.graphs import CallGraph
+
+# image shapes whose graphs a perceiver keeps, the least recent dropped
+EVAL_SHAPES = 4
+# perceiver -> its evaluation forward's graphs
+_GRAPHS = weakref.WeakKeyDictionary()
 
 
 def collate_det_eval(samples):
@@ -46,24 +56,47 @@ def post_process(logits_coco: torch.Tensor, pred_boxes: torch.Tensor,
     return values, labels, boxes * scale, values > threshold
 
 
+def detector_forward(perceiver, images: torch.Tensor) -> dict:
+    """The evaluation's forward: the coco head's logits and the boxes."""
+    out = perceiver(images)
+    return {'logits': out['logits']['coco'], 'boxes': out['pred_boxes']}
+
+
+def forward_graph(perceiver) -> CallGraph:
+    """The graphs of ``perceiver``'s evaluation forward: made at its first
+    evaluation and kept while it lives, one per image shape (the
+    EVAL_SHAPES most recent).  A replay reads the parameters where they
+    lie: updated in place, they are read anew; moved, the graphs are
+    stale."""
+    if perceiver not in _GRAPHS:
+        _GRAPHS[perceiver] = CallGraph(keep=EVAL_SHAPES)
+    return _GRAPHS[perceiver]
+
+
 @torch.no_grad()
 def evaluate_detector(perceiver, samples: Iterable[dict], top_k: int = 100,
                       threshold: float = 0.0) -> dict:
     """samples: dicts with 'images' (H, W, 3 normalized), 'image_id',
     'ori_shape' (h, w), 'gt' a list of (category_id, xyxy absolute box).
-    Runs on the perceiver's device."""
+    Runs on the perceiver's device; on the card the forward is a CUDA
+    graph per image shape (``forward_graph``, JAX's jitted forward), the
+    first evaluation at a shape paying its warm-up and capture;
+    ``post_process`` runs after it."""
     dev = next(perceiver.parameters()).device
+    graph = forward_graph(perceiver)
     ev = DetectionEvaluator(max_dets=top_k)
     for s in samples:
         for cat, box in s.get('gt', []):
             ev.add_ground_truth(s['image_id'], cat, box)
-        out = perceiver(torch.as_tensor(np.asarray(s['images'])[None],
-                                        dtype=torch.float32, device=dev))
+        out = graph.run(lambda _, x: detector_forward(perceiver, x), None,
+                        torch.as_tensor(np.asarray(s['images'])[None],
+                                        dtype=torch.float32, device=dev),
+                        key=(perceiver.training,))
         sizes = torch.as_tensor(np.asarray(s['ori_shape'][:2])[None],
                                 device=dev)
         scores, labels, boxes, keep = (t[0].cpu().numpy() for t in
-                                       post_process(out['logits']['coco'],
-                                                    out['pred_boxes'], sizes,
+                                       post_process(out['logits'],
+                                                    out['boxes'], sizes,
                                                     threshold, top_k))
         for sc, lb, bx, kp in zip(scores, labels, boxes, keep):
             if kp:

@@ -25,7 +25,7 @@ import os
 import numpy as np
 
 
-def main(argv=None):
+def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument('--model-dir', required=True,
                     help="checkpoint directory, or 'tiny' / 'random'")
@@ -38,7 +38,11 @@ def main(argv=None):
     ap.add_argument('--device', default='cuda',
                     help="torch device (default cuda; 'cpu' to run on the "
                          "CPU)")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
 
     import torch.distributed as dist
 

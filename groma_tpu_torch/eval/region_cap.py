@@ -97,9 +97,7 @@ def merge_and_score(shard_dir: str, references: dict) -> dict:
     return score_captions(candidates, refs)
 
 
-def main(argv=None):
-    """Caption each image's first annotation box and score the captions
-    against the annotations' (or the image's) 'caption' field."""
+def parse_args(argv=None):
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -114,7 +112,13 @@ def main(argv=None):
     ap.add_argument('--device', default='cuda',
                     help="torch device (default cuda; 'cpu' to run on the "
                          "CPU)")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    """Caption each image's first annotation box and score the captions
+    against the annotations' (or the image's) 'caption' field."""
+    args = parse_args(argv)
 
     import torch.distributed as dist
 

@@ -10,7 +10,9 @@ by its coefficient.  Targets are fixed-capacity padded tensors
 ``num_boxes`` is the batch's target count, clamped to at least 1 (a
 data-parallel step passes the global batch's).
 The stages with one query count share one matcher call over their stacked
-costs.
+costs; ``matcher_costs`` and ``match`` split that call out, so that a
+train step can run the matcher between a captured forward and a captured
+loss.
 """
 
 from __future__ import annotations
@@ -95,25 +97,9 @@ def _single_stage_loss(logits, pred_boxes, tgt_labels, tgt_boxes, tgt_valid,
             'loss_giou': loss_giou, 'cardinality_error': cardinality_error}
 
 
-def ddetr_loss(outputs: Dict, targets: Dict, cfg: DDETRConfig,
-               source: str, matcher: str = 'hungarian',
-               num_boxes: Optional[torch.Tensor] = None
-               ) -> Dict[str, torch.Tensor]:
-    """Every stage's losses and their weighted total ``loss``.
-
-    ``outputs``: ``DDETRTransformer.forward``'s; ``targets``:
-    {'class_labels', 'boxes', 'valid'}; ``source`` 'coco' | 'sa1b' picks
-    the objectness head supervised (batches are single-source);
-    ``matcher`` 'hungarian' (exact, on the host) or 'auction' (on the
-    device); ``num_boxes`` the normalizing target count (default: this
-    batch's)."""
-    tgt_labels = targets['class_labels']
-    tgt_boxes = targets['boxes'].to(torch.float32)
-    tgt_valid = targets['valid'].to(torch.bool)
-    if num_boxes is None:
-        num_boxes = tgt_valid.sum().to(torch.float32)
-    num_boxes = num_boxes.clamp(min=1.0)
-
+def _stages(outputs: Dict, tgt_labels, cfg: DDETRConfig, source: str):
+    """(suffix, logits, boxes, labels) of every supervised prediction
+    set."""
     stages = [('', outputs['logits'][source], outputs['pred_boxes'],
                tgt_labels)]
     if cfg.auxiliary_loss:
@@ -125,30 +111,79 @@ def ddetr_loss(outputs: Dict, targets: Dict, cfg: DDETRConfig,
         stages.append(('_enc', outputs['enc_outputs_class'],
                        outputs['enc_outputs_coord'],
                        torch.zeros_like(tgt_labels)))
+    return stages
 
-    # one matcher call per query count (the encoder stage proposes over
-    # every encoder token, not num_queries)
-    b, t = tgt_valid.shape
+
+def _groups(stages) -> list:
+    """The stages' indices by query count, one matcher call each (the
+    encoder stage proposes over every encoder token, not num_queries)."""
     groups: Dict[int, list] = {}
     for k, st in enumerate(stages):
         groups.setdefault(st[1].shape[1], []).append(k)
-    assign = [None] * len(stages)
-    with torch.no_grad():
-        for idxs in groups.values():
-            costs = torch.stack([
-                _matcher_cost(stages[k][1], stages[k][2], stages[k][3],
-                              tgt_boxes, tgt_valid, cfg,
-                              alpha=cfg.focal_alpha) for k in idxs])
-            s = len(idxs)
-            a = MATCHERS[matcher](costs.reshape(s * b, *costs.shape[2:]),
-                                  tgt_valid.repeat(s, 1)).reshape(s, b, t)
-            for j, k in enumerate(idxs):
-                assign[k] = a[j]
+    return list(groups.values())
+
+
+@torch.no_grad()
+def matcher_costs(outputs: Dict, targets: Dict, cfg: DDETRConfig,
+                  source: str) -> list:
+    """The matcher's inputs, one (cost (S*B, Q, T), validity (S*B, T))
+    pair per query count: the S stages of that count stacked.  Device
+    work only: a CUDA graph captures it with the forward."""
+    tgt_boxes = targets['boxes'].to(torch.float32)
+    tgt_valid = targets['valid'].to(torch.bool)
+    stages = _stages(outputs, targets['class_labels'], cfg, source)
+    out = []
+    for idxs in _groups(stages):
+        costs = torch.stack([
+            _matcher_cost(stages[k][1], stages[k][2], stages[k][3],
+                          tgt_boxes, tgt_valid, cfg, alpha=cfg.focal_alpha)
+            for k in idxs])
+        out.append((costs.reshape(-1, *costs.shape[2:]),
+                    tgt_valid.repeat(len(idxs), 1)))
+    return out
+
+
+def match(costs: list, matcher: str = 'hungarian') -> list:
+    """``matcher_costs``' pairs -> each group's assignment (S*B, T)."""
+    return [MATCHERS[matcher](c, v) for c, v in costs]
+
+
+def ddetr_loss(outputs: Dict, targets: Dict, cfg: DDETRConfig,
+               source: str, matcher: str = 'hungarian',
+               num_boxes: Optional[torch.Tensor] = None,
+               assign: Optional[list] = None) -> Dict[str, torch.Tensor]:
+    """Every stage's losses and their weighted total ``loss``.
+
+    ``outputs``: ``DDETRTransformer.forward``'s; ``targets``:
+    {'class_labels', 'boxes', 'valid'}; ``source`` 'coco' | 'sa1b' picks
+    the objectness head supervised (batches are single-source);
+    ``matcher`` 'hungarian' (exact, on the host) or 'auction' (on the
+    device); ``num_boxes`` the normalizing target count (default: this
+    batch's); ``assign``: ``match``'s result on ``matcher_costs`` of these
+    outputs, computed here when None."""
+    tgt_labels = targets['class_labels']
+    tgt_boxes = targets['boxes'].to(torch.float32)
+    tgt_valid = targets['valid'].to(torch.bool)
+    if num_boxes is None:
+        num_boxes = tgt_valid.sum().to(torch.float32)
+    num_boxes = num_boxes.clamp(min=1.0)
+
+    stages = _stages(outputs, tgt_labels, cfg, source)
+    if assign is None:
+        assign = match(matcher_costs(outputs, targets, cfg, source),
+                       matcher)
+    b, t = tgt_valid.shape
+    per_stage = [None] * len(stages)
+    for idxs, a in zip(_groups(stages), assign):
+        a = a.reshape(len(idxs), b, t)
+        for j, k in enumerate(idxs):
+            per_stage[k] = a[j]
 
     loss_dict = {}
     for k, (suffix, lg, bx, lab) in enumerate(stages):
         part = _single_stage_loss(lg, bx, lab, tgt_boxes, tgt_valid,
-                                  num_boxes, cfg, matcher, assign=assign[k])
+                                  num_boxes, cfg, matcher,
+                                  assign=per_stage[k])
         loss_dict.update({f'{kk}{suffix}': v for kk, v in part.items()})
 
     weights = {'loss_ce': cfg.cls_loss_coefficient,

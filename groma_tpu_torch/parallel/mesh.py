@@ -181,14 +181,15 @@ def init_distributed(device: str = 'cuda', init_method: Optional[str] = None,
     return True
 
 
-def _grouped() -> bool:
+def grouped() -> bool:
+    """Whether this process is in a process group."""
     return dist.is_available() and dist.is_initialized()
 
 
 def rank_and_world(group=None) -> tuple:
     """(rank, size) in ``group`` (None: the whole process group); (0, 1)
     without a process group."""
-    if _grouped():
+    if grouped():
         return dist.get_rank(group), dist.get_world_size(group)
     return 0, 1
 
@@ -488,7 +489,7 @@ class RankBatches:
 def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
     """``t`` summed over ``group`` (None: the whole process group), in
     place (``t`` itself without a process group)."""
-    if _grouped():
+    if grouped():
         dist.all_reduce(t, group=group)
     return t
 

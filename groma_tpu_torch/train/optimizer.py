@@ -16,7 +16,9 @@ state-dict names:
   ``llm.``) get ``requires_grad=False`` and stay out of the optimizer, so
   they get no update, no gradient and no Adam state;
 * optax's ``warmup_cosine_decay_schedule`` (lr 0 at step 0), the schedule
-  read at the count of updates already applied;
+  read at the count of updates already applied, which lives on the
+  device with the rest of the update (a CUDA graph captures the update;
+  checkpoints keep torch.optim.AdamW's format);
 * every trainable parameter updated at every step, a zero gradient where
   the loss does not reach it (optax transforms every leaf);
 * optional global-norm clipping over the trainable gradients, and
@@ -71,7 +73,9 @@ def cosine_schedule(base_lr: float, total_steps: int,
                     warmup_steps: int = 0, warmup_ratio: float = 0.0):
     """HF-Trainer cosine schedule with linear warmup from 0, as optax's
     ``warmup_cosine_decay_schedule(0, base_lr, max(warmup, 1),
-    max(total_steps, 2), 0)``: step -> lr."""
+    max(total_steps, 2), 0)``: step -> lr, and ``schedule.on_device(count)``
+    the same value (f64) from a device tensor, for an update that reads
+    nothing back to the host."""
     warmup = max(warmup_steps or int(total_steps * warmup_ratio), 1)
     decay = max(total_steps, 2) - warmup
 
@@ -80,6 +84,23 @@ def cosine_schedule(base_lr: float, total_steps: int,
             return base_lr * step / warmup
         count = min(step - warmup, decay)
         return base_lr * 0.5 * (1.0 + math.cos(math.pi * count / decay))
+
+    def on_device(step: torch.Tensor) -> torch.Tensor:
+        # the host formula's operations in its order, in f64
+        step = step.double()
+        count = (step - warmup).clamp(max=decay)
+        decayed = base_lr * 0.5 * (1.0 + torch.cos(math.pi * count / decay))
+        return torch.where(step < warmup, base_lr * step / warmup, decayed)
+    schedule.on_device = on_device
+    return schedule
+
+
+def constant_schedule(lr: float):
+    """A fixed learning rate, as a schedule (``on_device`` as above)."""
+    def schedule(step: int) -> float:
+        return lr
+    schedule.on_device = lambda step: torch.full(
+        (), lr, dtype=torch.float64, device=step.device)
     return schedule
 
 
@@ -135,10 +156,70 @@ def _sum_of_squares(grads, tp_cut, tp_group) -> torch.Tensor:
     return sum(reduced(*p) for p in parts.values())
 
 
+class _DeviceAdamW(torch.optim.AdamW):
+    """torch.optim.AdamW's parameter groups, state and checkpoint format,
+    stepped with the arithmetic on the device: the step count ``count`` is
+    one 0-d f32 tensor (every parameter's state ``step``), the rate is
+    ``schedule.on_device(count)`` times each group's ``mult``, and nothing
+    is read back to the host, so a CUDA graph can capture the step."""
+
+    def __init__(self, groups, schedule, count: torch.Tensor, betas, eps):
+        super().__init__(groups, lr=0.0, betas=betas, eps=eps)
+        self.schedule = schedule
+        self.count = count
+
+    def init_state(self):
+        """Zero moments for every parameter that has none (made eagerly,
+        before any capture, so they outlive every graph)."""
+        for group in self.param_groups:
+            for p in group['params']:
+                st = self.state[p]
+                if 'exp_avg' not in st:
+                    st['exp_avg'] = torch.zeros_like(
+                        p, memory_format=torch.preserve_format)
+                    st['exp_avg_sq'] = torch.zeros_like(
+                        p, memory_format=torch.preserve_format)
+                st['step'] = self.count
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        self.init_state()
+        lr = self.schedule.on_device(self.count)     # at the updates applied
+        self.count.add_(1)
+        step = self.count.double()
+        for group in self.param_groups:
+            b1, b2 = group['betas']
+            params = [_local(p) for p in group['params']]
+            grads = [_local(p.grad) for p in group['params']]
+            m = [_local(self.state[p]['exp_avg']) for p in group['params']]
+            v = [_local(self.state[p]['exp_avg_sq'])
+                 for p in group['params']]
+            group_lr = lr * group['mult']
+            if group['weight_decay']:
+                torch._foreach_mul_(params, (
+                    1 - group_lr * group['weight_decay']).float())
+            torch._foreach_lerp_(m, grads, 1 - b1)
+            torch._foreach_mul_(v, b2)
+            torch._foreach_addcmul_(v, grads, grads, 1 - b2)
+            denom = torch._foreach_sqrt(v)
+            torch._foreach_div_(denom, (1 - b2 ** step).sqrt().float())
+            torch._foreach_add_(denom, group['eps'])
+            upd = torch._foreach_div(m, denom)
+            torch._foreach_mul_(upd, (group_lr / (1 - b1 ** step)).float())
+            torch._foreach_sub_(params, upd)
+
+
 class AdamW:
-    """torch.optim.AdamW over the trainable parameters of ``model``, with
-    the schedule, multipliers, clipping and accumulation above.  Call
-    :meth:`step` after each micro-batch's backward."""
+    """AdamW over the trainable parameters of ``model``, with the schedule,
+    multipliers, clipping and accumulation above.
+
+    Each micro-batch's backward adds into gradients that are allocated
+    once (``prepare``) and zeroed in place, so their addresses never
+    change.  As optax.MultiSteps splits accumulation: :meth:`tick` counts a
+    micro-batch on the host and says whether it ends an accumulation, and
+    :meth:`update` divides, clips, applies and zeroes on the device,
+    reading nothing back (a CUDA graph captures it).  :meth:`step` is the
+    two together, for a caller that runs its own backward."""
 
     def __init__(self, model: nn.Module, learning_rate, weight_decay=0.0,
                  b1=0.9, b2=0.999, eps=1e-8,
@@ -147,11 +228,10 @@ class AdamW:
                  frozen_pred: Optional[Callable[[str], bool]] = None,
                  accum_steps: int = 1):
         self.schedule = learning_rate if callable(learning_rate) \
-            else (lambda step: learning_rate)
+            else constant_schedule(learning_rate)
         self.max_grad_norm = max_grad_norm
         self.accum_steps = accum_steps
         self.micro = 0
-        self.count = 0                      # updates applied
         no_decay = no_decay_names(model)
         groups = {}
         for name, p in model.named_parameters():
@@ -169,30 +249,54 @@ class AdamW:
         plan = getattr(model, 'tp_plan', {})
         self.tp_group = getattr(model, 'tp_group', None)
         self.tp_cut = [n in plan for n in self.names]
-        self.opt = torch.optim.AdamW(
+        # FSDP assigns each backward's reduce-scattered gradient shards
+        # itself: its parameters' gradients are left to it, made at the
+        # update where missing and freed after it (such a step runs
+        # eagerly, under a process group)
+        self.fsdp = any(hasattr(p, 'placements') for p in self.params)
+        device = self.params[0].device if self.params else None
+        self.opt = _DeviceAdamW(
             [{'params': [p for _, p in ps], 'mult': mult,
               'weight_decay': decay}
              for (mult, decay), ps in groups.items()],
-            lr=0.0, betas=(b1, b2), eps=eps)
+            self.schedule, torch.zeros((), dtype=torch.float32,
+                                       device=device),
+            betas=(b1, b2), eps=eps)
+
+    @property
+    def count(self) -> int:
+        """Updates applied (a host read of the device count)."""
+        return int(self.opt.count.item())
 
     @property
     def lr(self) -> float:
         return self.schedule(self.count)
 
-    @torch.no_grad()
-    def step(self) -> bool:
-        """Count one micro-batch; on the last of ``accum_steps``, average
-        the accumulated gradients, clip, update and clear them.  Returns
-        whether an update was applied."""
-        self.micro += 1
-        if self.micro % self.accum_steps:
-            return False
-        # optax updates every leaf: a trainable parameter the loss did not
-        # reach (the idle objectness head of a single-source batch) takes
-        # a zero gradient, so its moments and decay move as in JAX
+    def prepare(self):
+        """Allocate the gradients (zero) and the moments where missing."""
+        if not self.fsdp:
+            self._zero_missing_grads()
+        self.opt.init_state()
+
+    def _zero_missing_grads(self):
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+
+    def tick(self) -> bool:
+        """Count one micro-batch -> whether it is the last of
+        ``accum_steps`` (its step then updates)."""
+        self.micro += 1
+        return self.micro % self.accum_steps == 0
+
+    @torch.no_grad()
+    def update(self):
+        """Average the accumulated gradients, clip, update and zero them."""
+        # optax updates every leaf: a trainable parameter the loss did not
+        # reach (the idle objectness head of a single-source batch) keeps
+        # a zero gradient, so its moments and decay move as in JAX
+        self._zero_missing_grads()
+        self.opt.init_state()
         grads = [p.grad for p in self.params]
         local = [_local(g) for g in grads]
         if self.accum_steps > 1:
@@ -211,21 +315,37 @@ class AdamW:
             factor = torch.where(norm < self.max_grad_norm, 1.0,
                                  self.max_grad_norm / norm)
             torch._foreach_mul_(local, factor)
-        lr = self.lr
-        for group in self.opt.param_groups:
-            group['lr'] = lr * group['mult']
         self.opt.step()
-        self.opt.zero_grad(set_to_none=True)
-        self.count += 1
+        if self.fsdp:
+            self.opt.zero_grad(set_to_none=True)
+        else:
+            torch._foreach_zero_(local)
+
+    def step(self) -> bool:
+        """Count one micro-batch; on the last of ``accum_steps``, update.
+        Returns whether an update was applied."""
+        if not self.tick():
+            return False
+        self.update()
         return True
 
     def state_dict(self) -> dict:
-        return {'opt': self.opt.state_dict(), 'micro': self.micro,
-                'count': self.count}
+        """torch.optim.AdamW's form: each parameter's ``step`` a host
+        tensor of its own, which that optimizer's step can take."""
+        osd, count = self.opt.state_dict(), self.count
+        osd['state'] = {i: {**st, 'step': torch.tensor(float(count))}
+                        for i, st in osd['state'].items()}
+        return {'opt': osd, 'micro': self.micro, 'count': count}
 
     def load_state_dict(self, sd: dict):
+        """A state of this optimizer or of torch.optim.AdamW's (each
+        parameter's ``step`` a tensor of its own): the count goes back to
+        the device, shared by every parameter's state again."""
         self.opt.load_state_dict(sd['opt'])
-        self.micro, self.count = sd['micro'], sd['count']
+        self.micro = sd['micro']
+        self.opt.count.fill_(sd['count'])
+        for st in self.opt.state.values():
+            st['step'] = self.opt.count
 
 
 def make_adamw(model: nn.Module, learning_rate, weight_decay: float = 0.0,

@@ -12,8 +12,10 @@ warmup-cosine schedule with 0.1x learning rates on the ViT and the
 sampling offsets, the ViT frozen by default; the class-agnostic two-stage
 DDETR losses over Hungarian matches; source-grouped batches, each source
 supervising its objectness head (``coco``, ``sa1b``; other sources
-``coco``).  Checkpoints (``checkpoint-N.pt``: model and optimizer) every
-epoch or every ``--save_steps`` steps by ``--save_strategy``, the newest
+``coco``); on the card each head's step runs as CUDA graphs
+(``train/steps.py``; ``step_mode`` printed once a head).  Checkpoints
+(``checkpoint-N.pt``: model and optimizer) every epoch or every
+``--save_steps`` steps by ``--save_strategy``, the newest
 ``--save_total_limit`` kept, and automatic resume from the newest one, at
 the batch after the last one it trained on.  At the end the weights under
 the reference's names (``pytorch_model.bin`` + the reference's
@@ -119,7 +121,8 @@ def load_vis_encoder(model, path: str):
 def train(args, cfg, device: str) -> dict:
     """The training loop for the Perceiver at ``cfg``.  Returns {'step',
     'total_steps', 'losses' (each step's loss dict, floats),
-    'step_seconds' (host clock, device synchronized)}."""
+    'step_seconds' (host clock, device synchronized), 'model',
+    'step_modes' (each head's step mode)}."""
     import numpy as np
     import torch
 
@@ -192,12 +195,17 @@ def train(args, cfg, device: str) -> dict:
             source = batch.pop('source')
             head = source if source in ('coco', 'sa1b') else 'coco'
             if head not in step_fns:
+                # one set of graphs per head, as JAX keeps one program per
+                # source
                 step_fns[head] = make_det_train_step(model, cfg.ddetr,
                                                      optimizer, head)
+                print0(f'step_mode {step_fns[head].mode} ({head})',
+                       flush=True)
             ts = time.perf_counter()
-            metrics = step_fns[head](det_batch_to(batch, device))
+            # host tensors: the step copies them in through pinned memory
+            metrics = step_fns[head](det_batch_to(batch, 'cpu'))
             metrics.pop('updated')
-            # one read of every loss
+            # one read of every loss, after the replay
             metrics = dict(zip(metrics, torch.stack(
                 list(metrics.values())).tolist()))
             seconds.append(time.perf_counter() - ts)
@@ -222,7 +230,8 @@ def train(args, cfg, device: str) -> dict:
     if device.startswith('cuda'):
         torch.cuda.synchronize()
     return {'step': step, 'total_steps': total_steps, 'losses': losses,
-            'step_seconds': seconds, 'model': model}
+            'step_seconds': seconds, 'model': model,
+            'step_modes': {h: f.mode for h, f in step_fns.items()}}
 
 
 def main(argv=None):

@@ -9,7 +9,9 @@ The model is composed from ``--llm`` + ``--perceiver`` checkpoint
 directories, or loaded whole from ``--model_name_or_path``; the data comes
 through the port's copy of the host-side pipeline (datasets, source-grouped
 sampler, threaded loader, ``collate_vl``); AdamW on a warmup-cosine
-schedule with the freeze switches; gradient accumulation; checkpoints with
+schedule with the freeze switches; gradient accumulation; the step as
+CUDA graphs on the card (``train/steps.py``; ``step_mode`` printed once);
+checkpoints with
 ``torch.save`` every ``--save_steps`` updates and automatic resume from the
 newest one in ``--output_dir``; at the end, the weights under the
 reference's state-dict names (``pytorch_model.bin`` + ``config.json``),
@@ -303,6 +305,7 @@ def main(argv=None):
 
     step_fn = make_vl_train_step(model, optimizer,
                                  use_flash=args.use_flash_attention)
+    print0(f'step_mode {step_fn.mode}', flush=True)
     micro = start_step * accum
     step = start_step
     t0 = time.time()
@@ -312,7 +315,8 @@ def main(argv=None):
             step = micro // accum
             if step >= total_steps:
                 break
-            metrics = step_fn(batch_to(batch, device), generator)
+            # host tensors: the step copies them in through pinned memory
+            metrics = step_fn(batch_to(batch, 'cpu'), generator)
             micro += 1
             step = micro // accum
             if micro % (args.logging_steps * accum) == 0:

@@ -1,8 +1,10 @@
-"""Decode loops and prefills as device programs: a loop's step captured
-once as a CUDA graph and replayed, the counterpart of ``jax.jit`` over a
-``lax.scan`` body (``StepGraph``), and a call captured once per input
-shape, the counterpart of ``jax.jit``'s cache of compiled programs
-(``CallGraph``, the prefills).
+"""Decode loops, prefills and training steps as device programs: a loop's
+step captured once as a CUDA graph and replayed, the counterpart of
+``jax.jit`` over a ``lax.scan`` body (``StepGraph``), a call captured once
+per input shape, the counterpart of ``jax.jit``'s cache of compiled
+programs (``CallGraph``, the prefills and the detector's evaluation), and
+a training step with its backward and update, captured per key in parts
+cut where the host must act (``TrainGraph``).
 
 A step is a function of its state, ``step(state)``: the state is a dict
 (lists and dicts nested in it allowed) of tensors that the step reads and
@@ -48,12 +50,12 @@ import torch
 
 
 def launch_counts() -> dict:
-    """Every inference-path wrapper's launch counter, by name: the decode
-    and prefill kernels, the flash forward by mask, and the W8A8 library
+    """Every wrapper's launch counter, by name: the decode and prefill
+    kernels, the flash forward and backward by mask, and the W8A8 library
     routes (``torch._int_mm`` calls)."""
     from groma_tpu_torch.ops.decode_attention import int8_decode_attention
     from groma_tpu_torch.ops.decode_megakernel import fused_decode_step
-    from groma_tpu_torch.ops.flash_attention import flash_fwd
+    from groma_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd
     from groma_tpu_torch.ops.paged_attention import \
         paged_int8_decode_attention
     from groma_tpu_torch.ops.quant import int8_matmul, w8a8_conv, w8a8_matmul
@@ -68,6 +70,8 @@ def launch_counts() -> dict:
             'decode_megakernel': fused_decode_step.launches,
             'flash_fwd.causal': flash_fwd.launches['causal'],
             'flash_fwd.bidirectional': flash_fwd.launches['bidirectional'],
+            'flash_bwd.causal': flash_bwd.launches['causal'],
+            'flash_bwd.bidirectional': flash_bwd.launches['bidirectional'],
             'w8a8_matmul': w8a8_matmul.launches,
             'w8a8_conv': w8a8_conv.launches}
 
@@ -77,14 +81,16 @@ def set_launch_counts(counts: dict):
     ``launch_counts()``) back to its value there."""
     from groma_tpu_torch.ops.decode_attention import int8_decode_attention
     from groma_tpu_torch.ops.decode_megakernel import fused_decode_step
-    from groma_tpu_torch.ops.flash_attention import flash_fwd
+    from groma_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd
     from groma_tpu_torch.ops.paged_attention import \
         paged_int8_decode_attention
     from groma_tpu_torch.ops.quant import int8_matmul, w8a8_conv, w8a8_matmul
     from groma_tpu_torch.ops.quant4 import int4_matmul
     for name, v in counts.items():
-        if name.startswith('flash_fwd.'):
-            flash_fwd.launches[name.split('.')[1]] = v
+        if name.startswith(('flash_fwd.', 'flash_bwd.')):
+            flash, mask = name.split('.')
+            (flash_fwd if flash == 'flash_fwd' else flash_bwd).launches[
+                mask] = v
             continue
         wrapper, _, attr = name.partition('.')
         fn = {'int8_matmul': int8_matmul, 'int4_matmul': int4_matmul,
@@ -207,21 +213,102 @@ def _signature(inputs) -> tuple:
                  for t in inputs)
 
 
-class _Captured:
-    """One key's graph: its state, its static inputs, the capture's
-    outputs, the counter moves of one replay, the capture's host ms and
-    the bytes its capture added to the pool."""
+class _Entry:
+    """One key's graphs (``CallGraph``'s and ``TrainGraph``'s): the static
+    inputs (a training step's with their pinned host staging), the state,
+    one graph per part, each part's outputs, the static buffers of each
+    host step's results, the counter moves of one replay, the capture's
+    host ms and the bytes its captures added to the pool."""
 
-    def __init__(self, graph, state, inputs, outputs, delta, capture_ms,
-                 pool_bytes):
-        self.graph = graph
-        self.state = state
+    def __init__(self, inputs, state=None, pinned=None):
         self.inputs = inputs
-        self.outputs = outputs
-        self.delta = delta
-        self.capture_ms = capture_ms
-        self.pool_bytes = pool_bytes
+        self.state = state
+        self.pinned = pinned or {}
+        self.staged = None          # event: the last copy out of `pinned`
+        self.graphs, self.outputs, self.extras = [], [], []
+        self.delta: dict = {}
+        self.capture_ms = 0.0
+        self.pool_bytes = 0
         self.replays = 0
+
+    def load(self, inputs):
+        """Copy ``inputs`` (a dict or a sequence, as the static ones) into
+        the static buffers: a host tensor through its pinned staging buffer
+        (once the last step's copy out of it has run), a device tensor
+        directly."""
+        if self.staged is not None:
+            self.staged.synchronize()
+        pairs = inputs.items() if isinstance(inputs, dict) else \
+            enumerate(inputs)
+        for k, src in pairs:
+            dst = self.inputs[k]
+            if dst is None:
+                continue
+            if k in self.pinned:
+                self.pinned[k].copy_(src)
+                dst.copy_(self.pinned[k], non_blocking=True)
+            else:
+                dst.copy_(src)
+        if self.pinned:
+            self.staged = torch.cuda.Event()
+            self.staged.record()
+
+    def capture(self, calls, pool, device, generators=()):
+        """Capture ``calls`` in order on ``capture_stream(device)`` into
+        ``pool``, one graph each (``calls[i](previous output)``), and count
+        the launches they make (``StepGraph.captured``)."""
+        stream = capture_stream(device)
+        before = launch_counts()
+        t0 = time.perf_counter()
+        out = None
+        for call in calls:
+            graph = torch.cuda.CUDAGraph()
+            for g in generators:
+                graph.register_generator_state(g)
+            # thread_local: a request, scheduler or loader thread may
+            # allocate meanwhile; the context emptied the allocator's cache
+            # first, so the reserved bytes' growth is the pool's
+            with torch.cuda.graph(graph, pool=pool, stream=stream,
+                                  capture_error_mode='thread_local'):
+                reserved = torch.cuda.memory_reserved(device)
+                out = call(out)
+                self.pool_bytes += torch.cuda.memory_reserved(device) \
+                    - reserved
+            self.graphs.append(graph)
+            self.outputs.append(out)
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+        after = launch_counts()
+        self.delta = {k: after[k] - before[k] for k in after
+                      if after[k] != before[k]}
+        StepGraph.captured.update(self.delta)
+
+    def replay(self, host=None):
+        """Replay the parts, ``host`` and a copy of its results into the
+        static buffers between two; count the replay's launches."""
+        for i, graph in enumerate(self.graphs):
+            if i:
+                extra = host(self.outputs[i - 1])
+                for dst, src in zip(_tensors(self.extras[i - 1]),
+                                    _tensors(extra)):
+                    dst.copy_(src)
+            graph.replay()
+        self.replays += 1
+        for k, v in self.delta.items():
+            StepGraph.replayed[k] += v
+        return self.outputs[-1]
+
+
+def _warm_up(device, fn):
+    """``fn()`` on ``capture_stream(device)``, in order with the current
+    stream: every lazily built kernel, workspace and handle it reaches is
+    made before a capture."""
+    stream = capture_stream(device)
+    current = torch.cuda.current_stream(device)
+    stream.wait_stream(current)
+    with torch.cuda.stream(stream):
+        out = fn()
+    current.wait_stream(stream)
+    return out
 
 
 class CallGraph:
@@ -267,7 +354,7 @@ class CallGraph:
     def __init__(self, keep: int = 1, eager: bool = False):
         self.keep = keep
         self.eager = eager
-        self.entries: dict = {}    # key -> _Captured, least recent first
+        self.entries: dict = {}    # key -> _Entry, least recent first
         self.pool = None
         self.mode = None           # 'captured' or 'eager', of the last run
 
@@ -284,42 +371,141 @@ class CallGraph:
         if entry is None:
             while self.entries and len(self.entries) >= self.keep:
                 self.entries.pop(next(iter(self.entries)))
-            entry = self._capture(fn, state, inputs, tensor.device)
+            entry = _Entry(tuple(None if t is None else t.clone()
+                                 for t in inputs), state)
+            _warm_up(tensor.device, lambda: fn(state, *entry.inputs))
+            CallGraph.warmups += 1
+            if self.pool is None:
+                self.pool = torch.cuda.graph_pool_handle()
+            entry.capture([lambda _: fn(state, *entry.inputs)], self.pool,
+                          tensor.device)
         else:
-            for dst, src in zip(_tensors(entry.inputs), _tensors(inputs)):
-                dst.copy_(src)
+            entry.load(inputs)
         self.entries[full] = entry
-        entry.graph.replay()
-        entry.replays += 1
-        for k, v in entry.delta.items():
-            StepGraph.replayed[k] += v
-        return entry.outputs
+        return entry.replay()
 
-    def _capture(self, fn, state, inputs, device) -> _Captured:
-        static = tuple(None if t is None else t.clone() for t in inputs)
-        stream = capture_stream(device)
-        current = torch.cuda.current_stream(device)
-        stream.wait_stream(current)
-        with torch.cuda.stream(stream):
-            fn(state, *static)                           # the warm-up
-        current.wait_stream(stream)
-        CallGraph.warmups += 1
+
+def _chain(parts, inputs, host):
+    """The parts of a step one after another -> (each host step's
+    results, the last part's output)."""
+    out = parts[0](inputs)
+    extras = []
+    for part in parts[1:]:
+        extras.append(host(out))
+        out = part(inputs, out, extras[-1])
+    return extras, out
+
+
+class TrainGraph:
+    """A training step as CUDA graphs, the counterpart of ``jax.jit`` over
+    a train step: one set of graphs per key, as ``jax.jit`` keeps one
+    program per static argument and input shape.
+
+    ``run(parts, inputs, key=(), host=None, generators=())`` runs one step
+    and returns the last part's output.  ``inputs`` is a flat dict of
+    tensors, on the host or the device.  ``parts[0](inputs)`` is the first
+    part; a step of more parts is cut where the host must act (the
+    detection step's Hungarian matcher): ``host(out)`` takes the previous
+    part's output and returns a tree of device tensors, and
+    ``parts[i](inputs, out, extra)`` continues from both.  A part runs
+    autograd: its backward may go through an earlier part's forward.
+    ``generators``: the CUDA ``torch.Generator`` objects the step draws
+    from, registered with every graph so that each replay advances them as
+    an eager step would.
+
+    On the CPU, or with ``eager=True`` (under a process group), the parts
+    run eagerly on the device's tensors.  On the card a key's first call
+    copies its inputs into static buffers and runs the step eagerly on
+    ``capture_stream(device)`` (the warm-up, which is this call's step: it
+    makes every lazily built kernel, workspace and handle, and its result
+    is returned); then each part is captured on that stream into the
+    graph's one memory pool, in order, so that a later part's backward
+    records the kernels of the earlier part's saved activations, which
+    every replay of the earlier part rewrites in place (as
+    ``torch.cuda.make_graphed_callables`` shares one pool between a
+    forward and its backward).  Every later call copies its inputs in
+    (host tensors through pinned staging buffers) and replays the parts,
+    with the host step and a copy of its results into static buffers
+    between them.  A capture that fails raises: there is no eager
+    fallback on the card.
+
+    The outputs are the capture's tensors, which the key's next replay
+    overwrites: a caller copies out what it keeps.  What the parts do on
+    the host happens at the warm-up and the capture only.  Launches are
+    counted as ``CallGraph``'s: the capture's counter moves go to
+    ``StepGraph.captured``, each replay's to ``StepGraph.replayed``; the
+    warm-up's ran and stay in the wrappers' counts."""
+
+    def __init__(self, device, eager: bool = False):
+        self.device = torch.device(device)
+        self.eager = eager or self.device.type != 'cuda'
+        self.entries: dict = {}    # key -> _Entry
+        self.pool = None
+
+    @property
+    def mode(self) -> str:
+        return 'eager' if self.eager else 'captured'
+
+    def run(self, parts, inputs: dict, key=(), host=None, generators=()):
+        if self.eager:
+            inputs = {k: v.to(self.device) for k, v in inputs.items()}
+            return _chain(parts, inputs, host)[1]
+        full = (key, tuple((k, tuple(v.shape), v.dtype)
+                           for k, v in inputs.items()))
+        entry = self.entries.get(full)
+        if entry is not None:
+            entry.load(inputs)
+            return entry.replay(host)
+        entry = _Entry(
+            {k: torch.empty(v.shape, dtype=v.dtype, device=self.device)
+             for k, v in inputs.items()}, pinned={
+                k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                for k, v in inputs.items() if v.device.type == 'cpu'})
+        entry.load(inputs)
+        static = entry.inputs
+        extras, first = _warm_up(self.device,
+                                 lambda: _chain(parts, static, host))
+        entry.extras = [_clone(e) for e in extras]
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph()
-        before = launch_counts()
-        t0 = time.perf_counter()
-        # thread_local: the engine's scheduler thread captures while
-        # request threads may allocate
-        with torch.cuda.graph(graph, pool=self.pool, stream=stream,
-                              capture_error_mode='thread_local'):
-            reserved = torch.cuda.memory_reserved(device)
-            outputs = fn(state, *static)
-            pool_bytes = torch.cuda.memory_reserved(device) - reserved
-        capture_ms = (time.perf_counter() - t0) * 1e3
-        after = launch_counts()
-        delta = {k: after[k] - before[k] for k in after
-                 if after[k] != before[k]}
-        StepGraph.captured.update(delta)
-        return _Captured(graph, state, static, outputs, delta, capture_ms,
-                         pool_bytes)
+        entry.capture(
+            [lambda _: parts[0](static)] + [
+                lambda out, part=part, extra=extra: part(static, out, extra)
+                for part, extra in zip(parts[1:], entry.extras)],
+            self.pool, self.device, generators)
+        # the replays need the outputs' memory, not their autograd graph:
+        # kept alive, it would hold each parameter's gradient accumulator
+        # on the capture stream for every later eager step
+        entry.outputs = [_detached(o) for o in entry.outputs]
+        self.entries[full] = entry
+        return first
+
+    def report(self) -> dict:
+        """mode, and over the keys captured: capture ms, pool GiB, replays
+        and the launches of one replay, by key."""
+        return {'mode': self.mode,
+                'capture_ms': sum(e.capture_ms
+                                  for e in self.entries.values()),
+                'pool_gib': sum(e.pool_bytes
+                                for e in self.entries.values()) / 2**30,
+                'replays': sum(e.replays for e in self.entries.values()),
+                'launches': {k[0]: dict(e.delta)
+                             for k, e in self.entries.items()}}
+
+
+def _detached(tree):
+    if torch.is_tensor(tree):
+        return tree.detach()
+    if isinstance(tree, dict):
+        return {k: _detached(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_detached(v) for v in tree]
+    return tree
+
+
+def _clone(tree):
+    if torch.is_tensor(tree):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return [_clone(v) for v in tree]

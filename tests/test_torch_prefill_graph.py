@@ -8,14 +8,15 @@ counterpart of ``jax.jit``'s cache of compiled programs), on the CPU.
   there), a graph per key (the owner's flags, the state object, every
   input's shape and dtype), one warm-up and one capture a key, every later
   call a replay into the same outputs, the least recent key dropped past
-  ``keep``, launches counted as ``StepGraph`` counts them.
-* A capture-safety guard: each graphed prefill body runs with the host
-  reads (``Tensor.item``, ``.cpu``, ``.tolist``, ``.numpy``,
-  ``__bool__``, ``__int__``, ``__float__``, ``__index__``,
+  ``keep``, launches counted as ``StepGraph`` counts them; every
+  wrapper's launch counter (the flash backward's by mask too) read and
+  written back by name, and a replayed flash backward counted.
+* A capture-safety guard (``host_guard.py``): each graphed prefill body
+  runs with the host reads (``Tensor.item``, ``.cpu``, ``.tolist``,
+  ``.numpy``, ``__bool__``, ``__int__``, ``__float__``, ``__index__``,
   ``torch.nonzero``) and host data sent to a device (``torch.tensor`` /
   ``as_tensor`` with a device, a Python number written with
-  ``__setitem__``) refused: the
-  ``QuantGenerator`` (int8 + kv8, int4, W8A8 + ``vision_int8`` +
+  ``__setitem__``) refused: the ``QuantGenerator`` (int8 + kv8, int4, W8A8 + ``vision_int8`` +
   ``use_flash``), the ``Generator`` (scan and loop), the engine's
   ``prefill_one`` at b = 1 and 2 with and without a quantized tree, and
   the chunked prefill's ``prepare_one`` and ``last_logits``.
@@ -51,11 +52,13 @@ from groma_tpu_torch.data.tokenizer import StableStubTokenizer
 from groma_tpu_torch.eval.generate import DecodeScan, Generator
 from groma_tpu_torch.eval.generate_quant import (QuantGenerator,
                                                  quantize_groma_llm)
+from groma_tpu_torch.ops.flash_attention import flash_bwd
 from groma_tpu_torch.ops.quant import int8_matmul
 from groma_tpu_torch.serve.engine import BatchEngine
 from groma_tpu_torch.utils import graphs
 from groma_tpu_torch.utils.graphs import (CallGraph, StepGraph,
                                           launch_counts, set_launch_counts)
+from host_guard import no_host_reads
 
 torch.set_num_threads(2)
 
@@ -278,66 +281,56 @@ def test_call_graph_keeps_the_most_recent_keys(fake_card):
     assert [k[2][0][0] for k in g.entries] == [(1,), (2,)]
 
 
-# ------------------------------------------------------------- the guard
-
-_READS = ('item', '__bool__', '__int__', '__float__', '__index__', 'cpu',
-          'numpy', 'tolist')
-
-
-@contextlib.contextmanager
-def _no_host_io():
-    """Host reads of a tensor, ``torch.nonzero`` and host data sent to a
-    device raise."""
-    saved = {n: getattr(torch.Tensor, n) for n in _READS + ('__setitem__',)}
-    factories = {'tensor': torch.tensor, 'as_tensor': torch.as_tensor}
-    nonzero = torch.nonzero
-    setitem = torch.Tensor.__setitem__
-
-    def checked_setitem(t, index, value):
-        # a Python number written into a device tensor is a host copy
-        if not torch.is_tensor(value):
-            raise AssertionError('a prefill wrote a host value into a '
-                                 'tensor (Tensor.__setitem__)')
-        return setitem(t, index, value)
-
-    def read(name):
-        def refuse(*a, **kw):
-            raise AssertionError(f'a prefill read a tensor on the host '
-                                 f'({name})')
-        return refuse
-
-    def upload(name, fn):
-        def checked(data, *a, **kw):
-            if not torch.is_tensor(data) and kw.get('device') is not None:
-                raise AssertionError(f'a prefill sent host data to a '
-                                     f'device (torch.{name})')
-            return fn(data, *a, **kw)
-        return checked
+@pytest.mark.parametrize('name', sorted(launch_counts()))
+def test_launch_counters_round_trip(name):
+    """Every wrapper's counter, the flash backward's by mask included,
+    reads and writes back by its name."""
+    counts = launch_counts()
+    assert {'flash_bwd.causal', 'flash_bwd.bidirectional'} <= set(counts)
     try:
-        for n in _READS:
-            setattr(torch.Tensor, n, read(n))
-        for n, fn in factories.items():
-            setattr(torch, n, upload(n, fn))
-        torch.nonzero = read('torch.nonzero')
-        torch.Tensor.__setitem__ = checked_setitem
-        yield
+        set_launch_counts({name: counts[name] + 7})
+        now = launch_counts()
+        assert now[name] == counts[name] + 7
+        assert all(now[k] == v for k, v in counts.items() if k != name)
     finally:
-        for n, fn in saved.items():
-            setattr(torch.Tensor, n, fn)
-        for n, fn in factories.items():
-            setattr(torch, n, fn)
-        torch.nonzero = nonzero
+        set_launch_counts(counts)
 
+
+@pytest.mark.parametrize('mask', ['causal', 'bidirectional'])
+def test_replays_count_the_flash_backward(fake_card, mask):
+    """A captured call that launches the flash backward (a training
+    step's) counts it a replay, by mask."""
+    def fn(st, x):
+        flash_bwd.launches[mask] += 1
+        return {'y': x + 1}
+    counts = launch_counts()
+    StepGraph.reset_tally()
+    set_launch_counts(dict.fromkeys(counts, 0))
+    try:
+        g = CallGraph()
+        for _ in range(2):
+            g.run(fn, None, torch.ones(2))
+        (entry,) = g.entries.values()
+        assert entry.delta == {f'flash_bwd.{mask}': 1}
+        # the warm-up and two replays ran; the capture did not
+        ran = StepGraph.device_launches(launch_counts())
+        assert ran[f'flash_bwd.{mask}'] == 3
+    finally:
+        set_launch_counts(counts)
+        StepGraph.reset_tally()
+
+
+# ------------------------------------------------------------- the guard
 
 @pytest.fixture
 def guarded(monkeypatch):
-    """Every CallGraph body runs under _no_host_io -> the bodies run."""
+    """Every CallGraph body runs under no_host_reads -> the bodies run."""
     bodies = []
     run = CallGraph.run
 
     def guarded_run(self, fn, state, *inputs, key=()):
         def checked(st, *args):
-            with _no_host_io():
+            with no_host_reads():
                 out = fn(st, *args)
             bodies.append(fn.__name__)
             return out
@@ -348,7 +341,7 @@ def guarded(monkeypatch):
 
 def test_the_guard_catches_a_host_read():
     t = torch.ones(2)
-    with _no_host_io():
+    with no_host_reads():
         with pytest.raises(AssertionError, match='item'):
             t.sum().item()
         with pytest.raises(AssertionError, match='nonzero'):
