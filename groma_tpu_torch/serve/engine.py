@@ -108,6 +108,24 @@ Unlike JAX, a request taken off the queue stays the engine's until it is
 seated: if its prefill or seating raises, every unseated request of that
 admission group ends with the error (its ``token_stream()`` re-raises)
 before the engine dies, where JAX's would wait forever.
+
+Spans and counters, all on ``time.perf_counter()`` (a profiler trace
+takes them by one offset, that of a mark recorded at a known
+``perf_counter`` time): each request's ``Session`` keeps ``t_submit``,
+``t_admit`` (taken off the queue) and ``t_first`` (the first token on the
+stream): its ``queue`` span (submit to admit) and ``admit`` span (admit
+to first token).  On the card, with the one-shot prefill of a quantized
+tree, ``prefill_device_ms`` holds the device milliseconds of the
+prefill's vision part (``_prepare_one``) and its LLM part (the cache,
+``quant_llama_forward``, the first logits), from timing events that the
+captured prefill records as its own event nodes.  ``stats()`` adds the
+sums: ``admissions``, ``stall_sec`` (the engine's time in admissions
+that began with a slot live, bursts nested in a chunked one left out:
+the time the live streams stood still), ``launch_sec`` (host time in the
+bursts' graph launches) and ``decode_device_sec`` (the bursts' device
+time, from a pair of timing events around each burst's replays, read
+after its read-back).  No span adds a synchronisation; where the engine
+has no device clock the device fields are None.
 """
 
 from __future__ import annotations
@@ -154,8 +172,12 @@ class Session:
         self.cancelled = False     # client stop (e.g. a stop string hit)
         self.truncated = False     # paged mode: the page pool ran dry
         self.error = None          # the engine's fatal exception, if any
-        self.t_submit = time.time()
+        # the spans' ends, on time.perf_counter() (the module's docstring)
+        self.t_submit = time.perf_counter()
+        self.t_admit: Optional[float] = None
         self.t_first: Optional[float] = None
+        # {'vision': ms, 'llm': ms} of the prefill's device time, or None
+        self.prefill_device_ms: Optional[dict] = None
 
     @property
     def ttft(self) -> Optional[float]:
@@ -326,8 +348,19 @@ class BatchEngine:
         self._n_steps = 0          # decode steps (each advances every slot)
         self._decode_sec = 0.0     # wall time in decode bursts, read back
         self._n_nonfinite = 0      # prefills and bursts with non-finite logits
-        self._ttft_sum = 0.0
-        self._ttft_n = 0
+        # the spans' sums (the module's docstring), in seconds
+        self._n_admitted = 0
+        self._ttft_sec = 0.0       # first token - submit, over admissions
+        self._stall_sec = 0.0
+        self._launch_sec = 0.0
+        # timing events: the prefill's three marks (recorded inside its
+        # graph as event nodes) and a burst's two; None off the card
+        on_card = dev.type == 'cuda'
+        self._decode_device_sec = 0.0 if on_card else None
+        self._marks = [torch.cuda.Event(enable_timing=True, external=True)
+                       for _ in range(3)] if on_card else None
+        self._burst_events = [torch.cuda.Event(enable_timing=True)
+                              for _ in range(2)] if on_card else None
         self._t_started = time.time()
         self._stop = False
         self._fatal: Optional[BaseException] = None
@@ -494,7 +527,15 @@ class BatchEngine:
         """Admission and finish totals, occupancy, mean TTFT, aggregate
         tokens per second since start, decode steps and their mean wall
         time, prefills and bursts whose logits were not all finite, and
-        (paged) the pool's headroom."""
+        (paged) the pool's headroom.
+
+        The spans' sums, monotonic and unrounded (the module's
+        docstring): ``admissions`` (requests seated), ``stall_sec``,
+        ``launch_sec`` (seconds) and ``decode_device_sec``
+        (seconds, None off the card).  ``mean_ttft_sec`` is the mean of
+        first token - submit over the admissions; ``decode_ms_per_step``
+        the bursts' host wall time, from the state's copies in to the
+        read-back, over the steps."""
         out = {
             'submitted': self._n_submitted,
             'finished': self._n_finished,
@@ -506,14 +547,18 @@ class BatchEngine:
             'tokens_per_sec': round(
                 self._n_tokens / max(time.time() - self._t_started, 1e-9),
                 2),
-            'mean_ttft_sec': round(self._ttft_sum / self._ttft_n, 4)
-            if self._ttft_n else None,
+            'mean_ttft_sec': self._ttft_sec / self._n_admitted
+            if self._n_admitted else None,
             'decode_steps': self._n_steps,
             'decode_ms_per_step': round(1e3 * self._decode_sec
                                         / self._n_steps, 3)
             if self._n_steps else None,
             'nonfinite_logits': self._n_nonfinite,
             'prefill_mode': self._prefills.mode,
+            'admissions': self._n_admitted,
+            'stall_sec': self._stall_sec,
+            'launch_sec': self._launch_sec,
+            'decode_device_sec': self._decode_device_sec,
         }
         if self.paged:
             out['free_pages'] = len(self._free_pages)
@@ -547,8 +592,10 @@ class BatchEngine:
                 images, ids, rslot, valid, max_len=ids.shape[1])
             return (logits, cache, next_pos[:, 0], vis['selected_boxes'],
                     vis['selected_mask'])
+        self._mark(0)
         emb, valid, pos, boxes, mask = self._prepare_one(None, images, ids,
                                                          rslot, valid)
+        self._mark(1)
         cache = self._fresh_cache(ids.shape[0], emb.shape[1])
         hidden, cache = quant_llama_forward(self.qp, self.cfg.llm, emb,
                                             valid, pos, cache,
@@ -557,7 +604,15 @@ class BatchEngine:
         rows = torch.arange(ids.shape[0], device=self.device)
         last = torch.argmax(pos, dim=-1)
         logits = quant_logits(self.qp, hidden[rows, last][:, None])[:, 0]
+        self._mark(2)
         return logits, cache, pos[rows, last] + 1, boxes, mask
+
+    def _mark(self, i):
+        """Record the prefill's timing event ``i`` (0 start, 1 vision done,
+        2 end) on the current stream: an event node of the captured
+        prefill, whose replays record it."""
+        if self._marks is not None:
+            self._marks[i].record()
 
     def _prepare_one(self, _, images, ids, rslot, valid):
         """JAX's jitted ``prepare_one``: vision and surgery -> (embeddings,
@@ -575,8 +630,9 @@ class BatchEngine:
 
     def _prefill(self, reqs):
         """Requests -> (first-token logits (B, V), prefill cache, vis,
-        next positions (B,) on the host): one replay of the prefill graph
-        of this batch's shape."""
+        next positions (B,) on the host, the device ms of its vision and
+        LLM parts or None): one replay of the prefill graph of this
+        batch's shape."""
         images = self._tensor([r[1] for r in reqs], torch.float32)
         ids = self._tensor([r[2] for r in reqs], torch.int64)
         rslot = self._tensor([r[3] for r in reqs], torch.int64)
@@ -586,9 +642,13 @@ class BatchEngine:
             key=('prefill_one',))
         cache['index'] = ids.shape[1]     # a replay sets no host value
         self._n_nonfinite += int(not torch.isfinite(logits).all())
+        next_pos = next_pos.cpu().numpy()
+        # the marks ran before the read-back returned
+        device_ms = None if self._marks is None or self.qp is None else {
+            'vision': self._marks[0].elapsed_time(self._marks[1]),
+            'llm': self._marks[1].elapsed_time(self._marks[2])}
         return (logits, cache, {'selected_boxes': boxes,
-                                'selected_mask': mask},
-                next_pos.cpu().numpy())
+                                'selected_mask': mask}, next_pos, device_ms)
 
     def _chunk_step(self, st):
         """One (1, c) chunk appended to the chunk cache at its index."""
@@ -622,9 +682,10 @@ class BatchEngine:
         return self._chunk
 
     def _chunked_prefill(self, req):
-        """One request -> ``_prefill``'s outputs: vision and surgery once,
-        then the LLM in chunks of ``prefill_chunk_tokens``, a decode burst
-        for the live slots between chunks."""
+        """One request -> ``_prefill``'s outputs (no device ms): vision
+        and surgery once, then the LLM in chunks of
+        ``prefill_chunk_tokens``, a decode burst for the live slots between
+        chunks."""
         c = self.prefill_chunk_tokens
         images = self._tensor([req[1]], torch.float32)
         ids = self._tensor([req[2]], torch.int64)
@@ -670,7 +731,7 @@ class BatchEngine:
         one['index'] = last_idx + 1
         next_pos = np.asarray([int(valid_np.sum())])
         return logits, one, {'selected_boxes': boxes,
-                             'selected_mask': mask}, next_pos
+                             'selected_mask': mask}, next_pos, None
 
     def _admit(self):
         while not self._queue.empty():
@@ -691,6 +752,7 @@ class BatchEngine:
                     req[0].done = True
                     req[0]._q.put(None)
                     continue
+                req[0].t_admit = time.perf_counter()
                 group.append(req)
             if not group:
                 return
@@ -716,7 +778,22 @@ class BatchEngine:
     def _admit_group(self, free, group, unseated):
         """Prefill and seat ``group`` in the ``free`` slots (one padded
         batched prefill, or one prefill each), taking each seated session
-        out of ``unseated``."""
+        out of ``unseated``; if a slot was live at its start, add the
+        admission's time, from its first request's ``t_admit`` to its end
+        less the bursts nested in it, to ``stall_sec``."""
+        now = time.perf_counter()
+        for req in group:             # a follower's requests: from here
+            if req[0].t_admit is None:
+                req[0].t_admit = now
+        start = min(req[0].t_admit for req in group)
+        live = bool(self._active.any())
+        bursts = self._decode_sec
+        self._prefill_and_seat(free, group, unseated)
+        if live:
+            self._stall_sec += time.perf_counter() - start \
+                - (self._decode_sec - bursts)
+
+    def _prefill_and_seat(self, free, group, unseated):
         if len(group) >= 2 and self.admit_batch > 1 \
                 and not self.prefill_chunk_tokens:
             # one padded b=K prefill: the last request is repeated, the pad
@@ -724,8 +801,9 @@ class BatchEngine:
             padded = group[:len(free)] + [group[-1]] * (
                 self.admit_batch - min(len(group), len(free)))
             group = group[:len(free)]
-            logits, one, vis, next_pos = self._prefill(padded)
+            logits, one, vis, next_pos, device_ms = self._prefill(padded)
             for row, req in enumerate(group):
+                req[0].prefill_device_ms = device_ms
                 self._seat(free[row], req[0], logits[row], one, row, vis,
                            int(next_pos[row]))
                 if req[0] in unseated:
@@ -733,9 +811,11 @@ class BatchEngine:
             return
         for slot, req in zip(free, group):
             if self.prefill_chunk_tokens:
-                logits, one, vis, next_pos = self._chunked_prefill(req)
+                logits, one, vis, next_pos, device_ms = \
+                    self._chunked_prefill(req)
             else:
-                logits, one, vis, next_pos = self._prefill([req])
+                logits, one, vis, next_pos, device_ms = self._prefill([req])
+            req[0].prefill_device_ms = device_ms
             self._seat(slot, req[0], logits[0], one, 0, vis,
                        int(next_pos[0]))
             if req[0] in unseated:
@@ -801,9 +881,9 @@ class BatchEngine:
         self._sessions[slot] = sess
         if self.spec_lookahead > 0:
             sess._ctx.append(tok0)
-        sess.t_first = time.time()
-        self._ttft_sum += sess.t_first - sess.t_submit
-        self._ttft_n += 1
+        sess.t_first = time.perf_counter()
+        self._ttft_sec += sess.t_first - sess.t_submit
+        self._n_admitted += 1
         self._n_tokens += 1
         sess.tokens.append(tok0)
         sess._q.put(tok0)
@@ -1024,7 +1104,14 @@ class BatchEngine:
                 generators=(self._gen,) if sample
                 and self.device.type == 'cuda' else (),
                 eager=host_collectives(self.tp))
+        events = self._burst_events
+        if events is not None:
+            events[0].record()
+        t_launch = time.perf_counter()
         graph.run(self.chunk)
+        self._launch_sec += time.perf_counter() - t_launch
+        if events is not None:
+            events[1].record()
         # the burst's one read-back: tokens, positions, done, finite
         back = torch.cat([st['out'], st['pos'][:, None],
                           st['done'][:, None].long(),
@@ -1035,6 +1122,9 @@ class BatchEngine:
         self._n_nonfinite += int(not back[0, self.chunk + 2])
         self._n_steps += self.chunk
         self._decode_sec += time.perf_counter() - t0
+        if events is not None:
+            self._decode_device_sec += \
+                events[0].elapsed_time(events[1]) / 1e3
         if self._leader:
             self._emit(back[:, :self.chunk])
 

@@ -153,7 +153,9 @@ class ModelWorker:
         out = {'model_names': [self.model_name], 'speed': 1,
                'queue_length': self.queue_length}
         if self.engine is not None:
-            # engine observability: TTFT, throughput, occupancy, pages
+            # engine observability: TTFT, throughput, occupancy, pages,
+            # and the spans' sums (admissions; stall, launch and device
+            # seconds), as stats() keeps them
             out['engine'] = self.engine.stats()
         return out
 
